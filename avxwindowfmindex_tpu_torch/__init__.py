@@ -1,0 +1,60 @@
+"""avxwindowfmindex_tpu_torch — the FM-index engine in PyTorch and CUDA.
+
+A port of ``avxwindowfmindex_tpu`` (JAX on a TPU) to PyTorch on an
+NVIDIA H100. It imports torch and numpy, never jax, and never the JAX
+package: the small host modules (alphabet, config, suffix array, FASTA
+and ``.awfmi`` serde) are carried over as copies with their byte
+layouts unchanged, so the two packages build identical indexes and the
+tests compare them array for array.
+
+The main path is three hand-written CUDA kernels (``csrc/``, built by
+``ops/kernels.py``): K1 rank/LF (seed-table build), K2 ranges (count),
+K3 backtrace + resolve (locate). Every entry point that touches a
+tensor takes an explicit ``device``.
+
+Quick start::
+
+    import avxwindowfmindex_tpu_torch as awfm
+
+    cfg = awfm.IndexConfiguration(
+        alphabet_type=awfm.AlphabetType.DNA,
+        kmer_length_in_seed_table=8,
+        suffix_array_compression_ratio=8,
+    )
+    index = awfm.create_index("ACGTACGTTAGC...", cfg, device="cuda:0")
+    engine = awfm.SearchEngine(index, device="cuda:0")
+    counts = engine.count(["ACGTAC", "TTAGC"])
+    hits = engine.locate(["ACGTAC"])
+"""
+
+from .build import create_index, create_index_from_fasta
+from .models.config import AlphabetType, IndexConfiguration
+from .models.index import DeviceIndex, FmIndex
+from .search import SearchEngine
+
+
+def read_index_from_file(path: str, keep_suffix_array_in_memory: bool = True):
+    """awFmReadIndexFromFile parity — load a `.awfmi` index."""
+    from .io import awfmi
+
+    return awfmi.read_index(path, keep_suffix_array_in_memory)
+
+
+def write_index_to_file(index, path: str) -> None:
+    """awFmWriteIndexToFile parity — serialize to `.awfmi`."""
+    from .io import awfmi
+
+    awfmi.write_index(index, path)
+
+
+__all__ = [
+    "AlphabetType",
+    "IndexConfiguration",
+    "FmIndex",
+    "DeviceIndex",
+    "create_index",
+    "create_index_from_fasta",
+    "read_index_from_file",
+    "write_index_to_file",
+    "SearchEngine",
+]

@@ -1,0 +1,365 @@
+// Hand-written Hopper (sm_90a) kernels for the FM-index main path.
+//
+// Three kernels, each one thread per item, each bound by dependent random
+// row loads from device memory (a 128 B block row or a 256 B pair row for
+// nucleotides, 256 B / 512 B for amino) followed by a few dozen integer
+// operations and __popc. The rows are read as uint4 (16 B) loads; nothing
+// else is worth optimising until those loads are scheduled better, which
+// is later work.
+//
+//   K1 awfm_k1_occ / awfm_k1_letter_lf
+//       Replaces avxwindowfmindex_tpu/ops/rank_pallas.py:_rank_kernel (the
+//       one Pallas kernel) and ops/rank.py:_gather_rows / _count_rows /
+//       letter_and_lf_from_rows. Unlike the Pallas kernel it gathers the
+//       block row itself. occ(l, p) = milestone[l] + popcount(match(code(l))
+//       & inclusive_mask(p % 256)); the LF mode reads the letter at p from one
+//       bit per plane and returns LF = C[l] + occ(l, p) - 1, sentinel -> 0.
+//   K2 awfm_k2_ranges
+//       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
+//       backward_step and backward_step_pair, and the flag-and-rerun protocol
+//       search.py:_fixup_flagged. One thread walks one query right to left.
+//       A step whose range fits the 512-position pair window reads one pair
+//       row; a wider one reads two block rows, so no query is re-run.
+//   K3 awfm_k3_backtrace_resolve
+//       Replaces search.py:backtrace_all (and its compaction schedules) and
+//       _resolve_samples. One thread walks one hit with LF until p % ratio
+//       == 0, then resolves (SA[p / ratio] + off) mod bwtLength in 64 bits,
+//       or returns (p, off) for a suffix array kept on disk.
+//
+// Semantics follow the JAX package bit for bit: positions are u32 and wrap
+// mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past the
+// table clamps to the last row, as XLA's gather does; the letter selects
+// are one-hot, so a letter above the alphabet's ambiguity index has code 0
+// and milestone 0, and one above the sentinel has C = 0.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC (avxwindowfmindex_tpu_torch/ops/kernels.py).
+// Every entry point returns cudaGetLastError() after its launch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+extern "C" {
+// Mirrored by ops/kernels.py:_Tables (ctypes.Structure).
+struct AwfmTables {
+  const uint8_t* packed;        // (nb, row_bytes) fused block rows
+  const uint8_t* packed_pair;   // (nb, pair_row_bytes) pair rows
+  const uint32_t* prefix_sums;  // (card + 2) C[] with C[0] = 1
+  const uint8_t* code_masks;    // (card + 2, n_planes) 0xFF / 0x00
+  const int32_t* vec_to_index;  // (1 << n_planes) code -> letter
+  int64_t nb;
+  int32_t row_bytes;
+  int32_t pair_row_bytes;
+  int32_t card;
+  int32_t n_planes;
+};
+}
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t letter_code(const AwfmTables& t, int np,
+                                                uint32_t l) {
+  if (l > static_cast<uint32_t>(t.card)) return 0u;
+  uint32_t c = 0u;
+  for (int i = 0; i < np; ++i) {
+    c |= (t.code_masks[l * np + i] ? 1u : 0u) << i;
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t milestone(const uint8_t* row, int ms_off,
+                                              uint32_t l, int card) {
+  if (l > static_cast<uint32_t>(card)) return 0u;
+  return *reinterpret_cast<const uint32_t*>(row + ms_off + 4 * l);
+}
+
+__device__ __forceinline__ uint32_t c_select(const AwfmTables& t, uint32_t l) {
+  return l <= static_cast<uint32_t>(t.card + 1) ? t.prefix_sums[l] : 0u;
+}
+
+__device__ __forceinline__ int64_t clamp_block(const AwfmTables& t,
+                                               uint32_t pos) {
+  const int64_t blk = static_cast<int64_t>(pos >> 8);
+  return blk < t.nb - 1 ? blk : t.nb - 1;
+}
+
+// Match words of one row: bit p of word w is set iff the letter at local
+// position 32 * w + p has `code`. W = 8 words per plane for a block row,
+// 16 for a pair row.
+template <int NP, int W>
+__device__ __forceinline__ void match_words(const uint8_t* row, uint32_t code,
+                                            uint32_t (&m)[W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) m[w] = 0u;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const uint32_t cm = ((code >> i) & 1u) ? 0xFFFFFFFFu : 0u;
+    const uint4* p = reinterpret_cast<const uint4*>(row + i * W * 4);
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const uint4 v = __ldg(p + q);
+      m[4 * q + 0] |= v.x ^ cm;
+      m[4 * q + 1] |= v.y ^ cm;
+      m[4 * q + 2] |= v.z ^ cm;
+      m[4 * q + 3] |= v.w ^ cm;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) m[w] = ~m[w];
+}
+
+// Set bits of m at local positions 0..local inclusive.
+template <int W>
+__device__ __forceinline__ uint32_t count_inclusive(const uint32_t (&m)[W],
+                                                    uint32_t local) {
+  const uint32_t lw = local >> 5;
+  const uint32_t low = (2u << (local & 31u)) - 1u;  // 2u << 31 wraps to 0
+  uint32_t c = 0u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint32_t uw = static_cast<uint32_t>(w);
+    const uint32_t mask = uw < lw ? 0xFFFFFFFFu : (uw == lw ? low : 0u);
+    c += __popc(m[w] & mask);
+  }
+  return c;
+}
+
+template <int NP>
+__device__ __forceinline__ uint32_t occ_at(const AwfmTables& t, uint32_t pos,
+                                           uint32_t l) {
+  const uint8_t* row = t.packed + clamp_block(t, pos) * t.row_bytes;
+  uint32_t m[8];
+  match_words<NP, 8>(row, letter_code(t, NP, l), m);
+  return milestone(row, NP * 32, l, t.card) + count_inclusive<8>(m, pos & 255u);
+}
+
+// LF(pos) and the letter at pos (AwFmSearch.c:369-427 semantics).
+template <int NP>
+__device__ __forceinline__ uint32_t lf_at(const AwfmTables& t, uint32_t pos,
+                                          uint32_t* letter) {
+  const uint8_t* row = t.packed + clamp_block(t, pos) * t.row_bytes;
+  const uint32_t local = pos & 255u;
+  uint32_t code = 0u;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    code |= ((row[i * 32 + (local >> 3)] >> (local & 7u)) & 1u) << i;
+  }
+  const uint32_t lett = static_cast<uint32_t>(t.vec_to_index[code]);
+  *letter = lett;
+  if (lett == static_cast<uint32_t>(t.card + 1)) return 0u;  // sentinel
+  const uint32_t lc = lett < static_cast<uint32_t>(t.card)
+                          ? lett
+                          : static_cast<uint32_t>(t.card);
+  uint32_t m[8];
+  match_words<NP, 8>(row, letter_code(t, NP, lc), m);
+  return c_select(t, lc) + milestone(row, NP * 32, lc, t.card) +
+         count_inclusive<8>(m, local) - 1u;
+}
+
+// One backward step of a valid range (start <= end) by letter l.
+template <int NP>
+__device__ __forceinline__ void backward_step(const AwfmTables& t,
+                                              uint32_t& start, uint32_t& end,
+                                              uint32_t l) {
+  const uint32_t c = c_select(t, l);
+  const uint32_t pos_s = start - 1u;
+  // unsigned compare before any narrowing (ops/rank.py:382-388)
+  const uint32_t delta = end - (pos_s & ~255u);
+  uint32_t occ_s, occ_e;
+  if (delta < 512u) {
+    const uint8_t* row =
+        t.packed_pair + clamp_block(t, pos_s) * t.pair_row_bytes;
+    uint32_t m[16];
+    match_words<NP, 16>(row, letter_code(t, NP, l), m);
+    const uint32_t ms = milestone(row, NP * 64, l, t.card);
+    occ_s = ms + count_inclusive<16>(m, pos_s & 255u);
+    occ_e = ms + count_inclusive<16>(m, delta);
+  } else {
+    occ_s = occ_at<NP>(t, pos_s, l);
+    occ_e = occ_at<NP>(t, end, l);
+  }
+  start = c + occ_s;
+  end = c + occ_e - 1u;
+}
+
+template <int NP>
+__global__ void k1_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
+                              const int32_t* __restrict__ letters, int64_t n,
+                              int64_t* __restrict__ out) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  out[i] = occ_at<NP>(t, static_cast<uint32_t>(pos[i]),
+                      static_cast<uint32_t>(letters[i]));
+}
+
+template <int NP>
+__global__ void k1_letter_lf_kernel(AwfmTables t,
+                                    const int64_t* __restrict__ pos, int64_t n,
+                                    int32_t* __restrict__ letters_out,
+                                    int64_t* __restrict__ lf_out) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  uint32_t lett;
+  lf_out[i] = lf_at<NP>(t, static_cast<uint32_t>(pos[i]), &lett);
+  letters_out[i] = static_cast<int32_t>(lett);
+}
+
+template <int NP>
+__global__ void k2_ranges_kernel(AwfmTables t,
+                                 const uint32_t* __restrict__ seed_table,
+                                 int64_t seed_rows, int k,
+                                 const uint8_t* __restrict__ mat, int64_t b,
+                                 int64_t l_pad,
+                                 const int32_t* __restrict__ lengths,
+                                 const uint8_t* __restrict__ seeded,
+                                 int64_t* __restrict__ start_out,
+                                 int64_t* __restrict__ end_out) {
+  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (q >= b) return;
+  const uint8_t* row = mat + q * l_pad;
+  const int64_t len = lengths[q];
+  const uint32_t card = static_cast<uint32_t>(t.card);
+  uint32_t start, end;
+  int64_t next;
+  if (seeded[q]) {
+    // base-|A| radix of the last k letters, leftmost most significant
+    uint32_t idx = 0u;
+    for (int j = 0; j < k; ++j) {
+      int64_t c = len - k + j;
+      c = c < 0 ? 0 : (c >= l_pad ? l_pad - 1 : c);
+      idx = idx * card + row[c];
+    }
+    const int64_t r = static_cast<int64_t>(idx) < seed_rows
+                          ? static_cast<int64_t>(idx)
+                          : seed_rows - 1;
+    start = seed_table[2 * r];
+    end = seed_table[2 * r + 1];
+    next = len - k - 1;
+  } else {
+    const int64_t c = len - 1 < 0 ? 0 : len - 1;
+    const uint32_t last = row[c];
+    const uint32_t a = last < card + 1u ? last : card + 1u;
+    const uint32_t z = last + 1u < card + 1u ? last + 1u : card + 1u;
+    start = t.prefix_sums[a];
+    end = t.prefix_sums[z] - 1u;
+    next = len - 2;
+  }
+  for (int64_t p = next; p >= 0 && start <= end; --p) {
+    backward_step<NP>(t, start, end, row[p]);
+  }
+  start_out[q] = start;
+  end_out[q] = end;
+}
+
+template <int NP>
+__global__ void k3_backtrace_resolve_kernel(
+    AwfmTables t, const int64_t* __restrict__ pos, int64_t n, uint32_t ratio,
+    uint32_t bwt_length, const uint32_t* __restrict__ sa,
+    int64_t* __restrict__ hits_out, int64_t* __restrict__ p_out,
+    int64_t* __restrict__ off_out) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  uint32_t p = static_cast<uint32_t>(pos[i]);
+  uint32_t off = 0u;
+  uint32_t lett;
+  // a valid BWT's LF walk reaches a sampled position in < bwtLength steps;
+  // the bound only keeps a malformed index from spinning forever
+  while (p % ratio != 0u && off < bwt_length) {
+    p = lf_at<NP>(t, p, &lett);
+    ++off;
+  }
+  if (sa != nullptr) {
+    const uint64_t h = static_cast<uint64_t>(sa[p / ratio]) + off;
+    hits_out[i] = static_cast<int64_t>(h % bwt_length);
+  } else {
+    p_out[i] = p;
+    off_out[i] = off;
+  }
+}
+
+unsigned int grid_for(int64_t n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+int awfm_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
+                const int32_t* letters, int64_t n, int64_t* out,
+                cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k1_occ_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+  } else if (t->n_planes == 5) {
+    k1_occ_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int awfm_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
+                      int64_t n, int32_t* letters_out, int64_t* lf_out,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k1_letter_lf_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, letters_out, lf_out);
+  } else if (t->n_planes == 5) {
+    k1_letter_lf_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, letters_out, lf_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
+                   int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                   int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
+                   int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k2_ranges_kernel<3><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
+        start_out, end_out);
+  } else if (t->n_planes == 5) {
+    k2_ranges_kernel<5><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
+        start_out, end_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int awfm_k3_backtrace_resolve(int device, const AwfmTables* t,
+                              const int64_t* pos, int64_t n, uint32_t ratio,
+                              uint32_t bwt_length, const uint32_t* sa,
+                              int64_t* hits_out, int64_t* p_out,
+                              int64_t* off_out, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k3_backtrace_resolve_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else if (t->n_planes == 5) {
+    k3_backtrace_resolve_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* awfm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

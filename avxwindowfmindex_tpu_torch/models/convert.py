@@ -1,0 +1,98 @@
+"""State carried across from the JAX package.
+
+Both functions take the JAX package's arrays as NumPy — ``np.asarray``
+of each ``DeviceIndex`` field, or the JAX ``FmIndex``'s NumPy fields —
+and return the port's objects holding the same bytes, so the two
+packages can run on literally the same index. Nothing here imports
+either JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from .config import AlphabetType, IndexConfiguration
+from .index import DeviceIndex, FmIndex, u32_tensor
+
+
+def device_index_from_numpy(
+    arrays: Mapping[str, Optional[np.ndarray]],
+    *,
+    bwt_length: int,
+    ratio: int,
+    k: int,
+    alphabet,
+    device,
+) -> DeviceIndex:
+    """A torch ``DeviceIndex`` from the JAX ``DeviceIndex``'s fields.
+
+    ``arrays`` maps field names (``packed``, ``packed_pair``,
+    ``prefix_sums``, ``seed_table``, ``sampled_sa``, ``code_masks``,
+    ``vec_to_index``) to NumPy arrays; ``sampled_sa`` may be None
+    (suffix array on disk). u32 fields become int32 tensors holding the
+    same bytes.
+    """
+    sa = arrays.get("sampled_sa")
+    return DeviceIndex(
+        packed=torch.from_numpy(np.array(arrays["packed"], dtype=np.uint8)).to(device),
+        packed_pair=torch.from_numpy(
+            np.array(arrays["packed_pair"], dtype=np.uint8)
+        ).to(device),
+        prefix_sums=u32_tensor(arrays["prefix_sums"], device),
+        seed_table=u32_tensor(arrays["seed_table"], device),
+        sampled_sa=None if sa is None else u32_tensor(sa, device),
+        code_masks=torch.from_numpy(
+            np.array(arrays["code_masks"], dtype=np.uint8)
+        ).to(device),
+        vec_to_index=torch.from_numpy(
+            np.array(arrays["vec_to_index"], dtype=np.int32)
+        ).to(device),
+        bwt_length=int(bwt_length),
+        ratio=int(ratio),
+        kmer_length_in_seed_table=int(k),
+        alphabet=AlphabetType(int(alphabet)),
+    )
+
+
+def fm_index_from_numpy(
+    arrays: Mapping[str, Optional[np.ndarray]],
+    *,
+    bwt_length: int,
+    ratio: int,
+    k: int,
+    alphabet,
+    sequence: Optional[bytes] = None,
+    sa_guard_bytes: bytes = b"\x00" * 8,
+) -> FmIndex:
+    """A host ``FmIndex`` from the JAX ``FmIndex``'s NumPy fields.
+
+    ``arrays`` holds ``bwt_letters``, ``prefix_sums``,
+    ``kmer_seed_table`` and ``sampled_sa`` (either of the last two may
+    be None: no seed table yet, or the suffix array on disk). The
+    original ``sequence`` is stored when given, as serde needs it.
+    """
+    cfg = IndexConfiguration(
+        suffix_array_compression_ratio=int(ratio),
+        kmer_length_in_seed_table=int(k),
+        alphabet_type=AlphabetType(int(alphabet)),
+        keep_suffix_array_in_memory=arrays.get("sampled_sa") is not None,
+        store_original_sequence=sequence is not None,
+    )
+
+    def u64(name):
+        a = arrays.get(name)
+        return None if a is None else np.array(a, dtype=np.uint64)
+
+    return FmIndex(
+        config=cfg,
+        bwt_length=int(bwt_length),
+        bwt_letters=np.array(arrays["bwt_letters"], dtype=np.uint8),
+        prefix_sums=u64("prefix_sums"),
+        kmer_seed_table=u64("kmer_seed_table"),
+        sampled_sa=u64("sampled_sa"),
+        sequence=sequence,
+        sa_guard_bytes=bytes(sa_guard_bytes),
+    )

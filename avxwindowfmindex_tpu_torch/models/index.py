@@ -1,0 +1,408 @@
+"""The FM-index data model: the NumPy host index and its torch device view.
+
+The host half (``FastaMetadata``, ``FmIndex``, the geometry helpers and
+the row packers) is carried over from ``avxwindowfmindex_tpu/models/
+index.py`` with its byte layouts unchanged, so both packages build the
+same arrays. The device half is a dataclass of torch tensors.
+
+Device row layout (identical to the JAX package):
+
+  nucleotide: [plane0 x32B | plane1 x32B | plane2 x32B |
+               milestones 5 x u32LE | pad] = 128 B
+  amino:      [plane0..plane4 x32B | milestones 21 x u32LE | pad] = 256 B
+
+Plane byte j holds local positions j*8..j*8+7, bit p%8. A pair row b
+fuses the planes of blocks b and b+1 (64 B per plane) plus block b's
+milestones at byte ``n_planes*64``.
+
+torch has no arithmetic on uint32, so every u32 device table is stored
+as an int32 tensor holding the same bytes (``u32_tensor``); the kernels
+read it through ``const uint32_t*`` and the plain torch code widens it
+with ``.to(torch.int64) & 0xFFFFFFFF``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import alphabet as alpha
+from .config import (
+    CURRENT_VERSION_NUMBER,
+    FEATURE_FLAG_BIT_FASTA_VECTOR,
+    AlphabetType,
+    IndexConfiguration,
+)
+
+POSITIONS_PER_BLOCK = alpha.POSITIONS_PER_BLOCK
+MASK32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Geometry helpers (AwFmIndexStruct.c:77-130)
+# ---------------------------------------------------------------------------
+
+def num_blocks_from_bwt_length(bwt_length: int) -> int:
+    """1 + (len-1)//256 (AwFmIndexStruct.c:104-106)."""
+    return 1 + (bwt_length - 1) // POSITIONS_PER_BLOCK
+
+
+def device_row_bytes(alphabet: AlphabetType) -> int:
+    """Bytes per fused block row: planes*32 + milestones*4, padded to 128."""
+    n_planes = alpha.num_bit_planes(alphabet)
+    need = n_planes * 32 + (alpha.cardinality(alphabet) + 1) * 4
+    return ((need + 127) // 128) * 128
+
+
+def device_pair_row_bytes(alphabet: AlphabetType) -> int:
+    """Bytes per pair row: planes*64 + milestones*4, padded to 128."""
+    n_planes = alpha.num_bit_planes(alphabet)
+    need = n_planes * 64 + (alpha.cardinality(alphabet) + 1) * 4
+    return ((need + 127) // 128) * 128
+
+
+# ---------------------------------------------------------------------------
+# u32 tables in int32 tensors
+# ---------------------------------------------------------------------------
+
+def as_device(device) -> torch.device:
+    """``device`` as a torch.device, with a CUDA index filled in, so two
+    spellings of one card compare equal."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def u32_tensor(values, device) -> torch.Tensor:
+    """An int32 tensor holding the bytes of ``values`` as uint32."""
+    arr = np.ascontiguousarray(np.asarray(values).astype(np.uint32))
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def u32_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`u32_tensor`: a uint32 NumPy array of the bytes."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def widen_u32(t: torch.Tensor) -> torch.Tensor:
+    """int32-held u32 values (or any integers) -> int64 in [0, 2^32)."""
+    return t.to(torch.int64) & MASK32
+
+
+def narrow_u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 -> int32 holding the same u32 bytes."""
+    t = t & MASK32
+    return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# FASTA metadata (FastaVector equivalent)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FastaMetadata:
+    """Multi-sequence metadata (the reference's FastaVector header and
+    metadata vectors). ``header_ends`` and ``sequence_ends`` are
+    cumulative exclusive end offsets per sequence."""
+
+    headers: bytes
+    header_ends: np.ndarray  # (num_seqs,) uint64
+    sequence_ends: np.ndarray  # (num_seqs,) uint64
+
+    @property
+    def num_sequences(self) -> int:
+        return len(self.sequence_ends)
+
+    def get_header(self, sequence_number: int) -> bytes:
+        if not 0 <= sequence_number < self.num_sequences:
+            raise IndexError(
+                f"sequence number {sequence_number} out of range "
+                f"[0, {self.num_sequences})"
+            )
+        start = 0 if sequence_number == 0 else int(self.header_ends[sequence_number - 1])
+        return self.headers[start:int(self.header_ends[sequence_number])]
+
+    def local_position_from_global(self, global_position):
+        """Global concatenated position -> (sequence_number, local_position)."""
+        pos = np.asarray(global_position, dtype=np.uint64)
+        seq_num = np.searchsorted(self.sequence_ends, pos, side="right")
+        starts = np.concatenate([[0], self.sequence_ends[:-1]]).astype(np.uint64)
+        local = pos - starts[seq_num]
+        return seq_num, local
+
+
+# ---------------------------------------------------------------------------
+# Device view
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeviceIndex:
+    """Torch view of the index, ready for batched search.
+
+    The tensor fields carry the JAX ``DeviceIndex``'s bytes exactly:
+    ``packed``, ``packed_pair`` and ``code_masks`` are uint8;
+    ``prefix_sums``, ``seed_table`` and ``sampled_sa`` are u32 values
+    in int32 tensors; ``vec_to_index`` is int32.
+    """
+
+    packed: torch.Tensor  # (num_blocks, row_bytes) uint8 fused blocks
+    packed_pair: torch.Tensor  # (num_blocks, pair_row_bytes) uint8
+    prefix_sums: torch.Tensor  # (A+2,) u32 as int32
+    seed_table: torch.Tensor  # (A**k, 2) u32 as int32
+    sampled_sa: Optional[torch.Tensor]  # (num_samples,) u32 as int32; None = on disk
+    code_masks: torch.Tensor  # (A+2, n_planes) uint8 0xFF/0x00
+    vec_to_index: torch.Tensor  # (2**n_planes,) int32 code -> letter
+    bwt_length: int
+    ratio: int
+    kmer_length_in_seed_table: int
+    alphabet: AlphabetType
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.packed.shape[0])
+
+    @property
+    def cardinality(self) -> int:
+        return alpha.cardinality(self.alphabet)
+
+    @property
+    def sentinel(self) -> int:
+        return alpha.sentinel_index(self.alphabet)
+
+    @property
+    def n_planes(self) -> int:
+        return alpha.num_bit_planes(self.alphabet)
+
+    @property
+    def milestone_offset(self) -> int:
+        """Byte offset of the milestone u32 array within a block row."""
+        return self.n_planes * 32
+
+    @property
+    def pair_milestone_offset(self) -> int:
+        """Byte offset of the milestone u32 array within a pair row."""
+        return self.n_planes * 64
+
+
+def pack_device_blocks(
+    bwt_letters: np.ndarray, milestones: np.ndarray, alphabet: AlphabetType
+) -> np.ndarray:
+    """Fuse bit-planes + milestones into (num_blocks, row_bytes) uint8."""
+    n_planes = alpha.num_bit_planes(alphabet)
+    card = alpha.cardinality(alphabet)
+    row_bytes = device_row_bytes(alphabet)
+    bwt_length = len(bwt_letters)
+    nb = num_blocks_from_bwt_length(bwt_length)
+
+    codes = np.zeros(nb * POSITIONS_PER_BLOCK, dtype=np.uint8)
+    codes[:bwt_length] = alpha.index_to_vector_lut(alphabet)[bwt_letters]
+
+    out = np.zeros((nb, row_bytes), dtype=np.uint8)
+    for b in range(n_planes):
+        bits = ((codes >> b) & 1).reshape(nb, POSITIONS_PER_BLOCK)
+        out[:, b * 32 : (b + 1) * 32] = np.packbits(
+            bits, axis=1, bitorder="little"
+        )
+    ms = milestones[:, : card + 1].astype("<u4")
+    out[:, n_planes * 32 : n_planes * 32 + (card + 1) * 4] = ms.view(
+        np.uint8
+    ).reshape(nb, (card + 1) * 4)
+    return out
+
+
+def pack_pair_rows_from_blocks(
+    packed: np.ndarray, alphabet: AlphabetType
+) -> np.ndarray:
+    """Derive the pair-row table from the per-block fused rows.
+
+    Pair row b = plane bytes of blocks b,b+1 per plane + block b's
+    milestones; the final row's missing partner is zero planes.
+    """
+    n_planes = alpha.num_bit_planes(alphabet)
+    card = alpha.cardinality(alphabet)
+    nb = packed.shape[0]
+    row_bytes = device_pair_row_bytes(alphabet)
+    out = np.zeros((nb, row_bytes), dtype=np.uint8)
+    for i in range(n_planes):
+        plane = packed[:, i * 32 : (i + 1) * 32]
+        out[:, i * 64 : i * 64 + 32] = plane
+        out[:-1, i * 64 + 32 : (i + 1) * 64] = plane[1:]
+    ms_off = n_planes * 32
+    ms_len = (card + 1) * 4
+    out[:, n_planes * 64 : n_planes * 64 + ms_len] = packed[
+        :, ms_off : ms_off + ms_len
+    ]
+    return out
+
+
+def device_code_masks(alphabet: AlphabetType) -> np.ndarray:
+    """(A+2, n_planes) uint8: 0xFF/0x00 mask per code bit per letter."""
+    lut = alpha.index_to_vector_lut(alphabet)
+    n_planes = alpha.num_bit_planes(alphabet)
+    bits = (lut[:, None] >> np.arange(n_planes)[None, :]) & 1
+    return (bits * np.uint8(0xFF)).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Host-side canonical index
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FmIndex:
+    """Host-canonical FM index (struct AwFmIndex, AwFmIndex.h:94-109).
+
+    Holds NumPy arrays; :meth:`to_device` builds the torch view.
+    """
+
+    config: IndexConfiguration
+    bwt_length: int
+    bwt_letters: np.ndarray  # (bwt_length,) uint8 letter indices
+    prefix_sums: np.ndarray  # (A+2,) uint64
+    # (A**k, 2) uint64 [start, end]; None while the table lives only in
+    # the device view (built there) — use seed_table_host()
+    kmer_seed_table: Optional[np.ndarray]
+    sampled_sa: Optional[np.ndarray]  # (num_samples,) uint64; None if on disk
+    version_number: int = CURRENT_VERSION_NUMBER
+    feature_flags: int = 0
+    sequence: Optional[bytes] = None  # original (unsanitized) sequence
+    fasta_metadata: Optional[FastaMetadata] = None
+    file_path: Optional[str] = None  # backing .awfmi file, if any
+    # the 8 pad bytes after the packed SA (full-SA leftovers in the
+    # reference's in-place packer), kept for byte-identical .awfmi files
+    sa_guard_bytes: bytes = b"\x00" * 8
+    suffix_array_file_offset: Optional[int] = None
+    sequence_file_offset: Optional[int] = None
+    _device_cache: Optional[DeviceIndex] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def alphabet(self) -> AlphabetType:
+        return self.config.alphabet_type
+
+    @property
+    def cardinality(self) -> int:
+        return alpha.cardinality(self.alphabet)
+
+    @property
+    def sentinel_index(self) -> int:
+        return alpha.sentinel_index(self.alphabet)
+
+    @property
+    def num_blocks(self) -> int:
+        return num_blocks_from_bwt_length(self.bwt_length)
+
+    @property
+    def contains_fasta_vector(self) -> bool:
+        """featureFlags bit 0 (AwFmIndexStruct.c:136-139)."""
+        return bool(self.feature_flags & (1 << FEATURE_FLAG_BIT_FASTA_VECTOR))
+
+    def num_sequences(self) -> int:
+        if self.fasta_metadata is not None:
+            return self.fasta_metadata.num_sequences
+        return 1
+
+    def seed_table_host(self) -> np.ndarray:
+        """The (A**k, 2) uint64 seed table, copied from the device view
+        when it was built there."""
+        if self.kmer_seed_table is None:
+            k = int(self.config.kmer_length_in_seed_table)
+            dev = self._device_cache
+            if dev is None or dev.seed_table.shape[0] != self.cardinality**k:
+                raise ValueError("index has no seed table (not yet built)")
+            self.kmer_seed_table = u32_numpy(dev.seed_table).astype(np.uint64)
+        return self.kmer_seed_table
+
+    def letters_as_blocks(self) -> np.ndarray:
+        """(num_blocks, 256) uint8, tail padded with the sentinel index."""
+        n_blocks = self.num_blocks
+        padded = np.full(n_blocks * POSITIONS_PER_BLOCK, self.sentinel_index, np.uint8)
+        padded[: self.bwt_length] = self.bwt_letters
+        return padded.reshape(n_blocks, POSITIONS_PER_BLOCK)
+
+    def milestones(self) -> np.ndarray:
+        """(num_blocks, A+2) uint64 occurrence counts at block starts.
+
+        Column j = count of letter j in bwt_letters[: 256*block]
+        (baseOccurrences, AwFmCreate.c:309, 366).
+        """
+        n_letters = self.cardinality + 2
+        blocks_mat = self.letters_as_blocks()
+        if self.bwt_length % POSITIONS_PER_BLOCK:
+            # mask the sentinel-padded tail out of the counts
+            blocks_mat = blocks_mat.copy()
+            blocks_mat.reshape(-1)[self.bwt_length :] = 255
+        counts = np.empty((self.num_blocks, n_letters), dtype=np.uint64)
+        for lett in range(n_letters):
+            counts[:, lett] = (blocks_mat == lett).sum(axis=1)
+        cum = np.cumsum(counts, axis=0)
+        milestones = np.zeros_like(cum)
+        milestones[1:] = cum[:-1]
+        return milestones
+
+    def to_device(self, device) -> DeviceIndex:
+        """Build (or return the cached) torch view on ``device``.
+
+        Narrow layout only: positions are u32, so bwtLength must be
+        below 2^32 (the JAX package's wide layout is not ported).
+        Until the builder attaches the seed table, the view carries a
+        (1, 2) zeros placeholder.
+        """
+        device = as_device(device)
+        cache = self._device_cache
+        if cache is not None and cache.device == device:
+            return cache
+        if self.bwt_length >= 2**32:
+            raise ValueError(
+                "bwtLength >= 2**32 requires the 64-bit device layout, "
+                "which this package does not implement"
+            )
+        packed = pack_device_blocks(self.bwt_letters, self.milestones(), self.alphabet)
+        pair = pack_pair_rows_from_blocks(packed, self.alphabet)
+        k = int(self.config.kmer_length_in_seed_table)
+        if self.kmer_seed_table is not None:
+            seed = u32_tensor(self.kmer_seed_table, device)
+        elif cache is not None and cache.seed_table.shape[0] == self.cardinality**k:
+            seed = cache.seed_table.to(device)
+        else:
+            seed = torch.zeros((1, 2), dtype=torch.int32, device=device)
+        dev = DeviceIndex(
+            packed=torch.from_numpy(packed).to(device),
+            packed_pair=torch.from_numpy(pair).to(device),
+            prefix_sums=u32_tensor(self.prefix_sums, device),
+            seed_table=seed,
+            sampled_sa=(
+                None if self.sampled_sa is None
+                else u32_tensor(self.sampled_sa, device)
+            ),
+            code_masks=torch.from_numpy(device_code_masks(self.alphabet)).to(device),
+            vec_to_index=torch.from_numpy(
+                alpha.vector_to_index_lut(self.alphabet).astype(np.int32)
+            ).to(device),
+            bwt_length=int(self.bwt_length),
+            ratio=int(self.config.suffix_array_compression_ratio),
+            kmer_length_in_seed_table=k,
+            alphabet=self.alphabet,
+        )
+        self._device_cache = dev
+        return dev
+
+    def get_local_sequence_position(self, global_position):
+        """awFmGetLocalSequencePositionFromIndexPosition (AwFmSearch.c:284-301)."""
+        if self.fasta_metadata is None:
+            raise ValueError("index was not built from a FASTA (no metadata)")
+        return self.fasta_metadata.local_position_from_global(global_position)
+
+    def get_header(self, sequence_number: int) -> bytes:
+        """awFmGetHeaderStringFromSequenceNumber (AwFmSearch.c:303-315)."""
+        if self.fasta_metadata is None:
+            raise ValueError("index was not built from a FASTA (no metadata)")
+        return self.fasta_metadata.get_header(sequence_number)

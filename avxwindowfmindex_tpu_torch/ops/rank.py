@@ -1,0 +1,224 @@
+"""Occurrence (rank) primitives: plain torch versions and dispatch wrappers.
+
+Counterpart of ``avxwindowfmindex_tpu/ops/rank.py``, with the same math
+over the same fused rows (models/index.py):
+
+    occ(l, pos) = milestone[pos/256, l] + popcount(match(l) & incl_mask(pos%256))
+
+Positions are u32 values carried in int64 tensors. They wrap mod 2^32
+(``start - 1`` at ``start == 0`` is 0xFFFFFFFF), and a block index past
+the table clamps to the last row, exactly as the JAX gathers do under
+XLA's clamping semantics; torch indexing would raise instead. The
+letter selects are one-hot as in JAX: a letter above the ambiguity
+index has code 0 and milestone 0, and one above the sentinel has C = 0.
+
+``occurrence`` and ``letter_and_lf_at`` are the dispatch wrappers of
+K1 (ops/kernels.py): they launch the kernel for CUDA tensors and take
+the ``*_plain`` versions below only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.index import MASK32, widen_u32
+
+POSITIONS_PER_BLOCK = 256
+
+# popcount of every byte value (torch has no popcount op)
+_POPCOUNT8 = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.int64)
+
+
+def _popcount_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of the byte popcounts of a (B, W) uint8 tensor -> (B,) int64."""
+    return _POPCOUNT8.to(x.device)[x.long()].sum(dim=1)
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """'cuda' or 'cpu' for a tensor the wrappers accept; raises otherwise."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"unsupported device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Row helpers (plain torch)
+# ---------------------------------------------------------------------------
+
+def _gather_rows(table: torch.Tensor, positions: torch.Tensor):
+    """(rows, local) for u32 positions: the row of block pos>>8, clamped
+    to the last row, and pos & 255."""
+    pos = positions.to(torch.int64) & MASK32
+    blk = torch.clamp(pos >> 8, max=table.shape[0] - 1)
+    return table[blk], pos & (POSITIONS_PER_BLOCK - 1)
+
+
+def _code_masks(dev, letters: torch.Tensor) -> torch.Tensor:
+    """(B, n_planes) uint8 0xFF/0 code masks; zero above the ambiguity index."""
+    ok = (letters >= 0) & (letters <= dev.cardinality)
+    cm = dev.code_masks[letters.clamp(0, dev.cardinality)]
+    return cm * ok[:, None].to(torch.uint8)
+
+
+def _match_bytes(dev, rows: torch.Tensor, letters: torch.Tensor, plane_bytes: int):
+    """(B, plane_bytes) uint8 whose set bits mark positions equal to the letter."""
+    cms = _code_masks(dev, letters)
+    diff = None
+    for i in range(dev.n_planes):
+        x = rows[:, i * plane_bytes : (i + 1) * plane_bytes] ^ cms[:, i : i + 1]
+        diff = x if diff is None else (diff | x)
+    return torch.bitwise_not(diff)
+
+
+def _inclusive_mask(local: torch.Tensor, plane_bytes: int) -> torch.Tensor:
+    """(B, plane_bytes) uint8 keeping bits 0..local inclusive."""
+    byte_idx = (local >> 3)[:, None]
+    low = ((2 << (local & 7)) - 1)[:, None]  # 2 << 7 = 256 -> 255: full byte
+    iota = torch.arange(plane_bytes, device=local.device)[None, :]
+    mask = torch.where(
+        iota < byte_idx, 0xFF, torch.where(iota == byte_idx, low & 0xFF, 0)
+    )
+    return mask.to(torch.uint8)
+
+
+def _milestone(dev, rows: torch.Tensor, letters: torch.Tensor, offset: int):
+    """Little-endian u32 milestone of each row's letter; 0 above the
+    ambiguity index."""
+    ok = (letters >= 0) & (letters <= dev.cardinality)
+    lc = letters.clamp(0, dev.cardinality).to(torch.int64)
+    idx = offset + 4 * lc[:, None] + torch.arange(4, device=rows.device)[None, :]
+    b = rows.gather(1, idx).to(torch.int64)
+    shifts = torch.tensor([0, 8, 16, 24], device=rows.device)
+    return torch.where(ok, (b << shifts).sum(dim=1), 0)
+
+
+def _prefix_sum_select(dev, letters: torch.Tensor) -> torch.Tensor:
+    """C[letter] as int64; 0 above the sentinel index."""
+    ok = (letters >= 0) & (letters <= dev.cardinality + 1)
+    ps = widen_u32(dev.prefix_sums)
+    return torch.where(ok, ps[letters.clamp(0, dev.cardinality + 1).long()], 0)
+
+
+def _count_rows(dev, rows, local, letters):
+    match = _match_bytes(dev, rows, letters, 32)
+    cnt = _popcount_sum(match & _inclusive_mask(local, 32))
+    return (_milestone(dev, rows, letters, dev.milestone_offset) + cnt) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# K1: occurrence and letter/LF
+# ---------------------------------------------------------------------------
+
+def occurrence_plain(dev, positions: torch.Tensor, letters: torch.Tensor):
+    """Batched occ(l, pos), inclusive of pos -> (B,) int64 u32 values."""
+    rows, local = _gather_rows(dev.packed, positions)
+    return _count_rows(dev, rows, local, letters.to(torch.int64))
+
+
+def occurrence(dev, positions: torch.Tensor, letters: torch.Tensor):
+    """occ(l, pos): K1 for CUDA tensors, the plain version for CPU ones."""
+    if device_kind(positions) == "cuda":
+        from . import kernels
+
+        return kernels.k1_occurrence(
+            dev, positions.to(torch.int64).contiguous(),
+            letters.to(torch.int32).contiguous(),
+        )
+    return occurrence_plain(dev, positions, letters)
+
+
+def letter_at_rows(dev, rows: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """Letter index at each row's local position (one bit per plane,
+    then the code inverse-mapped through vec_to_index)."""
+    byte_col = (local >> 3)[:, None]
+    bit = local & 7
+    code = torch.zeros_like(local)
+    for i in range(dev.n_planes):
+        byte = rows.gather(1, byte_col + i * 32)[:, 0].to(torch.int64)
+        code = code | (((byte >> bit) & 1) << i)
+    return dev.vec_to_index.to(torch.int64)[code]
+
+
+def letter_and_lf_plain(dev, positions: torch.Tensor):
+    """(letters, LF) for u32 positions: LF(p) = C[l] + occ(l, p) - 1 with
+    l the letter at p; the sentinel maps to 0 (AwFmSearch.c:369-427)."""
+    rows, local = _gather_rows(dev.packed, positions)
+    lett = letter_at_rows(dev, rows, local)
+    lclip = torch.clamp(lett, max=dev.cardinality)
+    occ = _count_rows(dev, rows, local, lclip)
+    lf = (_prefix_sum_select(dev, lclip) + occ - 1) & MASK32
+    return lett, torch.where(lett == dev.sentinel, 0, lf)
+
+
+def letter_and_lf_at(dev, positions: torch.Tensor):
+    """(letters, LF): K1's LF mode for CUDA tensors, plain for CPU ones."""
+    if device_kind(positions) == "cuda":
+        from . import kernels
+
+        lett, lf = kernels.k1_letter_and_lf(dev, positions.to(torch.int64).contiguous())
+        return lett.to(torch.int64), lf
+    return letter_and_lf_plain(dev, positions)
+
+
+# ---------------------------------------------------------------------------
+# Backward steps
+# ---------------------------------------------------------------------------
+
+def backward_step(dev, start, end, letters, active=None, check_valid=True,
+                  occurrence_fn=None):
+    """One batched backward-search step (AwFmSearch.c:42-159).
+
+    newStart = C[l] + occ(l, start-1);  newEnd = C[l] + occ(l, end) - 1
+
+    With ``check_valid`` only rows where ``active & (start <= end)`` are
+    updated; the seed-table builder steps unconditionally
+    (``check_valid=False``). ``occurrence_fn`` defaults to the K1
+    dispatch wrapper; pass ``occurrence_plain`` to force the plain one.
+    """
+    occ_fn = occurrence if occurrence_fn is None else occurrence_fn
+    start = start.to(torch.int64) & MASK32
+    end = end.to(torch.int64) & MASK32
+    letters = letters.to(torch.int64)
+    b = start.shape[0]
+    c = _prefix_sum_select(dev, letters)
+    occ = occ_fn(dev, torch.cat([(start - 1) & MASK32, end]), torch.cat([letters, letters]))
+    new_start = (c + occ[:b]) & MASK32
+    new_end = (c + occ[b:] - 1) & MASK32
+    keep = None
+    if check_valid:
+        keep = start <= end
+    if active is not None:
+        keep = active if keep is None else (active & keep)
+    if keep is None:
+        return new_start, new_end
+    return torch.where(keep, new_start, start), torch.where(keep, new_end, end)
+
+
+def backward_step_pair(dev, start, end, letters, bad, active=None):
+    """One-gather pair-row step; flags ranges wider than the pair window.
+
+    Returns (new_start, new_end, bad) exactly as the JAX function does:
+    a row whose end lies past the 512-position window gets a clamped
+    (wrong) end and its flag set. The window offset is compared in u32
+    before any narrowing (ops/rank.py:382-388 of the JAX package).
+    """
+    start = start.to(torch.int64) & MASK32
+    end = end.to(torch.int64) & MASK32
+    letters = letters.to(torch.int64)
+    c = _prefix_sum_select(dev, letters)
+    pos_s = (start - 1) & MASK32
+    rows, local_s = _gather_rows(dev.packed_pair, pos_s)
+    delta_e = (end - (pos_s & ~0xFF)) & MASK32
+    overflow = delta_e >= 512
+    local_e = torch.clamp(delta_e, max=511)
+    match = _match_bytes(dev, rows, letters, 64)
+    occ_s = _popcount_sum(match & _inclusive_mask(local_s, 64))
+    occ_e = _popcount_sum(match & _inclusive_mask(local_e, 64))
+    ms = _milestone(dev, rows, letters, dev.pair_milestone_offset)
+    new_start = (c + ms + occ_s) & MASK32
+    new_end = (c + ms + occ_e - 1) & MASK32
+    keep = start <= end
+    if active is not None:
+        keep = keep & active
+    bad = bad | (overflow & keep)
+    return torch.where(keep, new_start, start), torch.where(keep, new_end, end), bad

@@ -1,0 +1,350 @@
+"""Batched FM-index search: count and locate on a torch device.
+
+Counterpart of ``avxwindowfmindex_tpu/search.py`` (``SearchEngine``,
+``_total_hits``, the enumerate step, the on-disk SA resolve). The JAX
+package's search is a pipeline of XLA programs — seed lookup, lock-step
+backward steps with a pair-window flag and an exact re-run, range
+enumeration, a compacting LF backtrace, the sampled-SA resolve. Here it
+is two kernels around one plain torch step:
+
+  ranges     K2 (``search_ranges``): one thread per query does the seed
+             lookup (or the whole-letter initial range) and every
+             backward step; a step whose range fits the 512-position
+             pair window reads one pair row, a wider one two block rows,
+             so no query is flagged or re-run;
+  enumerate  plain torch ops (``enumerate_range_positions``): ranges to
+             flat BWT positions, in range order;
+  locate     K3 (``backtrace_resolve``): one thread per hit walks LF to
+             a sampled position and resolves the suffix-array value.
+
+Each of ``search_ranges`` and ``backtrace_resolve`` launches its kernel
+for CUDA tensors and runs the plain version beside it only for CPU
+tensors. Results equal the JAX package's bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Union
+
+import numpy as np
+import torch
+
+from .models import alphabet as alpha
+from .models.config import AlphabetType
+from .models.index import MASK32, DeviceIndex, FmIndex, as_device, widen_u32
+from .ops import rank as rank_ops
+
+
+def _round_up_pow2(n: int, floor: int = 16) -> int:
+    n = max(n, floor)
+    return 1 << (n - 1).bit_length()
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# K2: final BWT ranges
+# ---------------------------------------------------------------------------
+
+def _step_exact(dev, start, end, letters, active):
+    """One exact backward step the way K2 takes it: the one-row pair step
+    inside the pair window, the two-row classic step outside it."""
+    bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    ps, pe, bad = rank_ops.backward_step_pair(dev, start, end, letters, bad, active)
+    cs, ce = rank_ops.backward_step(
+        dev, start, end, letters, active, occurrence_fn=rank_ops.occurrence_plain
+    )
+    return torch.where(bad, cs, ps), torch.where(bad, ce, pe)
+
+
+def ranges_plain(dev, mat, lengths, seeded):
+    """Plain torch version of K2 -> (start, end), (B,) int64 u32 values.
+
+    mat (B, L) letter indices; lengths (B,); seeded (B,) bool/uint8:
+    seed-table lookup of the last k letters (``_seed_lookup``) where
+    set, else the last letter's prefix-sum range (``_initial_range``);
+    then one step per remaining letter, right to left, while the range
+    is valid.
+    """
+    mat = mat.to(torch.int64)
+    lengths = lengths.to(torch.int64)
+    seeded = seeded.to(torch.bool)
+    device = mat.device
+    b, l_pad = mat.shape
+    k = dev.kmer_length_in_seed_table
+    card = dev.cardinality
+    idxs = (lengths[:, None] - k + torch.arange(k, device=device)[None, :]).clamp(0, l_pad - 1)
+    powers = torch.tensor([card ** (k - 1 - j) for j in range(k)], device=device)
+    tidx = ((mat.gather(1, idxs) * powers).sum(dim=1) & MASK32).clamp(
+        max=dev.seed_table.shape[0] - 1
+    )
+    seed = widen_u32(dev.seed_table[tidx])
+    ps = widen_u32(dev.prefix_sums)
+    last = mat.gather(1, (lengths - 1).clamp(min=0)[:, None])[:, 0]
+    init_s = ps[last.clamp(max=card + 1)]
+    init_e = (ps[(last + 1).clamp(max=card + 1)] - 1) & MASK32
+    start = torch.where(seeded, seed[:, 0], init_s)
+    end = torch.where(seeded, seed[:, 1], init_e)
+    nxt = torch.where(seeded, lengths - k - 1, lengths - 2)
+    n_steps = int(nxt.max()) + 1 if b else 0
+    for t in range(n_steps):
+        p = nxt - t
+        lett = mat.gather(1, p.clamp(0, l_pad - 1)[:, None])[:, 0]
+        start, end = _step_exact(dev, start, end, lett, p >= 0)
+    return start, end
+
+
+def search_ranges(dev, mat, lengths, seeded):
+    """Final (start, end) ranges: K2 for CUDA tensors, plain for CPU ones."""
+    if rank_ops.device_kind(mat) == "cuda":
+        from .ops import kernels
+
+        return kernels.k2_ranges(
+            dev, mat.to(torch.uint8).contiguous(),
+            lengths.to(torch.int32).contiguous(),
+            seeded.to(torch.uint8).contiguous(),
+        )
+    return ranges_plain(dev, mat, lengths, seeded)
+
+
+# ---------------------------------------------------------------------------
+# K3: backtrace + resolve
+# ---------------------------------------------------------------------------
+
+def backtrace_resolve_plain(dev, positions):
+    """Plain torch version of K3.
+
+    Walks ``p = LF(p); off += 1`` until ``p % ratio == 0``
+    (AwFmParallelSearch.c:343-354; ratio 1 walks nothing). With the
+    sampled SA resident it returns the hits ``(SA[p/ratio] + off) mod
+    bwtLength`` (int64); with the SA on disk, ``(p, off)``. The walk is
+    bounded by bwtLength steps, as in K3, so a malformed index cannot
+    spin forever.
+    """
+    p = positions.to(torch.int64) & MASK32
+    off = torch.zeros_like(p)
+    todo = torch.nonzero(p % dev.ratio != 0)[:, 0]
+    steps = 0
+    while todo.numel() and steps < dev.bwt_length:
+        _, lf = rank_ops.letter_and_lf_plain(dev, p[todo])
+        p[todo] = lf
+        off[todo] += 1
+        todo = todo[lf % dev.ratio != 0]
+        steps += 1
+    if dev.sampled_sa is None:
+        return p, off
+    sa = widen_u32(dev.sampled_sa)[p // dev.ratio]
+    return (sa + off) % dev.bwt_length
+
+
+def backtrace_resolve(dev, positions):
+    """K3 for CUDA tensors, the plain version for CPU ones."""
+    if rank_ops.device_kind(positions) == "cuda":
+        from .ops import kernels
+
+        return kernels.k3_backtrace_resolve(dev, positions.to(torch.int64).contiguous())
+    return backtrace_resolve_plain(dev, positions)
+
+
+# ---------------------------------------------------------------------------
+# Enumerate
+# ---------------------------------------------------------------------------
+
+def range_counts(start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """Hits per range: end - start + 1 where start <= end, else 0 (int64)."""
+    return torch.where(start <= end, end - start + 1, 0)
+
+
+def total_hits(start: torch.Tensor, end: torch.Tensor) -> int:
+    """Exact total hit count of a range batch (``_total_hits``: int64
+    sums cannot wrap the way the JAX package's u32 lanes had to guard)."""
+    return int(range_counts(start, end).sum())
+
+
+def enumerate_range_positions(start: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Flat BWT positions of every hit, grouped by query in range order
+    (``_flat_positions`` / ``_enumerate_delta``)."""
+    total = int(counts.sum())
+    device = start.device
+    qid = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=device), counts, output_size=total
+    )
+    seg_off = torch.cumsum(counts, 0) - counts
+    return start[qid] + torch.arange(total, device=device) - seg_off[qid]
+
+
+# ---------------------------------------------------------------------------
+# Host-side engine
+# ---------------------------------------------------------------------------
+
+class SearchEngine:
+    """Batched count/locate over an index resident on ``device``."""
+
+    def __init__(self, index: Union[FmIndex, DeviceIndex], *, device):
+        self.device = as_device(device)
+        if isinstance(index, FmIndex):
+            self.host_index = index
+            self.dev = index.to_device(self.device)
+        else:
+            if index.device != self.device:
+                raise ValueError(
+                    f"DeviceIndex lives on {index.device}, not {self.device}"
+                )
+            self.host_index = None
+            self.dev = index
+        self._ascii_lut = (
+            alpha.AA_ASCII_TO_INDEX
+            if self.dev.alphabet == AlphabetType.AMINO
+            else alpha.NT_ASCII_TO_INDEX
+        )
+
+    # -- encoding -----------------------------------------------------------
+
+    def encode_kmers(self, kmers: Sequence[Union[str, bytes]]):
+        """ASCII kmers -> (padded letter-index matrix, lengths, n).
+
+        Pads the batch to a power-of-two size with 'A'*L rows (their
+        results are dropped) and the length axis to a multiple of 4,
+        exactly as the JAX package does.
+        """
+        n = len(kmers)
+        if n == 0:
+            raise ValueError("kmers must be non-empty")
+        if all(type(k) is bytes for k in kmers):
+            lengths = np.fromiter(map(len, kmers), dtype=np.int32, count=n)
+            if lengths.min() < 1:
+                raise ValueError("kmers must be non-empty")
+            if (lengths == lengths[0]).all():
+                length = int(lengths[0])
+                flat = np.frombuffer(b"".join(kmers), dtype=np.uint8)
+                rows = self._ascii_lut[flat].reshape(n, length)
+                b_pad = _round_up_pow2(n)
+                mat = np.zeros((b_pad, _round_up(length, 4)), dtype=np.uint8)
+                mat[:n, :length] = rows
+                return mat, np.full(b_pad, length, dtype=np.int32), n
+        encoded = [
+            self._ascii_lut[np.frombuffer(
+                k.encode() if isinstance(k, str) else k, dtype=np.uint8
+            )]
+            for k in kmers
+        ]
+        lengths = np.array([len(e) for e in encoded], dtype=np.int32)
+        if lengths.min() < 1:
+            raise ValueError("kmers must be non-empty")
+        b_pad = _round_up_pow2(len(encoded))
+        mat = np.zeros((b_pad, _round_up(int(lengths.max()), 4)), dtype=np.uint8)
+        for i, e in enumerate(encoded):
+            mat[i, : len(e)] = e
+        # pad rows take the first real kmer's length, sharing its seed
+        # eligibility
+        lengths_padded = np.full(b_pad, lengths[0], dtype=np.int32)
+        lengths_padded[: len(lengths)] = lengths
+        return mat, lengths_padded, len(kmers)
+
+    def _seed_eligibility(self, mat: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """awFmQueryCanUseKmerTable (AwFmKmerTable.c:4-19): length >= k and
+        no ambiguity letter among the last k letters."""
+        k = self.dev.kmer_length_in_seed_table
+        card = self.dev.cardinality
+        _, l_pad = mat.shape
+        idxs = np.clip(lengths[:, None] - k + np.arange(k)[None, :], 0, l_pad - 1)
+        last_k = np.take_along_axis(mat, idxs, axis=1)
+        return (lengths >= k) & (last_k < card).all(axis=1)
+
+    # -- range search -------------------------------------------------------
+
+    def _ranges_device(self, mat: np.ndarray, lengths: np.ndarray):
+        """(start, end) int64 tensors on the device for an encoded batch.
+
+        Seed-eligible and ineligible queries are partitioned by a
+        per-query flag that K2 reads, so both run in one launch."""
+        seeded = self._seed_eligibility(mat, lengths)
+        return search_ranges(
+            self.dev,
+            torch.from_numpy(mat).to(self.device),
+            torch.from_numpy(lengths.astype(np.int32)).to(self.device),
+            torch.from_numpy(seeded.astype(np.uint8)).to(self.device),
+        )
+
+    def find_ranges_encoded(self, mat: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """Final BWT ranges for an encoded batch -> (B, 2) uint64 host array."""
+        start, end = self._ranges_device(mat, lengths)
+        return torch.stack([start, end], dim=1).cpu().numpy().astype(np.uint64)
+
+    def find_ranges(self, kmers: Sequence[Union[str, bytes]]) -> np.ndarray:
+        mat, lengths, n = self.encode_kmers(kmers)
+        return self.find_ranges_encoded(mat, lengths)[:n]
+
+    # -- public count / locate ---------------------------------------------
+
+    def count(self, kmers: Sequence[Union[str, bytes]]) -> np.ndarray:
+        """Occurrences of each kmer (awFmParallelSearchCount parity)."""
+        mat, lengths, n = self.encode_kmers(kmers)
+        start, end = self._ranges_device(mat, lengths)
+        return range_counts(start[:n], end[:n]).cpu().numpy().astype(np.uint64)
+
+    def locate(self, kmers: Sequence[Union[str, bytes]]) -> List[np.ndarray]:
+        """Database hit positions per kmer, in range order
+        (awFmParallelSearchLocate parity)."""
+        mat, lengths, n = self.encode_kmers(kmers)
+        start, end = self._ranges_device(mat, lengths)
+        counts = range_counts(start[:n], end[:n])
+        hits = self._resolve(enumerate_range_positions(start[:n], counts))
+        splits = np.cumsum(counts.cpu().numpy())[:-1]
+        return np.split(hits, splits)
+
+    def resolve_positions(self, bwt_positions: np.ndarray) -> np.ndarray:
+        """Backtrace + resolve a flat array of BWT positions to hits."""
+        if len(bwt_positions) == 0:
+            return np.empty(0, dtype=np.uint64)
+        pos = torch.from_numpy(np.asarray(bwt_positions).astype(np.int64))
+        return self._resolve(pos.to(self.device))
+
+    def _resolve(self, positions: torch.Tensor) -> np.ndarray:
+        if self.dev.sampled_sa is not None:
+            return backtrace_resolve(self.dev, positions).cpu().numpy().astype(np.uint64)
+        if self.host_index is None or self.host_index.file_path is None:
+            raise ValueError(
+                "suffix array not in memory and no backing file to read "
+                "from (build or load the index with a file_src)"
+            )
+        p, off = backtrace_resolve(self.dev, positions)
+        return self._resolve_from_file(p.cpu().numpy(), off.cpu().numpy())
+
+    def _resolve_from_file(self, sampled_positions, offsets) -> np.ndarray:
+        """Resolve sampled-SA values from the index file — the on-disk
+        suffix-array mode (awFmGetSuffixArrayValueFromFile,
+        AwFmFile.c:484-522), as one vectorized gather over a read-only
+        memmap of the packed-SA region."""
+        from . import suffix_array as sa_mod
+        from .io import awfmi
+
+        index = self.host_index
+        width = sa_mod.value_min_bit_width(index.bwt_length)
+        file_offset = index.suffix_array_file_offset or awfmi.suffix_array_file_offset(
+            index
+        )
+        bwt_length = index.bwt_length
+        ratio = self.dev.ratio
+        sample_idx = np.asarray(sampled_positions, dtype=np.uint64) // np.uint64(ratio)
+        offsets = np.asarray(offsets, dtype=np.uint64)
+        region_len = sa_mod.compressed_sa_size_in_bytes(bwt_length, ratio)
+        mm = np.memmap(
+            index.file_path, mode="r", offset=file_offset,
+            shape=(region_len,), dtype=np.uint8,
+        )
+        bit = sample_idx * np.uint64(width)
+        byte_off = (bit >> np.uint64(3)).astype(np.int64)
+        bit_off = (bit & np.uint64(7)).astype(np.uint64)
+        # 9 bytes per hit: the widest value spans 57 + 7 bits
+        spans = byte_off[:, None] + np.arange(9, dtype=np.int64)[None, :]
+        raw = np.asarray(mm[np.minimum(spans, region_len - 1)])
+        del mm
+        lo = raw[:, :8].copy().view("<u8")[:, 0] >> bit_off
+        keep_lo = np.minimum(np.uint64(64) - bit_off, np.uint64(63))
+        hi = raw[:, 8].astype(np.uint64) << keep_lo
+        hi = np.where(bit_off == 0, np.uint64(0), hi)  # 9th byte only when bit_off > 0
+        vals = (lo | hi) & ((np.uint64(1) << np.uint64(width)) - np.uint64(1))
+        return (vals + offsets) % np.uint64(bwt_length)

@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port once on one GPU and check it end to end.
+
+    python3 chip_smoke.py [--bases N]
+
+Phases (any failure raises and the script exits nonzero):
+  1. the card and the software; requires torch.cuda.is_available();
+  2. build the CUDA kernels from avxwindowfmindex_tpu_torch/csrc/;
+  3. each kernel against its plain torch version on the same CUDA
+     tensors (1M-base DNA and amino indexes, a repeat-rich corpus), with
+     kernel and plain times side by side;
+  4. the main path at full size: create_index on 64M random bases
+     (seed k = 14, SA ratio 8, native SA-IS) -> SearchEngine -> count
+     and locate of 1,048,576 sampled 25-mers and locate of 4,096
+     multi-hit 11-mers, checked against host scans; the kernels' launch
+     counts are reset just before and read just after; then a stage
+     breakdown of one locate, and each kernel against its plain version
+     at the shapes the main path gave it, timed in turns;
+  5. a .awfmi round trip of the 1M-base index.
+
+The last three lines are the card's name and power limit as nvidia-smi
+prints them, one JSON object describing each kernel (its main-path
+launches, its largest difference from the plain version, and both
+times at the main path's shapes), and the result line
+{"ok": true, "device": {...}}. --bases (default 64,000,000) is for
+local trials only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MAIN_SEED_K = 14
+KMER_LEN = 25
+QUERIES = 1 << 20
+MULTIHIT_LEN = 11
+MULTIHIT_QUERIES = 4096
+EXACT = 0  # every quantity compared is an integer: tolerance 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def count_overlapping(hay: bytes, needle: bytes) -> int:
+    """Exact overlapping occurrence count (host oracle)."""
+    n = 0
+    i = hay.find(needle)
+    while i != -1:
+        n += 1
+        i = hay.find(needle, i + 1)
+    return n
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of fn on the card (CUDA events, one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_in_turns(label: str, kernel_fn, plain_fn, kernel_reps: int, plain_reps: int):
+    """(kernel ms, plain ms), each the best of two runs taken in turns:
+    plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain_fn, plain_reps)
+    k1 = cuda_ms(kernel_fn, kernel_reps)
+    k2 = cuda_ms(kernel_fn, kernel_reps)
+    p2 = cuda_ms(plain_fn, plain_reps)
+    log(f"  {label} time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+    return min(k1, k2), min(p1, p2)
+
+
+def max_abs_err(a, b) -> int:
+    """Largest absolute difference of two integer tensors (0 when equal)."""
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+class Record:
+    """Per-kernel comparison results and main-shape timings."""
+
+    def __init__(self):
+        self.err = {}
+        self.ms = {}
+
+    def compare(self, kernel: str, what: str, got, want) -> None:
+        err = max_abs_err(got, want)
+        log(f"  {kernel} {what}: max_abs_err={err} over {got.numel()} values")
+        if err > EXACT:
+            raise AssertionError(f"{kernel} disagrees with its plain version ({what})")
+        self.err[kernel] = max(self.err.get(kernel, 0), err)
+
+
+def random_text(rng, n: int, alphabet) -> bytes:
+    import numpy as np
+    from avxwindowfmindex_tpu_torch import AlphabetType
+
+    pool = b"ACDEFGHIKLMNPQRSTVWY" if alphabet == AlphabetType.AMINO else b"acgt"
+    return rng.choice(np.frombuffer(pool, np.uint8), size=n).tobytes()
+
+
+def phase_kernels(rec: Record, device: str):
+    """Phase 3: each kernel against its plain torch version on the card."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import AlphabetType, IndexConfiguration, SearchEngine, create_index
+    from avxwindowfmindex_tpu_torch import search
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+
+    rng = np.random.default_rng(7)
+    kept = None
+    for alphabet, k, klen in ((AlphabetType.DNA, 10, 25), (AlphabetType.AMINO, 5, 12)):
+        name = alphabet.name
+        text = random_text(rng, 1_000_000, alphabet)
+        t0 = time.time()
+        index = create_index(text, IndexConfiguration(8, k, alphabet), sa_backend="native", device=device)
+        torch.cuda.synchronize()
+        log(f"[3] {name}: 1M-base index (k={k}, ratio 8) built in {time.time() - t0:.2f}s")
+        dev = index.to_device(device)
+        n = dev.bwt_length
+        card = dev.cardinality
+
+        # K1: seed table through the kernel vs through the plain occurrence
+        plain_table = seed_table.build_seed_table(
+            dev, card, k, index.prefix_sums, occurrence_fn=rank.occurrence_plain
+        )
+        rec.compare("k1_rank", f"{name} seed table k={k}", dev.seed_table, plain_table)
+
+        # K1 occ mode: 1M random pairs, edge positions, a ragged batch size
+        b = 1_000_000
+        pos = rng.integers(0, n, size=b)
+        lett = rng.integers(0, card + 1, size=b)
+        edges = np.array([0, 7, 8, 255, n - 1])
+        pos = np.concatenate([pos, np.repeat(edges, card + 1), [0xFFFFFFFF]])
+        lett = np.concatenate([lett, np.tile(np.arange(card + 1), len(edges)), [0]])
+        pos_t = torch.from_numpy(pos.astype(np.int64)).to(device)
+        lett_t = torch.from_numpy(lett.astype(np.int32)).to(device)
+        rec.compare(
+            "k1_rank", f"{name} occ x{len(pos)}",
+            kernels.k1_occurrence(dev, pos_t, lett_t), rank.occurrence_plain(dev, pos_t, lett_t),
+        )
+        lpos = torch.from_numpy(np.concatenate([rng.integers(0, n, size=b), edges])).to(device)
+        kl, kf = kernels.k1_letter_and_lf(dev, lpos)
+        pl, pf = rank.letter_and_lf_plain(dev, lpos)
+        rec.compare("k1_rank", f"{name} letter x{len(lpos)}", kl, pl)
+        rec.compare("k1_rank", f"{name} LF x{len(lpos)}", kf, pf)
+
+        # K2: 64K seeded queries and 4K unseeded ones (short or ambiguous)
+        eng = SearchEngine(index, device=device)
+        starts = rng.integers(0, len(text) - klen, size=1 << 16)
+        seeded_q = [text[s : s + klen] for s in starts]
+        short = [text[s : s + int(rng.integers(1, k))] for s in rng.integers(0, len(text) - k, 3072)]
+        amb = b"X" if alphabet == AlphabetType.AMINO else b"n"
+        ambig = [text[s : s + klen - 1] + amb for s in rng.integers(0, len(text) - klen, 1024)]
+        k2_in = {}
+        for label, qs in (("seeded", seeded_q), ("unseeded", short + ambig)):
+            mat, lengths, _ = eng.encode_kmers(qs)
+            seeded = eng._seed_eligibility(mat, lengths)
+            if label == "seeded" and not seeded.all():
+                raise AssertionError("sampled queries must all be seed-eligible")
+            args = (
+                torch.from_numpy(mat).to(device),
+                torch.from_numpy(lengths).to(device),
+                torch.from_numpy(seeded.astype(np.uint8)).to(device),
+            )
+            ks, ke = kernels.k2_ranges(dev, *args)
+            ps, pe = search.ranges_plain(dev, *args)
+            rec.compare("k2_ranges", f"{name} {label} start x{len(qs)}", ks, ps)
+            rec.compare("k2_ranges", f"{name} {label} end x{len(qs)}", ke, pe)
+            k2_in[label] = args
+
+        # K3: 256K positions, SA resident and SA on disk
+        bpos = torch.from_numpy(rng.integers(0, n, size=1 << 18)).to(device)
+        rec.compare(
+            "k3_backtrace_resolve", f"{name} hits x{bpos.numel()}",
+            kernels.k3_backtrace_resolve(dev, bpos), search.backtrace_resolve_plain(dev, bpos),
+        )
+        disk = dataclasses.replace(dev, sampled_sa=None)
+        kp, ko = kernels.k3_backtrace_resolve(disk, bpos)
+        pp, po = search.backtrace_resolve_plain(disk, bpos)
+        rec.compare("k3_backtrace_resolve", f"{name} on-disk p", kp, pp)
+        rec.compare("k3_backtrace_resolve", f"{name} on-disk off", ko, po)
+
+        if alphabet == AlphabetType.DNA:
+            kept = (index, text)
+            # kernel and plain times at these shapes, in turns
+            occ_pos, occ_lett = pos_t[:b], lett_t[:b]
+            timings = {
+                "k1_rank": (
+                    lambda: kernels.k1_occurrence(dev, occ_pos, occ_lett),
+                    lambda: rank.occurrence_plain(dev, occ_pos, occ_lett),
+                ),
+                "k2_ranges": (
+                    lambda: kernels.k2_ranges(dev, *k2_in["seeded"]),
+                    lambda: search.ranges_plain(dev, *k2_in["seeded"]),
+                ),
+                "k3_backtrace_resolve": (
+                    lambda: kernels.k3_backtrace_resolve(dev, bpos),
+                    lambda: search.backtrace_resolve_plain(dev, bpos),
+                ),
+            }
+            for kname, (kfn, pfn) in timings.items():
+                time_in_turns(kname, kfn, pfn, 20, 3)
+
+    # K2 on the pair-window overflow corpus: seeded ranges span > 512
+    text = b"A" * 4000 + random_text(rng, 20_000, AlphabetType.DNA).upper()
+    index = create_index(text, IndexConfiguration(8, 6, AlphabetType.DNA), device=device)
+    dev = index.to_device(device)
+    eng = SearchEngine(index, device=device)
+    qs = [b"A" * L for L in range(6, 40)] + [text[s : s + 14] for s in rng.integers(0, 3990, 512)]
+    mat, lengths, _ = eng.encode_kmers(qs)
+    seeded = eng._seed_eligibility(mat, lengths)
+    args = (
+        torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+        torch.from_numpy(seeded.astype(np.uint8)).to(device),
+    )
+    ks, ke = kernels.k2_ranges(dev, *args)
+    ps, pe = search.ranges_plain(dev, *args)
+    rec.compare("k2_ranges", "overflow corpus start", ks, ps)
+    rec.compare("k2_ranges", "overflow corpus end", ke, pe)
+    widest = int((search.range_counts(ks, ke)).max())
+    if widest <= 512:
+        raise AssertionError(f"overflow corpus produced no range wider than 512 ({widest})")
+    counts = eng.count(qs[:34])
+    want = [count_overlapping(text, q) for q in qs[:34]]
+    if list(counts) != want:
+        raise AssertionError(f"overflow corpus counts {list(counts)} != {want}")
+    log(f"  overflow corpus: widest range {widest}, {len(qs)} queries exact")
+    return kept
+
+
+def phase_main(bases: int, device: str):
+    """Phase 4: the main path at full size."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import AlphabetType, IndexConfiguration, SearchEngine, create_index
+
+    rng = np.random.default_rng(1234)
+    seq_arr = rng.choice(np.frombuffer(b"acgt", np.uint8), size=bases)
+    seq_bytes = seq_arr.tobytes()
+    cfg = IndexConfiguration(
+        suffix_array_compression_ratio=8,
+        kmer_length_in_seed_table=MAIN_SEED_K,
+        alphabet_type=AlphabetType.DNA,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    index = create_index(seq_bytes, cfg, sa_backend="native", device=device)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    log(f"[4] create_index: {bases} bases, seed k={MAIN_SEED_K}, ratio 8: {build_s:.3f}s")
+    engine = SearchEngine(index, device=device)
+
+    starts = rng.integers(0, bases - KMER_LEN, size=QUERIES)
+    windows = np.lib.stride_tricks.sliding_window_view(seq_arr, KMER_LEN)
+    kmer_ascii = windows[starts]
+    buf = kmer_ascii.tobytes()
+    kmers = [buf[i * KMER_LEN : (i + 1) * KMER_LEN] for i in range(QUERIES)]
+
+    def timed(fn, runs=3):
+        fn(kmers[:4096])  # warm-up
+        times, out = [], None
+        for _ in range(runs):
+            t = time.time()
+            out = fn(kmers)
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+        return out, float(np.median(times)), times
+
+    counts, count_s, count_times = timed(engine.count)
+    hits, locate_s, locate_times = timed(engine.locate)
+    count_qps = QUERIES / count_s
+    locate_qps = QUERIES / locate_s
+    log(f"[4] count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of {count_times} -> {count_qps:.1f} q/s")
+    log(f"[4] locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of {locate_times} -> {locate_qps:.1f} q/s")
+
+    if not (counts >= 1).all():
+        raise AssertionError(f"{int((counts < 1).sum())} sampled 25-mers counted 0")
+    sample = rng.integers(0, QUERIES, size=32)
+    want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
+    if not (counts[sample] == want).all():
+        raise AssertionError(f"count spot check: {counts[sample]} != {want}")
+    log("[4] count spot check: 32/32 exact vs host-scan oracle")
+    lens = np.array([len(h) for h in hits])
+    if not (lens == counts).all():
+        raise AssertionError("locate hit-list lengths differ from counts")
+    flat = np.concatenate(hits).astype(np.int64)
+    if (flat > bases - KMER_LEN).any():
+        raise AssertionError("locate returned a hit beyond the last window")
+    qid = np.repeat(np.arange(QUERIES), lens)
+    if not (windows[flat] == kmer_ascii[qid]).all():
+        raise AssertionError("locate returned a non-matching position")
+    log(f"[4] locate: {len(flat)} hits, every one matches its window")
+
+    mh_starts = rng.integers(0, bases - MULTIHIT_LEN, size=MULTIHIT_QUERIES)
+    mh_windows = np.lib.stride_tricks.sliding_window_view(seq_arr, MULTIHIT_LEN)
+    mh_ascii = mh_windows[mh_starts]
+    mh_kmers = [row.tobytes() for row in mh_ascii]
+    engine.locate(mh_kmers[:64])  # warm-up
+    t = time.time()
+    mh_hits = engine.locate(mh_kmers)
+    mh_s = time.time() - t
+    mh_lens = np.array([len(h) for h in mh_hits])
+    mh_flat = np.concatenate(mh_hits).astype(np.int64)
+    if (mh_flat > bases - MULTIHIT_LEN).any():
+        raise AssertionError("multi-hit locate returned a hit beyond the last window")
+    if not (mh_windows[mh_flat] == mh_ascii[np.repeat(np.arange(MULTIHIT_QUERIES), mh_lens)]).all():
+        raise AssertionError("multi-hit locate returned a non-matching position")
+    freq = int(np.argmax(mh_lens))
+    freq_want = count_overlapping(seq_bytes, mh_kmers[freq])
+    if mh_lens[freq] != freq_want:
+        raise AssertionError(f"multi-hit completeness: {mh_lens[freq]} != {freq_want}")
+    log(
+        f"[4] multi-hit locate {MULTIHIT_QUERIES} x {MULTIHIT_LEN}-mers: {len(mh_flat)} hits "
+        f"({mh_lens.mean():.2f}/query) in {mh_s:.4f}s -> {MULTIHIT_QUERIES / mh_s:.1f} q/s, "
+        f"{len(mh_flat) / mh_s:.1f} hits/s; all sound, most frequent complete ({freq_want})"
+    )
+    log(f"[4] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    stats = {
+        "build_s": build_s, "count_qps": count_qps, "locate_qps": locate_qps,
+        "multihit_qps": MULTIHIT_QUERIES / mh_s,
+    }
+    return stats, engine, kmers
+
+
+def phase_main_shapes(rec: Record, engine, kmers) -> dict:
+    """After the main path: where one locate of the full batch spends its
+    time, stage by stage (host clock, synchronized), and each kernel
+    against its plain version at the shapes the main path gave it — the
+    k = 14 seed table and one of its K1 launches, the 1M-query range
+    batch, the ~1M-hit backtrace — compared exactly and timed in turns."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import search
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+
+    out = {}
+    t = time.time()
+    mat, lengths, n = engine.encode_kmers(kmers)
+    out["encode_s"] = time.time() - t
+    t = time.time()
+    seeded = engine._seed_eligibility(mat, lengths)
+    args = (
+        torch.from_numpy(mat).to(engine.device),
+        torch.from_numpy(lengths).to(engine.device),
+        torch.from_numpy(seeded.astype(np.uint8)).to(engine.device),
+    )
+    torch.cuda.synchronize()
+    out["eligibility_upload_s"] = time.time() - t
+    t = time.time()
+    start, end = search.search_ranges(engine.dev, *args)
+    torch.cuda.synchronize()
+    out["k2_ranges_s"] = time.time() - t
+    t = time.time()
+    counts = search.range_counts(start[:n], end[:n])
+    positions = search.enumerate_range_positions(start[:n], counts)
+    torch.cuda.synchronize()
+    out["enumerate_s"] = time.time() - t
+    t = time.time()
+    hits = search.backtrace_resolve(engine.dev, positions)
+    torch.cuda.synchronize()
+    out["k3_backtrace_resolve_s"] = time.time() - t
+    t = time.time()
+    hits_h = hits.cpu().numpy().astype(np.uint64)
+    counts_h = counts.cpu().numpy()
+    out["to_host_s"] = time.time() - t
+    t = time.time()
+    np.split(hits_h, np.cumsum(counts_h)[:-1])
+    out["split_s"] = time.time() - t
+    log(f"[4] locate breakdown ({n} queries): {json.dumps(out)}")
+
+    dev = engine.dev
+    k = dev.kmer_length_in_seed_table
+    prefix_sums = engine.host_index.prefix_sums
+    for label, occ_fn in (("kernel", None), ("plain", rank.occurrence_plain)):
+        t = time.time()
+        table = seed_table.build_seed_table(
+            dev, dev.cardinality, k, prefix_sums, occurrence_fn=occ_fn
+        )
+        torch.cuda.synchronize()
+        out[f"seed_table_{label}_s"] = time.time() - t
+        if occ_fn is not None:
+            rec.compare("k1_rank", f"main seed table k={k}", dev.seed_table, table)
+        del table
+    log(
+        f"[4] seed table k={k}: through K1 {out['seed_table_kernel_s']:.4f}s, "
+        f"plain {out['seed_table_plain_s']:.4f}s"
+    )
+
+    # one K1 launch of the BFS's deepest levels: 2 * CHUNK (pos, letter) pairs
+    rng = np.random.default_rng(99)
+    b = 2 * seed_table.CHUNK
+    occ_pos = torch.from_numpy(rng.integers(0, dev.bwt_length, size=b)).to(engine.device)
+    occ_lett = torch.from_numpy(
+        rng.integers(0, dev.cardinality, size=b).astype(np.int32)
+    ).to(engine.device)
+    rec.compare(
+        "k1_rank", f"main occ x{b}",
+        kernels.k1_occurrence(dev, occ_pos, occ_lett), rank.occurrence_plain(dev, occ_pos, occ_lett),
+    )
+    ps, pe = search.ranges_plain(dev, *args)
+    rec.compare("k2_ranges", f"main start x{n}", start, ps)
+    rec.compare("k2_ranges", f"main end x{n}", end, pe)
+    rec.compare(
+        "k3_backtrace_resolve", f"main hits x{positions.numel()}",
+        hits, search.backtrace_resolve_plain(dev, positions),
+    )
+    rec.ms["k1_rank"] = time_in_turns(
+        f"k1_rank main x{b}",
+        lambda: kernels.k1_occurrence(dev, occ_pos, occ_lett),
+        lambda: rank.occurrence_plain(dev, occ_pos, occ_lett), 10, 2,
+    )
+    rec.ms["k2_ranges"] = time_in_turns(
+        f"k2_ranges main x{n}",
+        lambda: kernels.k2_ranges(dev, *args), lambda: search.ranges_plain(dev, *args), 10, 1,
+    )
+    rec.ms["k3_backtrace_resolve"] = time_in_turns(
+        f"k3_backtrace_resolve main x{positions.numel()}",
+        lambda: kernels.k3_backtrace_resolve(dev, positions),
+        lambda: search.backtrace_resolve_plain(dev, positions), 10, 1,
+    )
+    return out
+
+
+def phase_roundtrip(index, text: bytes, device: str) -> None:
+    """Phase 5: .awfmi write, read back, equal counts and locates."""
+    import numpy as np
+    from avxwindowfmindex_tpu_torch import SearchEngine, read_index_from_file, write_index_to_file
+
+    out_dir = os.path.join(REPO, "avxwindowfmindex_tpu_torch", "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "smoke.awfmi")
+    write_index_to_file(index, path)
+    rng = np.random.default_rng(11)
+    qs = [text[s : s + int(rng.integers(4, 20))] for s in rng.integers(0, len(text) - 20, 4096)]
+    want_c = SearchEngine(index, device=device).count(qs)
+    want_l = SearchEngine(index, device=device).locate(qs)
+    for in_memory in (True, False):
+        eng = SearchEngine(read_index_from_file(path, in_memory), device=device)
+        if not (eng.count(qs) == want_c).all():
+            raise AssertionError(f"round trip counts differ (SA in memory: {in_memory})")
+        if not all((a == b).all() for a, b in zip(eng.locate(qs), want_l)):
+            raise AssertionError(f"round trip locates differ (SA in memory: {in_memory})")
+    os.remove(path)
+    log(f"[5] .awfmi round trip: {len(qs)} counts and locates equal (SA in memory and on disk)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bases", type=int, default=64_000_000)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False: this script needs a GPU")
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    device = "cuda:0"
+    smi = nvidia_smi_line()
+    log(f"[1] {smi}")
+    log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    build_s = kernels.build()
+    log(f"[2] kernels built in {build_s:.2f}s -> {kernels.library_path()}")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"    {line.strip()}")
+
+    rec = Record()
+    small_index, small_text = phase_kernels(rec, device)
+
+    kernels.reset_launch_counts()
+    main_stats, engine, kmers = phase_main(args.bases, device)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[6] launches on the main path: {launches}")
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
+    del engine, kmers
+
+    phase_roundtrip(small_index, small_text, device)
+    torch.cuda.synchronize()
+
+    log(f"[summary] {json.dumps(main_stats)}")
+    log(smi)
+    print(json.dumps({"kernels": [
+        {
+            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": launches[k.name], "max_abs_err": rec.err[k.name],
+            "ms": rec.ms[k.name][0], "plain_ms": rec.ms[k.name][1],
+        }
+        for k in kernels.KERNELS
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
