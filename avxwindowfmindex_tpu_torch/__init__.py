@@ -7,10 +7,11 @@ and ``.awfmi`` serde) are carried over as copies with their byte
 layouts unchanged, so the two packages build identical indexes and the
 tests compare them array for array.
 
-The main path is three hand-written CUDA kernels (``csrc/``, built by
+The main path is four hand-written CUDA kernels (``csrc/``, built by
 ``ops/kernels.py``): K1 rank/LF (seed-table build), K2 ranges (count),
-K3 backtrace + resolve (locate). Every entry point that touches a
-tensor takes an explicit ``device``.
+K3 backtrace + resolve (locate), K4 n-gram ranges (the count and locate
+of ``DigramSearchEngine`` / ``NgramSearchEngine``). Every entry point
+that touches a tensor takes an explicit ``device``.
 
 Quick start::
 
@@ -30,7 +31,8 @@ Quick start::
 from .build import create_index, create_index_from_fasta
 from .models.config import AlphabetType, IndexConfiguration
 from .models.index import DeviceIndex, FmIndex
-from .search import SearchEngine
+from .ops.ngram import build_ngram_device
+from .search import DigramSearchEngine, NgramSearchEngine, SearchEngine
 
 
 def read_index_from_file(path: str, keep_suffix_array_in_memory: bool = True):
@@ -57,4 +59,7 @@ __all__ = [
     "read_index_from_file",
     "write_index_to_file",
     "SearchEngine",
+    "NgramSearchEngine",
+    "DigramSearchEngine",
+    "build_ngram_device",
 ]

@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Three kernels, each one thread per item, each bound by dependent random
+// Four kernels, each one thread per item, each bound by dependent random
 // row loads from device memory (a 128 B block row or a 256 B pair row for
-// nucleotides, 256 B / 512 B for amino) followed by a few dozen integer
+// nucleotides, 256 B / 512 B for amino, a 384 B / 768 B n-gram pair row
+// for n = 2 / 3) followed by a few dozen integer
 // operations and __popc. The rows are read as uint4 (16 B) loads; nothing
 // else is worth optimising until those loads are scheduled better, which
 // is later work.
@@ -25,6 +26,20 @@
 //       _resolve_samples. One thread walks one hit with LF until p % ratio
 //       == 0, then resolves (SA[p / ratio] + off) mod bwtLength in 64 bits,
 //       or returns (p, off) for a suffix array kept on disk.
+//   K4 awfm_k4_ngram_ranges
+//       Replaces experiments/ab_r5_pallas_gather.py:_k2_kernel (Pallas P6,
+//       the digram pair-step compute of ops/ngram.py:_pair_occ_from_rows)
+//       and the host-driven n-gram step loop around it
+//       (search.py:_ngram_ranges_steploop, _fixup_flagged). One thread
+//       walks one query of a uniform-length clean batch: the seed lookup,
+//       floor(m / n) n-gram steps (m = kmer_len - k) over the n-gram pair
+//       rows, then the m mod n tail letters as single steps. An n-gram step
+//       whose range fits the 512-position window reads one 384 B (n = 2) or
+//       768 B (n = 3) pair row; a wider one reads the first-block halves of
+//       two rows, so no query is flagged or re-run. Bound, like K2, by the
+//       chain of dependent random row loads (6 for a 25-mer at k = 14 and
+//       n = 2, against K2's 11), now from a table that outgrows the L2 at
+//       64M bases (250,000 x 384 B = 96 MB).
 //
 // Semantics follow the JAX package bit for bit: positions are u32 and wrap
 // mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past the
@@ -53,6 +68,16 @@ struct AwfmTables {
   int32_t card;
   int32_t n_planes;
 };
+
+// Mirrored by ops/kernels.py:_NgramTables (ctypes.Structure).
+struct NgramTables {
+  const uint8_t* packed;  // (nb, row_bytes) n-gram pair rows
+  const uint32_t* cn;     // (4^n) n-mer range starts
+  int64_t nb;
+  int32_t row_bytes;      // 384 (n = 2) or 768 (n = 3)
+  int32_t n;
+  int32_t biased;         // milestones already hold Cn[w] + occ
+};
 }
 
 namespace {
@@ -79,10 +104,14 @@ __device__ __forceinline__ uint32_t c_select(const AwfmTables& t, uint32_t l) {
   return l <= static_cast<uint32_t>(t.card + 1) ? t.prefix_sums[l] : 0u;
 }
 
+__device__ __forceinline__ int64_t clamp_block(int64_t nb, uint32_t pos) {
+  const int64_t blk = static_cast<int64_t>(pos >> 8);
+  return blk < nb - 1 ? blk : nb - 1;
+}
+
 __device__ __forceinline__ int64_t clamp_block(const AwfmTables& t,
                                                uint32_t pos) {
-  const int64_t blk = static_cast<int64_t>(pos >> 8);
-  return blk < t.nb - 1 ? blk : t.nb - 1;
+  return clamp_block(t.nb, pos);
 }
 
 // Match words of one row: bit p of word w is set iff the letter at local
@@ -184,6 +213,100 @@ __device__ __forceinline__ void backward_step(const AwfmTables& t,
   end = c + occ_e - 1u;
 }
 
+// Match words of an n-gram pair row for word value v: bit p of word w is
+// set iff the n-gram code at pair-local position 32 * w + p equals v.
+// Planes 0..2N-1 hold the code's value bits and are XORed with bit i of v;
+// plane 2N marks dirty words and is ORed in as it is (P6's match). W = 16
+// covers the 512-position window, W = 8 the first block only.
+template <int N, int W>
+__device__ __forceinline__ void ngram_match_words(const uint8_t* row,
+                                                  uint32_t v,
+                                                  uint32_t (&m)[W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) m[w] = 0u;
+#pragma unroll
+  for (int i = 0; i <= 2 * N; ++i) {
+    const uint32_t cm = (i < 2 * N && ((v >> i) & 1u)) ? 0xFFFFFFFFu : 0u;
+    const uint4* p = reinterpret_cast<const uint4*>(row + i * 64);
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const uint4 x = __ldg(p + q);
+      m[4 * q + 0] |= x.x ^ cm;
+      m[4 * q + 1] |= x.y ^ cm;
+      m[4 * q + 2] |= x.z ^ cm;
+      m[4 * q + 3] |= x.w ^ cm;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) m[w] = ~m[w];
+}
+
+// Block milestone of word v (Cn-biased or not, as stored); 0 outside
+// [0, 4^N), as the one-hot select of the JAX package gives.
+template <int N>
+__device__ __forceinline__ uint32_t ngram_milestone(const uint8_t* row,
+                                                    uint32_t v) {
+  constexpr uint32_t kWords = 1u << (2 * N);
+  if (v >= kWords) return 0u;
+  return *reinterpret_cast<const uint32_t*>(row + (2 * N + 1) * 64 + 4 * v);
+}
+
+// occn(v, pos) inclusive, from the first-block half of pos's pair row.
+template <int N>
+__device__ __forceinline__ uint32_t ngram_occ_at(const NgramTables& g,
+                                                 uint32_t pos, uint32_t v) {
+  const uint8_t* row = g.packed + clamp_block(g.nb, pos) * g.row_bytes;
+  uint32_t m[8];
+  ngram_match_words<N, 8>(row, v, m);
+  return ngram_milestone<N>(row, v) + count_inclusive<8>(m, pos & 255u);
+}
+
+// One n-gram backward step of a valid range (start <= end) by word v.
+template <int N>
+__device__ __forceinline__ void ngram_step(const NgramTables& g,
+                                           uint32_t& start, uint32_t& end,
+                                           uint32_t v) {
+  constexpr uint32_t kWords = 1u << (2 * N);
+  const uint32_t cn = (g.biased || v >= kWords) ? 0u : g.cn[v];
+  const uint32_t pos_s = start - 1u;
+  // unsigned compare before any narrowing (ops/ngram.py:627-631)
+  const uint32_t delta = end - (pos_s & ~255u);
+  uint32_t occ_s, occ_e;
+  if (delta < 512u) {
+    const uint8_t* row = g.packed + clamp_block(g.nb, pos_s) * g.row_bytes;
+    uint32_t m[16];
+    ngram_match_words<N, 16>(row, v, m);
+    const uint32_t ms = ngram_milestone<N>(row, v);
+    occ_s = ms + count_inclusive<16>(m, pos_s & 255u);
+    occ_e = ms + count_inclusive<16>(m, delta);
+  } else {
+    occ_s = ngram_occ_at<N>(g, pos_s, v);
+    occ_e = ngram_occ_at<N>(g, end, v);
+  }
+  start = cn + occ_s;
+  end = cn + occ_e - 1u;
+}
+
+// Seed-table range of the last k letters of a query of length len: the
+// base-|A| radix, leftmost most significant, clamped to the table.
+__device__ __forceinline__ void seed_range(const uint32_t* seed_table,
+                                           int64_t seed_rows, int k,
+                                           uint32_t card, const uint8_t* row,
+                                           int64_t len, int64_t l_pad,
+                                           uint32_t& start, uint32_t& end) {
+  uint32_t idx = 0u;
+  for (int j = 0; j < k; ++j) {
+    int64_t c = len - k + j;
+    c = c < 0 ? 0 : (c >= l_pad ? l_pad - 1 : c);
+    idx = idx * card + row[c];
+  }
+  const int64_t r = static_cast<int64_t>(idx) < seed_rows
+                        ? static_cast<int64_t>(idx)
+                        : seed_rows - 1;
+  start = seed_table[2 * r];
+  end = seed_table[2 * r + 1];
+}
+
 template <int NP>
 __global__ void k1_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
                               const int32_t* __restrict__ letters, int64_t n,
@@ -224,18 +347,7 @@ __global__ void k2_ranges_kernel(AwfmTables t,
   uint32_t start, end;
   int64_t next;
   if (seeded[q]) {
-    // base-|A| radix of the last k letters, leftmost most significant
-    uint32_t idx = 0u;
-    for (int j = 0; j < k; ++j) {
-      int64_t c = len - k + j;
-      c = c < 0 ? 0 : (c >= l_pad ? l_pad - 1 : c);
-      idx = idx * card + row[c];
-    }
-    const int64_t r = static_cast<int64_t>(idx) < seed_rows
-                          ? static_cast<int64_t>(idx)
-                          : seed_rows - 1;
-    start = seed_table[2 * r];
-    end = seed_table[2 * r + 1];
+    seed_range(seed_table, seed_rows, k, card, row, len, l_pad, start, end);
     next = len - k - 1;
   } else {
     const int64_t c = len - 1 < 0 ? 0 : len - 1;
@@ -277,6 +389,38 @@ __global__ void k3_backtrace_resolve_kernel(
     p_out[i] = p;
     off_out[i] = off;
   }
+}
+
+// Every query has length kmer_len > k and letters < 4 (the n-gram fast
+// path's contract, checked by the host engine).
+template <int N, int NP>
+__global__ void k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
+                                       const uint32_t* __restrict__ seed_table,
+                                       int64_t seed_rows, int k,
+                                       const uint8_t* __restrict__ mat,
+                                       int64_t b, int64_t l_pad, int kmer_len,
+                                       int64_t* __restrict__ start_out,
+                                       int64_t* __restrict__ end_out) {
+  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (q >= b) return;
+  const uint8_t* row = mat + q * l_pad;
+  uint32_t start, end;
+  seed_range(seed_table, seed_rows, k, static_cast<uint32_t>(t.card), row,
+             kmer_len, l_pad, start, end);
+  const int m = kmer_len - k;
+  // step s prepends columns m - N(s+1) .. m - N s - 1, leftmost first
+  for (int s = 0; s < m / N && start <= end; ++s) {
+    const uint8_t* w = row + (m - N * (s + 1));
+    uint32_t v = 0u;
+#pragma unroll
+    for (int j = 0; j < N; ++j) v = v * 4u + w[j];
+    ngram_step<N>(g, start, end, v);
+  }
+  for (int p = m % N - 1; p >= 0 && start <= end; --p) {
+    backward_step<NP>(t, start, end, row[p]);
+  }
+  start_out[q] = start;
+  end_out[q] = end;
 }
 
 unsigned int grid_for(int64_t n) {
@@ -352,6 +496,28 @@ int awfm_k3_backtrace_resolve(int device, const AwfmTables* t,
   } else if (t->n_planes == 5) {
     k3_backtrace_resolve_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(
         *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
+                         const uint32_t* seed_table, int64_t seed_rows, int k,
+                         const uint8_t* mat, int64_t b, int64_t l_pad,
+                         int kmer_len, int64_t* start_out, int64_t* end_out,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (g->n == 2) {
+    k4_ngram_ranges_kernel<2, 3><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
+        end_out);
+  } else if (g->n == 3) {
+    k4_ngram_ranges_kernel<3, 3><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
+        end_out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
-Both functions take the JAX package's arrays as NumPy — ``np.asarray``
-of each ``DeviceIndex`` field, or the JAX ``FmIndex``'s NumPy fields —
+Each function takes the JAX package's arrays as NumPy — ``np.asarray``
+of each ``DeviceIndex`` or ``NgramIndex`` field, or the JAX ``FmIndex``'s
+NumPy fields —
 and return the port's objects holding the same bytes, so the two
 packages can run on literally the same index. Nothing here imports
 either JAX or the JAX package.
@@ -14,6 +15,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..ops.ngram import NgramIndex, _geometry_pair
 from .config import AlphabetType, IndexConfiguration
 from .index import DeviceIndex, FmIndex, u32_tensor
 
@@ -54,6 +56,25 @@ def device_index_from_numpy(
         ratio=int(ratio),
         kmer_length_in_seed_table=int(k),
         alphabet=AlphabetType(int(alphabet)),
+    )
+
+
+def ngram_index_from_numpy(pair, cn, *, n: int, biased: bool, device) -> NgramIndex:
+    """A torch ``NgramIndex`` from the JAX ``NgramIndex``'s fields:
+    ``np.asarray`` of its ``packed`` pair rows and its ``cn``, plus its
+    ``n`` and ``biased`` flags. cn becomes an int32 tensor holding the
+    same u32 bytes."""
+    _, _, _, _, row_bytes = _geometry_pair(n)
+    pair = np.array(pair, dtype=np.uint8, order="C")
+    if pair.ndim != 2 or pair.shape[1] != row_bytes:
+        raise ValueError(f"n={n} pair rows must be (nb, {row_bytes}), got {pair.shape}")
+    if np.asarray(cn).shape != (4**n,):
+        raise ValueError(f"n={n} cn must have {4**n} entries")
+    return NgramIndex(
+        packed=torch.from_numpy(pair).to(device),
+        cn=u32_tensor(cn, device),
+        n=int(n),
+        biased=bool(biased),
     )
 
 

@@ -65,7 +65,11 @@ K3 = Kernel(
     "k3_backtrace_resolve", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/search.py:940",
 )
-KERNELS = (K1, K2, K3)
+K4 = Kernel(
+    "k4_ngram_ranges", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "experiments/ab_r5_pallas_gather.py:119",
+)
+KERNELS = (K1, K2, K3, K4)
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +91,19 @@ class _Tables(ctypes.Structure):
         ("pair_row_bytes", ctypes.c_int32),
         ("card", ctypes.c_int32),
         ("n_planes", ctypes.c_int32),
+    ]
+
+
+class _NgramTables(ctypes.Structure):
+    """Mirror of ``struct NgramTables`` in csrc/awfm_kernels.cu."""
+
+    _fields_ = [
+        ("packed", ctypes.c_void_p),
+        ("cn", ctypes.c_void_p),
+        ("nb", ctypes.c_int64),
+        ("row_bytes", ctypes.c_int32),
+        ("n", ctypes.c_int32),
+        ("biased", ctypes.c_int32),
     ]
 
 
@@ -152,9 +169,13 @@ def build() -> float:
             i32, tables_p, vp, i64, ctypes.c_uint32, ctypes.c_uint32, vp,
             vp, vp, vp, vp,
         ]
+        lib.awfm_k4_ngram_ranges.argtypes = [
+            i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
+            i64, i64, i32, vp, vp, vp,
+        ]
         for fn in (
             lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k2_ranges,
-            lib.awfm_k3_backtrace_resolve,
+            lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
         ):
             fn.restype = ctypes.c_int
         lib.awfm_error_string.argtypes = [ctypes.c_int]
@@ -309,3 +330,44 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
     _check(rc, "awfm_k3_backtrace_resolve")
     K3.launches += 1
     return (p, off) if on_disk else hits
+
+
+def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
+    """K4: final (start, end) BWT ranges of a uniform-length clean batch
+    through the n-gram table ``ng``, (b,) int64 each, as u32."""
+    tables = _tables(dev)
+    device = dev.packed.device
+    _require(dev.seed_table, "seed_table", torch.int32, device)
+    _require(ng.packed, "ngram packed", torch.uint8, device)
+    _require(ng.cn, "ngram cn", torch.int32, device)
+    _require(mat, "mat", torch.uint8, device)
+    if ng.packed.data_ptr() % 16 or dev.packed_pair.data_ptr() % 16:
+        raise ValueError("row tables must be 16-byte aligned")
+    if ng.n not in (2, 3) or ng.cn.shape != (4**ng.n,):
+        raise ValueError(f"unsupported n-gram table (n={ng.n})")
+    if ng.packed.shape[0] != dev.packed.shape[0]:
+        raise ValueError("n-gram table and index have different block counts")
+    if dev.n_planes != 3:
+        raise ValueError("K4 takes nucleotide indexes only")
+    k = int(dev.kmer_length_in_seed_table)
+    if mat.dim() != 2 or not k < kmer_len <= mat.shape[1]:
+        raise ValueError(f"need (b, l) letters with k={k} < kmer_len={kmer_len} <= l")
+    b, l_pad = mat.shape
+    start = torch.empty(b, dtype=torch.int64, device=device)
+    end = torch.empty(b, dtype=torch.int64, device=device)
+    if b == 0:
+        return start, end
+    ngt = _NgramTables(
+        packed=ng.packed.data_ptr(), cn=ng.cn.data_ptr(),
+        nb=int(ng.packed.shape[0]), row_bytes=int(ng.packed.shape[1]),
+        n=int(ng.n), biased=int(bool(ng.biased)),
+    )
+    rc = _library().awfm_k4_ngram_ranges(
+        device.index, ctypes.byref(tables), ctypes.byref(ngt),
+        dev.seed_table.data_ptr(), int(dev.seed_table.shape[0]), k,
+        mat.data_ptr(), b, l_pad, int(kmer_len),
+        start.data_ptr(), end.data_ptr(), _stream(device),
+    )
+    _check(rc, "awfm_k4_ngram_ranges")
+    K4.launches += 1
+    return start, end

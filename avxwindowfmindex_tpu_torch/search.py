@@ -5,20 +5,23 @@ Counterpart of ``avxwindowfmindex_tpu/search.py`` (``SearchEngine``,
 package's search is a pipeline of XLA programs — seed lookup, lock-step
 backward steps with a pair-window flag and an exact re-run, range
 enumeration, a compacting LF backtrace, the sampled-SA resolve. Here it
-is two kernels around one plain torch step:
+is a few kernels around one plain torch step:
 
   ranges     K2 (``search_ranges``): one thread per query does the seed
              lookup (or the whole-letter initial range) and every
              backward step; a step whose range fits the 512-position
              pair window reads one pair row, a wider one two block rows,
              so no query is flagged or re-run;
+             K4 (``ngram_ranges``, ``NgramSearchEngine``): the same for
+             a uniform clean batch, n letters per step over the n-gram
+             pair rows (ops/ngram.py), then the m mod n tail letters;
   enumerate  plain torch ops (``enumerate_range_positions``): ranges to
              flat BWT positions, in range order;
   locate     K3 (``backtrace_resolve``): one thread per hit walks LF to
              a sampled position and resolves the suffix-array value.
 
-Each of ``search_ranges`` and ``backtrace_resolve`` launches its kernel
-for CUDA tensors and runs the plain version beside it only for CPU
+Each of ``search_ranges``, ``ngram_ranges`` and ``backtrace_resolve``
+launches its kernel for CUDA tensors and runs the plain version beside it only for CPU
 tensors. Results equal the JAX package's bit for bit.
 """
 
@@ -32,6 +35,7 @@ import torch
 from .models import alphabet as alpha
 from .models.config import AlphabetType
 from .models.index import MASK32, DeviceIndex, FmIndex, as_device, widen_u32
+from .ops import ngram as ngram_ops
 from .ops import rank as rank_ops
 
 
@@ -59,6 +63,21 @@ def _step_exact(dev, start, end, letters, active):
     return torch.where(bad, cs, ps), torch.where(bad, ce, pe)
 
 
+def _seed_lookup(dev, mat, lengths):
+    """(B, 2) int64 seed-table ranges of the last k letters of each row
+    of the int64 letter matrix: the base-|A| radix, leftmost most
+    significant, clamped to the table."""
+    device = mat.device
+    l_pad = mat.shape[1]
+    k = dev.kmer_length_in_seed_table
+    idxs = (lengths[:, None] - k + torch.arange(k, device=device)[None, :]).clamp(0, l_pad - 1)
+    powers = torch.tensor([dev.cardinality ** (k - 1 - j) for j in range(k)], device=device)
+    tidx = ((mat.gather(1, idxs) * powers).sum(dim=1) & MASK32).clamp(
+        max=dev.seed_table.shape[0] - 1
+    )
+    return widen_u32(dev.seed_table[tidx])
+
+
 def ranges_plain(dev, mat, lengths, seeded):
     """Plain torch version of K2 -> (start, end), (B,) int64 u32 values.
 
@@ -71,16 +90,10 @@ def ranges_plain(dev, mat, lengths, seeded):
     mat = mat.to(torch.int64)
     lengths = lengths.to(torch.int64)
     seeded = seeded.to(torch.bool)
-    device = mat.device
     b, l_pad = mat.shape
     k = dev.kmer_length_in_seed_table
     card = dev.cardinality
-    idxs = (lengths[:, None] - k + torch.arange(k, device=device)[None, :]).clamp(0, l_pad - 1)
-    powers = torch.tensor([card ** (k - 1 - j) for j in range(k)], device=device)
-    tidx = ((mat.gather(1, idxs) * powers).sum(dim=1) & MASK32).clamp(
-        max=dev.seed_table.shape[0] - 1
-    )
-    seed = widen_u32(dev.seed_table[tidx])
+    seed = _seed_lookup(dev, mat, lengths)
     ps = widen_u32(dev.prefix_sums)
     last = mat.gather(1, (lengths - 1).clamp(min=0)[:, None])[:, 0]
     init_s = ps[last.clamp(max=card + 1)]
@@ -107,6 +120,52 @@ def search_ranges(dev, mat, lengths, seeded):
             seeded.to(torch.uint8).contiguous(),
         )
     return ranges_plain(dev, mat, lengths, seeded)
+
+
+# ---------------------------------------------------------------------------
+# K4: final BWT ranges through the n-gram table
+# ---------------------------------------------------------------------------
+
+def _ngram_step_exact(ng, start, end, letters):
+    """One exact n-gram step the way K4 takes it: the one-row pair step
+    inside the pair window, the two-row step outside it."""
+    bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    ps, pe, bad = ngram_ops.ngram_backward_step_pair(ng, start, end, letters, bad)
+    cs, ce = ngram_ops.ngram_backward_step(ng, start, end, letters)
+    return torch.where(bad, cs, ps), torch.where(bad, ce, pe)
+
+
+def ngram_ranges_plain(dev, ng, mat, kmer_len: int):
+    """Plain torch version of K4 -> (start, end), (B,) int64 u32 values.
+
+    mat (B, L) letter indices of a uniform batch of length kmer_len > k
+    with letters < 4: the seed lookup of the last k letters, then
+    floor(m/n) n-gram steps (m = kmer_len - k; step t prepends columns
+    m - n(t+1) .. m - nt - 1, leftmost first), then the m mod n leftmost
+    letters as single steps, right to left.
+    """
+    mat = mat.to(torch.int64)
+    n = ng.n
+    m = kmer_len - dev.kmer_length_in_seed_table
+    lengths = torch.full(mat.shape[:1], kmer_len, dtype=torch.int64, device=mat.device)
+    seed = _seed_lookup(dev, mat, lengths)
+    start, end = seed[:, 0], seed[:, 1]
+    for t in range(m // n):
+        cols = [m - n * (t + 1) + j for j in range(n)]
+        start, end = _ngram_step_exact(ng, start, end, [mat[:, c] for c in cols])
+    for c in range(m % n - 1, -1, -1):
+        start, end = _step_exact(dev, start, end, mat[:, c], None)
+    return start, end
+
+
+def ngram_ranges(dev, ng, mat, kmer_len: int):
+    """Final (start, end) ranges of a uniform clean batch through the
+    n-gram table: K4 for CUDA tensors, the plain version for CPU ones."""
+    if rank_ops.device_kind(mat) == "cuda":
+        from .ops import kernels
+
+        return kernels.k4_ngram_ranges(dev, ng, mat.to(torch.uint8).contiguous(), kmer_len)
+    return ngram_ranges_plain(dev, ng, mat, kmer_len)
 
 
 # ---------------------------------------------------------------------------
@@ -348,3 +407,42 @@ class SearchEngine:
         hi = np.where(bit_off == 0, np.uint64(0), hi)  # 9th byte only when bit_off > 0
         vals = (lo | hi) & ((np.uint64(1) << np.uint64(width)) - np.uint64(1))
         return (vals + offsets) % np.uint64(bwt_length)
+
+
+class NgramSearchEngine(SearchEngine):
+    """SearchEngine whose uniform-length, ambiguity-free nucleotide
+    batches extend n letters per pair-row read over the n-gram table
+    (K4); every other batch falls back to the single-step engine (K2),
+    with identical results either way."""
+
+    def __init__(self, index: FmIndex, n: int = 2, *, device):
+        super().__init__(index, device=device)
+        if self.dev.alphabet == AlphabetType.AMINO:
+            raise NotImplementedError("n-gram stepping is nucleotide-only")
+        if not isinstance(index, FmIndex):
+            raise TypeError("NgramSearchEngine requires a host FmIndex")
+        self.ng = ngram_ops.build_ngram_device(index, n, device=self.device)
+
+    def _ranges_device(self, mat: np.ndarray, lengths: np.ndarray):
+        """K4 for a uniform batch of clean letters longer than the seed;
+        the single-step path otherwise. ``count``, ``locate`` and
+        ``find_ranges`` all come through here. The pad rows of an encoded
+        batch share the first query's length and are all 'A', so the
+        whole padded batch passes exactly when its real rows do."""
+        kmer_len = int(lengths[0])
+        if (
+            kmer_len > self.dev.kmer_length_in_seed_table
+            and (lengths == kmer_len).all()
+            and (mat[:, :kmer_len] < self.dev.cardinality).all()
+        ):
+            return ngram_ranges(
+                self.dev, self.ng, torch.from_numpy(mat).to(self.device), kmer_len
+            )
+        return super()._ranges_device(mat, lengths)
+
+
+class DigramSearchEngine(NgramSearchEngine):
+    """The n = 2 (double-step) engine."""
+
+    def __init__(self, index: FmIndex, *, device):
+        super().__init__(index, n=2, device=device)

@@ -7,15 +7,21 @@ Phases (any failure raises and the script exits nonzero):
   1. the card and the software; requires torch.cuda.is_available();
   2. build the CUDA kernels from avxwindowfmindex_tpu_torch/csrc/;
   3. each kernel against its plain torch version on the same CUDA
-     tensors (1M-base DNA and amino indexes, a repeat-rich corpus), with
-     kernel and plain times side by side;
+     tensors (1M-base DNA and amino indexes; K4 through n = 2 and 3
+     tables, biased and unbiased; a repeat-rich corpus whose ranges
+     outgrow the 512-position pair window), with kernel and plain times
+     side by side;
   4. the main path at full size: create_index on 64M random bases
-     (seed k = 14, SA ratio 8, native SA-IS) -> SearchEngine -> count
-     and locate of 1,048,576 sampled 25-mers and locate of 4,096
-     multi-hit 11-mers, checked against host scans; the kernels' launch
-     counts are reset just before and read just after; then a stage
-     breakdown of one locate, and each kernel against its plain version
-     at the shapes the main path gave it, timed in turns;
+     (seed k = 14, SA ratio 8, native SA-IS) -> DigramSearchEngine
+     (n = 2, Cn-biased table, as bench.py runs it) -> count and locate
+     of 1,048,576 sampled 25-mers, the same through the single-step
+     SearchEngine, the digram ranges held equal to the single-step ones
+     over every query, and locate of 4,096 multi-hit 11-mers (shorter
+     than k, so they fall back to the single-step kernel), all checked
+     against host scans; the kernels' launch counts are reset just
+     before and read just after; then a stage breakdown of one digram
+     locate, and each kernel against its plain version at the shapes the
+     main path gave it, timed in turns;
   5. a .awfmi round trip of the 1M-base index.
 
 The last three lines are the card's name and power limit as nvidia-smi
@@ -132,9 +138,11 @@ def phase_kernels(rec: Record, device: str):
     """Phase 3: each kernel against its plain torch version on the card."""
     import numpy as np
     import torch
-    from avxwindowfmindex_tpu_torch import AlphabetType, IndexConfiguration, SearchEngine, create_index
+    from avxwindowfmindex_tpu_torch import (
+        AlphabetType, IndexConfiguration, NgramSearchEngine, SearchEngine, create_index,
+    )
     from avxwindowfmindex_tpu_torch import search
-    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+    from avxwindowfmindex_tpu_torch.ops import kernels, ngram, rank, seed_table
 
     rng = np.random.default_rng(7)
     kept = None
@@ -212,6 +220,23 @@ def phase_kernels(rec: Record, device: str):
 
         if alphabet == AlphabetType.DNA:
             kept = (index, text)
+            # K4: the 64K seeded 25-mers through n = 2 and 3 tables, biased
+            # and not; each also equals the single-step K2 ranges
+            k4_mat = k2_in["seeded"][0]
+            k2_s, k2_e = kernels.k2_ranges(dev, *k2_in["seeded"])
+            k4_tables = {}
+            for n_gram in (2, 3):
+                for biased in (True, False):
+                    ng = ngram.build_ngram_device(index, n_gram, device=device, bias_cn=biased)
+                    what = f"{name} n={n_gram} {'biased' if biased else 'unbiased'}"
+                    ks, ke = kernels.k4_ngram_ranges(dev, ng, k4_mat, klen)
+                    ps, pe = search.ngram_ranges_plain(dev, ng, k4_mat, klen)
+                    rec.compare("k4_ngram_ranges", f"{what} start x{len(seeded_q)}", ks, ps)
+                    rec.compare("k4_ngram_ranges", f"{what} end x{len(seeded_q)}", ke, pe)
+                    if not (torch.equal(ks, k2_s) and torch.equal(ke, k2_e)):
+                        raise AssertionError(f"K4 ({what}) ranges differ from K2's")
+                    if biased:
+                        k4_tables[n_gram] = ng
             # kernel and plain times at these shapes, in turns
             occ_pos, occ_lett = pos_t[:b], lett_t[:b]
             timings = {
@@ -228,6 +253,11 @@ def phase_kernels(rec: Record, device: str):
                     lambda: search.backtrace_resolve_plain(dev, bpos),
                 ),
             }
+            for n_gram, ng in k4_tables.items():
+                timings[f"k4_ngram_ranges n={n_gram} biased"] = (
+                    lambda ng=ng: kernels.k4_ngram_ranges(dev, ng, k4_mat, klen),
+                    lambda ng=ng: search.ngram_ranges_plain(dev, ng, k4_mat, klen),
+                )
             for kname, (kfn, pfn) in timings.items():
                 time_in_turns(kname, kfn, pfn, 20, 3)
 
@@ -255,6 +285,29 @@ def phase_kernels(rec: Record, device: str):
     if list(counts) != want:
         raise AssertionError(f"overflow corpus counts {list(counts)} != {want}")
     log(f"  overflow corpus: widest range {widest}, {len(qs)} queries exact")
+
+    # K4 on the same corpus: one uniform batch of 40-mers, A x 40 and
+    # windows that straddle the end of the A run. A final range wider than
+    # 512 means every range before it was too, so the n-gram steps took
+    # the two-row branch.
+    qs = [b"A" * 40] + [text[s : s + 40] for s in rng.integers(3950, 4000, 511)]
+    mat = torch.from_numpy(eng.encode_kmers(qs)[0]).to(device)
+    want = [count_overlapping(text, q) for q in qs[:16]]
+    for n_gram in (2, 3):
+        for biased in (True, False):
+            ng = ngram.build_ngram_device(index, n_gram, device=device, bias_cn=biased)
+            what = f"overflow corpus n={n_gram} {'biased' if biased else 'unbiased'}"
+            ks, ke = kernels.k4_ngram_ranges(dev, ng, mat, 40)
+            ps, pe = search.ngram_ranges_plain(dev, ng, mat, 40)
+            rec.compare("k4_ngram_ranges", f"{what} start x{len(qs)}", ks, ps)
+            rec.compare("k4_ngram_ranges", f"{what} end x{len(qs)}", ke, pe)
+            widest = int((search.range_counts(ks, ke)).max())
+            if widest <= 512:
+                raise AssertionError(f"{what}: no range wider than 512 ({widest})")
+        counts = NgramSearchEngine(index, n_gram, device=device).count(qs[:16])
+        if list(counts) != want:
+            raise AssertionError(f"overflow corpus n={n_gram} counts {list(counts)} != {want}")
+    log(f"  overflow corpus K4: widest range {widest} (two-row branch taken), {len(qs)} 40-mers exact")
     return kept
 
 
@@ -262,7 +315,9 @@ def phase_main(bases: int, device: str):
     """Phase 4: the main path at full size."""
     import numpy as np
     import torch
-    from avxwindowfmindex_tpu_torch import AlphabetType, IndexConfiguration, SearchEngine, create_index
+    from avxwindowfmindex_tpu_torch import (
+        AlphabetType, DigramSearchEngine, IndexConfiguration, SearchEngine, create_index,
+    )
 
     rng = np.random.default_rng(1234)
     seq_arr = rng.choice(np.frombuffer(b"acgt", np.uint8), size=bases)
@@ -278,13 +333,25 @@ def phase_main(bases: int, device: str):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     log(f"[4] create_index: {bases} bases, seed k={MAIN_SEED_K}, ratio 8: {build_s:.3f}s")
-    engine = SearchEngine(index, device=device)
+    t0 = time.time()
+    engine = DigramSearchEngine(index, device=device)
+    torch.cuda.synchronize()
+    ngram_build_s = time.time() - t0
+    ng = engine.ng
+    log(
+        f"[4] n-gram table (n={ng.n}, Cn-biased): host build_ngram_host + packing + upload "
+        f"{ngram_build_s:.3f}s; {ng.packed.shape[0]} rows x {ng.packed.shape[1]} B = "
+        f"{(ng.packed.numel() + 4 * ng.cn.numel()) / 1e6:.1f} MB on the card"
+    )
+    single = SearchEngine(index, device=device)
 
     starts = rng.integers(0, bases - KMER_LEN, size=QUERIES)
     windows = np.lib.stride_tricks.sliding_window_view(seq_arr, KMER_LEN)
     kmer_ascii = windows[starts]
     buf = kmer_ascii.tobytes()
     kmers = [buf[i * KMER_LEN : (i + 1) * KMER_LEN] for i in range(QUERIES)]
+    sample = rng.integers(0, QUERIES, size=32)
+    want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
 
     def timed(fn, runs=3):
         fn(kmers[:4096])  # warm-up
@@ -296,30 +363,44 @@ def phase_main(bases: int, device: str):
             times.append(time.time() - t)
         return out, float(np.median(times)), times
 
-    counts, count_s, count_times = timed(engine.count)
-    hits, locate_s, locate_times = timed(engine.locate)
-    count_qps = QUERIES / count_s
-    locate_qps = QUERIES / locate_s
-    log(f"[4] count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of {count_times} -> {count_qps:.1f} q/s")
-    log(f"[4] locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of {locate_times} -> {locate_qps:.1f} q/s")
+    stats = {"build_s": build_s, "ngram_build_s": ngram_build_s}
+    for label, eng in (("digram", engine), ("single", single)):
+        counts, count_s, count_times = timed(eng.count)
+        hits, locate_s, locate_times = timed(eng.locate)
+        stats[f"{label}_count_qps"] = QUERIES / count_s
+        stats[f"{label}_locate_qps"] = QUERIES / locate_s
+        log(
+            f"[4] {label} count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of "
+            f"{count_times} -> {QUERIES / count_s:.1f} q/s"
+        )
+        log(
+            f"[4] {label} locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of "
+            f"{locate_times} -> {QUERIES / locate_s:.1f} q/s"
+        )
+        if not (counts >= 1).all():
+            raise AssertionError(f"{label}: {int((counts < 1).sum())} sampled 25-mers counted 0")
+        if not (counts[sample] == want).all():
+            raise AssertionError(f"{label} count spot check: {counts[sample]} != {want}")
+        log(f"[4] {label} count spot check: 32/32 exact vs host-scan oracle")
+        lens = np.array([len(h) for h in hits])
+        if not (lens == counts).all():
+            raise AssertionError(f"{label}: locate hit-list lengths differ from counts")
+        flat = np.concatenate(hits).astype(np.int64)
+        if (flat > bases - KMER_LEN).any():
+            raise AssertionError(f"{label}: locate returned a hit beyond the last window")
+        qid = np.repeat(np.arange(QUERIES), lens)
+        if not (windows[flat] == kmer_ascii[qid]).all():
+            raise AssertionError(f"{label}: locate returned a non-matching position")
+        log(f"[4] {label} locate: {len(flat)} hits, every one matches its window")
+        del hits, flat, qid
 
-    if not (counts >= 1).all():
-        raise AssertionError(f"{int((counts < 1).sum())} sampled 25-mers counted 0")
-    sample = rng.integers(0, QUERIES, size=32)
-    want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
-    if not (counts[sample] == want).all():
-        raise AssertionError(f"count spot check: {counts[sample]} != {want}")
-    log("[4] count spot check: 32/32 exact vs host-scan oracle")
-    lens = np.array([len(h) for h in hits])
-    if not (lens == counts).all():
-        raise AssertionError("locate hit-list lengths differ from counts")
-    flat = np.concatenate(hits).astype(np.int64)
-    if (flat > bases - KMER_LEN).any():
-        raise AssertionError("locate returned a hit beyond the last window")
-    qid = np.repeat(np.arange(QUERIES), lens)
-    if not (windows[flat] == kmer_ascii[qid]).all():
-        raise AssertionError("locate returned a non-matching position")
-    log(f"[4] locate: {len(flat)} hits, every one matches its window")
+    # bench.py's assertion, on the card: digram ranges == single-step ranges
+    digram_ranges = engine.find_ranges(kmers)
+    single_ranges = single.find_ranges(kmers)
+    if not np.array_equal(digram_ranges, single_ranges):
+        bad = int((digram_ranges != single_ranges).any(axis=1).sum())
+        raise AssertionError(f"digram ranges differ from single-step ranges on {bad} queries")
+    log(f"[4] digram ranges == single-step ranges on all {QUERIES} queries")
 
     mh_starts = rng.integers(0, bases - MULTIHIT_LEN, size=MULTIHIT_QUERIES)
     mh_windows = np.lib.stride_tricks.sliding_window_view(seq_arr, MULTIHIT_LEN)
@@ -345,41 +426,38 @@ def phase_main(bases: int, device: str):
         f"{len(mh_flat) / mh_s:.1f} hits/s; all sound, most frequent complete ({freq_want})"
     )
     log(f"[4] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    stats = {
-        "build_s": build_s, "count_qps": count_qps, "locate_qps": locate_qps,
-        "multihit_qps": MULTIHIT_QUERIES / mh_s,
-    }
+    stats["multihit_qps"] = MULTIHIT_QUERIES / mh_s
     return stats, engine, kmers
 
 
 def phase_main_shapes(rec: Record, engine, kmers) -> dict:
-    """After the main path: where one locate of the full batch spends its
-    time, stage by stage (host clock, synchronized), and each kernel
-    against its plain version at the shapes the main path gave it — the
-    k = 14 seed table and one of its K1 launches, the 1M-query range
-    batch, the ~1M-hit backtrace — compared exactly and timed in turns."""
+    """After the main path: where one digram locate of the full batch
+    spends its time, stage by stage (host clock, synchronized), and each
+    kernel against its plain version at the shapes the main path gave it
+    — the k = 14 seed table and one of its K1 launches, the 1M-query range
+    batch through K4 and through K2, the ~1M-hit backtrace — compared
+    exactly and timed in turns."""
     import numpy as np
     import torch
     from avxwindowfmindex_tpu_torch import search
     from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
 
+    dev, ng = engine.dev, engine.ng
     out = {}
     t = time.time()
     mat, lengths, n = engine.encode_kmers(kmers)
     out["encode_s"] = time.time() - t
     t = time.time()
-    seeded = engine._seed_eligibility(mat, lengths)
-    args = (
-        torch.from_numpy(mat).to(engine.device),
-        torch.from_numpy(lengths).to(engine.device),
-        torch.from_numpy(seeded.astype(np.uint8)).to(engine.device),
-    )
+    # the fast-path test of NgramSearchEngine._ranges_device, then the upload
+    if not ((lengths == KMER_LEN).all() and (mat[:, :KMER_LEN] < dev.cardinality).all()):
+        raise AssertionError("the main batch must take the n-gram fast path")
+    mat_d = torch.from_numpy(mat).to(engine.device)
     torch.cuda.synchronize()
-    out["eligibility_upload_s"] = time.time() - t
+    out["fast_path_check_upload_s"] = time.time() - t
     t = time.time()
-    start, end = search.search_ranges(engine.dev, *args)
+    start, end = search.ngram_ranges(dev, ng, mat_d, KMER_LEN)
     torch.cuda.synchronize()
-    out["k2_ranges_s"] = time.time() - t
+    out["k4_ngram_ranges_s"] = time.time() - t
     t = time.time()
     counts = search.range_counts(start[:n], end[:n])
     positions = search.enumerate_range_positions(start[:n], counts)
@@ -396,9 +474,28 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
     t = time.time()
     np.split(hits_h, np.cumsum(counts_h)[:-1])
     out["split_s"] = time.time() - t
-    log(f"[4] locate breakdown ({n} queries): {json.dumps(out)}")
+    log(f"[4] digram locate breakdown ({n} queries): {json.dumps(out)}")
 
-    dev = engine.dev
+    # the single-step engine's stages for the same batch, in place of the
+    # fast-path check and K4
+    single = {}
+    t = time.time()
+    seeded = engine._seed_eligibility(mat, lengths)
+    args = (
+        torch.from_numpy(mat).to(engine.device),
+        torch.from_numpy(lengths).to(engine.device),
+        torch.from_numpy(seeded.astype(np.uint8)).to(engine.device),
+    )
+    torch.cuda.synchronize()
+    single["eligibility_upload_s"] = time.time() - t
+    t = time.time()
+    k2_s, k2_e = search.search_ranges(dev, *args)
+    torch.cuda.synchronize()
+    single["k2_ranges_s"] = time.time() - t
+    log(f"[4] single-step stages for the same batch: {json.dumps(single)}")
+    out.update({f"single_{key}": v for key, v in single.items()})
+    if not (torch.equal(k2_s, start) and torch.equal(k2_e, end)):
+        raise AssertionError("K4 and K2 ranges differ at the main shape")
     k = dev.kmer_length_in_seed_table
     prefix_sums = engine.host_index.prefix_sums
     for label, occ_fn in (("kernel", None), ("plain", rank.occurrence_plain)):
@@ -428,8 +525,12 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         kernels.k1_occurrence(dev, occ_pos, occ_lett), rank.occurrence_plain(dev, occ_pos, occ_lett),
     )
     ps, pe = search.ranges_plain(dev, *args)
-    rec.compare("k2_ranges", f"main start x{n}", start, ps)
-    rec.compare("k2_ranges", f"main end x{n}", end, pe)
+    rec.compare("k2_ranges", f"main start x{n}", k2_s, ps)
+    rec.compare("k2_ranges", f"main end x{n}", k2_e, pe)
+    ps, pe = search.ngram_ranges_plain(dev, ng, mat_d, KMER_LEN)
+    rec.compare("k4_ngram_ranges", f"main n={ng.n} start x{n}", start, ps)
+    rec.compare("k4_ngram_ranges", f"main n={ng.n} end x{n}", end, pe)
+    del ps, pe
     rec.compare(
         "k3_backtrace_resolve", f"main hits x{positions.numel()}",
         hits, search.backtrace_resolve_plain(dev, positions),
@@ -442,6 +543,11 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
     rec.ms["k2_ranges"] = time_in_turns(
         f"k2_ranges main x{n}",
         lambda: kernels.k2_ranges(dev, *args), lambda: search.ranges_plain(dev, *args), 10, 1,
+    )
+    rec.ms["k4_ngram_ranges"] = time_in_turns(
+        f"k4_ngram_ranges main n={ng.n} x{n}",
+        lambda: kernels.k4_ngram_ranges(dev, ng, mat_d, KMER_LEN),
+        lambda: search.ngram_ranges_plain(dev, ng, mat_d, KMER_LEN), 10, 1,
     )
     rec.ms["k3_backtrace_resolve"] = time_in_turns(
         f"k3_backtrace_resolve main x{positions.numel()}",
