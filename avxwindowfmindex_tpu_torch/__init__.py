@@ -10,8 +10,10 @@ tests compare them array for array.
 The main path is four hand-written CUDA kernels (``csrc/``, built by
 ``ops/kernels.py``): K1 rank/LF (seed-table build), K2 ranges (count),
 K3 backtrace + resolve (locate), K4 n-gram ranges (the count and locate
-of ``DigramSearchEngine`` / ``NgramSearchEngine``). Every entry point
-that touches a tensor takes an explicit ``device``.
+of ``DigramSearchEngine`` / ``NgramSearchEngine``). K5 and K6 are the
+gather-rate probes that the bench's roofline calibrates with
+(``tools/bench.py``, ``tools/gather_probe.py``). Every entry point that
+touches a tensor takes an explicit ``device``.
 
 Quick start::
 

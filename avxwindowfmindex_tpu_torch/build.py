@@ -10,8 +10,8 @@ Counterpart of ``avxwindowfmindex_tpu/build.py``. Pipeline
   6. build the k-mer seed table on ``device`` (ops/seed_table.py);
   7. optionally serialize to a byte-compatible `.awfmi` file.
 
-The JAX package's ``device_sa_ratio`` (a denser device-only SA) is not
-ported; passing it raises NotImplementedError.
+``device_sa_ratio`` cuts a denser device-only SA from the full SA at
+step 5 (``FmIndex.device_sa``); the `.awfmi` file keeps the config ratio.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ def _build_from_sanitized(
     file_src: Optional[str],
     sa_backend: Optional[str],
     device,
+    device_sa_ratio: Optional[int] = None,
 ) -> FmIndex:
     seq_with_sentinel = np.concatenate(
         [sanitized, np.array([ord("$")], dtype=np.uint8)]
@@ -104,6 +105,22 @@ def _build_from_sanitized(
     guard = sa_mod.guard_bytes_from_full_sa(
         sa, bwt_length, config.suffix_array_compression_ratio
     )
+    # denser DEVICE-side SA samples: cut from the full SA, which exists
+    # only here
+    device_sa = None
+    if device_sa_ratio is not None:
+        if device_sa_ratio < 1:
+            raise ValueError("device_sa_ratio must be >= 1")
+        if device_sa_ratio >= config.suffix_array_compression_ratio:
+            # no denser than the serialized samples: nothing to gain
+            device_sa_ratio = None
+        elif bwt_length // device_sa_ratio >= 2**31:
+            raise ValueError(
+                "dense device SA gather index must fit int32: need "
+                "bwtLength / device_sa_ratio < 2^31"
+            )
+        else:
+            device_sa = sa[::device_sa_ratio].astype(np.uint64)
     del sa
 
     feature_flags = 0
@@ -122,6 +139,8 @@ def _build_from_sanitized(
         feature_flags=feature_flags,
         sequence=original_sequence if config.store_original_sequence else None,
         fasta_metadata=fasta_metadata,
+        device_sa=device_sa,
+        device_sa_ratio=device_sa_ratio if device_sa is not None else None,
     )
     attach_seed_table(index, device)
     if as_device(device).type == "cpu":
@@ -172,14 +191,6 @@ def _warn_mixed_case_amino(seq_arr: np.ndarray, alphabet: AlphabetType) -> None:
         )
 
 
-def _reject_device_sa_ratio(device_sa_ratio) -> None:
-    if device_sa_ratio is not None:
-        raise NotImplementedError(
-            "device_sa_ratio (a denser device-only suffix array) is not "
-            "ported yet; build without it"
-        )
-
-
 def create_index(
     sequence: Union[bytes, str, np.ndarray],
     config: Optional[IndexConfiguration] = None,
@@ -190,8 +201,11 @@ def create_index(
     device,
 ) -> FmIndex:
     """Build an index from a raw sequence (awFmCreateIndex,
-    AwFmCreate.c:31-137); the seed table is built on ``device``."""
-    _reject_device_sa_ratio(device_sa_ratio)
+    AwFmCreate.c:31-137); the seed table is built on ``device``.
+
+    ``device_sa_ratio``: optional device-side SA sampling denser than
+    the config ratio (the reference's in-memory-SA locate-speed trade);
+    the .awfmi file keeps the config ratio."""
     config = config or IndexConfiguration()
     if isinstance(sequence, str):
         sequence = sequence.encode()
@@ -209,7 +223,8 @@ def create_index(
             sequence if isinstance(sequence, bytes) else bytes(seq_arr)
         )
     return _build_from_sanitized(
-        sanitized, original, config, None, file_src, sa_backend, device
+        sanitized, original, config, None, file_src, sa_backend, device,
+        device_sa_ratio,
     )
 
 
@@ -226,7 +241,6 @@ def create_index_from_fasta(
     (awFmCreateIndexFromFasta, AwFmCreate.c:140-279)."""
     from .io import fasta as fasta_mod
 
-    _reject_device_sa_ratio(device_sa_ratio)
     config = config or IndexConfiguration()
     sequence, metadata = fasta_mod.read_fasta(fasta_src)
     if len(sequence) == 0:
@@ -236,5 +250,5 @@ def create_index_from_fasta(
     sanitized = alpha.sanitize(seq_arr, config.alphabet_type)
     return _build_from_sanitized(
         sanitized, sequence, config, metadata, index_file_src, sa_backend,
-        device,
+        device, device_sa_ratio,
     )

@@ -280,6 +280,14 @@ class FmIndex:
     sa_guard_bytes: bytes = b"\x00" * 8
     suffix_array_file_offset: Optional[int] = None
     sequence_file_offset: Optional[int] = None
+    # Denser DEVICE-side suffix-array samples, cut at device_sa_ratio <
+    # saCompressionRatio when requested at build
+    # (create_index(device_sa_ratio=...)). Not serialized: the .awfmi
+    # file keeps the config ratio and stays byte-identical.
+    device_sa: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+    device_sa_ratio: Optional[int] = None
     _device_cache: Optional[DeviceIndex] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -354,7 +362,9 @@ class FmIndex:
         Narrow layout only: positions are u32, so bwtLength must be
         below 2^32 (the JAX package's wide layout is not ported).
         Until the builder attaches the seed table, the view carries a
-        (1, 2) zeros placeholder.
+        (1, 2) zeros placeholder. A dense device SA cut at build
+        (``device_sa``) is preferred over the sampled SA: backtrace
+        chains shorten, answers stay the same.
         """
         device = as_device(device)
         cache = self._device_cache
@@ -374,26 +384,76 @@ class FmIndex:
             seed = cache.seed_table.to(device)
         else:
             seed = torch.zeros((1, 2), dtype=torch.int32, device=device)
+        dev_sa = self.sampled_sa
+        dev_ratio = int(self.config.suffix_array_compression_ratio)
+        if self.device_sa is not None:
+            dev_sa = self.device_sa
+            dev_ratio = int(self.device_sa_ratio)
         dev = DeviceIndex(
             packed=torch.from_numpy(packed).to(device),
             packed_pair=torch.from_numpy(pair).to(device),
             prefix_sums=u32_tensor(self.prefix_sums, device),
             seed_table=seed,
-            sampled_sa=(
-                None if self.sampled_sa is None
-                else u32_tensor(self.sampled_sa, device)
-            ),
+            sampled_sa=None if dev_sa is None else u32_tensor(dev_sa, device),
             code_masks=torch.from_numpy(device_code_masks(self.alphabet)).to(device),
             vec_to_index=torch.from_numpy(
                 alpha.vector_to_index_lut(self.alphabet).astype(np.int32)
             ).to(device),
             bwt_length=int(self.bwt_length),
-            ratio=int(self.config.suffix_array_compression_ratio),
+            ratio=dev_ratio,
             kmer_length_in_seed_table=k,
             alphabet=self.alphabet,
         )
         self._device_cache = dev
         return dev
+
+    def densify_device_sa(self, ratio: int, chunk: int = 1 << 22, *, device) -> DeviceIndex:
+        """Rebuild a DENSER device-side suffix array from the loaded one.
+
+        ``create_index(device_sa_ratio=r)`` can cut a denser SA only at
+        build time, when the full SA exists. The device can recover the
+        density by itself: every BWT position's SA value is reachable from
+        the stored samples by the LF backtrace, so this resolves the
+        targets ``i * ratio`` (clamped to bwtLength - 1), chunk by chunk,
+        through ``search.backtrace_resolve`` (K3 on the card) and installs
+        the result as the device SA. Values equal a build-time dense SA.
+
+        The new samples live on the device only; the ``.awfmi`` file and
+        the host model keep the config ratio. Returns the new DeviceIndex,
+        also installed as this index's device view, so later
+        ``to_device``/engine constructions see it. Needs the sampled SA
+        in memory. Positions >= 2^32 wait for the ROADMAP item
+        "positions >= 2^32".
+        """
+        from ..search import backtrace_resolve
+
+        if ratio < 1:
+            raise ValueError("ratio must be >= 1")
+        if self.bwt_length >= 2**32:
+            raise NotImplementedError(
+                "densify_device_sa for bwtLength >= 2^32 waits for the "
+                "ROADMAP item 'positions >= 2^32'"
+            )
+        dev = self.to_device(device)
+        if dev.sampled_sa is None:
+            raise ValueError(
+                "densify_device_sa needs the sampled suffix array on the "
+                "device (load with keep_suffix_array_in_memory=True)"
+            )
+        if ratio == dev.ratio:
+            return dev
+        new_len = (self.bwt_length + ratio - 1) // ratio
+        out = torch.empty(new_len, dtype=torch.int32, device=dev.device)
+        for lo in range(0, new_len, chunk):
+            hi = min(lo + chunk, new_len)
+            targets = (torch.arange(lo, hi, dtype=torch.int64, device=dev.device) * ratio).clamp(
+                max=self.bwt_length - 1
+            )
+            out[lo:hi] = narrow_u32(backtrace_resolve(dev, targets))
+        dense = dataclasses.replace(dev, sampled_sa=out, ratio=int(ratio))
+        self.device_sa_ratio = int(ratio)
+        self._device_cache = dense
+        return dense
 
     def get_local_sequence_position(self, global_position):
         """awFmGetLocalSequencePositionFromIndexPosition (AwFmSearch.c:284-301)."""

@@ -11,8 +11,8 @@ into ``avxwindowfmindex_tpu_torch/build/kernels/<hash of the sources>/``
 entry point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; the launchers below raise when it is nonzero.
 Nothing here falls back to the plain torch versions: those are chosen
-by the dispatch wrappers (``ops/rank.py``, ``search.py``) only for
-tensors that lie on the CPU.
+by the dispatch wrappers (``ops/rank.py``, ``search.py``,
+``ops/probes.py``) only for tensors that lie on the CPU.
 
 Each kernel keeps a plain integer count of its launches
 (``K1.launches`` ...), incremented right after a launch and nowhere
@@ -69,7 +69,15 @@ K4 = Kernel(
     "k4_ngram_ranges", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "experiments/ab_r5_pallas_gather.py:119",
 )
-KERNELS = (K1, K2, K3, K4)
+K5 = Kernel(
+    "k5_gather_reduce", "avxwindowfmindex_tpu_torch/csrc/awfm_probes.cu",
+    "experiments/pallas_gather_bench.py:89",
+)
+K6 = Kernel(
+    "k6_slab_gather", "avxwindowfmindex_tpu_torch/csrc/awfm_probes.cu",
+    "experiments/ab_r5_pallas_gather.py:85",
+)
+KERNELS = (K1, K2, K3, K4, K5, K6)
 
 
 def reset_launch_counts() -> None:
@@ -173,9 +181,15 @@ def build() -> float:
             i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
             i64, i64, i32, vp, vp, vp,
         ]
+        lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
+        lib.awfm_k5_gather_walk.argtypes = [i32, vp, i64, i32, vp, i64, i32, vp, vp]
+        lib.awfm_k6_slab_gather.argtypes = [i32, vp, i64, vp, i64, vp, vp]
+        lib.awfm_k6_slab_chain.argtypes = [i32, vp, i64, vp, i64, i32, vp, vp]
         for fn in (
             lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k2_ranges,
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
+            lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
+            lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
         ):
             fn.restype = ctypes.c_int
         lib.awfm_error_string.argtypes = [ctypes.c_int]
@@ -371,3 +385,105 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     _check(rc, "awfm_k4_ngram_ranges")
     K4.launches += 1
     return start, end
+
+
+def _probe_table(table: torch.Tensor, name: str, dtype, widths) -> torch.device:
+    """Checks a K5/K6 table: a contiguous 2-D CUDA tensor of ``dtype``,
+    16-byte aligned, with a row width the kernel is built for and fewer
+    than 2^31 rows; returns its device."""
+    _require(table, name, dtype, table.device)
+    if table.dim() != 2 or table.shape[1] * table.element_size() not in widths:
+        raise ValueError(f"{name} must be 2-D with rows of {widths} bytes, got {tuple(table.shape)}")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    if not 0 < table.shape[0] < 2**31:
+        raise ValueError(f"{name} must have 1 .. 2^31 - 1 rows")
+    return table.device
+
+
+def _probe_idx(idx: torch.Tensor, device) -> int:
+    _require(idx, "idx", torch.int32, device)
+    if idx.dim() != 1:
+        raise ValueError("idx must be 1-D")
+    return int(idx.shape[0])
+
+
+def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
+                     chunk: int, ring: int) -> torch.Tensor:
+    """K5: (ceil(n / chunk),) int32 partial sums of the first ``sum_bytes``
+    bytes of each index's row, ``ring`` row loads in flight per warp."""
+    from .probes import K5_RING_DEPTHS, K5_ROW_BYTES
+
+    device = _probe_table(table, "table", torch.uint8, K5_ROW_BYTES)
+    n = _probe_idx(idx, device)
+    row_bytes = int(table.shape[1])
+    if sum_bytes % 16 or not 16 <= sum_bytes <= row_bytes:
+        raise ValueError(f"sum_bytes must be a multiple of 16 in [16, {row_bytes}]")
+    if chunk < 1 or ring not in K5_RING_DEPTHS:
+        raise ValueError(f"need chunk >= 1 and ring in {K5_RING_DEPTHS}")
+    out = torch.empty((n + chunk - 1) // chunk, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    rc = _library().awfm_k5_gather_reduce(
+        device.index, table.data_ptr(), int(table.shape[0]), row_bytes,
+        idx.data_ptr(), n, int(sum_bytes), int(chunk), int(ring),
+        out.data_ptr(), _stream(device),
+    )
+    _check(rc, "awfm_k5_gather_reduce")
+    K5.launches += 1
+    return out
+
+
+def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tensor:
+    """K5's walk entry: (n,) int32 indices after ``seg`` dependent steps."""
+    from .probes import K5_ROW_BYTES
+
+    device = _probe_table(table, "table", torch.uint8, K5_ROW_BYTES)
+    n = _probe_idx(idx, device)
+    if seg < 0:
+        raise ValueError("seg must be >= 0")
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    rc = _library().awfm_k5_gather_walk(
+        device.index, table.data_ptr(), int(table.shape[0]), int(table.shape[1]),
+        idx.data_ptr(), n, int(seg), out.data_ptr(), _stream(device),
+    )
+    _check(rc, "awfm_k5_gather_walk")
+    K5.launches += 1
+    return out
+
+
+def k6_slab_gather(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K6: (n, 128) int32 rows ``slab[idx]`` of a (S, 128) u32 slab."""
+    device = _probe_table(slab, "slab", torch.int32, (512,))
+    n = _probe_idx(idx, device)
+    out = torch.empty((n, slab.shape[1]), dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    rc = _library().awfm_k6_slab_gather(
+        device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
+        out.data_ptr(), _stream(device),
+    )
+    _check(rc, "awfm_k6_slab_gather")
+    K6.launches += 1
+    return out
+
+
+def k6_slab_chain(slab: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tensor:
+    """K6's chained entry: (n,) int32 indices after ``seg`` steps of
+    ``idx <- (row[0] + row[37]) mod S``."""
+    device = _probe_table(slab, "slab", torch.int32, (512,))
+    n = _probe_idx(idx, device)
+    if seg < 0:
+        raise ValueError("seg must be >= 0")
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    rc = _library().awfm_k6_slab_chain(
+        device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
+        int(seg), out.data_ptr(), _stream(device),
+    )
+    _check(rc, "awfm_k6_slab_chain")
+    K6.launches += 1
+    return out

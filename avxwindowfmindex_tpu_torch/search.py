@@ -16,9 +16,12 @@ is a few kernels around one plain torch step:
              a uniform clean batch, n letters per step over the n-gram
              pair rows (ops/ngram.py), then the m mod n tail letters;
   enumerate  plain torch ops (``enumerate_range_positions``): ranges to
-             flat BWT positions, in range order;
+             flat BWT positions, in range order; ``enumerate_flat``, the
+             same into a fixed capacity with query ids and a mask;
   locate     K3 (``backtrace_resolve``): one thread per hit walks LF to
              a sampled position and resolves the suffix-array value.
+             ``locate_flat_device`` and ``locate_first_hit`` run it on
+             device-resident ranges with no host readback.
 
 Each of ``search_ranges``, ``ngram_ranges`` and ``backtrace_resolve``
 launches its kernel for CUDA tensors and runs the plain version beside it only for CPU
@@ -37,6 +40,7 @@ from .models.config import AlphabetType
 from .models.index import MASK32, DeviceIndex, FmIndex, as_device, widen_u32
 from .ops import ngram as ngram_ops
 from .ops import rank as rank_ops
+from .utils import metrics
 
 
 def _round_up_pow2(n: int, floor: int = 16) -> int:
@@ -216,9 +220,10 @@ def range_counts(start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     return torch.where(start <= end, end - start + 1, 0)
 
 
-def total_hits(start: torch.Tensor, end: torch.Tensor) -> int:
-    """Exact total hit count of a range batch (``_total_hits``: int64
-    sums cannot wrap the way the JAX package's u32 lanes had to guard)."""
+def total_hits_host(start: torch.Tensor, end: torch.Tensor) -> int:
+    """Exact total hit count of a range batch as a Python int
+    (``_total_hits`` / ``total_hits_host``: int64 sums cannot wrap the
+    way the JAX package's u32 lanes had to guard)."""
     return int(range_counts(start, end).sum())
 
 
@@ -232,6 +237,66 @@ def enumerate_range_positions(start: torch.Tensor, counts: torch.Tensor) -> torc
     )
     seg_off = torch.cumsum(counts, 0) - counts
     return start[qid] + torch.arange(total, device=device) - seg_off[qid]
+
+
+def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
+    """Flatten BWT ranges into per-hit positions of a fixed ``capacity``,
+    on the device (``enumerate_range_positions(start, end, capacity=)``
+    of the JAX package).
+
+    Returns (positions int64 u32 values, query ids int32, valid mask),
+    each (capacity,). Hits are grouped by query in range order; slots
+    past the total hold 0 with the mask False. A range's count is
+    clamped at ``capacity``, and hits past ``capacity`` are dropped. No
+    value is read back to the host.
+    """
+    if not 0 <= capacity < 2**31:
+        raise ValueError("capacity must be in [0, 2^31)")
+    device = start.device
+    if start.shape[0] == 0:
+        z = torch.zeros(capacity, dtype=torch.int64, device=device)
+        return z, z.to(torch.int32), torch.zeros(capacity, dtype=torch.bool, device=device)
+    counts = range_counts(start, end).clamp(max=capacity)
+    seg_off = torch.cumsum(counts, 0) - counts
+    # one mark per query at its segment start (zero-count queries stack
+    # on the next start, so the cumsum skips their ids); marks at or past
+    # capacity fall into the dropped last slot
+    marks = torch.zeros(capacity + 1, dtype=torch.int64, device=device)
+    marks.index_add_(0, seg_off.clamp(max=capacity), torch.ones_like(seg_off))
+    qid = (torch.cumsum(marks[:capacity], 0) - 1).clamp(min=0)
+    iota = torch.arange(capacity, dtype=torch.int64, device=device)
+    mask = iota < counts.sum()
+    pos = (start[qid] + iota - seg_off[qid]) & MASK32
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return (
+        torch.where(mask, pos, zero),
+        torch.where(mask, qid, zero).to(torch.int32),
+        mask,
+    )
+
+
+def locate_flat_device(dev, start: torch.Tensor, end: torch.Tensor, *, capacity: int):
+    """Full-hit-list locate staying on the device: enumerate, then the
+    backtrace and resolve of every slot (K3 on the card). Returns
+    (hits int64, query ids int32, valid mask), each (capacity,), as the
+    JAX package's ``locate_flat_device``: masked slots resolve position 0
+    and must be ignored."""
+    if dev.sampled_sa is None:
+        raise ValueError("locate_flat_device needs the sampled suffix array on the device")
+    pos, qid, mask = enumerate_flat(start, end, capacity=capacity)
+    return backtrace_resolve(dev, pos), qid, mask
+
+
+def locate_first_hit(dev, start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """The database position of each range's first BWT row (0 for an
+    empty range), on the device: ``bench.py``'s first-hit locate, the
+    per-hit backtrace cost in isolation."""
+    if dev.sampled_sa is None:
+        raise ValueError("locate_first_hit needs the sampled suffix array on the device")
+    valid = start <= end
+    zero = torch.zeros((), dtype=torch.int64, device=start.device)
+    hits = backtrace_resolve(dev, torch.where(valid, start, zero))
+    return torch.where(valid, hits, zero)
 
 
 # ---------------------------------------------------------------------------
@@ -340,19 +405,24 @@ class SearchEngine:
 
     def count(self, kmers: Sequence[Union[str, bytes]]) -> np.ndarray:
         """Occurrences of each kmer (awFmParallelSearchCount parity)."""
-        mat, lengths, n = self.encode_kmers(kmers)
-        start, end = self._ranges_device(mat, lengths)
-        return range_counts(start[:n], end[:n]).cpu().numpy().astype(np.uint64)
+        metrics.counter("search.count.queries").add(len(kmers))
+        with metrics.timer("search.count.seconds"):
+            mat, lengths, n = self.encode_kmers(kmers)
+            start, end = self._ranges_device(mat, lengths)
+            return range_counts(start[:n], end[:n]).cpu().numpy().astype(np.uint64)
 
     def locate(self, kmers: Sequence[Union[str, bytes]]) -> List[np.ndarray]:
         """Database hit positions per kmer, in range order
         (awFmParallelSearchLocate parity)."""
-        mat, lengths, n = self.encode_kmers(kmers)
-        start, end = self._ranges_device(mat, lengths)
-        counts = range_counts(start[:n], end[:n])
-        hits = self._resolve(enumerate_range_positions(start[:n], counts))
-        splits = np.cumsum(counts.cpu().numpy())[:-1]
-        return np.split(hits, splits)
+        metrics.counter("search.locate.queries").add(len(kmers))
+        with metrics.timer("search.locate.seconds"):
+            mat, lengths, n = self.encode_kmers(kmers)
+            start, end = self._ranges_device(mat, lengths)
+            counts = range_counts(start[:n], end[:n])
+            hits = self._resolve(enumerate_range_positions(start[:n], counts))
+            counts = counts.cpu().numpy()
+        metrics.counter("search.locate.hits").add(int(counts.sum()))
+        return np.split(hits, np.cumsum(counts)[:-1])
 
     def resolve_positions(self, bwt_positions: np.ndarray) -> np.ndarray:
         """Backtrace + resolve a flat array of BWT positions to hits."""

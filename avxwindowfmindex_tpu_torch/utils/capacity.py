@@ -1,0 +1,250 @@
+"""Device-memory capacity planner: size an index configuration to the card.
+
+Counterpart of ``avxwindowfmindex_tpu/utils/capacity.py``, narrow and
+replicated only. The reference documents this sizing guidance for its
+users (seed-table memory against k, the suffix-array compression-ratio
+trade, the in-memory SA); on a card the budget is its device memory and
+the knobs are richer (digram table, dense device-side SA), so the
+guidance becomes a planner:
+
+    plan = plan_capacity(num_bases, AlphabetType.DNA, device="cuda:0")
+    cfg  = plan.index_configuration()          # -> IndexConfiguration
+    plan.seed_k, plan.device_sa_ratio, plan.ngram
+
+Sizing model (byte counts exact: each equals the ``nbytes`` of the
+port's tensor, and the JAX package's figure):
+
+    packed       num_blocks x device_row_bytes        (backtrace rows)
+    packed_pair  num_blocks x device_pair_row_bytes   (one-row steps)
+    ngram        num_blocks x pair-row bytes of the n-gram table
+                 (nucleotide only — ops/ngram.py geometry)
+    seed_table   |A|^k x 8 B
+    sampled_sa   ceil(bwt/ratio) x 4 B, at the DENSER of (config
+                 ratio, device_sa_ratio) when the dense SA is on
+    workspace    batch x (kmer_len + 96) B of live query/range buffers
+                 + the measured peak of the port's bench beyond those
+
+Degradation ladder when the rich configuration does not fit (the JAX
+package's order): lower seed_k toward MIN_SEED_K, then drop the dense
+device SA, then the digram table, then the pair rows.
+
+Positions >= 2^32 (the wide plans) and the range-sharded plan wait for
+their ROADMAP items ("positions >= 2^32", "the multi-GPU engines"); the
+planner raises NotImplementedError for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+from ..models import alphabet as alpha
+from ..models.config import AlphabetType
+
+#: Largest seed k the planner will pick: the bench protocol's DNA k = 14
+#: (a 2.1 GB table); amino 6 caps the table at 20^6 * 8 = 512 MB.
+MAX_SEED_K = {AlphabetType.DNA: 14, AlphabetType.RNA: 14, AlphabetType.AMINO: 6}
+MIN_SEED_K = {AlphabetType.DNA: 10, AlphabetType.RNA: 10, AlphabetType.AMINO: 2}
+
+#: Device memory the port's bench held beyond its index tables during its
+#: stages: ``torch.cuda.max_memory_allocated`` minus the index bytes, at
+#: 64M bases and 4,194,304 queries (PERF.md; NVIDIA H100 80GB HBM3,
+#: 700 W). It already holds the query buffers that the batch term counts
+#: again, so the estimate errs large.
+_WORKSPACE_SLACK_BYTES = 731_770_478
+
+_WIDE_ITEM = "ROADMAP item 'positions >= 2^32'"
+_SHARDED_ITEM = "ROADMAP item 'the multi-GPU engines'"
+
+
+def detect_hbm_bytes(device) -> Tuple[int, str]:
+    """Device memory of ``device``, (bytes, source-note).
+
+    Reads ``torch.cuda.get_device_properties(device).total_memory``. A
+    device without its own memory (the CPU) raises: pass ``hbm_bytes``
+    to the planner instead, so that no figure is ever assumed.
+    """
+    import torch
+
+    from ..models.index import as_device
+
+    device = as_device(device)
+    if device.type != "cuda":
+        raise ValueError(
+            f"cannot detect device memory on {device}; pass hbm_bytes"
+        )
+    props = torch.cuda.get_device_properties(device)
+    return int(props.total_memory), f"detected {props.name}"
+
+
+def component_bytes(
+    num_bases: int,
+    alphabet: AlphabetType = AlphabetType.DNA,
+    *,
+    seed_k: int,
+    sa_ratio: int = 8,
+    device_sa_ratio: Optional[int] = None,
+    ngram: bool = False,
+    ngram_n: int = 2,
+    pair_rows: bool = True,
+) -> Dict[str, int]:
+    """Exact per-component device bytes for one replicated index."""
+    from ..models import index as index_mod
+
+    bwt_length = num_bases + 1
+    if bwt_length >= 2**32:
+        raise NotImplementedError(f"bwtLength >= 2^32 waits for {_WIDE_ITEM}")
+    nb = index_mod.num_blocks_from_bwt_length(bwt_length)
+    comp: Dict[str, int] = {"packed": nb * index_mod.device_row_bytes(alphabet)}
+    if pair_rows:
+        comp["packed_pair"] = nb * index_mod.device_pair_row_bytes(alphabet)
+    if ngram:
+        if alphabet == AlphabetType.AMINO:
+            raise ValueError("the n-gram engine is nucleotide-only")
+        from ..ops import ngram as ngram_ops
+
+        comp["ngram"] = nb * ngram_ops._geometry_pair(ngram_n)[4]
+    comp["seed_table"] = (alpha.cardinality(alphabet) ** seed_k) * 8
+    ratio = device_sa_ratio if device_sa_ratio else sa_ratio
+    comp["sampled_sa"] = -(-bwt_length // ratio) * 4
+    return comp
+
+
+def workspace_bytes(batch: int, kmer_len: int) -> int:
+    """Estimated live non-index device bytes during a search batch."""
+    return batch * (kmer_len + 96) + _WORKSPACE_SLACK_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPlan:
+    """A sized configuration; see the module docstring for the model."""
+
+    num_bases: int
+    alphabet: AlphabetType
+    hbm_bytes: int
+    seed_k: int
+    sa_ratio: int
+    device_sa_ratio: Optional[int]  # None = keep the config ratio
+    ngram: bool
+    ngram_n: int
+    pair_rows: bool
+    components: Dict[str, int]
+    index_bytes: int
+    workspace: int
+    budget: int  # fit_fraction * hbm - workspace
+    fit_fraction: float
+    notes: Tuple[str, ...]
+
+    def index_configuration(self):
+        from ..models.config import IndexConfiguration
+
+        return IndexConfiguration(
+            suffix_array_compression_ratio=self.sa_ratio,
+            kmer_length_in_seed_table=self.seed_k,
+            alphabet_type=self.alphabet,
+        )
+
+    def summary(self) -> str:
+        gb = 1e9
+        parts = ", ".join(
+            f"{k}={v / gb:.2f}GB" for k, v in sorted(self.components.items())
+        )
+        return (
+            f"replicated engine (1 device, narrow): seed_k={self.seed_k}, "
+            f"device_sa_ratio={self.device_sa_ratio}, "
+            f"ngram={'on' if self.ngram else 'off'}, "
+            f"pair_rows={'on' if self.pair_rows else 'off'}; "
+            f"{self.index_bytes / gb:.2f}GB of "
+            f"{self.budget / gb:.2f}GB budget ({parts})"
+        )
+
+
+def _candidates(alphabet, max_k, min_k, dense_ratio):
+    """Configs richest-first along the degradation ladder."""
+    ngram_ok = alphabet != AlphabetType.AMINO
+    for ngram in ([True, False] if ngram_ok else [False]):
+        for dense in ([dense_ratio, None] if dense_ratio else [None]):
+            for k in range(max_k, min_k - 1, -1):
+                yield dict(seed_k=k, device_sa_ratio=dense, ngram=ngram,
+                           pair_rows=True)
+    for k in range(max_k, min_k - 1, -1):
+        yield dict(seed_k=k, device_sa_ratio=None, ngram=False,
+                   pair_rows=False)
+
+
+def plan_capacity(
+    num_bases: int,
+    alphabet: AlphabetType = AlphabetType.DNA,
+    *,
+    device=None,
+    hbm_bytes: Optional[int] = None,
+    n_devices: int = 1,
+    sa_ratio: int = 8,
+    device_sa_ratio: Optional[int] = 4,
+    batch: int = 1 << 22,
+    kmer_len: int = 25,
+    fit_fraction: float = 0.90,
+    max_seed_k: Optional[int] = None,
+    min_seed_k: Optional[int] = None,
+    ngram_n: int = 2,
+) -> CapacityPlan:
+    """Pick seed_k / dense SA / digram for the corpus on one card.
+
+    ``hbm_bytes`` defaults to the memory of ``device``
+    (:func:`detect_hbm_bytes`). ``device_sa_ratio=None`` disables the
+    dense-SA option; ``fit_fraction`` is the share of device memory the
+    resident index may use after the workspace estimate is reserved.
+    """
+    if n_devices != 1:
+        raise NotImplementedError(
+            f"plans over {n_devices} devices (range-sharded) wait for {_SHARDED_ITEM}"
+        )
+    if num_bases + 1 >= 2**32:
+        raise NotImplementedError(f"bwtLength >= 2^32 waits for {_WIDE_ITEM}")
+    notes = []
+    if hbm_bytes is None:
+        if device is None:
+            raise ValueError("pass device or hbm_bytes")
+        hbm_bytes, src = detect_hbm_bytes(device)
+        notes.append(f"device memory: {src}")
+    bwt_length = num_bases + 1
+    max_k = max_seed_k if max_seed_k is not None else MAX_SEED_K[alphabet]
+    max_k = max(1, min(max_k, kmer_len))
+    min_k = min_seed_k if min_seed_k is not None else MIN_SEED_K[alphabet]
+    min_k = min(min_k, max_k)
+    if device_sa_ratio and bwt_length // device_sa_ratio >= 2**31:
+        notes.append(
+            f"dense device SA at ratio {device_sa_ratio} exceeds the "
+            "int32 sample-gather limit; disabled"
+        )
+        device_sa_ratio = None
+    ws = workspace_bytes(batch, kmer_len)
+    budget = int(fit_fraction * hbm_bytes) - ws
+    if budget <= 0:
+        raise ValueError(
+            f"workspace estimate {ws} exceeds {fit_fraction:.0%} of device "
+            f"memory ({hbm_bytes}); shrink the batch"
+        )
+    for cand in _candidates(alphabet, max_k, min_k, device_sa_ratio):
+        comp = component_bytes(
+            num_bases, alphabet, sa_ratio=sa_ratio, ngram_n=ngram_n, **cand
+        )
+        total = sum(comp.values())
+        if total <= budget:
+            return CapacityPlan(
+                num_bases=num_bases, alphabet=alphabet, hbm_bytes=hbm_bytes,
+                sa_ratio=sa_ratio, components=comp, index_bytes=total,
+                workspace=ws, budget=budget, fit_fraction=fit_fraction,
+                notes=tuple(notes), ngram_n=ngram_n, **cand,
+            )
+    comp = component_bytes(
+        num_bases, alphabet, seed_k=min_k, sa_ratio=sa_ratio, pair_rows=False
+    )
+    total = sum(comp.values())
+    need = math.ceil((total - comp["seed_table"]) / max(budget - comp["seed_table"], 1))
+    raise ValueError(
+        f"no configuration fits: minimal index needs {total / 1e9:.2f}GB "
+        f"against a {budget / 1e9:.2f}GB budget; needs a >= {need}-device "
+        f"mesh ({_SHARDED_ITEM}) or a smaller corpus/batch"
+    )

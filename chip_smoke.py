@@ -22,14 +22,27 @@ Phases (any failure raises and the script exits nonzero):
      before and read just after; then a stage breakdown of one digram
      locate, and each kernel against its plain version at the shapes the
      main path gave it, timed in turns;
-  5. a .awfmi round trip of the 1M-base index.
+  3b. the gather-rate probes against their plain versions: K5 at each
+     experiment's own shapes (P2/P4: 2^19 indices over 1 GiB tables of
+     128 B and 512 B rows, ring depths 8 and 16; P3: (2^20, 8, 128) 1 KB
+     rows, the first 128 B summed; an all-0xFF table for the int32 wrap)
+     and K6 at P5's (S = 2048 and 8192, single and chained), timed in
+     turns;
+  5. a .awfmi round trip of the 1M-base index;
+  6. the bench protocol (avxwindowfmindex_tpu_torch/tools/bench.py) on
+     the phase-4 index at 1,048,576 queries and 3 runs: a ratio-4 device
+     SA from densify_device_sa(4), held equal to a sa[::4] cut of the
+     host suffix array; every stage, the cross-engine parity and the host
+     spot checks, the calibration through K5 and K6 (their launches are
+     counted here), and the meta line; locate_flat_device held equal to
+     SearchEngine.locate on 4,096 queries; then K5's walk and K6's chain
+     against their plain versions at the calibration shapes.
 
 The last three lines are the card's name and power limit as nvidia-smi
-prints them, one JSON object describing each kernel (its main-path
-launches, its largest difference from the plain version, and both
-times at the main path's shapes), and the result line
-{"ok": true, "device": {...}}. --bases (default 64,000,000) is for
-local trials only.
+prints them, one JSON object describing each kernel (its launches on the
+path that runs it, its largest difference from the plain version, and
+both times), and the result line {"ok": true, "device": {...}}.
+--bases (default 64,000,000) is for local trials only.
 """
 
 from __future__ import annotations
@@ -48,7 +61,16 @@ KMER_LEN = 25
 QUERIES = 1 << 20
 MULTIHIT_LEN = 11
 MULTIHIT_QUERIES = 4096
+BENCH_MULTIHIT_QUERIES = 1 << 19  # bench.py's multi-hit stage below 1G bases
 EXACT = 0  # every quantity compared is an integer: tolerance 0
+# the kernels each path launches: phase 4 (the main path), phase 6 (the
+# bench's calibration), whose counts the kernels line reports
+MAIN_PATH_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
+BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
+BENCH_SUMMARY_KEYS = (
+    "count_qps", "count_ngram_qps", "locate_first_hit_qps", "locate_all_qps",
+    "locate_all_dense_sa_qps", "multihit_qps", "gather_rates_rows_per_sec",
+)
 
 
 def log(msg: str) -> None:
@@ -427,7 +449,7 @@ def phase_main(bases: int, device: str):
     )
     log(f"[4] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     stats["multihit_qps"] = MULTIHIT_QUERIES / mh_s
-    return stats, engine, kmers
+    return stats, engine, kmers, seq_arr
 
 
 def phase_main_shapes(rec: Record, engine, kmers) -> dict:
@@ -557,6 +579,161 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
     return out
 
 
+def phase_probes(rec: Record, device: str) -> None:
+    """Phase 3b: K5 and K6 against their plain versions at the
+    experiments' own shapes, exactly, each timed in turns."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import probes
+    from avxwindowfmindex_tpu_torch.tools import gather_probe as gp
+
+    batch = 1 << 19
+    shapes = {  # row bytes -> (sum bytes, [(ring, chunk)]): P2/P4, P2/P4, P3
+        128: (128, [(8, 512), (16, 512)]),
+        512: (512, [(8, 512), (16, 512)]),
+        1024: (128, [(8, 512), (16, 512), (32, 1024)]),
+    }
+    for r, (sum_bytes, configs) in shapes.items():
+        table = gp._random_table((1 << 30) // r, r, device, 7)
+        idx = gp._random_idx(batch, table.shape[0], device, 8)
+        for ring, chunk in configs:
+            what = f"u8x{r} sum {sum_bytes} K={ring} CHUNK={chunk}"
+            got = probes.gather_reduce(table, idx, sum_bytes=sum_bytes, chunk=chunk, ring=ring)
+            want = probes.gather_reduce_plain(table, idx, sum_bytes, chunk)
+            rec.compare("k5_gather_reduce", f"{what} partials x{got.numel()}", got, want)
+            rec.compare(
+                "k5_gather_reduce", f"{what} total",
+                torch.tensor([probes.wrapped_total(got)]), torch.tensor([probes.wrapped_total(want)]),
+            )
+            time_in_turns(
+                f"k5_gather_reduce {what} x{batch}",
+                lambda: probes.gather_reduce(table, idx, sum_bytes=sum_bytes, chunk=chunk, ring=ring),
+                lambda: probes.gather_reduce_plain(table, idx, sum_bytes, chunk), 20, 3,
+            )
+        if r == 512:
+            # every byte 0xFF: each partial and the total wrap as int32
+            table.fill_(0xFF)
+            got = probes.gather_reduce(table, idx, sum_bytes=512, chunk=512, ring=8)
+            total = probes.wrapped_total(got)
+            want = probes.wrapped_total(probes.gather_reduce_plain(table, idx, 512, 512))
+            rec.compare("k5_gather_reduce", f"all-0xFF total {total} (wrapped)",
+                        torch.tensor([total]), torch.tensor([want]))
+        del table, idx
+        torch.cuda.empty_cache()
+    log("[3b] K5 equals its plain version at every P2/P3/P4 shape")
+    for s_rows in (2048, 8192):
+        gen = torch.Generator(device=device).manual_seed(s_rows)
+        slab = torch.randint(-(2**31), 2**31, (s_rows, probes.SLAB_LANES), dtype=torch.int32,
+                             device=device, generator=gen)
+        idx = gp._random_idx(s_rows, s_rows, device, 11)
+        rec.compare("k6_slab_gather", f"P5 S={s_rows} single", probes.slab_gather(slab, idx),
+                    probes.slab_gather_plain(slab, idx))
+        for seg in (2, 8):
+            rec.compare("k6_slab_gather", f"P5 S={s_rows} chain seg={seg}",
+                        probes.slab_chain(slab, idx, seg), probes.slab_chain_plain(slab, idx, seg))
+        time_in_turns(f"k6_slab_gather P5 S={s_rows} single", lambda: probes.slab_gather(slab, idx),
+                      lambda: probes.slab_gather_plain(slab, idx), 20, 3)
+        time_in_turns(f"k6_slab_gather P5 S={s_rows} chain seg=8",
+                      lambda: probes.slab_chain(slab, idx, 8),
+                      lambda: probes.slab_chain_plain(slab, idx, 8), 20, 3)
+    log("[3b] K6 equals its plain version at S = 2048 and 8192, single and chained")
+
+
+def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
+    """Phase 6: the bench protocol on the phase-4 index, its launches
+    counted; then K5 and K6 at the calibration shapes."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import suffix_array
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.models.config import AlphabetType
+    from avxwindowfmindex_tpu_torch.models.index import as_device, widen_u32
+    from avxwindowfmindex_tpu_torch.ops import kernels, probes
+    from avxwindowfmindex_tpu_torch.search import locate_flat_device, ngram_ranges, total_hits_host
+    from avxwindowfmindex_tpu_torch.tools import bench
+
+    index, ng = engine.host_index, engine.ng
+    dev = index.to_device(device)  # the config-ratio view, before densify replaces it
+    t = time.time()
+    dense = index.densify_device_sa(4, device=device)
+    torch.cuda.synchronize()
+    densify_s = time.time() - t
+    t = time.time()
+    text = np.concatenate([alpha.sanitize(seq_arr, AlphabetType.DNA), np.frombuffer(b"$", np.uint8)])
+    sa = suffix_array.build_suffix_array(text, backend="native")
+    rec.compare(
+        "k3_backtrace_resolve", f"densify_device_sa(4) == sa[::4] x{dense.sampled_sa.numel()}",
+        widen_u32(dense.sampled_sa), torch.from_numpy(sa[::4].astype(np.int64)).to(device),
+    )
+    log(f"[6] densify_device_sa(4): {densify_s:.4f}s, equal to the host sa[::4] "
+        f"(host SA-IS {time.time() - t:.2f}s)")
+    del sa, text
+
+    p = bench.Protocol(
+        num_bases=len(seq_arr), num_queries=QUERIES, seed_k=MAIN_SEED_K, runs=3,
+        multihit_kmer_len=bench.default_multihit_kmer_len(len(seq_arr)),
+        multihit_queries=BENCH_MULTIHIT_QUERIES, calib_batch=QUERIES,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    meta, headline = bench.run_protocol(
+        p, index, seq_arr, np.random.default_rng(1235), dev=dev, dev_dense=dense, ng=ng,
+        device=as_device(device), build_s=None, digram_build_s=None,
+        t_start=time.time(),
+    )
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[6] launches in the bench protocol: {launches}")
+    missing = [k for k in ("k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges",
+                           "k5_gather_reduce", "k6_slab_gather") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the bench protocol never launched {missing}")
+    log(f"[6] meta: {json.dumps(meta)}")
+    log(f"[6] headline: {json.dumps(headline)}")
+
+    # locate_flat_device by query == SearchEngine.locate on 4,096 queries
+    sub = kmers[:4096]
+    want = engine.locate(sub)
+    mat, _, n = engine.encode_kmers(sub)
+    s, e = ngram_ranges(dev, ng, torch.from_numpy(mat).to(device), KMER_LEN)
+    s, e = s[:n], e[:n]
+    cap = ((total_hits_host(s, e) + 65535) // 65536) * 65536
+    hits, qid, mask = locate_flat_device(dev, s, e, capacity=cap)
+    mask_h = mask.cpu().numpy()
+    lens = np.array([len(w) for w in want])
+    if not (np.array_equal(hits.cpu().numpy()[mask_h], np.concatenate(want).astype(np.int64))
+            and np.array_equal(qid.cpu().numpy()[mask_h], np.repeat(np.arange(n), lens))):
+        raise AssertionError("locate_flat_device differs from SearchEngine.locate")
+    log(f"[6] locate_flat_device == SearchEngine.locate on {n} queries ({int(lens.sum())} hits)")
+
+    # K5's walk and K6's chain at the calibration shapes
+    rng = np.random.default_rng(99)
+    tables = {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed}
+    for name, table in tables.items():
+        idx = torch.from_numpy(rng.integers(0, table.shape[0], size=QUERIES).astype(np.int32)).to(device)
+        for seg in (4, 20):
+            rec.compare("k5_gather_reduce", f"walk {name} ({table.shape[1]} B) seg={seg} x{QUERIES}",
+                        probes.gather_walk(table, idx, seg), probes.gather_walk_plain(table, idx, seg))
+        rec.ms["k5_gather_reduce"] = time_in_turns(
+            f"k5_gather_reduce walk {name} seg=20 x{QUERIES}",
+            lambda: probes.gather_walk(table, idx, 20),
+            lambda: probes.gather_walk_plain(table, idx, 20), 10, 1,
+        )
+    from avxwindowfmindex_tpu_torch.utils.roofline import SLAB_ROWS
+
+    gen = torch.Generator(device=device).manual_seed(SLAB_ROWS)
+    slab = torch.randint(-(2**31), 2**31, (SLAB_ROWS, probes.SLAB_LANES), dtype=torch.int32,
+                         device=device, generator=gen)
+    sidx = torch.from_numpy(rng.integers(0, SLAB_ROWS, size=QUERIES).astype(np.int32)).to(device)
+    for seg in (4, 20):
+        rec.compare("k6_slab_gather", f"slab chain S={SLAB_ROWS} seg={seg} x{QUERIES}",
+                    probes.slab_chain(slab, sidx, seg), probes.slab_chain_plain(slab, sidx, seg))
+    rec.ms["k6_slab_gather"] = time_in_turns(
+        f"k6_slab_gather chain S={SLAB_ROWS} seg=20 x{QUERIES}",
+        lambda: probes.slab_chain(slab, sidx, 20),
+        lambda: probes.slab_chain_plain(slab, sidx, 20), 10, 1,
+    )
+    return {"launches": launches, "meta": meta, "headline": headline}
+
+
 def phase_roundtrip(index, text: bytes, device: str) -> None:
     """Phase 5: .awfmi write, read back, equal counts and locates."""
     import numpy as np
@@ -604,18 +781,23 @@ def main(argv=None) -> int:
 
     rec = Record()
     small_index, small_text = phase_kernels(rec, device)
+    phase_probes(rec, device)
 
     kernels.reset_launch_counts()
-    main_stats, engine, kmers = phase_main(args.bases, device)
+    main_stats, engine, kmers, seq_arr = phase_main(args.bases, device)
     launches = {k.name: k.launches for k in kernels.KERNELS}
-    log(f"[6] launches on the main path: {launches}")
-    missing = [name for name, n in launches.items() if n <= 0]
+    log(f"[4] launches on the main path: {launches}")
+    missing = [name for name in MAIN_PATH_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
-    del engine, kmers
 
     phase_roundtrip(small_index, small_text, device)
+    bench_stats = phase_bench(rec, engine, kmers, seq_arr, device)
+    for name in BENCH_KERNELS:
+        launches[name] = bench_stats["launches"][name]
+    main_stats["bench"] = {k: bench_stats["meta"][k] for k in BENCH_SUMMARY_KEYS}
+    del engine, kmers
     torch.cuda.synchronize()
 
     log(f"[summary] {json.dumps(main_stats)}")

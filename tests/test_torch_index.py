@@ -120,8 +120,13 @@ def test_to_device_rejects_wide_positions():
 
 
 def test_create_index_rejects_device_sa_ratio():
-    with pytest.raises(NotImplementedError, match="device_sa_ratio"):
-        pt.create_index(b"ACGTACGT", pt.IndexConfiguration(8, 2), device_sa_ratio=2, device="cpu")
+    # the JAX guards: a ratio below 1 is refused; one no denser than the
+    # config ratio is ignored (build.py:105-117 of the JAX package)
+    with pytest.raises(ValueError, match="device_sa_ratio"):
+        pt.create_index(b"ACGTACGT", pt.IndexConfiguration(8, 2), device_sa_ratio=0, device="cpu")
+    idx = pt.create_index(b"ACGTACGT", pt.IndexConfiguration(8, 2), device_sa_ratio=8, device="cpu")
+    assert idx.device_sa is None and idx.device_sa_ratio is None
+    assert idx.to_device("cpu").ratio == 8
 
 
 def test_create_index_requires_a_device():

@@ -104,7 +104,7 @@ def test_locate_against_oracle(engines):
 def test_total_hits_and_enumerate():
     start = torch.tensor([5, 9, 3, 0, 2**32 - 3], dtype=torch.int64)
     end = torch.tensor([7, 8, 3, 1, 2**32 - 1], dtype=torch.int64)
-    assert psearch.total_hits(start, end) == 3 + 0 + 1 + 2 + 3
+    assert psearch.total_hits_host(start, end) == 3 + 0 + 1 + 2 + 3
     counts = psearch.range_counts(start, end)
     pos = psearch.enumerate_range_positions(start, counts)
     want = jx.SearchEngine._flat_positions(start.numpy().astype(np.uint64), counts.numpy())
