@@ -10,7 +10,9 @@ tests compare them array for array.
 The main path is four hand-written CUDA kernels (``csrc/``, built by
 ``ops/kernels.py``): K1 rank/LF (seed-table build), K2 ranges (count),
 K3 backtrace + resolve (locate), K4 n-gram ranges (the count and locate
-of ``DigramSearchEngine`` / ``NgramSearchEngine``). K5 and K6 are the
+of ``DigramSearchEngine`` / ``NgramSearchEngine``). An index of 2^32
+positions and more (or ``wide=True``) runs the same functions over u64
+positions through K1w, K2w and K3w. K5 and K6 are the
 gather-rate probes that the bench's roofline calibrates with
 (``tools/bench.py``, ``tools/gather_probe.py``). Every entry point that
 touches a tensor takes an explicit ``device``.
@@ -31,10 +33,33 @@ Quick start::
 """
 
 from .build import create_index, create_index_from_fasta
-from .models.config import AlphabetType, IndexConfiguration
-from .models.index import DeviceIndex, FmIndex
+from .models.alphabet import (
+    AMINO_CARDINALITY,
+    NUCLEOTIDE_CARDINALITY,
+    POSITIONS_PER_BLOCK,
+)
+from .models.config import (
+    CURRENT_VERSION_NUMBER,
+    AlphabetType,
+    IndexConfiguration,
+    ReturnCode,
+)
+from .models.index import DeviceIndex, FastaMetadata, FmIndex, search_range_length
 from .ops.ngram import build_ngram_device
-from .search import DigramSearchEngine, NgramSearchEngine, SearchEngine
+from .search import (
+    DigramSearchEngine,
+    NgramSearchEngine,
+    SearchEngine,
+    backtrace_return_previous_letter_index,
+    create_initial_query_range,
+    find_database_hit_position_single,
+    find_database_hit_positions,
+    find_search_range_for_string,
+    iterative_step_backward_search,
+    query_can_use_kmer_table,
+    search_range_is_valid,
+    single_kmer_exists,
+)
 
 
 def read_index_from_file(path: str, keep_suffix_array_in_memory: bool = True):
@@ -54,8 +79,10 @@ def write_index_to_file(index, path: str) -> None:
 __all__ = [
     "AlphabetType",
     "IndexConfiguration",
+    "ReturnCode",
     "FmIndex",
     "DeviceIndex",
+    "FastaMetadata",
     "create_index",
     "create_index_from_fasta",
     "read_index_from_file",
@@ -64,4 +91,18 @@ __all__ = [
     "NgramSearchEngine",
     "DigramSearchEngine",
     "build_ngram_device",
+    "find_search_range_for_string",
+    "find_database_hit_positions",
+    "find_database_hit_position_single",
+    "backtrace_return_previous_letter_index",
+    "single_kmer_exists",
+    "query_can_use_kmer_table",
+    "iterative_step_backward_search",
+    "search_range_is_valid",
+    "create_initial_query_range",
+    "search_range_length",
+    "CURRENT_VERSION_NUMBER",
+    "NUCLEOTIDE_CARDINALITY",
+    "AMINO_CARDINALITY",
+    "POSITIONS_PER_BLOCK",
 ]

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Four kernels, each one thread per item, each bound by dependent random
+// Seven kernels, each one thread per item, each bound by dependent random
 // row loads from device memory (a 128 B block row or a 256 B pair row for
 // nucleotides, 256 B / 512 B for amino, a 384 B / 768 B n-gram pair row
 // for n = 2 / 3) followed by a few dozen integer
@@ -41,11 +41,33 @@
 //       n = 2, against K2's 11), now from a table that outgrows the L2 at
 //       64M bases (250,000 x 384 B = 96 MB).
 //
-// Semantics follow the JAX package bit for bit: positions are u32 and wrap
-// mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past the
-// table clamps to the last row, as XLA's gather does; the letter selects
-// are one-hot, so a letter above the alphabet's ambiguity index has code 0
-// and milestone 0, and one above the sentinel has C = 0.
+//   K1w awfm_k1w_occ / awfm_k1w_letter_lf, K2w awfm_k2w_ranges,
+//   K3w awfm_k3w_backtrace_resolve
+//       The 64-bit instantiations of K1, K2 and K3, for indexes of 2^32
+//       positions and more. They replace the second engine the JAX package
+//       keeps for that case (ops/rank64.py: occurrence64, letter_and_lf_at64,
+//       backward_step64, backward_step64_pair; search64.py: ranges64 with its
+//       flag-and-rerun, backtrace_all64, _resolve_samples64), whose u64
+//       values are (hi, lo) pairs of u32 lanes with explicit carries. Here a
+//       position is a uint64_t. The helpers below are templates over a
+//       geometry (Narrow or Wide: position type, plane stride of a block
+//       row, block-index rule), so both widths share one body. The wide
+//       index has ONE table of pair-fused rows with u64 milestones (256 B
+//       nucleotide, 512 B amino): a step inside the 512-position window
+//       reads one whole row, a single rank reads its first-block half (the
+//       first 32 B of each 64 B plane, then the milestone), 5 of a
+//       nucleotide row's 8 sectors. Bound like K1-K3 by dependent random row
+//       loads, now of rows twice as wide from a table twice as large.
+//
+// Semantics follow the JAX package bit for bit. Narrow positions are u32 and
+// wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
+// the table clamps to the last row, as XLA's gather does. Wide positions are
+// u64 and wrap mod 2^64; their block index is the low 32 bits of pos >> 8
+// read as int32, a negative value counted from the end of the table, then
+// clamped to the table (ops/rank64.py:_gather_rows64 under JAX's indexing
+// rule), so start - 1 at start == 0 reads the last row there too. The letter
+// selects are one-hot, so a letter above the alphabet's ambiguity index has
+// code 0 and milestone 0, and one above the sentinel has C = 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avxwindowfmindex_tpu_torch/ops/kernels.py).
@@ -58,8 +80,8 @@ extern "C" {
 // Mirrored by ops/kernels.py:_Tables (ctypes.Structure).
 struct AwfmTables {
   const uint8_t* packed;        // (nb, row_bytes) fused block rows
-  const uint8_t* packed_pair;   // (nb, pair_row_bytes) pair rows
-  const uint32_t* prefix_sums;  // (card + 2) C[] with C[0] = 1
+  const uint8_t* packed_pair;   // (nb, pair_row_bytes) pair rows (wide: packed itself)
+  const void* prefix_sums;      // (card + 2) C[] with C[0] = 1: u32, or u64 (wide)
   const uint8_t* code_masks;    // (card + 2, n_planes) 0xFF / 0x00
   const int32_t* vec_to_index;  // (1 << n_planes) code -> letter
   int64_t nb;
@@ -94,30 +116,49 @@ __device__ __forceinline__ uint32_t letter_code(const AwfmTables& t, int np,
   return c;
 }
 
-__device__ __forceinline__ uint32_t milestone(const uint8_t* row, int ms_off,
-                                              uint32_t l, int card) {
-  if (l > static_cast<uint32_t>(card)) return 0u;
-  return *reinterpret_cast<const uint32_t*>(row + ms_off + 4 * l);
+// Row geometry and position arithmetic of the two index widths.
+struct Narrow {
+  using pos_t = uint32_t;
+  static constexpr int kStride = 32;  // plane stride of a block row
+  // past the table: the last row
+  static __device__ __forceinline__ int64_t block(int64_t nb, pos_t pos) {
+    const int64_t blk = static_cast<int64_t>(pos >> 8);
+    return blk < nb - 1 ? blk : nb - 1;
+  }
+};
+
+struct Wide {
+  using pos_t = uint64_t;
+  static constexpr int kStride = 64;  // block rows are the pair rows
+  // bits 8..39 of pos as int32; negative: from the end; then clamped
+  static __device__ __forceinline__ int64_t block(int64_t nb, pos_t pos) {
+    int64_t blk = static_cast<int32_t>(static_cast<uint32_t>(pos >> 8));
+    if (blk < 0) blk += nb;
+    return blk < 0 ? 0 : (blk < nb - 1 ? blk : nb - 1);
+  }
+};
+
+template <class G>
+__device__ __forceinline__ typename G::pos_t milestone(const uint8_t* row,
+                                                       int ms_off, uint32_t l,
+                                                       int card) {
+  if (l > static_cast<uint32_t>(card)) return 0;
+  return reinterpret_cast<const typename G::pos_t*>(row + ms_off)[l];
 }
 
-__device__ __forceinline__ uint32_t c_select(const AwfmTables& t, uint32_t l) {
-  return l <= static_cast<uint32_t>(t.card + 1) ? t.prefix_sums[l] : 0u;
-}
-
-__device__ __forceinline__ int64_t clamp_block(int64_t nb, uint32_t pos) {
-  const int64_t blk = static_cast<int64_t>(pos >> 8);
-  return blk < nb - 1 ? blk : nb - 1;
-}
-
-__device__ __forceinline__ int64_t clamp_block(const AwfmTables& t,
-                                               uint32_t pos) {
-  return clamp_block(t.nb, pos);
+template <class G>
+__device__ __forceinline__ typename G::pos_t c_select(const AwfmTables& t,
+                                                      uint32_t l) {
+  return l <= static_cast<uint32_t>(t.card + 1)
+             ? static_cast<const typename G::pos_t*>(t.prefix_sums)[l]
+             : 0;
 }
 
 // Match words of one row: bit p of word w is set iff the letter at local
-// position 32 * w + p has `code`. W = 8 words per plane for a block row,
-// 16 for a pair row.
-template <int NP, int W>
+// position 32 * w + p has `code`. W = 8 words per plane for one block,
+// 16 for a pair; planes lie STRIDE bytes apart (32 in a narrow block row,
+// 64 in a pair row and in every wide row).
+template <int NP, int W, int STRIDE>
 __device__ __forceinline__ void match_words(const uint8_t* row, uint32_t code,
                                             uint32_t (&m)[W]) {
 #pragma unroll
@@ -125,7 +166,7 @@ __device__ __forceinline__ void match_words(const uint8_t* row, uint32_t code,
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const uint32_t cm = ((code >> i) & 1u) ? 0xFFFFFFFFu : 0u;
-    const uint4* p = reinterpret_cast<const uint4*>(row + i * W * 4);
+    const uint4* p = reinterpret_cast<const uint4*>(row + i * STRIDE);
 #pragma unroll
     for (int q = 0; q < W / 4; ++q) {
       const uint4 v = __ldg(p + q);
@@ -155,59 +196,65 @@ __device__ __forceinline__ uint32_t count_inclusive(const uint32_t (&m)[W],
   return c;
 }
 
-template <int NP>
-__device__ __forceinline__ uint32_t occ_at(const AwfmTables& t, uint32_t pos,
-                                           uint32_t l) {
-  const uint8_t* row = t.packed + clamp_block(t, pos) * t.row_bytes;
+template <class G, int NP>
+__device__ __forceinline__ typename G::pos_t occ_at(const AwfmTables& t,
+                                                    typename G::pos_t pos,
+                                                    uint32_t l) {
+  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
   uint32_t m[8];
-  match_words<NP, 8>(row, letter_code(t, NP, l), m);
-  return milestone(row, NP * 32, l, t.card) + count_inclusive<8>(m, pos & 255u);
+  match_words<NP, 8, G::kStride>(row, letter_code(t, NP, l), m);
+  return milestone<G>(row, NP * G::kStride, l, t.card) +
+         count_inclusive<8>(m, static_cast<uint32_t>(pos) & 255u);
 }
 
 // LF(pos) and the letter at pos (AwFmSearch.c:369-427 semantics).
-template <int NP>
-__device__ __forceinline__ uint32_t lf_at(const AwfmTables& t, uint32_t pos,
-                                          uint32_t* letter) {
-  const uint8_t* row = t.packed + clamp_block(t, pos) * t.row_bytes;
-  const uint32_t local = pos & 255u;
+template <class G, int NP>
+__device__ __forceinline__ typename G::pos_t lf_at(const AwfmTables& t,
+                                                   typename G::pos_t pos,
+                                                   uint32_t* letter) {
+  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
+  const uint32_t local = static_cast<uint32_t>(pos) & 255u;
   uint32_t code = 0u;
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    code |= ((row[i * 32 + (local >> 3)] >> (local & 7u)) & 1u) << i;
+    code |= ((row[i * G::kStride + (local >> 3)] >> (local & 7u)) & 1u) << i;
   }
   const uint32_t lett = static_cast<uint32_t>(t.vec_to_index[code]);
   *letter = lett;
-  if (lett == static_cast<uint32_t>(t.card + 1)) return 0u;  // sentinel
+  if (lett == static_cast<uint32_t>(t.card + 1)) return 0;  // sentinel
   const uint32_t lc = lett < static_cast<uint32_t>(t.card)
                           ? lett
                           : static_cast<uint32_t>(t.card);
   uint32_t m[8];
-  match_words<NP, 8>(row, letter_code(t, NP, lc), m);
-  return c_select(t, lc) + milestone(row, NP * 32, lc, t.card) +
+  match_words<NP, 8, G::kStride>(row, letter_code(t, NP, lc), m);
+  return c_select<G>(t, lc) + milestone<G>(row, NP * G::kStride, lc, t.card) +
          count_inclusive<8>(m, local) - 1u;
 }
 
 // One backward step of a valid range (start <= end) by letter l.
-template <int NP>
+template <class G, int NP>
 __device__ __forceinline__ void backward_step(const AwfmTables& t,
-                                              uint32_t& start, uint32_t& end,
+                                              typename G::pos_t& start,
+                                              typename G::pos_t& end,
                                               uint32_t l) {
-  const uint32_t c = c_select(t, l);
-  const uint32_t pos_s = start - 1u;
-  // unsigned compare before any narrowing (ops/rank.py:382-388)
-  const uint32_t delta = end - (pos_s & ~255u);
-  uint32_t occ_s, occ_e;
+  using pos_t = typename G::pos_t;
+  const pos_t c = c_select<G>(t, l);
+  const pos_t pos_s = start - 1u;
+  // unsigned compare at the full position width (ops/rank.py:382-388,
+  // ops/rank64.py:470-472)
+  const pos_t delta = end - (pos_s & ~static_cast<pos_t>(255));
+  pos_t occ_s, occ_e;
   if (delta < 512u) {
     const uint8_t* row =
-        t.packed_pair + clamp_block(t, pos_s) * t.pair_row_bytes;
+        t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
     uint32_t m[16];
-    match_words<NP, 16>(row, letter_code(t, NP, l), m);
-    const uint32_t ms = milestone(row, NP * 64, l, t.card);
-    occ_s = ms + count_inclusive<16>(m, pos_s & 255u);
-    occ_e = ms + count_inclusive<16>(m, delta);
+    match_words<NP, 16, 64>(row, letter_code(t, NP, l), m);
+    const pos_t ms = milestone<G>(row, NP * 64, l, t.card);
+    occ_s = ms + count_inclusive<16>(m, static_cast<uint32_t>(pos_s) & 255u);
+    occ_e = ms + count_inclusive<16>(m, static_cast<uint32_t>(delta));
   } else {
-    occ_s = occ_at<NP>(t, pos_s, l);
-    occ_e = occ_at<NP>(t, end, l);
+    occ_s = occ_at<G, NP>(t, pos_s, l);
+    occ_e = occ_at<G, NP>(t, end, l);
   }
   start = c + occ_s;
   end = c + occ_e - 1u;
@@ -255,7 +302,7 @@ __device__ __forceinline__ uint32_t ngram_milestone(const uint8_t* row,
 template <int N>
 __device__ __forceinline__ uint32_t ngram_occ_at(const NgramTables& g,
                                                  uint32_t pos, uint32_t v) {
-  const uint8_t* row = g.packed + clamp_block(g.nb, pos) * g.row_bytes;
+  const uint8_t* row = g.packed + Narrow::block(g.nb, pos) * g.row_bytes;
   uint32_t m[8];
   ngram_match_words<N, 8>(row, v, m);
   return ngram_milestone<N>(row, v) + count_inclusive<8>(m, pos & 255u);
@@ -273,7 +320,7 @@ __device__ __forceinline__ void ngram_step(const NgramTables& g,
   const uint32_t delta = end - (pos_s & ~255u);
   uint32_t occ_s, occ_e;
   if (delta < 512u) {
-    const uint8_t* row = g.packed + clamp_block(g.nb, pos_s) * g.row_bytes;
+    const uint8_t* row = g.packed + Narrow::block(g.nb, pos_s) * g.row_bytes;
     uint32_t m[16];
     ngram_match_words<N, 16>(row, v, m);
     const uint32_t ms = ngram_milestone<N>(row, v);
@@ -289,11 +336,12 @@ __device__ __forceinline__ void ngram_step(const NgramTables& g,
 
 // Seed-table range of the last k letters of a query of length len: the
 // base-|A| radix, leftmost most significant, clamped to the table.
-__device__ __forceinline__ void seed_range(const uint32_t* seed_table,
+template <class P>
+__device__ __forceinline__ void seed_range(const P* seed_table,
                                            int64_t seed_rows, int k,
                                            uint32_t card, const uint8_t* row,
                                            int64_t len, int64_t l_pad,
-                                           uint32_t& start, uint32_t& end) {
+                                           P& start, P& end) {
   uint32_t idx = 0u;
   for (int j = 0; j < k; ++j) {
     int64_t c = len - k + j;
@@ -307,17 +355,18 @@ __device__ __forceinline__ void seed_range(const uint32_t* seed_table,
   end = seed_table[2 * r + 1];
 }
 
-template <int NP>
+template <class G, int NP>
 __global__ void k1_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
                               const int32_t* __restrict__ letters, int64_t n,
                               int64_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  out[i] = occ_at<NP>(t, static_cast<uint32_t>(pos[i]),
-                      static_cast<uint32_t>(letters[i]));
+  out[i] = static_cast<int64_t>(
+      occ_at<G, NP>(t, static_cast<typename G::pos_t>(pos[i]),
+                    static_cast<uint32_t>(letters[i])));
 }
 
-template <int NP>
+template <class G, int NP>
 __global__ void k1_letter_lf_kernel(AwfmTables t,
                                     const int64_t* __restrict__ pos, int64_t n,
                                     int32_t* __restrict__ letters_out,
@@ -325,13 +374,14 @@ __global__ void k1_letter_lf_kernel(AwfmTables t,
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   uint32_t lett;
-  lf_out[i] = lf_at<NP>(t, static_cast<uint32_t>(pos[i]), &lett);
+  lf_out[i] = static_cast<int64_t>(
+      lf_at<G, NP>(t, static_cast<typename G::pos_t>(pos[i]), &lett));
   letters_out[i] = static_cast<int32_t>(lett);
 }
 
-template <int NP>
+template <class G, int NP>
 __global__ void k2_ranges_kernel(AwfmTables t,
-                                 const uint32_t* __restrict__ seed_table,
+                                 const typename G::pos_t* __restrict__ seed_table,
                                  int64_t seed_rows, int k,
                                  const uint8_t* __restrict__ mat, int64_t b,
                                  int64_t l_pad,
@@ -339,12 +389,13 @@ __global__ void k2_ranges_kernel(AwfmTables t,
                                  const uint8_t* __restrict__ seeded,
                                  int64_t* __restrict__ start_out,
                                  int64_t* __restrict__ end_out) {
+  using pos_t = typename G::pos_t;
   const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (q >= b) return;
   const uint8_t* row = mat + q * l_pad;
   const int64_t len = lengths[q];
   const uint32_t card = static_cast<uint32_t>(t.card);
-  uint32_t start, end;
+  pos_t start, end;
   int64_t next;
   if (seeded[q]) {
     seed_range(seed_table, seed_rows, k, card, row, len, l_pad, start, end);
@@ -354,40 +405,43 @@ __global__ void k2_ranges_kernel(AwfmTables t,
     const uint32_t last = row[c];
     const uint32_t a = last < card + 1u ? last : card + 1u;
     const uint32_t z = last + 1u < card + 1u ? last + 1u : card + 1u;
-    start = t.prefix_sums[a];
-    end = t.prefix_sums[z] - 1u;
+    const pos_t* ps = static_cast<const pos_t*>(t.prefix_sums);
+    start = ps[a];
+    end = ps[z] - 1u;
     next = len - 2;
   }
   for (int64_t p = next; p >= 0 && start <= end; --p) {
-    backward_step<NP>(t, start, end, row[p]);
+    backward_step<G, NP>(t, start, end, row[p]);
   }
-  start_out[q] = start;
-  end_out[q] = end;
+  start_out[q] = static_cast<int64_t>(start);
+  end_out[q] = static_cast<int64_t>(end);
 }
 
-template <int NP>
+template <class G, int NP>
 __global__ void k3_backtrace_resolve_kernel(
-    AwfmTables t, const int64_t* __restrict__ pos, int64_t n, uint32_t ratio,
-    uint32_t bwt_length, const uint32_t* __restrict__ sa,
-    int64_t* __restrict__ hits_out, int64_t* __restrict__ p_out,
-    int64_t* __restrict__ off_out) {
+    AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
+    typename G::pos_t ratio, typename G::pos_t bwt_length,
+    const typename G::pos_t* __restrict__ sa, int64_t* __restrict__ hits_out,
+    int64_t* __restrict__ p_out, int64_t* __restrict__ off_out) {
+  using pos_t = typename G::pos_t;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  uint32_t p = static_cast<uint32_t>(pos[i]);
-  uint32_t off = 0u;
+  pos_t p = static_cast<pos_t>(pos[i]);
+  pos_t off = 0;
   uint32_t lett;
   // a valid BWT's LF walk reaches a sampled position in < bwtLength steps;
   // the bound only keeps a malformed index from spinning forever
-  while (p % ratio != 0u && off < bwt_length) {
-    p = lf_at<NP>(t, p, &lett);
+  while (p % ratio != 0 && off < bwt_length) {
+    p = lf_at<G, NP>(t, p, &lett);
     ++off;
   }
   if (sa != nullptr) {
+    // sa < bwtLength and off <= bwtLength < 2^39: the sum cannot wrap
     const uint64_t h = static_cast<uint64_t>(sa[p / ratio]) + off;
     hits_out[i] = static_cast<int64_t>(h % bwt_length);
   } else {
-    p_out[i] = p;
-    off_out[i] = off;
+    p_out[i] = static_cast<int64_t>(p);
+    off_out[i] = static_cast<int64_t>(off);
   }
 }
 
@@ -417,7 +471,7 @@ __global__ void k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
     ngram_step<N>(g, start, end, v);
   }
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
-    backward_step<NP>(t, start, end, row[p]);
+    backward_step<Narrow, NP>(t, start, end, row[p]);
   }
   start_out[q] = start;
   end_out[q] = end;
@@ -427,6 +481,88 @@ unsigned int grid_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+// The launchers behind the C entry points: one per kernel, the width a
+// template argument, the plane count (3 nucleotide, 5 amino) chosen here.
+template <class G>
+int launch_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
+                  const int32_t* letters, int64_t n, int64_t* out,
+                  cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k1_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+  } else if (t->n_planes == 5) {
+    k1_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G>
+int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
+                        int64_t n, int32_t* letters_out, int64_t* lf_out,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k1_letter_lf_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, letters_out, lf_out);
+  } else if (t->n_planes == 5) {
+    k1_letter_lf_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, letters_out, lf_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G>
+int launch_k2_ranges(int device, const AwfmTables* t,
+                     const typename G::pos_t* seed_table, int64_t seed_rows,
+                     int k, const uint8_t* mat, int64_t b, int64_t l_pad,
+                     const int32_t* lengths, const uint8_t* seeded,
+                     int64_t* start_out, int64_t* end_out,
+                     cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (t->n_planes == 3) {
+    k2_ranges_kernel<G, 3><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
+        start_out, end_out);
+  } else if (t->n_planes == 5) {
+    k2_ranges_kernel<G, 5><<<grid_for(b), kThreads, 0, stream>>>(
+        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
+        start_out, end_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G>
+int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
+                                const int64_t* pos, int64_t n,
+                                typename G::pos_t ratio,
+                                typename G::pos_t bwt_length,
+                                const typename G::pos_t* sa, int64_t* hits_out,
+                                int64_t* p_out, int64_t* off_out,
+                                cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ratio == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (t->n_planes == 3) {
+    k3_backtrace_resolve_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else if (t->n_planes == 5) {
+    k3_backtrace_resolve_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
+        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -434,53 +570,46 @@ extern "C" {
 int awfm_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
                 const int32_t* letters, int64_t n, int64_t* out,
                 cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes == 3) {
-    k1_occ_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
-  } else if (t->n_planes == 5) {
-    k1_occ_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k1_occ<Narrow>(device, t, pos, letters, n, out, stream);
+}
+
+int awfm_k1w_occ(int device, const AwfmTables* t, const int64_t* pos,
+                 const int32_t* letters, int64_t n, int64_t* out,
+                 cudaStream_t stream) {
+  return launch_k1_occ<Wide>(device, t, pos, letters, n, out, stream);
 }
 
 int awfm_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                       int64_t n, int32_t* letters_out, int64_t* lf_out,
                       cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes == 3) {
-    k1_letter_lf_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, letters_out, lf_out);
-  } else if (t->n_planes == 5) {
-    k1_letter_lf_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, letters_out, lf_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k1_letter_lf<Narrow>(device, t, pos, n, letters_out, lf_out,
+                                     stream);
+}
+
+int awfm_k1w_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
+                       int64_t n, int32_t* letters_out, int64_t* lf_out,
+                       cudaStream_t stream) {
+  return launch_k1_letter_lf<Wide>(device, t, pos, n, letters_out, lf_out,
+                                   stream);
 }
 
 int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                    int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                    int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
                    int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes == 3) {
-    k2_ranges_kernel<3><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
-        start_out, end_out);
-  } else if (t->n_planes == 5) {
-    k2_ranges_kernel<5><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
-        start_out, end_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k2_ranges<Narrow>(device, t, seed_table, seed_rows, k, mat, b,
+                                  l_pad, lengths, seeded, start_out, end_out,
+                                  stream);
+}
+
+int awfm_k2w_ranges(int device, const AwfmTables* t, const uint64_t* seed_table,
+                    int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                    int64_t l_pad, const int32_t* lengths,
+                    const uint8_t* seeded, int64_t* start_out,
+                    int64_t* end_out, cudaStream_t stream) {
+  return launch_k2_ranges<Wide>(device, t, seed_table, seed_rows, k, mat, b,
+                                l_pad, lengths, seeded, start_out, end_out,
+                                stream);
 }
 
 int awfm_k3_backtrace_resolve(int device, const AwfmTables* t,
@@ -488,18 +617,19 @@ int awfm_k3_backtrace_resolve(int device, const AwfmTables* t,
                               uint32_t bwt_length, const uint32_t* sa,
                               int64_t* hits_out, int64_t* p_out,
                               int64_t* off_out, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes == 3) {
-    k3_backtrace_resolve_kernel<3><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
-  } else if (t->n_planes == 5) {
-    k3_backtrace_resolve_kernel<5><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k3_backtrace_resolve<Narrow>(device, t, pos, n, ratio,
+                                             bwt_length, sa, hits_out, p_out,
+                                             off_out, stream);
+}
+
+int awfm_k3w_backtrace_resolve(int device, const AwfmTables* t,
+                               const int64_t* pos, int64_t n, uint64_t ratio,
+                               uint64_t bwt_length, const uint64_t* sa,
+                               int64_t* hits_out, int64_t* p_out,
+                               int64_t* off_out, cudaStream_t stream) {
+  return launch_k3_backtrace_resolve<Wide>(device, t, pos, n, ratio,
+                                           bwt_length, sa, hits_out, p_out,
+                                           off_out, stream);
 }
 
 int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,

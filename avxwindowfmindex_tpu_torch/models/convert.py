@@ -1,8 +1,8 @@
 """State carried across from the JAX package.
 
 Each function takes the JAX package's arrays as NumPy — ``np.asarray``
-of each ``DeviceIndex`` or ``NgramIndex`` field, or the JAX ``FmIndex``'s
-NumPy fields —
+of each ``DeviceIndex``, ``DeviceIndex64`` or ``NgramIndex`` field, or
+the JAX ``FmIndex``'s NumPy fields —
 and return the port's objects holding the same bytes, so the two
 packages can run on literally the same index. Nothing here imports
 either JAX or the JAX package.
@@ -17,7 +17,7 @@ import torch
 
 from ..ops.ngram import NgramIndex, _geometry_pair
 from .config import AlphabetType, IndexConfiguration
-from .index import DeviceIndex, FmIndex, u32_tensor
+from .index import DeviceIndex, FmIndex, device_row_bytes64, u32_tensor, u64_tensor
 
 
 def device_index_from_numpy(
@@ -56,6 +56,73 @@ def device_index_from_numpy(
         ratio=int(ratio),
         kmer_length_in_seed_table=int(k),
         alphabet=AlphabetType(int(alphabet)),
+    )
+
+
+def _join_u64(lo, hi) -> np.ndarray:
+    """uint64 values from their low and high u32 halves."""
+    return (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(lo).astype(np.uint64)
+
+
+def wide_device_index_from_numpy(
+    arrays: Mapping[str, Optional[np.ndarray]],
+    *,
+    bwt_length: int,
+    ratio: int,
+    k: int,
+    alphabet,
+    device,
+    pair_fused: bool = True,
+) -> DeviceIndex:
+    """A wide torch ``DeviceIndex`` from the JAX ``DeviceIndex64``'s fields.
+
+    ``arrays`` maps ``packed``, ``prefix_hi``, ``prefix_lo``,
+    ``seed_table`` ((A^k, 4) u32 ``[s_lo, s_hi, e_lo, e_hi]``),
+    ``sampled_sa`` ((n, 2) u32 ``[lo, hi]``, or None: suffix array on
+    disk), ``code_masks`` and ``vec_to_index`` to NumPy arrays. The hi/lo
+    pairs become u64 values in int64 tensors of the same bytes; the one
+    row table serves as ``packed`` and ``packed_pair``. The compact
+    single-block layout (``pair_fused=False``, the JAX package's
+    ``AWFM_PAIR_ROWS=0`` for amino) is not ported.
+    """
+    alphabet = AlphabetType(int(alphabet))
+    if not pair_fused:
+        raise NotImplementedError(
+            "the compact wide layout (pair_fused=False, AWFM_PAIR_ROWS=0) is "
+            "not ported (ROADMAP item 'the compact amino wide layout')"
+        )
+    packed = np.array(arrays["packed"], dtype=np.uint8, order="C")
+    if packed.ndim != 2 or packed.shape[1] != device_row_bytes64(alphabet):
+        raise ValueError(
+            f"wide rows must be (nb, {device_row_bytes64(alphabet)}), got {packed.shape}"
+        )
+    seed = np.asarray(arrays["seed_table"])
+    if seed.ndim != 2 or seed.shape[1] != 4:
+        raise ValueError(f"wide seed table must be (rows, 4) u32, got {seed.shape}")
+    sa = arrays.get("sampled_sa")
+    rows = torch.from_numpy(packed).to(device)
+    return DeviceIndex(
+        packed=rows,
+        packed_pair=rows,
+        prefix_sums=u64_tensor(_join_u64(arrays["prefix_lo"], arrays["prefix_hi"]), device),
+        seed_table=u64_tensor(
+            np.stack([_join_u64(seed[:, 0], seed[:, 1]), _join_u64(seed[:, 2], seed[:, 3])], axis=1),
+            device,
+        ),
+        sampled_sa=None if sa is None else u64_tensor(
+            _join_u64(np.asarray(sa)[:, 0], np.asarray(sa)[:, 1]), device
+        ),
+        code_masks=torch.from_numpy(
+            np.array(arrays["code_masks"], dtype=np.uint8)
+        ).to(device),
+        vec_to_index=torch.from_numpy(
+            np.array(arrays["vec_to_index"], dtype=np.int32)
+        ).to(device),
+        bwt_length=int(bwt_length),
+        ratio=int(ratio),
+        kmer_length_in_seed_table=int(k),
+        alphabet=alphabet,
+        wide=True,
     )
 
 

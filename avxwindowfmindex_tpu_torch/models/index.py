@@ -19,6 +19,23 @@ torch has no arithmetic on uint32, so every u32 device table is stored
 as an int32 tensor holding the same bytes (``u32_tensor``); the kernels
 read it through ``const uint32_t*`` and the plain torch code widens it
 with ``.to(torch.int64) & 0xFFFFFFFF``.
+
+Wide layout, for bwtLength >= 2^32 (``to_device(device, wide=True)``;
+the JAX package's ``DeviceIndex64``, ops/rank64.py): ONE table of
+pair-fused rows with u64 milestones,
+
+  plane i: bytes [64i, 64i+32) = block b, [64i+32, 64i+64) = block b+1
+  nucleotide: [3 planes x 64 B | 5 x u64LE milestones | pad]  = 256 B
+  amino:      [5 planes x 64 B | 21 x u64LE milestones | pad] = 512 B
+
+which serves the pair step (all 64 B of each plane) and the
+single-position ranks (the first 32 B). CUDA and torch have 64-bit
+integers, so the wide view needs no hi/lo pairs: prefix sums, seed table
+and sampled SA are int64 tensors whose bytes equal the JAX arrays'
+(u64 little-endian = [lo, hi] u32 pairs), and positions are u64 values
+carried in int64 tensors, two's complement standing in for the wrap
+mod 2^64. The same functions serve both widths; a ``DeviceIndex`` says
+which it is (``wide``) and gives the row geometry.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from .config import (
 
 POSITIONS_PER_BLOCK = alpha.POSITIONS_PER_BLOCK
 MASK32 = 0xFFFFFFFF
+MASK64 = -1  # int64 tensors already wrap mod 2^64
 
 
 # ---------------------------------------------------------------------------
@@ -48,6 +66,13 @@ MASK32 = 0xFFFFFFFF
 def num_blocks_from_bwt_length(bwt_length: int) -> int:
     """1 + (len-1)//256 (AwFmIndexStruct.c:104-106)."""
     return 1 + (bwt_length - 1) // POSITIONS_PER_BLOCK
+
+
+def search_range_length(start, end):
+    """end - start + 1 if valid else 0 (AwFmIndexStruct.c:126-130)."""
+    start = np.asarray(start)
+    end = np.asarray(end)
+    return np.where(start <= end, end - start + 1, 0)
 
 
 def device_row_bytes(alphabet: AlphabetType) -> int:
@@ -61,6 +86,14 @@ def device_pair_row_bytes(alphabet: AlphabetType) -> int:
     """Bytes per pair row: planes*64 + milestones*4, padded to 128."""
     n_planes = alpha.num_bit_planes(alphabet)
     need = n_planes * 64 + (alpha.cardinality(alphabet) + 1) * 4
+    return ((need + 127) // 128) * 128
+
+
+def device_row_bytes64(alphabet: AlphabetType) -> int:
+    """Bytes per wide row: planes*64 + milestones*8, padded to 128
+    (256 B nucleotide, 512 B amino)."""
+    n_planes = alpha.num_bit_planes(alphabet)
+    need = n_planes * 64 + (alpha.cardinality(alphabet) + 1) * 8
     return ((need + 127) // 128) * 128
 
 
@@ -97,6 +130,17 @@ def narrow_u32(t: torch.Tensor) -> torch.Tensor:
     """int64 values taken mod 2^32 -> int32 holding the same u32 bytes."""
     t = t & MASK32
     return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
+
+
+def u64_tensor(values, device) -> torch.Tensor:
+    """An int64 tensor holding the bytes of ``values`` as uint64."""
+    arr = np.ascontiguousarray(np.asarray(values).astype(np.uint64))
+    return torch.from_numpy(arr.view(np.int64)).to(device)
+
+
+def u64_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`u64_tensor`: a uint64 NumPy array of the bytes."""
+    return t.detach().cpu().numpy().view(np.uint64)
 
 
 # ---------------------------------------------------------------------------
@@ -147,19 +191,25 @@ class DeviceIndex:
     ``packed``, ``packed_pair`` and ``code_masks`` are uint8;
     ``prefix_sums``, ``seed_table`` and ``sampled_sa`` are u32 values
     in int32 tensors; ``vec_to_index`` is int32.
+
+    With ``wide`` set the fields carry the JAX ``DeviceIndex64``'s
+    bytes: ``packed`` and ``packed_pair`` are the one table of wide rows
+    (the same tensor), and ``prefix_sums``, ``seed_table`` and
+    ``sampled_sa`` are u64 values in int64 tensors.
     """
 
     packed: torch.Tensor  # (num_blocks, row_bytes) uint8 fused blocks
     packed_pair: torch.Tensor  # (num_blocks, pair_row_bytes) uint8
-    prefix_sums: torch.Tensor  # (A+2,) u32 as int32
-    seed_table: torch.Tensor  # (A**k, 2) u32 as int32
-    sampled_sa: Optional[torch.Tensor]  # (num_samples,) u32 as int32; None = on disk
+    prefix_sums: torch.Tensor  # (A+2,) u32 as int32 / u64 as int64
+    seed_table: torch.Tensor  # (A**k, 2) u32 as int32 / u64 as int64
+    sampled_sa: Optional[torch.Tensor]  # (num_samples,) u32 as int32 / u64 as int64; None = on disk
     code_masks: torch.Tensor  # (A+2, n_planes) uint8 0xFF/0x00
     vec_to_index: torch.Tensor  # (2**n_planes,) int32 code -> letter
     bwt_length: int
     ratio: int
     kmer_length_in_seed_table: int
     alphabet: AlphabetType
+    wide: bool = False  # u64 positions over the wide row layout
 
     @property
     def device(self) -> torch.device:
@@ -182,14 +232,41 @@ class DeviceIndex:
         return alpha.num_bit_planes(self.alphabet)
 
     @property
+    def plane_stride(self) -> int:
+        """Bytes from one plane to the next within a row of ``packed``."""
+        return 64 if self.wide else 32
+
+    @property
     def milestone_offset(self) -> int:
-        """Byte offset of the milestone u32 array within a block row."""
-        return self.n_planes * 32
+        """Byte offset of the milestone array within a row of ``packed``."""
+        return self.n_planes * self.plane_stride
 
     @property
     def pair_milestone_offset(self) -> int:
-        """Byte offset of the milestone u32 array within a pair row."""
+        """Byte offset of the milestone array within a pair row."""
         return self.n_planes * 64
+
+    @property
+    def milestone_bytes(self) -> int:
+        """Bytes per little-endian milestone: u32 narrow, u64 wide."""
+        return 8 if self.wide else 4
+
+    @property
+    def pos_mask(self) -> int:
+        """``x & pos_mask`` wraps an int64 tensor to the position width."""
+        return MASK64 if self.wide else MASK32
+
+    def widen(self, t: torch.Tensor) -> torch.Tensor:
+        """Stored position values (int32-held u32, or int64) -> int64."""
+        return t if self.wide else widen_u32(t)
+
+    def store(self, t: torch.Tensor) -> torch.Tensor:
+        """int64 position values -> the dtype the tables store them in."""
+        return t if self.wide else narrow_u32(t)
+
+    def numpy_u64(self, t: torch.Tensor) -> np.ndarray:
+        """A stored position table as a uint64 host array."""
+        return u64_numpy(t) if self.wide else u32_numpy(t).astype(np.uint64)
 
 
 def pack_device_blocks(
@@ -240,6 +317,36 @@ def pack_pair_rows_from_blocks(
     out[:, n_planes * 64 : n_planes * 64 + ms_len] = packed[
         :, ms_off : ms_off + ms_len
     ]
+    return out
+
+
+def pack_device_blocks64(
+    bwt_letters: np.ndarray, milestones: np.ndarray, alphabet: AlphabetType
+) -> np.ndarray:
+    """Bit-planes + u64 milestones -> (num_blocks, row_bytes64) uint8.
+
+    Row b holds the plane bytes of blocks b and b+1 (64 B per plane)
+    plus block b's milestones. The last row's missing partner keeps zero
+    plane bytes: those pair-local positions lie beyond every valid rank
+    position and the inclusive mask zeroes them.
+    """
+    n_planes = alpha.num_bit_planes(alphabet)
+    card = alpha.cardinality(alphabet)
+    bwt_length = len(bwt_letters)
+    nb = num_blocks_from_bwt_length(bwt_length)
+
+    codes = np.zeros(nb * POSITIONS_PER_BLOCK, dtype=np.uint8)
+    codes[:bwt_length] = alpha.index_to_vector_lut(alphabet)[bwt_letters]
+
+    out = np.zeros((nb, device_row_bytes64(alphabet)), dtype=np.uint8)
+    for b in range(n_planes):
+        bits = ((codes >> b) & 1).reshape(nb, POSITIONS_PER_BLOCK)
+        plane = np.packbits(bits, axis=1, bitorder="little")
+        out[:, b * 64 : b * 64 + 32] = plane
+        out[:-1, b * 64 + 32 : (b + 1) * 64] = plane[1:]
+    ms = milestones[:, : card + 1].astype("<u8")
+    off = n_planes * 64
+    out[:, off : off + (card + 1) * 8] = ms.view(np.uint8).reshape(nb, (card + 1) * 8)
     return out
 
 
@@ -326,7 +433,7 @@ class FmIndex:
             dev = self._device_cache
             if dev is None or dev.seed_table.shape[0] != self.cardinality**k:
                 raise ValueError("index has no seed table (not yet built)")
-            self.kmer_seed_table = u32_numpy(dev.seed_table).astype(np.uint64)
+            self.kmer_seed_table = dev.numpy_u64(dev.seed_table)
         return self.kmer_seed_table
 
     def letters_as_blocks(self) -> np.ndarray:
@@ -356,45 +463,79 @@ class FmIndex:
         milestones[1:] = cum[:-1]
         return milestones
 
-    def to_device(self, device) -> DeviceIndex:
+    def to_device(self, device, wide: Optional[bool] = None) -> DeviceIndex:
         """Build (or return the cached) torch view on ``device``.
 
-        Narrow layout only: positions are u32, so bwtLength must be
-        below 2^32 (the JAX package's wide layout is not ported).
+        ``wide`` selects the 64-bit layout (u64 milestones, int64
+        tables; see the module docstring). By default it is chosen for
+        bwtLength >= 2^32; ``wide=True`` forces it on a smaller index,
+        with the same answers. A cached view is returned only when it
+        lies on ``device`` and has the width asked for; otherwise the
+        view is rebuilt, and a seed table that lives only in the cached
+        view is carried over, widened or narrowed as needed.
+
         Until the builder attaches the seed table, the view carries a
         (1, 2) zeros placeholder. A dense device SA cut at build
         (``device_sa``) is preferred over the sampled SA: backtrace
         chains shorten, answers stay the same.
         """
         device = as_device(device)
+        if wide is None:
+            wide = self.bwt_length >= 2**32
         cache = self._device_cache
-        if cache is not None and cache.device == device:
+        if cache is not None and cache.device == device and cache.wide == wide:
             return cache
-        if self.bwt_length >= 2**32:
+        if wide:
+            # the limits of the JAX package's wide view, so that both
+            # packages accept the same indexes
+            if self.num_blocks >= 2**31:
+                raise ValueError(
+                    "device block index must fit int32: bwtLength must "
+                    "be < 2^39 positions (~550 G bases)"
+                )
+            if self.bwt_length // int(self.config.suffix_array_compression_ratio) >= 2**31:
+                raise ValueError(
+                    "sampled-SA gather index must fit int32: need "
+                    "bwtLength / saCompressionRatio < 2^31"
+                )
+        elif self.bwt_length >= 2**32:
             raise ValueError(
-                "bwtLength >= 2**32 requires the 64-bit device layout, "
-                "which this package does not implement"
+                "bwtLength >= 2**32 requires the 64-bit device layout "
+                "(to_device(device, wide=True), chosen automatically)"
             )
-        packed = pack_device_blocks(self.bwt_letters, self.milestones(), self.alphabet)
-        pair = pack_pair_rows_from_blocks(packed, self.alphabet)
+        as_table = u64_tensor if wide else u32_tensor
+        if wide:
+            rows = pack_device_blocks64(self.bwt_letters, self.milestones(), self.alphabet)
+            packed = pair = torch.from_numpy(rows).to(device)
+        else:
+            rows = pack_device_blocks(self.bwt_letters, self.milestones(), self.alphabet)
+            packed = torch.from_numpy(rows).to(device)
+            pair = torch.from_numpy(pack_pair_rows_from_blocks(rows, self.alphabet)).to(device)
         k = int(self.config.kmer_length_in_seed_table)
         if self.kmer_seed_table is not None:
-            seed = u32_tensor(self.kmer_seed_table, device)
+            seed = as_table(self.kmer_seed_table, device)
         elif cache is not None and cache.seed_table.shape[0] == self.cardinality**k:
+            # a table built on the device: values < 2^32 whenever the
+            # widths differ, so widening adds zero high words and
+            # narrowing drops them
             seed = cache.seed_table.to(device)
+            if cache.wide != wide:
+                seed = widen_u32(seed) if wide else narrow_u32(seed)
         else:
-            seed = torch.zeros((1, 2), dtype=torch.int32, device=device)
+            seed = torch.zeros(
+                (1, 2), dtype=torch.int64 if wide else torch.int32, device=device
+            )
         dev_sa = self.sampled_sa
         dev_ratio = int(self.config.suffix_array_compression_ratio)
         if self.device_sa is not None:
             dev_sa = self.device_sa
             dev_ratio = int(self.device_sa_ratio)
         dev = DeviceIndex(
-            packed=torch.from_numpy(packed).to(device),
-            packed_pair=torch.from_numpy(pair).to(device),
-            prefix_sums=u32_tensor(self.prefix_sums, device),
+            packed=packed,
+            packed_pair=pair,
+            prefix_sums=as_table(self.prefix_sums, device),
             seed_table=seed,
-            sampled_sa=None if dev_sa is None else u32_tensor(dev_sa, device),
+            sampled_sa=None if dev_sa is None else as_table(dev_sa, device),
             code_masks=torch.from_numpy(device_code_masks(self.alphabet)).to(device),
             vec_to_index=torch.from_numpy(
                 alpha.vector_to_index_lut(self.alphabet).astype(np.int32)
@@ -403,11 +544,14 @@ class FmIndex:
             ratio=dev_ratio,
             kmer_length_in_seed_table=k,
             alphabet=self.alphabet,
+            wide=wide,
         )
         self._device_cache = dev
         return dev
 
-    def densify_device_sa(self, ratio: int, chunk: int = 1 << 22, *, device) -> DeviceIndex:
+    def densify_device_sa(
+        self, ratio: int, chunk: int = 1 << 22, *, device, wide: Optional[bool] = None
+    ) -> DeviceIndex:
         """Rebuild a DENSER device-side suffix array from the loaded one.
 
         ``create_index(device_sa_ratio=r)`` can cut a denser SA only at
@@ -415,26 +559,27 @@ class FmIndex:
         density by itself: every BWT position's SA value is reachable from
         the stored samples by the LF backtrace, so this resolves the
         targets ``i * ratio`` (clamped to bwtLength - 1), chunk by chunk,
-        through ``search.backtrace_resolve`` (K3 on the card) and installs
-        the result as the device SA. Values equal a build-time dense SA.
+        through ``search.backtrace_resolve`` (K3 or K3w on the card) and
+        installs the result as the device SA. Values equal a build-time
+        dense SA.
 
         The new samples live on the device only; the ``.awfmi`` file and
         the host model keep the config ratio. Returns the new DeviceIndex,
         also installed as this index's device view, so later
         ``to_device``/engine constructions see it. Needs the sampled SA
-        in memory. Positions >= 2^32 wait for the ROADMAP item
-        "positions >= 2^32".
+        in memory. ``wide`` defaults to the width ``to_device`` picks, or
+        wide when a wide view is already installed on ``device``.
         """
         from ..search import backtrace_resolve
 
         if ratio < 1:
             raise ValueError("ratio must be >= 1")
-        if self.bwt_length >= 2**32:
-            raise NotImplementedError(
-                "densify_device_sa for bwtLength >= 2^32 waits for the "
-                "ROADMAP item 'positions >= 2^32'"
+        if wide is None:
+            cache = self._device_cache
+            wide = self.bwt_length >= 2**32 or (
+                cache is not None and cache.wide and cache.device == as_device(device)
             )
-        dev = self.to_device(device)
+        dev = self.to_device(device, wide=wide)
         if dev.sampled_sa is None:
             raise ValueError(
                 "densify_device_sa needs the sampled suffix array on the "
@@ -443,13 +588,18 @@ class FmIndex:
         if ratio == dev.ratio:
             return dev
         new_len = (self.bwt_length + ratio - 1) // ratio
-        out = torch.empty(new_len, dtype=torch.int32, device=dev.device)
+        if wide and new_len >= 2**31:
+            raise ValueError(
+                "dense device SA gather index must fit int32: need "
+                "bwtLength / ratio < 2^31"
+            )
+        out = torch.empty(new_len, dtype=dev.sampled_sa.dtype, device=dev.device)
         for lo in range(0, new_len, chunk):
             hi = min(lo + chunk, new_len)
             targets = (torch.arange(lo, hi, dtype=torch.int64, device=dev.device) * ratio).clamp(
                 max=self.bwt_length - 1
             )
-            out[lo:hi] = narrow_u32(backtrace_resolve(dev, targets))
+            out[lo:hi] = dev.store(backtrace_resolve(dev, targets))
         dense = dataclasses.replace(dev, sampled_sa=out, ratio=int(ratio))
         self.device_sa_ratio = int(ratio)
         self._device_cache = dense

@@ -1,11 +1,12 @@
 """ctypes bindings for the native host library (SA-IS and FASTA parsing).
 
-The C++ source is the JAX package's ``avxwindowfmindex_tpu/native/src/
-awfm_host.cpp``, read by path and never edited: both packages then sort
-suffixes and parse FASTA with the same code. The port compiles it with
-g++ into its own ignored build directory (``avxwindowfmindex_tpu_torch/
-build/host/``), keyed on a hash of the source, and never writes into the
-JAX package's build directory.
+The C++ source is ``avxwindowfmindex_tpu_torch/csrc/awfm_host.cpp``, the
+port's own copy of the JAX package's ``native/src/awfm_host.cpp``, kept
+byte-equal to it (tests/test_torch_slice.py), so both packages sort
+suffixes and parse FASTA with the same code and the port reads no file
+of the JAX package. It is compiled with g++ into the port's ignored
+build directory (``avxwindowfmindex_tpu_torch/build/host/``), keyed on a
+hash of the source.
 
 If no compiler or source is available, ``available()`` is False and
 callers fall back to the NumPy/Python implementations, except where a
@@ -24,10 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(
-    os.path.dirname(_PKG_DIR), "avxwindowfmindex_tpu", "native", "src",
-    "awfm_host.cpp",
-)
+SOURCE = os.path.join(_PKG_DIR, "csrc", "awfm_host.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "build", "host")
 
 _lock = threading.Lock()

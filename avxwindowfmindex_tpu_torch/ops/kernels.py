@@ -1,13 +1,14 @@
 """The hand-written CUDA kernels: build, ctypes bindings, launch counts.
 
 The sources are ``avxwindowfmindex_tpu_torch/csrc/*.cu`` and nothing
-else. At first use they are compiled with
+else. At first use each is compiled to an object, all at once, with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c
 
-into ``avxwindowfmindex_tpu_torch/build/kernels/<hash of the sources>/``
-(ignored by git), and the shared library is loaded with ctypes. Each C
+and the objects are linked (``nvcc -shared``) into
+``avxwindowfmindex_tpu_torch/build/kernels/<hash of the sources>/``
+(ignored by git); the shared library is loaded with ctypes. Each C
 entry point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; the launchers below raise when it is nonzero.
 Nothing here falls back to the plain torch versions: those are chosen
@@ -38,7 +39,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -77,7 +78,21 @@ K6 = Kernel(
     "k6_slab_gather", "avxwindowfmindex_tpu_torch/csrc/awfm_probes.cu",
     "experiments/ab_r5_pallas_gather.py:85",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6)
+# the 64-bit instantiations of K1-K3, for a wide view (positions >= 2^32);
+# the JAX package's counterpart is XLA code over (hi, lo) u32 pairs
+K1W = Kernel(
+    "k1w_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/ops/rank64.py:410",
+)
+K2W = Kernel(
+    "k2w_ranges", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/ops/rank64.py:447",
+)
+K3W = Kernel(
+    "k3w_backtrace_resolve", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/search64.py:473",
+)
+KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W)
 
 
 def reset_launch_counts() -> None:
@@ -157,13 +172,25 @@ def build() -> float:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
             cu = [s for s in _sources() if s.endswith(".cu")]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
-                )
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+            # one nvcc per source, all started together, then the link
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, src] for src, o in zip(cu, objs)]
+            procs = [
+                subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for c in cmds
+            ]
+            results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+            if all(rc == 0 for _, _, rc in results):
+                link = [_nvcc(), "-shared", "-o", tmp, *objs]
+                done = subprocess.run(link, capture_output=True, text=True)
+                results.append((link, done.stdout + done.stderr, done.returncode))
+            BUILD_LOG = "".join(out for _, out, _ in results)
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+            for cmd, _, rc in results:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{BUILD_LOG}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         tables_p = ctypes.POINTER(_Tables)
@@ -177,6 +204,13 @@ def build() -> float:
             i32, tables_p, vp, i64, ctypes.c_uint32, ctypes.c_uint32, vp,
             vp, vp, vp, vp,
         ]
+        u64 = ctypes.c_uint64
+        lib.awfm_k1w_occ.argtypes = lib.awfm_k1_occ.argtypes
+        lib.awfm_k1w_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
+        lib.awfm_k2w_ranges.argtypes = lib.awfm_k2_ranges.argtypes
+        lib.awfm_k3w_backtrace_resolve.argtypes = [
+            i32, tables_p, vp, i64, u64, u64, vp, vp, vp, vp, vp,
+        ]
         lib.awfm_k4_ngram_ranges.argtypes = [
             i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
             i64, i64, i32, vp, vp, vp,
@@ -188,6 +222,8 @@ def build() -> float:
         for fn in (
             lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k2_ranges,
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
+            lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k2w_ranges,
+            lib.awfm_k3w_backtrace_resolve,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
             lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
         ):
@@ -219,14 +255,32 @@ def _require(t: torch.Tensor, name: str, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _pos_dtype(dev):
+    """The dtype a view stores positions in: u32 in int32, u64 in int64."""
+    return torch.int64 if dev.wide else torch.int32
+
+
 def _tables(dev) -> _Tables:
     device = dev.packed.device
     for name, dtype in (
         ("packed", torch.uint8), ("packed_pair", torch.uint8),
-        ("prefix_sums", torch.int32), ("code_masks", torch.uint8),
+        ("prefix_sums", _pos_dtype(dev)), ("code_masks", torch.uint8),
         ("vec_to_index", torch.int32),
     ):
         _require(getattr(dev, name), name, dtype, device)
+    if dev.wide:
+        from ..models.index import device_row_bytes64
+
+        # one table serves both roles; its 16 B loads need aligned rows
+        if dev.packed_pair.data_ptr() != dev.packed.data_ptr():
+            raise ValueError("a wide view has one row table (packed is packed_pair)")
+        if dev.packed.shape[1] != device_row_bytes64(dev.alphabet):
+            raise ValueError(
+                f"wide rows must be {device_row_bytes64(dev.alphabet)} B, "
+                f"got {dev.packed.shape[1]}"
+            )
+    if dev.packed.data_ptr() % 16 or dev.packed_pair.data_ptr() % 16:
+        raise ValueError("row tables must be 16-byte aligned")
     return _Tables(
         packed=dev.packed.data_ptr(),
         packed_pair=dev.packed_pair.data_ptr(),
@@ -245,8 +299,18 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _entry(dev, kernel: Kernel, suffix: str):
+    """(C entry point, its name, its Kernel) of K1, K2 or K3 for the
+    view's width: ``awfm_k1_occ`` and K1, or ``awfm_k1w_occ`` and K1W."""
+    if dev.wide:
+        kernel = {K1: K1W, K2: K2W, K3: K3W}[kernel]
+    name = f"awfm_{kernel.name.split('_')[0]}_{suffix}"
+    return getattr(_library(), name), name, kernel
+
+
 def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.Tensor:
-    """K1, occ mode: (n,) int64 occ(letter, position mod 2^32), as u32."""
+    """K1, occ mode: (n,) int64 occ(letter, position mod 2^32), as u32.
+    K1w for a wide view: positions and counts are u64 in int64."""
     tables = _tables(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
@@ -257,17 +321,19 @@ def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.
     out = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out
-    rc = _library().awfm_k1_occ(
+    fn, name, kernel = _entry(dev, K1, "occ")
+    rc = fn(
         device.index, ctypes.byref(tables), positions.data_ptr(),
         letters.data_ptr(), n, out.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k1_occ")
-    K1.launches += 1
+    _check(rc, name)
+    kernel.launches += 1
     return out
 
 
 def k1_letter_and_lf(dev, positions: torch.Tensor):
-    """K1, LF mode: ((n,) int32 letters, (n,) int64 LF positions)."""
+    """K1 (K1w for a wide view), LF mode: ((n,) int32 letters, (n,) int64
+    LF positions)."""
     tables = _tables(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
@@ -278,20 +344,24 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     lf = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return letters, lf
-    rc = _library().awfm_k1_letter_lf(
+    fn, name, kernel = _entry(dev, K1, "letter_lf")
+    rc = fn(
         device.index, ctypes.byref(tables), positions.data_ptr(), n,
         letters.data_ptr(), lf.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k1_letter_lf")
-    K1.launches += 1
+    _check(rc, name)
+    kernel.launches += 1
     return letters, lf
 
 
 def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tensor):
-    """K2: final (start, end) BWT ranges, (b,) int64 each, as u32."""
+    """K2: final (start, end) BWT ranges, (b,) int64 each, as u32; K2w
+    for a wide view, as u64."""
     tables = _tables(dev)
     device = dev.packed.device
-    _require(dev.seed_table, "seed_table", torch.int32, device)
+    _require(dev.seed_table, "seed_table", _pos_dtype(dev), device)
+    if dev.seed_table.dim() != 2 or dev.seed_table.shape[1] != 2:
+        raise ValueError("seed_table must be (rows, 2)")
     _require(mat, "mat", torch.uint8, device)
     _require(lengths, "lengths", torch.int32, device)
     _require(seeded, "seeded", torch.uint8, device)
@@ -302,20 +372,22 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
     end = torch.empty(b, dtype=torch.int64, device=device)
     if b == 0:
         return start, end
-    rc = _library().awfm_k2_ranges(
+    fn, name, kernel = _entry(dev, K2, "ranges")
+    rc = fn(
         device.index, ctypes.byref(tables), dev.seed_table.data_ptr(),
         int(dev.seed_table.shape[0]), int(dev.kmer_length_in_seed_table),
         mat.data_ptr(), b, l_pad, lengths.data_ptr(), seeded.data_ptr(),
         start.data_ptr(), end.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k2_ranges")
-    K2.launches += 1
+    _check(rc, name)
+    kernel.launches += 1
     return start, end
 
 
 def k3_backtrace_resolve(dev, positions: torch.Tensor):
-    """K3: hits (n,) int64 when the sampled SA is resident, else the
-    sampled positions and walk offsets ((n,) int64 each)."""
+    """K3 (K3w for a wide view): hits (n,) int64 when the sampled SA is
+    resident, else the sampled positions and walk offsets ((n,) int64
+    each)."""
     tables = _tables(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
@@ -328,11 +400,16 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
         p = torch.empty(n, dtype=torch.int64, device=device)
         off = torch.empty(n, dtype=torch.int64, device=device)
     else:
-        _require(dev.sampled_sa, "sampled_sa", torch.int32, device)
+        _require(dev.sampled_sa, "sampled_sa", _pos_dtype(dev), device)
+        if dev.sampled_sa.dim() != 1:
+            raise ValueError("sampled_sa must be 1-D")
         hits = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return (p, off) if on_disk else hits
-    rc = _library().awfm_k3_backtrace_resolve(
+    if dev.ratio < 1 or (not dev.wide and dev.bwt_length >= 2**32):
+        raise ValueError("need ratio >= 1, and a wide view for bwtLength >= 2^32")
+    fn, name, kernel = _entry(dev, K3, "backtrace_resolve")
+    rc = fn(
         device.index, ctypes.byref(tables), positions.data_ptr(), n,
         int(dev.ratio), int(dev.bwt_length),
         None if on_disk else dev.sampled_sa.data_ptr(),
@@ -341,21 +418,23 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
         off.data_ptr() if on_disk else None,
         _stream(device),
     )
-    _check(rc, "awfm_k3_backtrace_resolve")
-    K3.launches += 1
+    _check(rc, name)
+    kernel.launches += 1
     return (p, off) if on_disk else hits
 
 
 def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     """K4: final (start, end) BWT ranges of a uniform-length clean batch
     through the n-gram table ``ng``, (b,) int64 each, as u32."""
+    if dev.wide:
+        raise ValueError("K4 takes narrow views only")
     tables = _tables(dev)
     device = dev.packed.device
     _require(dev.seed_table, "seed_table", torch.int32, device)
     _require(ng.packed, "ngram packed", torch.uint8, device)
     _require(ng.cn, "ngram cn", torch.int32, device)
     _require(mat, "mat", torch.uint8, device)
-    if ng.packed.data_ptr() % 16 or dev.packed_pair.data_ptr() % 16:
+    if ng.packed.data_ptr() % 16:
         raise ValueError("row tables must be 16-byte aligned")
     if ng.n not in (2, 3) or ng.cn.shape != (4**ng.n,):
         raise ValueError(f"unsupported n-gram table (n={ng.n})")

@@ -1,27 +1,42 @@
 """Occurrence (rank) primitives: plain torch versions and dispatch wrappers.
 
-Counterpart of ``avxwindowfmindex_tpu/ops/rank.py``, with the same math
-over the same fused rows (models/index.py):
+Counterpart of ``avxwindowfmindex_tpu/ops/rank.py`` and, for the wide
+view, of ``ops/rank64.py``, with the same math over the same fused rows
+(models/index.py):
 
     occ(l, pos) = milestone[pos/256, l] + popcount(match(l) & incl_mask(pos%256))
 
-Positions are u32 values carried in int64 tensors. They wrap mod 2^32
-(``start - 1`` at ``start == 0`` is 0xFFFFFFFF), and a block index past
-the table clamps to the last row, exactly as the JAX gathers do under
-XLA's clamping semantics; torch indexing would raise instead. The
-letter selects are one-hot as in JAX: a letter above the ambiguity
+One body serves both widths: the row geometry (plane stride, milestone
+width, which table), the position mask and the block-index rule come
+from the view.
+
+Narrow positions are u32 values carried in int64 tensors. They wrap mod
+2^32 (``start - 1`` at ``start == 0`` is 0xFFFFFFFF), and a block index
+past the table clamps to the last row, exactly as the JAX gathers do
+under XLA's clamping semantics; torch indexing would raise instead.
+
+Wide positions are u64 values carried in int64 tensors: add and subtract
+wrap mod 2^64 by two's complement, compares and shifts are written for
+unsigned values (``le_unsigned``, ``_gather_rows``). The block index is
+the JAX wide path's (ops/rank64.py ``_gather_rows64``): the low 32 bits
+of ``pos >> 8`` read as int32, a negative value taken from the end of
+the table (plus num_blocks), then clamped to [0, num_blocks - 1]. So
+``start - 1`` at ``start == 0`` (block -1) reads the last row, as the
+narrow path does, while other out-of-range positions may clamp to row 0.
+
+The letter selects are one-hot as in JAX: a letter above the ambiguity
 index has code 0 and milestone 0, and one above the sentinel has C = 0.
 
 ``occurrence`` and ``letter_and_lf_at`` are the dispatch wrappers of
-K1 (ops/kernels.py): they launch the kernel for CUDA tensors and take
-the ``*_plain`` versions below only for CPU tensors.
+K1 and K1w (ops/kernels.py): they launch the kernel for CUDA tensors and
+take the ``*_plain`` versions below only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.index import MASK32, widen_u32
+from ..models.index import MASK32
 
 POSITIONS_PER_BLOCK = 256
 
@@ -45,12 +60,32 @@ def device_kind(t: torch.Tensor) -> str:
 # Row helpers (plain torch)
 # ---------------------------------------------------------------------------
 
-def _gather_rows(table: torch.Tensor, positions: torch.Tensor):
-    """(rows, local) for u32 positions: the row of block pos>>8, clamped
-    to the last row, and pos & 255."""
-    pos = positions.to(torch.int64) & MASK32
-    blk = torch.clamp(pos >> 8, max=table.shape[0] - 1)
-    return table[blk], pos & (POSITIONS_PER_BLOCK - 1)
+_SIGN64 = -(2**63)
+
+
+def le_unsigned(a: torch.Tensor, b: torch.Tensor, wide: bool) -> torch.Tensor:
+    """a <= b for position values in int64 tensors: u32 values compare
+    as they are, u64 values after flipping the sign bit."""
+    if not wide:
+        return a <= b
+    return (a ^ _SIGN64) <= (b ^ _SIGN64)
+
+
+def block_index(nb: int, positions: torch.Tensor, wide: bool) -> torch.Tensor:
+    """Row of each position in a table of ``nb`` rows under the narrow
+    or the wide block-index rule (module docstring), in [0, nb - 1]."""
+    pos = positions.to(torch.int64)
+    if not wide:
+        return torch.clamp((pos & MASK32) >> 8, max=nb - 1)
+    blk = (pos >> 8) & MASK32
+    blk = torch.where(blk >= 2**31, blk - 2**32, blk)
+    return torch.where(blk < 0, blk + nb, blk).clamp(0, nb - 1)
+
+
+def _gather_rows(table: torch.Tensor, positions: torch.Tensor, wide: bool = False):
+    """(rows, local): the table row of each position's block and pos & 255."""
+    pos = positions.to(torch.int64)
+    return table[block_index(table.shape[0], pos, wide)], pos & (POSITIONS_PER_BLOCK - 1)
 
 
 def _code_masks(dev, letters: torch.Tensor) -> torch.Tensor:
@@ -60,12 +95,14 @@ def _code_masks(dev, letters: torch.Tensor) -> torch.Tensor:
     return cm * ok[:, None].to(torch.uint8)
 
 
-def _match_bytes(dev, rows: torch.Tensor, letters: torch.Tensor, plane_bytes: int):
-    """(B, plane_bytes) uint8 whose set bits mark positions equal to the letter."""
+def _match_bytes(dev, rows: torch.Tensor, letters: torch.Tensor, plane_bytes: int,
+                 stride: int):
+    """(B, plane_bytes) uint8 whose set bits mark positions equal to the
+    letter, over the first plane_bytes of each plane (``stride`` apart)."""
     cms = _code_masks(dev, letters)
     diff = None
     for i in range(dev.n_planes):
-        x = rows[:, i * plane_bytes : (i + 1) * plane_bytes] ^ cms[:, i : i + 1]
+        x = rows[:, i * stride : i * stride + plane_bytes] ^ cms[:, i : i + 1]
         diff = x if diff is None else (diff | x)
     return torch.bitwise_not(diff)
 
@@ -82,27 +119,30 @@ def _inclusive_mask(local: torch.Tensor, plane_bytes: int) -> torch.Tensor:
 
 
 def _milestone(dev, rows: torch.Tensor, letters: torch.Tensor, offset: int):
-    """Little-endian u32 milestone of each row's letter; 0 above the
-    ambiguity index."""
+    """Little-endian milestone (u32, or u64 in a wide row) of each row's
+    letter; 0 above the ambiguity index. The byte fields are disjoint,
+    so the int64 sum is their OR, the top byte of a u64 wrapping into
+    the sign bit."""
+    w = dev.milestone_bytes
     ok = (letters >= 0) & (letters <= dev.cardinality)
     lc = letters.clamp(0, dev.cardinality).to(torch.int64)
-    idx = offset + 4 * lc[:, None] + torch.arange(4, device=rows.device)[None, :]
+    idx = offset + w * lc[:, None] + torch.arange(w, device=rows.device)[None, :]
     b = rows.gather(1, idx).to(torch.int64)
-    shifts = torch.tensor([0, 8, 16, 24], device=rows.device)
+    shifts = 8 * torch.arange(w, device=rows.device)
     return torch.where(ok, (b << shifts).sum(dim=1), 0)
 
 
 def _prefix_sum_select(dev, letters: torch.Tensor) -> torch.Tensor:
     """C[letter] as int64; 0 above the sentinel index."""
     ok = (letters >= 0) & (letters <= dev.cardinality + 1)
-    ps = widen_u32(dev.prefix_sums)
+    ps = dev.widen(dev.prefix_sums)
     return torch.where(ok, ps[letters.clamp(0, dev.cardinality + 1).long()], 0)
 
 
 def _count_rows(dev, rows, local, letters):
-    match = _match_bytes(dev, rows, letters, 32)
+    match = _match_bytes(dev, rows, letters, 32, dev.plane_stride)
     cnt = _popcount_sum(match & _inclusive_mask(local, 32))
-    return (_milestone(dev, rows, letters, dev.milestone_offset) + cnt) & MASK32
+    return (_milestone(dev, rows, letters, dev.milestone_offset) + cnt) & dev.pos_mask
 
 
 # ---------------------------------------------------------------------------
@@ -110,13 +150,15 @@ def _count_rows(dev, rows, local, letters):
 # ---------------------------------------------------------------------------
 
 def occurrence_plain(dev, positions: torch.Tensor, letters: torch.Tensor):
-    """Batched occ(l, pos), inclusive of pos -> (B,) int64 u32 values."""
-    rows, local = _gather_rows(dev.packed, positions)
+    """Batched occ(l, pos), inclusive of pos -> (B,) int64 holding u32
+    values (u64 for a wide view)."""
+    rows, local = _gather_rows(dev.packed, positions, dev.wide)
     return _count_rows(dev, rows, local, letters.to(torch.int64))
 
 
 def occurrence(dev, positions: torch.Tensor, letters: torch.Tensor):
-    """occ(l, pos): K1 for CUDA tensors, the plain version for CPU ones."""
+    """occ(l, pos): K1 (K1w for a wide view) for CUDA tensors, the plain
+    version for CPU ones."""
     if device_kind(positions) == "cuda":
         from . import kernels
 
@@ -134,24 +176,24 @@ def letter_at_rows(dev, rows: torch.Tensor, local: torch.Tensor) -> torch.Tensor
     bit = local & 7
     code = torch.zeros_like(local)
     for i in range(dev.n_planes):
-        byte = rows.gather(1, byte_col + i * 32)[:, 0].to(torch.int64)
+        byte = rows.gather(1, byte_col + i * dev.plane_stride)[:, 0].to(torch.int64)
         code = code | (((byte >> bit) & 1) << i)
     return dev.vec_to_index.to(torch.int64)[code]
 
 
 def letter_and_lf_plain(dev, positions: torch.Tensor):
-    """(letters, LF) for u32 positions: LF(p) = C[l] + occ(l, p) - 1 with
-    l the letter at p; the sentinel maps to 0 (AwFmSearch.c:369-427)."""
-    rows, local = _gather_rows(dev.packed, positions)
+    """(letters, LF): LF(p) = C[l] + occ(l, p) - 1 with l the letter at
+    p; the sentinel maps to 0 (AwFmSearch.c:369-427)."""
+    rows, local = _gather_rows(dev.packed, positions, dev.wide)
     lett = letter_at_rows(dev, rows, local)
     lclip = torch.clamp(lett, max=dev.cardinality)
     occ = _count_rows(dev, rows, local, lclip)
-    lf = (_prefix_sum_select(dev, lclip) + occ - 1) & MASK32
+    lf = (_prefix_sum_select(dev, lclip) + occ - 1) & dev.pos_mask
     return lett, torch.where(lett == dev.sentinel, 0, lf)
 
 
 def letter_and_lf_at(dev, positions: torch.Tensor):
-    """(letters, LF): K1's LF mode for CUDA tensors, plain for CPU ones."""
+    """(letters, LF): K1's (K1w's) LF mode for CUDA tensors, plain for CPU ones."""
     if device_kind(positions) == "cuda":
         from . import kernels
 
@@ -176,17 +218,18 @@ def backward_step(dev, start, end, letters, active=None, check_valid=True,
     dispatch wrapper; pass ``occurrence_plain`` to force the plain one.
     """
     occ_fn = occurrence if occurrence_fn is None else occurrence_fn
-    start = start.to(torch.int64) & MASK32
-    end = end.to(torch.int64) & MASK32
+    mask = dev.pos_mask
+    start = start.to(torch.int64) & mask
+    end = end.to(torch.int64) & mask
     letters = letters.to(torch.int64)
     b = start.shape[0]
     c = _prefix_sum_select(dev, letters)
-    occ = occ_fn(dev, torch.cat([(start - 1) & MASK32, end]), torch.cat([letters, letters]))
-    new_start = (c + occ[:b]) & MASK32
-    new_end = (c + occ[b:] - 1) & MASK32
+    occ = occ_fn(dev, torch.cat([(start - 1) & mask, end]), torch.cat([letters, letters]))
+    new_start = (c + occ[:b]) & mask
+    new_end = (c + occ[b:] - 1) & mask
     keep = None
     if check_valid:
-        keep = start <= end
+        keep = le_unsigned(start, end, dev.wide)
     if active is not None:
         keep = active if keep is None else (active & keep)
     if keep is None:
@@ -199,25 +242,28 @@ def backward_step_pair(dev, start, end, letters, bad, active=None):
 
     Returns (new_start, new_end, bad) exactly as the JAX function does:
     a row whose end lies past the 512-position window gets a clamped
-    (wrong) end and its flag set. The window offset is compared in u32
-    before any narrowing (ops/rank.py:382-388 of the JAX package).
+    (wrong) end and its flag set. The window offset is compared
+    unsigned at the full position width before any narrowing
+    (ops/rank.py:382-388 and ops/rank64.py:470-473 of the JAX package);
+    the clamped end comes from its low 32 bits, as there.
     """
-    start = start.to(torch.int64) & MASK32
-    end = end.to(torch.int64) & MASK32
+    mask = dev.pos_mask
+    start = start.to(torch.int64) & mask
+    end = end.to(torch.int64) & mask
     letters = letters.to(torch.int64)
     c = _prefix_sum_select(dev, letters)
-    pos_s = (start - 1) & MASK32
-    rows, local_s = _gather_rows(dev.packed_pair, pos_s)
-    delta_e = (end - (pos_s & ~0xFF)) & MASK32
-    overflow = delta_e >= 512
-    local_e = torch.clamp(delta_e, max=511)
-    match = _match_bytes(dev, rows, letters, 64)
+    pos_s = (start - 1) & mask
+    rows, local_s = _gather_rows(dev.packed_pair, pos_s, dev.wide)
+    delta_e = (end - (pos_s & ~0xFF)) & mask
+    overflow = (delta_e < 0) | (delta_e >= 512)  # negative: u64 above 2^63
+    local_e = torch.clamp(delta_e & MASK32, max=511)
+    match = _match_bytes(dev, rows, letters, 64, 64)
     occ_s = _popcount_sum(match & _inclusive_mask(local_s, 64))
     occ_e = _popcount_sum(match & _inclusive_mask(local_e, 64))
     ms = _milestone(dev, rows, letters, dev.pair_milestone_offset)
-    new_start = (c + ms + occ_s) & MASK32
-    new_end = (c + ms + occ_e - 1) & MASK32
-    keep = start <= end
+    new_start = (c + ms + occ_s) & mask
+    new_end = (c + ms + occ_e - 1) & mask
+    keep = le_unsigned(start, end, dev.wide)
     if active is not None:
         keep = keep & active
     bad = bad | (overflow & keep)

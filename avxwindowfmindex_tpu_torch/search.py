@@ -26,18 +26,31 @@ is a few kernels around one plain torch step:
 Each of ``search_ranges``, ``ngram_ranges`` and ``backtrace_resolve``
 launches its kernel for CUDA tensors and runs the plain version beside it only for CPU
 tensors. Results equal the JAX package's bit for bit.
+
+A wide view (``DeviceIndex.wide``: positions >= 2^32, or forced with
+``to_device(device, wide=True)``) runs through the same functions: the
+JAX package's second engine (``search64.py`` over (hi, lo) u32 pairs) is
+int64 arithmetic here, and ``search_ranges`` / ``backtrace_resolve``
+launch K2w / K3w, the 64-bit instantiations of K2 / K3. Positions are
+u64 values in int64 tensors; every real one is below 2^39, so it is
+non-negative and ``%``, ``//`` and sums act as on u64. The n-gram engine
+stays narrow-only, as in the JAX package.
+
+The single-query parity API (AwFmSearch.c's per-query functions) is at
+the end of the module: each call runs one query through the same
+kernels, on the ``device`` it is given.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .models import alphabet as alpha
 from .models.config import AlphabetType
-from .models.index import MASK32, DeviceIndex, FmIndex, as_device, widen_u32
+from .models.index import MASK32, DeviceIndex, FmIndex, as_device
 from .ops import ngram as ngram_ops
 from .ops import rank as rank_ops
 from .utils import metrics
@@ -79,11 +92,12 @@ def _seed_lookup(dev, mat, lengths):
     tidx = ((mat.gather(1, idxs) * powers).sum(dim=1) & MASK32).clamp(
         max=dev.seed_table.shape[0] - 1
     )
-    return widen_u32(dev.seed_table[tidx])
+    return dev.widen(dev.seed_table[tidx])
 
 
 def ranges_plain(dev, mat, lengths, seeded):
-    """Plain torch version of K2 -> (start, end), (B,) int64 u32 values.
+    """Plain torch version of K2 and K2w -> (start, end), (B,) int64
+    holding u32 values (u64 for a wide view).
 
     mat (B, L) letter indices; lengths (B,); seeded (B,) bool/uint8:
     seed-table lookup of the last k letters (``_seed_lookup``) where
@@ -98,10 +112,10 @@ def ranges_plain(dev, mat, lengths, seeded):
     k = dev.kmer_length_in_seed_table
     card = dev.cardinality
     seed = _seed_lookup(dev, mat, lengths)
-    ps = widen_u32(dev.prefix_sums)
+    ps = dev.widen(dev.prefix_sums)
     last = mat.gather(1, (lengths - 1).clamp(min=0)[:, None])[:, 0]
     init_s = ps[last.clamp(max=card + 1)]
-    init_e = (ps[(last + 1).clamp(max=card + 1)] - 1) & MASK32
+    init_e = (ps[(last + 1).clamp(max=card + 1)] - 1) & dev.pos_mask
     start = torch.where(seeded, seed[:, 0], init_s)
     end = torch.where(seeded, seed[:, 1], init_e)
     nxt = torch.where(seeded, lengths - k - 1, lengths - 2)
@@ -114,7 +128,8 @@ def ranges_plain(dev, mat, lengths, seeded):
 
 
 def search_ranges(dev, mat, lengths, seeded):
-    """Final (start, end) ranges: K2 for CUDA tensors, plain for CPU ones."""
+    """Final (start, end) ranges: K2 (K2w for a wide view) for CUDA
+    tensors, plain for CPU ones."""
     if rank_ops.device_kind(mat) == "cuda":
         from .ops import kernels
 
@@ -177,7 +192,7 @@ def ngram_ranges(dev, ng, mat, kmer_len: int):
 # ---------------------------------------------------------------------------
 
 def backtrace_resolve_plain(dev, positions):
-    """Plain torch version of K3.
+    """Plain torch version of K3 and K3w.
 
     Walks ``p = LF(p); off += 1`` until ``p % ratio == 0``
     (AwFmParallelSearch.c:343-354; ratio 1 walks nothing). With the
@@ -186,7 +201,7 @@ def backtrace_resolve_plain(dev, positions):
     bounded by bwtLength steps, as in K3, so a malformed index cannot
     spin forever.
     """
-    p = positions.to(torch.int64) & MASK32
+    p = positions.to(torch.int64) & dev.pos_mask
     off = torch.zeros_like(p)
     todo = torch.nonzero(p % dev.ratio != 0)[:, 0]
     steps = 0
@@ -198,12 +213,13 @@ def backtrace_resolve_plain(dev, positions):
         steps += 1
     if dev.sampled_sa is None:
         return p, off
-    sa = widen_u32(dev.sampled_sa)[p // dev.ratio]
+    sa = dev.widen(dev.sampled_sa)[p // dev.ratio]
     return (sa + off) % dev.bwt_length
 
 
 def backtrace_resolve(dev, positions):
-    """K3 for CUDA tensors, the plain version for CPU ones."""
+    """K3 (K3w for a wide view) for CUDA tensors, the plain version for
+    CPU ones."""
     if rank_ops.device_kind(positions) == "cuda":
         from .ops import kernels
 
@@ -215,16 +231,18 @@ def backtrace_resolve(dev, positions):
 # Enumerate
 # ---------------------------------------------------------------------------
 
-def range_counts(start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
-    """Hits per range: end - start + 1 where start <= end, else 0 (int64)."""
-    return torch.where(start <= end, end - start + 1, 0)
+def range_counts(start: torch.Tensor, end: torch.Tensor, wide: bool = False) -> torch.Tensor:
+    """Hits per range: end - start + 1 where start <= end, else 0 (int64).
+    ``wide``: the ranges are u64 values in int64 tensors (a wide view's),
+    compared unsigned."""
+    return torch.where(rank_ops.le_unsigned(start, end, wide), end - start + 1, 0)
 
 
-def total_hits_host(start: torch.Tensor, end: torch.Tensor) -> int:
+def total_hits_host(start: torch.Tensor, end: torch.Tensor, wide: bool = False) -> int:
     """Exact total hit count of a range batch as a Python int
     (``_total_hits`` / ``total_hits_host``: int64 sums cannot wrap the
     way the JAX package's u32 lanes had to guard)."""
-    return int(range_counts(start, end).sum())
+    return int(range_counts(start, end, wide).sum())
 
 
 def enumerate_range_positions(start: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -239,7 +257,8 @@ def enumerate_range_positions(start: torch.Tensor, counts: torch.Tensor) -> torc
     return start[qid] + torch.arange(total, device=device) - seg_off[qid]
 
 
-def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
+def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int,
+                   wide: bool = False):
     """Flatten BWT ranges into per-hit positions of a fixed ``capacity``,
     on the device (``enumerate_range_positions(start, end, capacity=)``
     of the JAX package).
@@ -248,7 +267,8 @@ def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
     each (capacity,). Hits are grouped by query in range order; slots
     past the total hold 0 with the mask False. A range's count is
     clamped at ``capacity``, and hits past ``capacity`` are dropped. No
-    value is read back to the host.
+    value is read back to the host. With ``wide`` the ranges and the
+    positions are u64 values and nothing wraps at 2^32.
     """
     if not 0 <= capacity < 2**31:
         raise ValueError("capacity must be in [0, 2^31)")
@@ -256,7 +276,7 @@ def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
     if start.shape[0] == 0:
         z = torch.zeros(capacity, dtype=torch.int64, device=device)
         return z, z.to(torch.int32), torch.zeros(capacity, dtype=torch.bool, device=device)
-    counts = range_counts(start, end).clamp(max=capacity)
+    counts = range_counts(start, end, wide).clamp(max=capacity)
     seg_off = torch.cumsum(counts, 0) - counts
     # one mark per query at its segment start (zero-count queries stack
     # on the next start, so the cumsum skips their ids); marks at or past
@@ -266,7 +286,9 @@ def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
     qid = (torch.cumsum(marks[:capacity], 0) - 1).clamp(min=0)
     iota = torch.arange(capacity, dtype=torch.int64, device=device)
     mask = iota < counts.sum()
-    pos = (start[qid] + iota - seg_off[qid]) & MASK32
+    pos = start[qid] + iota - seg_off[qid]
+    if not wide:
+        pos = pos & MASK32
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return (
         torch.where(mask, pos, zero),
@@ -277,13 +299,13 @@ def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int):
 
 def locate_flat_device(dev, start: torch.Tensor, end: torch.Tensor, *, capacity: int):
     """Full-hit-list locate staying on the device: enumerate, then the
-    backtrace and resolve of every slot (K3 on the card). Returns
+    backtrace and resolve of every slot (K3 or K3w on the card). Returns
     (hits int64, query ids int32, valid mask), each (capacity,), as the
     JAX package's ``locate_flat_device``: masked slots resolve position 0
     and must be ignored."""
     if dev.sampled_sa is None:
         raise ValueError("locate_flat_device needs the sampled suffix array on the device")
-    pos, qid, mask = enumerate_flat(start, end, capacity=capacity)
+    pos, qid, mask = enumerate_flat(start, end, capacity=capacity, wide=dev.wide)
     return backtrace_resolve(dev, pos), qid, mask
 
 
@@ -293,7 +315,7 @@ def locate_first_hit(dev, start: torch.Tensor, end: torch.Tensor) -> torch.Tenso
     per-hit backtrace cost in isolation."""
     if dev.sampled_sa is None:
         raise ValueError("locate_first_hit needs the sampled suffix array on the device")
-    valid = start <= end
+    valid = rank_ops.le_unsigned(start, end, dev.wide)
     zero = torch.zeros((), dtype=torch.int64, device=start.device)
     hits = backtrace_resolve(dev, torch.where(valid, start, zero))
     return torch.where(valid, hits, zero)
@@ -304,20 +326,28 @@ def locate_first_hit(dev, start: torch.Tensor, end: torch.Tensor) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 class SearchEngine:
-    """Batched count/locate over an index resident on ``device``."""
+    """Batched count/locate over an index resident on ``device``.
 
-    def __init__(self, index: Union[FmIndex, DeviceIndex], *, device):
+    ``wide`` is passed to ``FmIndex.to_device``: None picks the 64-bit
+    view for bwtLength >= 2^32, True forces it on a smaller index, with
+    the same answers. A ``DeviceIndex`` brings its own width."""
+
+    def __init__(self, index: Union[FmIndex, DeviceIndex], *, device,
+                 wide: Optional[bool] = None):
         self.device = as_device(device)
         if isinstance(index, FmIndex):
             self.host_index = index
-            self.dev = index.to_device(self.device)
+            self.dev = index.to_device(self.device, wide=wide)
         else:
+            if wide is not None and wide != index.wide:
+                raise ValueError("a DeviceIndex brings its own width")
             if index.device != self.device:
                 raise ValueError(
                     f"DeviceIndex lives on {index.device}, not {self.device}"
                 )
             self.host_index = None
             self.dev = index
+        self.wide = self.dev.wide
         self._ascii_lut = (
             alpha.AA_ASCII_TO_INDEX
             if self.dev.alphabet == AlphabetType.AMINO
@@ -409,7 +439,7 @@ class SearchEngine:
         with metrics.timer("search.count.seconds"):
             mat, lengths, n = self.encode_kmers(kmers)
             start, end = self._ranges_device(mat, lengths)
-            return range_counts(start[:n], end[:n]).cpu().numpy().astype(np.uint64)
+            return range_counts(start[:n], end[:n], self.wide).cpu().numpy().astype(np.uint64)
 
     def locate(self, kmers: Sequence[Union[str, bytes]]) -> List[np.ndarray]:
         """Database hit positions per kmer, in range order
@@ -418,7 +448,7 @@ class SearchEngine:
         with metrics.timer("search.locate.seconds"):
             mat, lengths, n = self.encode_kmers(kmers)
             start, end = self._ranges_device(mat, lengths)
-            counts = range_counts(start[:n], end[:n])
+            counts = range_counts(start[:n], end[:n], self.wide)
             hits = self._resolve(enumerate_range_positions(start[:n], counts))
             counts = counts.cpu().numpy()
         metrics.counter("search.locate.hits").add(int(counts.sum()))
@@ -485,12 +515,19 @@ class NgramSearchEngine(SearchEngine):
     (K4); every other batch falls back to the single-step engine (K2),
     with identical results either way."""
 
-    def __init__(self, index: FmIndex, n: int = 2, *, device):
-        super().__init__(index, device=device)
+    def __init__(self, index: FmIndex, n: int = 2, *, device,
+                 wide: Optional[bool] = None):
+        super().__init__(index, device=device, wide=wide)
         if self.dev.alphabet == AlphabetType.AMINO:
             raise NotImplementedError("n-gram stepping is nucleotide-only")
         if not isinstance(index, FmIndex):
             raise TypeError("NgramSearchEngine requires a host FmIndex")
+        if self.wide:
+            raise NotImplementedError(
+                "n-gram stepping is narrow-only, as in the JAX package: "
+                "indexes of 2^32 positions and more use the single-step "
+                "SearchEngine (ROADMAP item 'n-gram stepping over wide rows')"
+            )
         self.ng = ngram_ops.build_ngram_device(index, n, device=self.device)
 
     def _ranges_device(self, mat: np.ndarray, lengths: np.ndarray):
@@ -514,5 +551,122 @@ class NgramSearchEngine(SearchEngine):
 class DigramSearchEngine(NgramSearchEngine):
     """The n = 2 (double-step) engine."""
 
-    def __init__(self, index: FmIndex, *, device):
-        super().__init__(index, n=2, device=device)
+    def __init__(self, index: FmIndex, *, device, wide: Optional[bool] = None):
+        super().__init__(index, n=2, device=device, wide=wide)
+
+
+# ---------------------------------------------------------------------------
+# Single-query parity API (AwFmSearch.c)
+# ---------------------------------------------------------------------------
+
+def _as_u64(value: int, device) -> torch.Tensor:
+    """(1,) int64 tensor holding ``value`` mod 2^64 as a u64."""
+    v = int(value) & 0xFFFFFFFFFFFFFFFF
+    return torch.tensor([v - (1 << 64) if v >= (1 << 63) else v], dtype=torch.int64,
+                        device=device)
+
+
+def _from_u64(t: torch.Tensor) -> int:
+    """The first value of an int64 tensor, read as a u64."""
+    return int(t[0]) & 0xFFFFFFFFFFFFFFFF
+
+
+def iterative_step_backward_search(index: FmIndex, start_ptr: int, end_ptr: int,
+                                   letter_index: int, *, device,
+                                   wide: Optional[bool] = None) -> Tuple[int, int]:
+    """awFmNucleotide/AminoIterativeStepBackwardSearch (AwFmSearch.c:42-159).
+
+    One unconditional backward step on an explicit [start, end] range,
+    the letter-by-letter building block of custom search loops. Returns
+    the new (start_ptr, end_ptr). ``wide``, here and below, is
+    ``FmIndex.to_device``'s: None picks the view by bwtLength."""
+    dev = index.to_device(device, wide=wide)
+    s, e = rank_ops.backward_step(
+        dev, _as_u64(start_ptr, dev.device), _as_u64(end_ptr, dev.device),
+        torch.tensor([letter_index], dtype=torch.int64, device=dev.device),
+        check_valid=False,
+    )
+    return _from_u64(s), _from_u64(e)
+
+
+def search_range_is_valid(start_ptr: int, end_ptr: int) -> bool:
+    """awFmSearchRangeIsValid (AwFmIndexStruct.c:99-102)."""
+    return start_ptr <= end_ptr
+
+
+def query_can_use_kmer_table(index: FmIndex, kmer: Union[str, bytes]) -> bool:
+    """awFmQueryCanUseKmerTable (AwFmKmerTable.c:4-19): the kmer is at
+    least seed-table length and its last k letters hold no ambiguity
+    character."""
+    data = kmer.encode() if isinstance(kmer, str) else kmer
+    k = index.config.kmer_length_in_seed_table
+    if len(data) < k:
+        return False
+    lett = alpha.ascii_to_index(np.frombuffer(data[-k:], np.uint8), index.alphabet)
+    return bool((lett < alpha.cardinality(index.alphabet)).all())
+
+
+def find_database_hit_positions(index: FmIndex, start_ptr: int, end_ptr: int, *,
+                                device, wide: Optional[bool] = None) -> np.ndarray:
+    """awFmFindDatabaseHitPositions (AwFmSearch.c:161-246): every BWT
+    position of [start_ptr, end_ptr] backtraced and resolved to a
+    database position (uint64; empty for an invalid range)."""
+    if start_ptr > end_ptr:
+        return np.empty(0, dtype=np.uint64)
+    positions = np.arange(start_ptr, end_ptr + 1, dtype=np.uint64)
+    return SearchEngine(index, device=device, wide=wide).resolve_positions(positions)
+
+
+def find_database_hit_position_single(index: FmIndex, bwt_position: int, *, device,
+                                      wide: Optional[bool] = None) -> int:
+    """awFmFindDatabaseHitPositionSingle (AwFmSearch.c:248-282)."""
+    eng = SearchEngine(index, device=device, wide=wide)
+    return int(eng.resolve_positions(np.array([bwt_position], dtype=np.uint64))[0])
+
+
+def backtrace_return_previous_letter_index(index: FmIndex, bwt_position: int, *,
+                                           device, wide: Optional[bool] = None
+                                           ) -> Tuple[int, int]:
+    """awFm*BacktraceReturnPreviousLetterIndex (AwFmSearch.c:429-483).
+
+    Returns (letter_index, new_bwt_position): the BWT letter at the
+    position and its LF mapping. A sentinel returns letter 0 and leaves
+    the position unchanged, as the reference's early-out does (it
+    returns before writing *bwtPosition, AwFmSearch.c:443-445)."""
+    dev = index.to_device(device, wide=wide)
+    lett, lf = rank_ops.letter_and_lf_at(dev, _as_u64(bwt_position, dev.device))
+    lett_v = int(lett[0])
+    if lett_v == dev.sentinel:
+        return 0, bwt_position
+    return lett_v, _from_u64(lf)
+
+
+def find_search_range_for_string(index: FmIndex, kmer: Union[str, bytes], *,
+                                 device, wide: Optional[bool] = None) -> Tuple[int, int]:
+    """awFmFindSearchRangeForString (AwFmSearch.c:317-358). Like the
+    reference, this path never uses the kmer seed table. Returns
+    (start_ptr, end_ptr) as Python ints."""
+    eng = SearchEngine(index, device=device, wide=wide)
+    mat, lengths, _ = eng.encode_kmers([kmer])
+    start, end = search_ranges(
+        eng.dev,
+        torch.from_numpy(mat).to(eng.device),
+        torch.from_numpy(lengths.astype(np.int32)).to(eng.device),
+        torch.zeros(mat.shape[0], dtype=torch.uint8, device=eng.device),
+    )
+    return _from_u64(start), _from_u64(end)
+
+
+def single_kmer_exists(index: FmIndex, kmer: Union[str, bytes], *, device,
+                       wide: Optional[bool] = None) -> bool:
+    """awFmSingleKmerExists (AwFmSearch.c:360-367)."""
+    s, e = find_search_range_for_string(index, kmer, device=device, wide=wide)
+    return s <= e
+
+
+def create_initial_query_range(index: FmIndex, query: Union[str, bytes]) -> Tuple[int, int]:
+    """awFmCreateInitialQueryRange (AwFmSearch.c:6-25); host arithmetic
+    on the prefix sums, no device involved."""
+    data = query.encode() if isinstance(query, str) else query
+    lett = int(alpha.ascii_to_index(np.frombuffer(data, np.uint8), index.alphabet)[-1])
+    return int(index.prefix_sums[lett]), int(index.prefix_sums[lett + 1]) - 1

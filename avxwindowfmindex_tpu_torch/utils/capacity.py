@@ -1,7 +1,7 @@
 """Device-memory capacity planner: size an index configuration to the card.
 
-Counterpart of ``avxwindowfmindex_tpu/utils/capacity.py``, narrow and
-replicated only. The reference documents this sizing guidance for its
+Counterpart of ``avxwindowfmindex_tpu/utils/capacity.py``, replicated
+only. The reference documents this sizing guidance for its
 users (seed-table memory against k, the suffix-array compression-ratio
 trade, the in-memory SA); on a card the budget is its device memory and
 the knobs are richer (digram table, dense device-side SA), so the
@@ -16,11 +16,14 @@ port's tensor, and the JAX package's figure):
 
     packed       num_blocks x device_row_bytes        (backtrace rows)
     packed_pair  num_blocks x device_pair_row_bytes   (one-row steps)
+                 wide: the one table of device_row_bytes64 rows stands
+                 for both and is counted as ``packed``
     ngram        num_blocks x pair-row bytes of the n-gram table
-                 (nucleotide only — ops/ngram.py geometry)
-    seed_table   |A|^k x 8 B
-    sampled_sa   ceil(bwt/ratio) x 4 B, at the DENSER of (config
-                 ratio, device_sa_ratio) when the dense SA is on
+                 (nucleotide and narrow only — ops/ngram.py geometry)
+    seed_table   |A|^k x 8 B narrow / 16 B wide
+    sampled_sa   ceil(bwt/ratio) x 4 B narrow / 8 B wide, at the DENSER
+                 of (config ratio, device_sa_ratio) when the dense SA is
+                 on
     workspace    batch x (kmer_len + 96) B of live query/range buffers
                  + the measured peak of the port's bench beyond those
 
@@ -28,9 +31,9 @@ Degradation ladder when the rich configuration does not fit (the JAX
 package's order): lower seed_k toward MIN_SEED_K, then drop the dense
 device SA, then the digram table, then the pair rows.
 
-Positions >= 2^32 (the wide plans) and the range-sharded plan wait for
-their ROADMAP items ("positions >= 2^32", "the multi-GPU engines"); the
-planner raises NotImplementedError for them.
+A corpus of 2^32 positions and more gets a wide plan (no n-gram
+candidate). The range-sharded plan waits for its ROADMAP item ("the
+multi-GPU engines"); the planner raises NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -54,7 +57,6 @@ MIN_SEED_K = {AlphabetType.DNA: 10, AlphabetType.RNA: 10, AlphabetType.AMINO: 2}
 #: again, so the estimate errs large.
 _WORKSPACE_SLACK_BYTES = 731_770_478
 
-_WIDE_ITEM = "ROADMAP item 'positions >= 2^32'"
 _SHARDED_ITEM = "ROADMAP item 'the multi-GPU engines'"
 
 
@@ -88,26 +90,37 @@ def component_bytes(
     ngram: bool = False,
     ngram_n: int = 2,
     pair_rows: bool = True,
+    wide: Optional[bool] = None,
 ) -> Dict[str, int]:
-    """Exact per-component device bytes for one replicated index."""
+    """Exact per-component device bytes for one replicated index.
+    ``wide`` defaults to what ``to_device`` picks (bwtLength >= 2^32)."""
     from ..models import index as index_mod
 
     bwt_length = num_bases + 1
-    if bwt_length >= 2**32:
-        raise NotImplementedError(f"bwtLength >= 2^32 waits for {_WIDE_ITEM}")
+    if wide is None:
+        wide = bwt_length >= 2**32
     nb = index_mod.num_blocks_from_bwt_length(bwt_length)
-    comp: Dict[str, int] = {"packed": nb * index_mod.device_row_bytes(alphabet)}
-    if pair_rows:
-        comp["packed_pair"] = nb * index_mod.device_pair_row_bytes(alphabet)
+    comp: Dict[str, int] = {}
+    if wide:
+        if not pair_rows:
+            raise NotImplementedError(
+                "the compact wide layout (no pair rows) is not ported "
+                "(ROADMAP item 'the compact amino wide layout')"
+            )
+        comp["packed"] = nb * index_mod.device_row_bytes64(alphabet)
+    else:
+        comp["packed"] = nb * index_mod.device_row_bytes(alphabet)
+        if pair_rows:
+            comp["packed_pair"] = nb * index_mod.device_pair_row_bytes(alphabet)
     if ngram:
-        if alphabet == AlphabetType.AMINO:
-            raise ValueError("the n-gram engine is nucleotide-only")
+        if alphabet == AlphabetType.AMINO or wide:
+            raise ValueError("the n-gram engine is nucleotide-only and narrow-only")
         from ..ops import ngram as ngram_ops
 
         comp["ngram"] = nb * ngram_ops._geometry_pair(ngram_n)[4]
-    comp["seed_table"] = (alpha.cardinality(alphabet) ** seed_k) * 8
+    comp["seed_table"] = (alpha.cardinality(alphabet) ** seed_k) * (16 if wide else 8)
     ratio = device_sa_ratio if device_sa_ratio else sa_ratio
-    comp["sampled_sa"] = -(-bwt_length // ratio) * 4
+    comp["sampled_sa"] = -(-bwt_length // ratio) * (8 if wide else 4)
     return comp
 
 
@@ -123,6 +136,7 @@ class CapacityPlan:
     num_bases: int
     alphabet: AlphabetType
     hbm_bytes: int
+    wide: bool
     seed_k: int
     sa_ratio: int
     device_sa_ratio: Optional[int]  # None = keep the config ratio
@@ -151,7 +165,8 @@ class CapacityPlan:
             f"{k}={v / gb:.2f}GB" for k, v in sorted(self.components.items())
         )
         return (
-            f"replicated engine (1 device, narrow): seed_k={self.seed_k}, "
+            f"replicated engine (1 device, {'wide' if self.wide else 'narrow'}): "
+            f"seed_k={self.seed_k}, "
             f"device_sa_ratio={self.device_sa_ratio}, "
             f"ngram={'on' if self.ngram else 'off'}, "
             f"pair_rows={'on' if self.pair_rows else 'off'}; "
@@ -160,14 +175,17 @@ class CapacityPlan:
         )
 
 
-def _candidates(alphabet, max_k, min_k, dense_ratio):
-    """Configs richest-first along the degradation ladder."""
-    ngram_ok = alphabet != AlphabetType.AMINO
+def _candidates(alphabet, wide, max_k, min_k, dense_ratio):
+    """Configs richest-first along the degradation ladder; a wide plan
+    has no n-gram candidate and keeps its pair-fused rows."""
+    ngram_ok = alphabet != AlphabetType.AMINO and not wide
     for ngram in ([True, False] if ngram_ok else [False]):
         for dense in ([dense_ratio, None] if dense_ratio else [None]):
             for k in range(max_k, min_k - 1, -1):
                 yield dict(seed_k=k, device_sa_ratio=dense, ngram=ngram,
                            pair_rows=True)
+    if wide:
+        return
     for k in range(max_k, min_k - 1, -1):
         yield dict(seed_k=k, device_sa_ratio=None, ngram=False,
                    pair_rows=False)
@@ -200,8 +218,6 @@ def plan_capacity(
         raise NotImplementedError(
             f"plans over {n_devices} devices (range-sharded) wait for {_SHARDED_ITEM}"
         )
-    if num_bases + 1 >= 2**32:
-        raise NotImplementedError(f"bwtLength >= 2^32 waits for {_WIDE_ITEM}")
     notes = []
     if hbm_bytes is None:
         if device is None:
@@ -209,6 +225,7 @@ def plan_capacity(
         hbm_bytes, src = detect_hbm_bytes(device)
         notes.append(f"device memory: {src}")
     bwt_length = num_bases + 1
+    wide = bwt_length >= 2**32
     max_k = max_seed_k if max_seed_k is not None else MAX_SEED_K[alphabet]
     max_k = max(1, min(max_k, kmer_len))
     min_k = min_seed_k if min_seed_k is not None else MIN_SEED_K[alphabet]
@@ -226,20 +243,22 @@ def plan_capacity(
             f"workspace estimate {ws} exceeds {fit_fraction:.0%} of device "
             f"memory ({hbm_bytes}); shrink the batch"
         )
-    for cand in _candidates(alphabet, max_k, min_k, device_sa_ratio):
+    for cand in _candidates(alphabet, wide, max_k, min_k, device_sa_ratio):
         comp = component_bytes(
-            num_bases, alphabet, sa_ratio=sa_ratio, ngram_n=ngram_n, **cand
+            num_bases, alphabet, sa_ratio=sa_ratio, ngram_n=ngram_n, wide=wide, **cand
         )
         total = sum(comp.values())
         if total <= budget:
+            if wide:
+                notes.append("bwt >= 2^32: wide layout (u64 positions)")
             return CapacityPlan(
                 num_bases=num_bases, alphabet=alphabet, hbm_bytes=hbm_bytes,
-                sa_ratio=sa_ratio, components=comp, index_bytes=total,
+                wide=wide, sa_ratio=sa_ratio, components=comp, index_bytes=total,
                 workspace=ws, budget=budget, fit_fraction=fit_fraction,
                 notes=tuple(notes), ngram_n=ngram_n, **cand,
             )
     comp = component_bytes(
-        num_bases, alphabet, seed_k=min_k, sa_ratio=sa_ratio, pair_rows=False
+        num_bases, alphabet, seed_k=min_k, sa_ratio=sa_ratio, pair_rows=wide, wide=wide
     )
     total = sum(comp.values())
     need = math.ceil((total - comp["seed_table"]) / max(budget - comp["seed_table"], 1))

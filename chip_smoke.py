@@ -11,6 +11,9 @@ Phases (any failure raises and the script exits nonzero):
      tables, biased and unbiased; a repeat-rich corpus whose ranges
      outgrow the 512-position pair window), with kernel and plain times
      side by side;
+  3w. the same for K1w, K2w and K3w on the forced-wide views of such
+     indexes (u64 positions over 256 B / 512 B rows), with positions no
+     search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
   4. the main path at full size: create_index on 64M random bases
      (seed k = 14, SA ratio 8, native SA-IS) -> DigramSearchEngine
      (n = 2, Cn-biased table, as bench.py runs it) -> count and locate
@@ -38,10 +41,43 @@ Phases (any failure raises and the script exits nonzero):
      SearchEngine.locate on 4,096 queries; then K5's walk and K6's chain
      against their plain versions at the calibration shapes.
 
+  4w. the 64-bit path at full width: the phase-4 index as a wide view
+     (to_device(device, wide=True)): the k = 14 seed table widened from
+     the narrow one and, at k = 10, built by the BFS through K1w, the two
+     routes equal; count and locate of the same 1,048,576 25-mers and of
+     the 11-mer multi-hit set through the wide SearchEngine, equal to the
+     narrow engine's answers exactly and checked against host scans; the
+     wide densify_device_sa(4) equal to the narrow one; the launch counts
+     of K1w, K2w and K3w reset just before and read just after; then each
+     against its plain version at this path's shapes (8,388,608 rank
+     pairs, 1,048,576 25-mers, their hits), timed in turns, with the
+     narrow kernels' times beside them;
+  4x. a table that really is above 2^32 positions: a 4,096-block pattern
+     tiled to 2^32 + 2^28 positions (4.6 GB of 256 B rows, packed on the
+     card), K1w's occ within 5,000 of 2^32 and at random positions
+     against a closed-form oracle and the plain version, and K2w's steps
+     on ranges that straddle 2^32 against the plain version. (No text of
+     4.3G bases is indexed: its suffix array on the host alone would
+     outlast the script's time limit.)
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
-path that runs it, its largest difference from the plain version, and
-both times), and the result line {"ok": true, "device": {...}}.
+path that runs it, its largest difference from the plain version, its
+time, the plain version's, its bound and, where one PyTorch call computes
+the same function, that call's), and the result line {"ok": true,
+"device": {...}}. The bound is the larger of the bytes the call must
+move, each read or written once (the table rows it touches, counted as
+the expected number of distinct rows under uniformly random visits, at
+the bytes a visit needs; the batch's inputs and outputs), over the
+published 3.35 TB/s, and its integer operations over 67 TOP/s (the
+published float32 rate outside the tensor cores stands in: the data
+sheet gives no integer rate). K5's and K6's row describes the entry one
+PyTorch call computes too (the ring reduce, the single slab gather); their
+walk and chain at the calibration shapes are compared and timed in phase 6
+and logged there. Two looser models of each index kernel are logged and
+kept out of that line: every visit's row sectors over the same 3.35 TB/s
+(the stages' roofline), and the visits at the in-process calibrated
+random-row rate of the table.
 --bases (default 64,000,000) is for local trials only.
 """
 
@@ -50,6 +86,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -67,6 +104,10 @@ EXACT = 0  # every quantity compared is an integer: tolerance 0
 # bench's calibration), whose counts the kernels line reports
 MAIN_PATH_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
 BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
+WIDE_PATH_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
+HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
+OPS_PER_S = 67e12  # published float32 rate outside the tensor cores (no integer rate is published)
+T_START = time.time()
 BENCH_SUMMARY_KEYS = (
     "count_qps", "count_ngram_qps", "locate_first_hit_qps", "locate_all_qps",
     "locate_all_dense_sa_qps", "multihit_qps", "gather_rates_rows_per_sec",
@@ -75,6 +116,10 @@ BENCH_SUMMARY_KEYS = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    log(f"[t] {phase} done at {time.time() - T_START:.1f}s")
 
 
 def nvidia_smi_line() -> str:
@@ -139,6 +184,32 @@ class Record:
     def __init__(self):
         self.err = {}
         self.ms = {}
+        self.bound = {}
+        self.model = {}  # logged only: row traffic and visits per table
+        self.library = {}
+
+    def set_bound(self, kernel: str, tables, stream_bytes: int, ops: float) -> None:
+        """The least time the card could take for the launch timed in
+        ``ms[kernel]``. ``tables``: one (rows in the table, bytes a visit
+        needs, visits) per table read; ``stream_bytes``: the batch's
+        inputs and outputs, each once."""
+        once = float(stream_bytes)
+        traffic = float(stream_bytes)
+        for nb, need, visits in tables:
+            once += nb * (1.0 - math.exp(-visits / nb)) * need
+            traffic += visits * (-(-need // 32) * 32)
+        bytes_ms = once / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / OPS_PER_S * 1e3
+        self.bound[kernel] = {
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        }
+        self.model[kernel] = {
+            "bytes_once": int(once), "operations": int(ops),
+            "row_traffic_ms": traffic / HBM_BYTES_PER_S * 1e3,
+            "row_visits": [int(v) for _, _, v in tables],
+        }
+        log(f"  {kernel} bound: {json.dumps({**self.bound[kernel], **self.model[kernel]})}")
 
     def compare(self, kernel: str, what: str, got, want) -> None:
         err = max_abs_err(got, want)
@@ -146,6 +217,29 @@ class Record:
         if err > EXACT:
             raise AssertionError(f"{kernel} disagrees with its plain version ({what})")
         self.err[kernel] = max(self.err.get(kernel, 0), err)
+
+
+def match_ops(n_planes: int, words: int) -> int:
+    """Integer operations that form ``words`` 32-bit match words: an xor
+    and an or per plane, then a not."""
+    return words * (2 * n_planes + 1)
+
+
+def count_ops(words: int) -> int:
+    """Integer operations of one inclusive count over ``words`` match
+    words: mask select, and, popcount, add."""
+    return words * 4
+
+
+def rank_ops(n_planes: int) -> int:
+    """One rank from a block's 8 match words: one match, one count."""
+    return match_ops(n_planes, 8) + count_ops(8)
+
+
+def pair_step_ops(n_planes: int) -> int:
+    """One backward step inside the window: the pair row's 16 match words
+    are formed once and counted twice (start and end)."""
+    return match_ops(n_planes, 16) + 2 * count_ops(16)
 
 
 def random_text(rng, n: int, alphabet) -> bytes:
@@ -156,8 +250,10 @@ def random_text(rng, n: int, alphabet) -> bytes:
     return rng.choice(np.frombuffer(pool, np.uint8), size=n).tobytes()
 
 
-def phase_kernels(rec: Record, device: str):
-    """Phase 3: each kernel against its plain torch version on the card."""
+def phase_kernels(rec: Record, device: str, wide: bool = False):
+    """Phase 3 (3w with ``wide``): each kernel against its plain torch
+    version on the card; K1w, K2w and K3w on forced-wide views, K4 on the
+    narrow ones only."""
     import numpy as np
     import torch
     from avxwindowfmindex_tpu_torch import (
@@ -168,14 +264,18 @@ def phase_kernels(rec: Record, device: str):
 
     rng = np.random.default_rng(7)
     kept = None
+    tag = "3w" if wide else "3"
+    k1, k2, k3 = WIDE_PATH_KERNELS if wide else MAIN_PATH_KERNELS[:3]
     for alphabet, k, klen in ((AlphabetType.DNA, 10, 25), (AlphabetType.AMINO, 5, 12)):
-        name = alphabet.name
+        name = alphabet.name + (" wide" if wide else "")
         text = random_text(rng, 1_000_000, alphabet)
         t0 = time.time()
         index = create_index(text, IndexConfiguration(8, k, alphabet), sa_backend="native", device=device)
         torch.cuda.synchronize()
-        log(f"[3] {name}: 1M-base index (k={k}, ratio 8) built in {time.time() - t0:.2f}s")
-        dev = index.to_device(device)
+        log(f"[{tag}] {name}: 1M-base index (k={k}, ratio 8) built in {time.time() - t0:.2f}s")
+        dev = index.to_device(device, wide=wide)
+        if dev.wide != wide:
+            raise AssertionError("to_device returned the other width")
         n = dev.bwt_length
         card = dev.cardinality
 
@@ -183,29 +283,37 @@ def phase_kernels(rec: Record, device: str):
         plain_table = seed_table.build_seed_table(
             dev, card, k, index.prefix_sums, occurrence_fn=rank.occurrence_plain
         )
-        rec.compare("k1_rank", f"{name} seed table k={k}", dev.seed_table, plain_table)
+        rec.compare(k1, f"{name} seed table k={k}", dev.seed_table, plain_table)
+        if wide:
+            # the view's table was widened from the narrow one; the BFS
+            # through K1w must give the same
+            bfs = seed_table.build_seed_table(dev, card, k, index.prefix_sums)
+            rec.compare(k1, f"{name} seed table k={k}: BFS through K1w == widened", bfs, dev.seed_table)
+            del bfs
 
-        # K1 occ mode: 1M random pairs, edge positions, a ragged batch size
+        # K1 occ mode: 1M random pairs, edge positions, a ragged batch
+        # size, and positions no search produces (the block-index rule)
         b = 1_000_000
         pos = rng.integers(0, n, size=b)
         lett = rng.integers(0, card + 1, size=b)
         edges = np.array([0, 7, 8, 255, n - 1])
-        pos = np.concatenate([pos, np.repeat(edges, card + 1), [0xFFFFFFFF]])
-        lett = np.concatenate([lett, np.tile(np.arange(card + 1), len(edges)), [0]])
+        beyond = [0xFFFFFFFF, -1, 2**40 + 5, -300, 2**39 + 77] if wide else [0xFFFFFFFF]
+        pos = np.concatenate([pos, np.repeat(edges, card + 1), beyond])
+        lett = np.concatenate([lett, np.tile(np.arange(card + 1), len(edges)), [0] * len(beyond)])
         pos_t = torch.from_numpy(pos.astype(np.int64)).to(device)
         lett_t = torch.from_numpy(lett.astype(np.int32)).to(device)
         rec.compare(
-            "k1_rank", f"{name} occ x{len(pos)}",
+            k1, f"{name} occ x{len(pos)}",
             kernels.k1_occurrence(dev, pos_t, lett_t), rank.occurrence_plain(dev, pos_t, lett_t),
         )
         lpos = torch.from_numpy(np.concatenate([rng.integers(0, n, size=b), edges])).to(device)
         kl, kf = kernels.k1_letter_and_lf(dev, lpos)
         pl, pf = rank.letter_and_lf_plain(dev, lpos)
-        rec.compare("k1_rank", f"{name} letter x{len(lpos)}", kl, pl)
-        rec.compare("k1_rank", f"{name} LF x{len(lpos)}", kf, pf)
+        rec.compare(k1, f"{name} letter x{len(lpos)}", kl, pl)
+        rec.compare(k1, f"{name} LF x{len(lpos)}", kf, pf)
 
         # K2: 64K seeded queries and 4K unseeded ones (short or ambiguous)
-        eng = SearchEngine(index, device=device)
+        eng = SearchEngine(index, device=device, wide=wide)
         starts = rng.integers(0, len(text) - klen, size=1 << 16)
         seeded_q = [text[s : s + klen] for s in starts]
         short = [text[s : s + int(rng.integers(1, k))] for s in rng.integers(0, len(text) - k, 3072)]
@@ -224,23 +332,40 @@ def phase_kernels(rec: Record, device: str):
             )
             ks, ke = kernels.k2_ranges(dev, *args)
             ps, pe = search.ranges_plain(dev, *args)
-            rec.compare("k2_ranges", f"{name} {label} start x{len(qs)}", ks, ps)
-            rec.compare("k2_ranges", f"{name} {label} end x{len(qs)}", ke, pe)
+            rec.compare(k2, f"{name} {label} start x{len(qs)}", ks, ps)
+            rec.compare(k2, f"{name} {label} end x{len(qs)}", ke, pe)
             k2_in[label] = args
 
         # K3: 256K positions, SA resident and SA on disk
         bpos = torch.from_numpy(rng.integers(0, n, size=1 << 18)).to(device)
         rec.compare(
-            "k3_backtrace_resolve", f"{name} hits x{bpos.numel()}",
+            k3, f"{name} hits x{bpos.numel()}",
             kernels.k3_backtrace_resolve(dev, bpos), search.backtrace_resolve_plain(dev, bpos),
         )
         disk = dataclasses.replace(dev, sampled_sa=None)
         kp, ko = kernels.k3_backtrace_resolve(disk, bpos)
         pp, po = search.backtrace_resolve_plain(disk, bpos)
-        rec.compare("k3_backtrace_resolve", f"{name} on-disk p", kp, pp)
-        rec.compare("k3_backtrace_resolve", f"{name} on-disk off", ko, po)
+        rec.compare(k3, f"{name} on-disk p", kp, pp)
+        rec.compare(k3, f"{name} on-disk off", ko, po)
 
-        if alphabet == AlphabetType.DNA:
+        if wide:
+            # the wide engine's answers are the narrow engine's
+            sub = seeded_q[:4096] + short[:512]
+            narrow = SearchEngine(index, device=device, wide=False)
+            if not (eng.count(sub) == narrow.count(sub)).all():
+                raise AssertionError(f"{name}: wide counts differ from the narrow engine's")
+            if not all((a == b).all() for a, b in zip(eng.locate(sub), narrow.locate(sub))):
+                raise AssertionError(f"{name}: wide locates differ from the narrow engine's")
+            log(f"  {name}: count and locate of {len(sub)} queries equal the narrow engine's")
+            if alphabet == AlphabetType.DNA:
+                occ_pos, occ_lett = pos_t[:b], lett_t[:b]
+                time_in_turns(k1, lambda: kernels.k1_occurrence(dev, occ_pos, occ_lett),
+                              lambda: rank.occurrence_plain(dev, occ_pos, occ_lett), 20, 3)
+                time_in_turns(k2, lambda: kernels.k2_ranges(dev, *k2_in["seeded"]),
+                              lambda: search.ranges_plain(dev, *k2_in["seeded"]), 20, 3)
+                time_in_turns(k3, lambda: kernels.k3_backtrace_resolve(dev, bpos),
+                              lambda: search.backtrace_resolve_plain(dev, bpos), 20, 3)
+        elif alphabet == AlphabetType.DNA:
             kept = (index, text)
             # K4: the 64K seeded 25-mers through n = 2 and 3 tables, biased
             # and not; each also equals the single-step K2 ranges
@@ -286,8 +411,8 @@ def phase_kernels(rec: Record, device: str):
     # K2 on the pair-window overflow corpus: seeded ranges span > 512
     text = b"A" * 4000 + random_text(rng, 20_000, AlphabetType.DNA).upper()
     index = create_index(text, IndexConfiguration(8, 6, AlphabetType.DNA), device=device)
-    dev = index.to_device(device)
-    eng = SearchEngine(index, device=device)
+    dev = index.to_device(device, wide=wide)
+    eng = SearchEngine(index, device=device, wide=wide)
     qs = [b"A" * L for L in range(6, 40)] + [text[s : s + 14] for s in rng.integers(0, 3990, 512)]
     mat, lengths, _ = eng.encode_kmers(qs)
     seeded = eng._seed_eligibility(mat, lengths)
@@ -297,8 +422,8 @@ def phase_kernels(rec: Record, device: str):
     )
     ks, ke = kernels.k2_ranges(dev, *args)
     ps, pe = search.ranges_plain(dev, *args)
-    rec.compare("k2_ranges", "overflow corpus start", ks, ps)
-    rec.compare("k2_ranges", "overflow corpus end", ke, pe)
+    rec.compare(k2, "overflow corpus start", ks, ps)
+    rec.compare(k2, "overflow corpus end", ke, pe)
     widest = int((search.range_counts(ks, ke)).max())
     if widest <= 512:
         raise AssertionError(f"overflow corpus produced no range wider than 512 ({widest})")
@@ -307,6 +432,8 @@ def phase_kernels(rec: Record, device: str):
     if list(counts) != want:
         raise AssertionError(f"overflow corpus counts {list(counts)} != {want}")
     log(f"  overflow corpus: widest range {widest}, {len(qs)} queries exact")
+    if wide:
+        return None
 
     # K4 on the same corpus: one uniform batch of 40-mers, A x 40 and
     # windows that straddle the end of the A run. A final range wider than
@@ -449,7 +576,7 @@ def phase_main(bases: int, device: str):
     )
     log(f"[4] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     stats["multihit_qps"] = MULTIHIT_QUERIES / mh_s
-    return stats, engine, kmers, seq_arr
+    return stats, engine, kmers, seq_arr, mh_kmers
 
 
 def phase_main_shapes(rec: Record, engine, kmers) -> dict:
@@ -576,7 +703,45 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         lambda: kernels.k3_backtrace_resolve(dev, positions),
         lambda: search.backtrace_resolve_plain(dev, positions), 10, 1,
     )
+    set_index_bounds(rec, MAIN_PATH_KERNELS[:3], dev, b, args[0], positions)
+    # K4: floor(m / n) n-gram rows per query, then m mod n single steps
+    m = KMER_LEN - k
+    np_ = dev.n_planes
+    rec.set_bound(
+        "k4_ngram_ranges",
+        [(ng.packed.shape[0], (2 * ng.n + 1) * 64 + 4, n * (m // ng.n)),
+         (dev.packed_pair.shape[0], np_ * 64 + 4, n * (m % ng.n))],
+        n * (mat_d.shape[1] + 2 * dev.seed_table.element_size() + 16),
+        n * ((m // ng.n) * pair_step_ops(2 * ng.n + 1) + (m % ng.n) * pair_step_ops(np_)),
+    )
     return out
+
+
+def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions) -> None:
+    """Bounds of K1, K2 and K3 (or K1w, K2w, K3w) for the launches timed at
+    the main shapes: ``occ_pairs`` (position, letter) pairs; the batch
+    ``mat_d`` of seeded KMER_LEN-mers, every one present in the text, so
+    each takes all KMER_LEN - k steps, one pair row each; and the hits at
+    ``positions``, whose LF steps are counted by the kernel itself (its
+    on-disk form returns them)."""
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    k1, k2, k3 = names
+    nb, np_ = dev.packed.shape[0], dev.n_planes
+    ms_b = dev.milestone_bytes
+    pos_b = dev.seed_table.element_size()  # 4 narrow, 8 wide
+    rec.set_bound(k1, [(nb, np_ * 32 + ms_b, occ_pairs)], occ_pairs * (8 + 4 + 8),
+                  occ_pairs * rank_ops(np_))
+    n, l_pad = mat_d.shape
+    steps = n * (KMER_LEN - dev.kmer_length_in_seed_table)
+    rec.set_bound(k2, [(dev.packed_pair.shape[0], np_ * 64 + ms_b, steps)],
+                  n * (l_pad + 4 + 1 + 2 * pos_b + 16), steps * pair_step_ops(np_))
+    _, off = kernels.k3_backtrace_resolve(dataclasses.replace(dev, sampled_sa=None), positions)
+    walked = int(off.sum())
+    hits = positions.numel()
+    log(f"  {k3}: {walked} LF steps for {hits} hits ({walked / max(hits, 1):.3f} per hit)")
+    rec.set_bound(k3, [(nb, np_ * 32 + ms_b, walked)], hits * (8 + 8 + pos_b),
+                  walked * rank_ops(np_))
 
 
 def phase_probes(rec: Record, device: str) -> None:
@@ -604,11 +769,22 @@ def phase_probes(rec: Record, device: str) -> None:
                 "k5_gather_reduce", f"{what} total",
                 torch.tensor([probes.wrapped_total(got)]), torch.tensor([probes.wrapped_total(want)]),
             )
-            time_in_turns(
+            times = time_in_turns(
                 f"k5_gather_reduce {what} x{batch}",
                 lambda: probes.gather_reduce(table, idx, sum_bytes=sum_bytes, chunk=chunk, ring=ring),
                 lambda: probes.gather_reduce_plain(table, idx, sum_bytes, chunk), 20, 3,
             )
+            if (r, ring) == (128, 16):
+                # the launch the kernels line reports (P2's shape): its time,
+                # its bound (every byte of a row summed, one add per byte) and
+                # the one PyTorch call for it, table[idx] and a sum
+                rec.ms["k5_gather_reduce"] = times
+                rec.set_bound("k5_gather_reduce", [(table.shape[0], r, batch)],
+                              batch * 4 + got.numel() * 4, batch * sum_bytes)
+                idx64 = idx.long()
+                rec.library["k5_gather_reduce"] = cuda_ms(
+                    lambda: table[idx64].sum(dtype=torch.int64), 20)
+                log(f"  k5_gather_reduce library table[idx].sum(): {rec.library['k5_gather_reduce']:.4f} ms")
         if r == 512:
             # every byte 0xFF: each partial and the total wrap as int32
             table.fill_(0xFF)
@@ -630,8 +806,17 @@ def phase_probes(rec: Record, device: str) -> None:
         for seg in (2, 8):
             rec.compare("k6_slab_gather", f"P5 S={s_rows} chain seg={seg}",
                         probes.slab_chain(slab, idx, seg), probes.slab_chain_plain(slab, idx, seg))
-        time_in_turns(f"k6_slab_gather P5 S={s_rows} single", lambda: probes.slab_gather(slab, idx),
-                      lambda: probes.slab_gather_plain(slab, idx), 20, 3)
+        times = time_in_turns(f"k6_slab_gather P5 S={s_rows} single", lambda: probes.slab_gather(slab, idx),
+                              lambda: probes.slab_gather_plain(slab, idx), 20, 3)
+        if s_rows == 8192:
+            # the launch the kernels line reports (P5's shape): a pure move,
+            # no operation counted; the one PyTorch call is index_select
+            row_b = 4 * probes.SLAB_LANES
+            rec.ms["k6_slab_gather"] = times
+            rec.set_bound("k6_slab_gather", [(s_rows, row_b, s_rows)], s_rows * (4 + row_b), 0)
+            idx64 = idx.long()
+            rec.library["k6_slab_gather"] = cuda_ms(lambda: torch.index_select(slab, 0, idx64), 20)
+            log(f"  k6_slab_gather library index_select: {rec.library['k6_slab_gather']:.4f} ms")
         time_in_turns(f"k6_slab_gather P5 S={s_rows} chain seg=8",
                       lambda: probes.slab_chain(slab, idx, 8),
                       lambda: probes.slab_chain_plain(slab, idx, 8), 20, 3)
@@ -712,11 +897,14 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
         for seg in (4, 20):
             rec.compare("k5_gather_reduce", f"walk {name} ({table.shape[1]} B) seg={seg} x{QUERIES}",
                         probes.gather_walk(table, idx, seg), probes.gather_walk_plain(table, idx, seg))
-        rec.ms["k5_gather_reduce"] = time_in_turns(
+        time_in_turns(
             f"k5_gather_reduce walk {name} seg=20 x{QUERIES}",
             lambda: probes.gather_walk(table, idx, 20),
             lambda: probes.gather_walk_plain(table, idx, 20), 10, 1,
         )
+        # logged, not in the kernels line: every byte of a row is summed
+        rec.set_bound(f"k5 walk {name}", [(table.shape[0], table.shape[1], QUERIES * 20)],
+                      QUERIES * (4 + 4), QUERIES * 20 * table.shape[1])
     from avxwindowfmindex_tpu_torch.utils.roofline import SLAB_ROWS
 
     gen = torch.Generator(device=device).manual_seed(SLAB_ROWS)
@@ -726,12 +914,291 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
     for seg in (4, 20):
         rec.compare("k6_slab_gather", f"slab chain S={SLAB_ROWS} seg={seg} x{QUERIES}",
                     probes.slab_chain(slab, sidx, seg), probes.slab_chain_plain(slab, sidx, seg))
-    rec.ms["k6_slab_gather"] = time_in_turns(
+    time_in_turns(
         f"k6_slab_gather chain S={SLAB_ROWS} seg=20 x{QUERIES}",
         lambda: probes.slab_chain(slab, sidx, 20),
         lambda: probes.slab_chain_plain(slab, sidx, 20), 10, 1,
     )
-    return {"launches": launches, "meta": meta, "headline": headline}
+    rec.set_bound("k6 chain", [(SLAB_ROWS, 4 * probes.SLAB_LANES, QUERIES * 20)],
+                  QUERIES * (4 + 4), QUERIES * 20 * 3)
+    return {"launches": launches, "meta": meta, "headline": headline, "dense": dense}
+
+
+def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmers, seq_arr,
+                    device: str) -> dict:
+    """Phase 4w: the 64-bit path at full width, on the phase-4 index as a
+    wide view, held equal to the narrow engine's answers."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import SearchEngine, search
+    from avxwindowfmindex_tpu_torch.models.index import widen_u32
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+    from avxwindowfmindex_tpu_torch.utils.roofline import calibrate_gather_rates
+
+    bases = len(seq_arr)
+    seq_bytes = seq_arr.tobytes()
+    narrow = SearchEngine(narrow_dev, device=device)  # the ratio-8 narrow view of phase 4
+    stats = {}
+
+    kernels.reset_launch_counts()
+    t = time.time()
+    wide = SearchEngine(index, device=device, wide=True)
+    torch.cuda.synchronize()
+    dev = wide.dev
+    stats["wide_view_s"] = time.time() - t
+    log(
+        f"[4w] wide view: {dev.packed.shape[0]} rows x {dev.packed.shape[1]} B, seed table "
+        f"{tuple(dev.seed_table.shape)} {dev.seed_table.dtype}, SA ratio {dev.ratio}: "
+        f"{stats['wide_view_s']:.3f}s (host packing + upload, seed table widened on the card)"
+    )
+    if not (dev.wide and dev.ratio == narrow_dev.ratio):
+        raise AssertionError("phase 4w needs the wide view at the config ratio")
+    if not torch.equal(dev.seed_table, widen_u32(narrow_dev.seed_table)):
+        raise AssertionError("the widened k=14 seed table differs from the narrow one")
+    k_small = 10
+    t = time.time()
+    bfs_wide = seed_table.build_seed_table(dev, dev.cardinality, k_small, index.prefix_sums)
+    torch.cuda.synchronize()
+    stats["seed_table_k10_wide_s"] = time.time() - t
+    t = time.time()
+    bfs_narrow = seed_table.build_seed_table(narrow_dev, dev.cardinality, k_small, index.prefix_sums)
+    torch.cuda.synchronize()
+    stats["seed_table_k10_narrow_s"] = time.time() - t
+    rec.compare("k1w_rank", f"seed table k={k_small}: BFS through K1w == the narrow BFS, widened",
+                bfs_wide, widen_u32(bfs_narrow))
+    log(f"[4w] seed table k={k_small}: through K1w {stats['seed_table_k10_wide_s']:.4f}s, "
+        f"through K1 {stats['seed_table_k10_narrow_s']:.4f}s")
+    del bfs_wide, bfs_narrow
+
+    rng = np.random.default_rng(4321)
+    sample = rng.integers(0, QUERIES, size=32)
+    want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
+    windows = np.lib.stride_tricks.sliding_window_view(seq_arr, KMER_LEN)
+
+    def timed(fn, runs=3):
+        fn(kmers[:4096])  # warm-up
+        times, out = [], None
+        for _ in range(runs):
+            t0 = time.time()
+            out = fn(kmers)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        return out, float(np.median(times)), times
+
+    answers = {}
+    for label, eng in (("narrow", narrow), ("wide", wide)):
+        counts, count_s, count_times = timed(eng.count)
+        hits, locate_s, locate_times = timed(eng.locate)
+        stats[f"{label}_count_qps"] = QUERIES / count_s
+        stats[f"{label}_locate_qps"] = QUERIES / locate_s
+        log(f"[4w] {label} count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of "
+            f"{count_times} -> {QUERIES / count_s:.1f} q/s")
+        log(f"[4w] {label} locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of "
+            f"{locate_times} -> {QUERIES / locate_s:.1f} q/s")
+        answers[label] = (counts, np.array([len(h) for h in hits]), np.concatenate(hits))
+        del hits
+    (n_counts, n_lens, n_flat), (w_counts, w_lens, w_flat) = answers["narrow"], answers["wide"]
+    if not (np.array_equal(w_counts, n_counts) and np.array_equal(w_lens, n_lens)
+            and np.array_equal(w_flat, n_flat)):
+        raise AssertionError("wide count or locate differs from the narrow engine's")
+    log(f"[4w] wide == narrow on all {QUERIES} queries: counts and {len(w_flat)} hits, in order")
+    if not ((w_counts >= 1).all() and (w_counts[sample] == want).all()):
+        raise AssertionError(f"wide count spot check: {w_counts[sample]} != {want}")
+    flat = w_flat.astype(np.int64)
+    qid = np.repeat(np.arange(QUERIES), w_lens)
+    kmer_ascii = np.frombuffer(b"".join(kmers), np.uint8).reshape(QUERIES, KMER_LEN)
+    if (flat > bases - KMER_LEN).any() or not (windows[flat] == kmer_ascii[qid]).all():
+        raise AssertionError("wide locate returned a non-matching position")
+    log("[4w] wide count spot check 32/32 exact vs host scan; every wide hit matches its window")
+    del flat, qid, answers
+
+    mh_n = narrow.locate(mh_kmers)
+    t = time.time()
+    mh_w = wide.locate(mh_kmers)
+    mh_s = time.time() - t
+    mh_lens = np.array([len(h) for h in mh_w])
+    if not all(np.array_equal(a, b) for a, b in zip(mh_w, mh_n)):
+        raise AssertionError("wide multi-hit locate differs from the narrow engine's")
+    mh_windows = np.lib.stride_tricks.sliding_window_view(seq_arr, MULTIHIT_LEN)
+    mh_ascii = np.frombuffer(b"".join(mh_kmers), np.uint8).reshape(len(mh_kmers), MULTIHIT_LEN)
+    mh_flat = np.concatenate(mh_w).astype(np.int64)
+    if not (mh_windows[mh_flat] == mh_ascii[np.repeat(np.arange(len(mh_kmers)), mh_lens)]).all():
+        raise AssertionError("wide multi-hit locate returned a non-matching position")
+    freq = int(np.argmax(mh_lens))
+    freq_want = count_overlapping(seq_bytes, mh_kmers[freq])
+    if mh_lens[freq] != freq_want:
+        raise AssertionError(f"wide multi-hit completeness: {mh_lens[freq]} != {freq_want}")
+    stats["wide_multihit_qps"] = len(mh_kmers) / mh_s
+    log(f"[4w] wide multi-hit locate {len(mh_kmers)} x {MULTIHIT_LEN}-mers: {len(mh_flat)} hits in "
+        f"{mh_s:.4f}s, equal to the narrow engine's, all sound, most frequent complete ({freq_want})")
+
+    t = time.time()
+    dense = index.densify_device_sa(4, device=device)  # finds the wide view installed
+    torch.cuda.synchronize()
+    stats["wide_densify_s"] = time.time() - t
+    if not (dense.wide and dense.ratio == 4):
+        raise AssertionError("densify_device_sa did not densify the wide view")
+    rec.compare("k3w_backtrace_resolve",
+                f"wide densify_device_sa(4) == the narrow one x{dense.sampled_sa.numel()}",
+                dense.sampled_sa, widen_u32(dense_narrow.sampled_sa))
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[4w] wide densify_device_sa(4): {stats['wide_densify_s']:.4f}s; "
+        f"launches on the wide path: {launches}")
+    missing = [name for name in WIDE_PATH_KERNELS if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"the wide path never launched {missing}")
+    stats["launches"] = launches
+    del dense
+
+    # each wide kernel against its plain version at this path's shapes
+    b = 2 * seed_table.CHUNK
+    rng = np.random.default_rng(99)
+    occ_pos = torch.from_numpy(rng.integers(0, dev.bwt_length, size=b)).to(device)
+    occ_lett = torch.from_numpy(rng.integers(0, dev.cardinality, size=b).astype(np.int32)).to(device)
+    rec.compare("k1w_rank", f"main occ x{b}", kernels.k1_occurrence(dev, occ_pos, occ_lett),
+                rank.occurrence_plain(dev, occ_pos, occ_lett))
+    mat, lengths, n = wide.encode_kmers(kmers)
+    seeded = wide._seed_eligibility(mat, lengths)
+    args = (
+        torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+        torch.from_numpy(seeded.astype(np.uint8)).to(device),
+    )
+    ws, we = search.search_ranges(dev, *args)
+    ps, pe = search.ranges_plain(dev, *args)
+    rec.compare("k2w_ranges", f"main start x{n}", ws, ps)
+    rec.compare("k2w_ranges", f"main end x{n}", we, pe)
+    del ps, pe
+    counts = search.range_counts(ws[:n], we[:n], wide=True)
+    positions = search.enumerate_range_positions(ws[:n], counts)
+    rec.compare("k3w_backtrace_resolve", f"main hits x{positions.numel()}",
+                search.backtrace_resolve(dev, positions), search.backtrace_resolve_plain(dev, positions))
+    rec.ms["k1w_rank"] = time_in_turns(
+        f"k1w_rank main x{b}", lambda: kernels.k1_occurrence(dev, occ_pos, occ_lett),
+        lambda: rank.occurrence_plain(dev, occ_pos, occ_lett), 10, 2)
+    rec.ms["k2w_ranges"] = time_in_turns(
+        f"k2w_ranges main x{n}", lambda: kernels.k2_ranges(dev, *args),
+        lambda: search.ranges_plain(dev, *args), 10, 1)
+    rec.ms["k3w_backtrace_resolve"] = time_in_turns(
+        f"k3w_backtrace_resolve main x{positions.numel()}",
+        lambda: kernels.k3_backtrace_resolve(dev, positions),
+        lambda: search.backtrace_resolve_plain(dev, positions), 10, 1)
+    set_index_bounds(rec, WIDE_PATH_KERNELS, dev, b, args[0], positions)
+    for narrow_name, wide_name in zip(MAIN_PATH_KERNELS[:3], WIDE_PATH_KERNELS):
+        log(f"[4w] {wide_name} {rec.ms[wide_name][0]:.4f} ms against {narrow_name} "
+            f"{rec.ms[narrow_name][0]:.4f} ms at the same shape "
+            f"({rec.ms[wide_name][0] / rec.ms[narrow_name][0]:.3f}x)")
+    stats["gather_rate_rows_per_sec"] = calibrate_gather_rates(
+        {"wide": dev.packed}, QUERIES, device=device)["wide"]
+    log(f"[4w] calibrated random-row rate of the wide table ({dev.packed.shape[1]} B rows): "
+        f"{stats['gather_rate_rows_per_sec']:.0f} rows/s")
+    return stats
+
+
+def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
+    """Phase 4x: K1w and K2w on a table of more than 2^32 positions
+    (``boundary``, smaller only for trials: the table holds boundary +
+    boundary / 16 positions and the checks look across ``boundary``)."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import AlphabetType, DeviceIndex, search
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.models import index as index_mod
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank
+
+    rng = np.random.default_rng(4096)
+    pat_blocks, card = 4096, 4
+    # mostly ACGT, so that T's whole-letter range [C[3], C[4]) straddles
+    # the boundary, with a few ambiguity letters
+    pattern = rng.choice(np.arange(5, dtype=np.uint8), size=(pat_blocks, 256),
+                         p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    reps = boundary // (pat_blocks * 256) + boundary // (16 * pat_blocks * 256)
+    nb = pat_blocks * reps
+    n = nb * 256  # 2^32 + 2^28 positions at the default boundary
+    counts = np.stack([(pattern == j).sum(axis=1) for j in range(card + 2)], axis=1).astype(np.uint64)
+    pat_total = counts.sum(axis=0)
+    cum = np.cumsum(counts, axis=0)
+    pat_ms = np.zeros_like(cum)
+    pat_ms[1:] = cum[:-1]
+    # rows of one tile: the partner of its last block is the next tile's first
+    letters = np.concatenate([pattern, pattern[:1]]).reshape(-1)
+    rows = index_mod.pack_device_blocks64(
+        letters, np.concatenate([pat_ms, np.zeros((1, card + 2), np.uint64)]), AlphabetType.DNA
+    )[:pat_blocks]
+    t = time.time()
+    table = torch.from_numpy(rows).to(device).repeat(reps, 1)
+    n_planes = 3
+    for i in range(n_planes):  # the table's last row has no partner
+        table[-1, i * 64 + 32 : (i + 1) * 64] = 0
+    t64 = table.view(torch.int64)
+    tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
+    total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
+    ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
+    col = n_planes * 64 // 8
+    t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :]
+    del tile
+    torch.cuda.synchronize()
+    ps = np.concatenate([[1], 1 + np.cumsum(pat_total[: card + 1] * np.uint64(reps))]).astype(np.uint64)
+    dev = DeviceIndex(
+        packed=table, packed_pair=table, prefix_sums=index_mod.u64_tensor(ps, device),
+        seed_table=torch.zeros((1, 2), dtype=torch.int64, device=device), sampled_sa=None,
+        code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
+        vec_to_index=torch.from_numpy(
+            alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
+        bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA, wide=True,
+    )
+    log(f"[4x] table of {n} positions ({boundary} + {n - boundary}): {nb} rows x 256 B = "
+        f"{table.numel() / 1e9:.2f} GB, tiled and given its milestones on the card in "
+        f"{time.time() - t:.2f}s; C = {ps.tolist()}")
+    if not (ps[3] < boundary < ps[4]):
+        raise AssertionError("T's range must straddle the boundary")
+
+    # K1w occ: around the boundary and anywhere, against the closed form
+    m = 1 << 20
+    pos = np.concatenate([rng.integers(boundary - 5000, boundary + 5000, m), rng.integers(0, n, m),
+                          [boundary - 1, boundary, boundary + 255, n - 1]]).astype(np.int64)
+    lett = rng.integers(0, card + 1, size=len(pos)).astype(np.int32)
+    flat = pattern.reshape(-1)
+    pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
+    full, rem = np.divmod(pos + 1, len(flat))
+    want = full * pat_cum[lett, -1] + pat_cum[lett, rem]
+    pos_t = torch.from_numpy(pos).to(device)
+    lett_t = torch.from_numpy(lett).to(device)
+    got = kernels.k1_occurrence(dev, pos_t, lett_t)
+    rec.compare("k1w_rank", f"straddle occ vs the closed form x{len(pos)}", got,
+                torch.from_numpy(want).to(device))
+    rec.compare("k1w_rank", f"straddle occ vs plain x{len(pos)}", got,
+                rank.occurrence_plain(dev, pos_t, lett_t))
+    if not (int(got.max()) > boundary // 8 and int(pos_t.max()) > boundary):
+        raise AssertionError("the straddle positions did not pass the boundary")
+    kl, kf = kernels.k1_letter_and_lf(dev, pos_t)
+    pl, pf = rank.letter_and_lf_plain(dev, pos_t)
+    rec.compare("k1w_rank", f"straddle letter x{len(pos)}", kl, pl)
+    rec.compare("k1w_rank", f"straddle LF x{len(pos)}", kf, pf)
+    if int(kf.max()) < boundary:
+        raise AssertionError("no LF value above the boundary")
+
+    # K2w: unseeded queries start from whole-letter ranges; those ending in
+    # T start on a range that straddles the boundary and step through
+    # ranges on both sides of it
+    qn, qlen = 1 << 16, 12
+    mat = rng.integers(0, card, size=(qn, qlen)).astype(np.uint8)
+    lengths = rng.integers(1, qlen + 1, size=qn).astype(np.int32)
+    mat[: qn // 2, :] = np.where(rng.random((qn // 2, qlen)) < 0.7, 3, mat[: qn // 2, :])
+    args = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+            torch.zeros(qn, dtype=torch.uint8, device=device))
+    ks, ke = kernels.k2_ranges(dev, *args)
+    ps_, pe_ = search.ranges_plain(dev, *args)
+    rec.compare("k2w_ranges", f"straddle start x{qn}", ks, ps_)
+    rec.compare("k2w_ranges", f"straddle end x{qn}", ke, pe_)
+    valid = ks <= ke
+    above = int((valid & (ks >= boundary)).sum())
+    across = int((valid & (ks < boundary) & (ke >= boundary)).sum())
+    if above == 0 or across == 0:
+        raise AssertionError(f"K2w's final ranges never passed {boundary} ({above} above, {across} across)")
+    log(f"[4x] K1w and K2w exact on the table above {boundary}: {across} final ranges straddle it, "
+        f"{above} lie above it, {int(valid.sum())} of {qn} valid")
+    del table, t64, dev
+    torch.cuda.empty_cache()
 
 
 def phase_roundtrip(index, text: bytes, device: str) -> None:
@@ -779,26 +1246,61 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"    {line.strip()}")
 
+    mark("build")
     rec = Record()
     small_index, small_text = phase_kernels(rec, device)
+    mark("phase 3")
+    phase_kernels(rec, device, wide=True)
+    mark("phase 3w")
     phase_probes(rec, device)
+    mark("phase 3b")
 
     kernels.reset_launch_counts()
-    main_stats, engine, kmers, seq_arr = phase_main(args.bases, device)
+    main_stats, engine, kmers, seq_arr, mh_kmers = phase_main(args.bases, device)
     launches = {k.name: k.launches for k in kernels.KERNELS}
     log(f"[4] launches on the main path: {launches}")
     missing = [name for name in MAIN_PATH_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
+    mark("phase 4")
 
     phase_roundtrip(small_index, small_text, device)
     bench_stats = phase_bench(rec, engine, kmers, seq_arr, device)
     for name in BENCH_KERNELS:
         launches[name] = bench_stats["launches"][name]
     main_stats["bench"] = {k: bench_stats["meta"][k] for k in BENCH_SUMMARY_KEYS}
-    del engine, kmers
+    mark("phases 5 and 6")
+
+    wide_stats = phase_wide_main(
+        rec, engine.host_index, engine.dev, bench_stats["dense"], kmers, mh_kmers, seq_arr, device
+    )
+    wide_launches = wide_stats.pop("launches")
+    for name in WIDE_PATH_KERNELS:
+        launches[name] = wide_launches[name]
+    main_stats["wide"] = wide_stats
+    del engine, kmers, mh_kmers, bench_stats["dense"]
+    torch.cuda.empty_cache()
+    mark("phase 4w")
+    phase_straddle(rec, device)
+    mark("phase 4x")
     torch.cuda.synchronize()
+
+    # logged, not in the kernels line: each index kernel's row visits over
+    # 3.35 TB/s (the stages' roofline) and at the in-process calibrated
+    # random-row rate of the table it reads, where a table sits in the L2
+    rates = dict(main_stats["bench"]["gather_rates_rows_per_sec"],
+                 wide=wide_stats["gather_rate_rows_per_sec"])
+    rate_of = {
+        "k1_rank": ("single",), "k2_ranges": ("pair",), "k3_backtrace_resolve": ("single",),
+        "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
+        "k2w_ranges": ("wide",), "k3w_backtrace_resolve": ("wide",),
+    }
+    for name, tables in rate_of.items():
+        model = rec.model[name]
+        calibrated = sum(v / rates[t] for v, t in zip(model["row_visits"], tables)) * 1e3
+        log(f"[models] {name}: {rec.ms[name][0]:.4f} ms; row traffic over 3.35 TB/s "
+            f"{model['row_traffic_ms']:.4f} ms; visits at the calibrated rate {calibrated:.4f} ms")
 
     log(f"[summary] {json.dumps(main_stats)}")
     log(smi)
@@ -807,6 +1309,7 @@ def main(argv=None) -> int:
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "max_abs_err": rec.err[k.name],
             "ms": rec.ms[k.name][0], "plain_ms": rec.ms[k.name][1],
+            **rec.bound[k.name], "library_ms": rec.library.get(k.name),
         }
         for k in kernels.KERNELS
     ]}))

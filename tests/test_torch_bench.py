@@ -121,10 +121,51 @@ def test_planner_assumes_no_device_memory():
         pcap.plan_capacity(64_000_000)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         pcap.plan_capacity(64_000_000, hbm_bytes=V5E, n_devices=8)
-    with pytest.raises(NotImplementedError, match="2\\^32"):
-        pcap.plan_capacity(5_000_000_000, hbm_bytes=V5E)
-    with pytest.raises(NotImplementedError, match="2\\^32"):
-        pcap.component_bytes(5_000_000_000, seed_k=12)
+
+
+@pytest.mark.parametrize("case", [
+    dict(num_bases=5_000_000_000, hbm_bytes=V5E, batch=1 << 20),
+    dict(num_bases=5_000_000_000, hbm_bytes=80 * 2**30, batch=1 << 22),
+    dict(num_bases=6_200_000_000, hbm_bytes=int(40e9), batch=1 << 22),
+    dict(num_bases=5_000_000_000, alphabet="AMINO", hbm_bytes=80 * 2**30, batch=1 << 20, kmer_len=20),
+    dict(num_bases=20_000_000_000, hbm_bytes=80 * 2**30, batch=1 << 22),
+], ids=["5G-16GB", "5G-80GiB", "6.2G-40GB", "amino-5G", "20G-no-dense"])
+def test_wide_plan_picks_equal_jax(monkeypatch, case):
+    """A corpus of 2^32 positions and more gets a wide plan with the JAX
+    planner's component bytes: 16 B seed entries, 8 B SA entries, one
+    table of wide rows, no n-gram candidate."""
+    monkeypatch.setattr(pcap, "_WORKSPACE_SLACK_BYTES", jcap._XLA_SLACK_BYTES)
+    case = dict(case)
+    alphabet = case.pop("alphabet", "DNA")
+    want = jcap.plan_capacity(alphabet=jx.AlphabetType[alphabet], **case)
+    got = pcap.plan_capacity(alphabet=pt.AlphabetType[alphabet], **case)
+    assert got.wide and want.wide and not got.ngram and got.pair_rows
+    assert (got.seed_k, got.device_sa_ratio) == (want.seed_k, want.device_sa_ratio)
+    assert got.components == want.components and got.budget == want.budget
+    assert set(got.components) == {"packed", "seed_table", "sampled_sa"}
+    assert "wide" in got.summary()
+
+
+def test_wide_component_bytes_equal_jax_and_port_tensors():
+    for alphabet, k in (("DNA", 12), ("AMINO", 5)):
+        kw = dict(seed_k=k, sa_ratio=8, device_sa_ratio=4)
+        assert pcap.component_bytes(5_000_000_000, pt.AlphabetType[alphabet], **kw) == (
+            jcap.component_bytes(5_000_000_000, jx.AlphabetType[alphabet], **kw)
+        )
+    # forced wide on a small index: the figures are the tensors' bytes
+    seq = random_sequence(np.random.default_rng(13), 5000, DNA, clean=True)
+    _, pcfg = configs(8, 4, DNA)
+    dev = pt.create_index(seq, pcfg, device_sa_ratio=2, device="cpu").to_device("cpu", wide=True)
+    comp = pcap.component_bytes(len(seq), pt.AlphabetType.DNA, seed_k=4, sa_ratio=8,
+                                device_sa_ratio=2, wide=True)
+    assert comp == {
+        "packed": dev.packed.numel(), "seed_table": dev.seed_table.numel() * 8,
+        "sampled_sa": dev.sampled_sa.numel() * 8,
+    }
+    with pytest.raises(ValueError, match="narrow-only"):
+        pcap.component_bytes(5_000_000_000, seed_k=12, ngram=True)
+    with pytest.raises(NotImplementedError, match="compact amino wide layout"):
+        pcap.component_bytes(5_000_000_000, seed_k=12, pair_rows=False)
 
 
 # ---------------------------------------------------------------------------

@@ -109,14 +109,50 @@ def test_u32_helpers_wrap():
     )
 
 
-def test_to_device_rejects_wide_positions():
-    cfg = pt.IndexConfiguration(8, 2, pt.AlphabetType.DNA)
-    fm = pt.FmIndex(
-        config=cfg, bwt_length=2**32, bwt_letters=np.zeros(4, np.uint8),
-        prefix_sums=np.zeros(6, np.uint64), kmer_seed_table=None, sampled_sa=None,
+def _hollow_index(bwt_length, ratio=8):
+    """An FmIndex that claims ``bwt_length`` positions but holds four
+    letters: enough for the checks to_device makes before it packs."""
+    return pt.FmIndex(
+        config=pt.IndexConfiguration(ratio, 2, pt.AlphabetType.DNA), bwt_length=bwt_length,
+        bwt_letters=np.zeros(4, np.uint8), prefix_sums=np.zeros(6, np.uint64),
+        kmer_seed_table=None, sampled_sa=None,
     )
-    with pytest.raises(ValueError, match="2\\*\\*32"):
-        fm.to_device("cpu")
+
+
+def test_to_device_rejects_wide_positions():
+    # the narrow view still refuses 2^32 positions and names the way out
+    with pytest.raises(ValueError, match="2\\*\\*32.*wide=True"):
+        _hollow_index(2**32).to_device("cpu", wide=False)
+    # the wide view has the JAX package's two upload limits
+    with pytest.raises(ValueError, match="2\\^39"):
+        _hollow_index(2**39 + 1, ratio=255).to_device("cpu")
+    with pytest.raises(ValueError, match="saCompressionRatio < 2\\^31"):
+        _hollow_index(2**34, ratio=8).to_device("cpu")
+    with pytest.raises(ValueError, match="saCompressionRatio < 2\\^31"):
+        _hollow_index(2**31, ratio=1).to_device("cpu", wide=True)
+
+
+def test_to_device_takes_the_wide_view_from_2_32(monkeypatch):
+    """bwtLength >= 2^32 picks the wide view by itself: int64 tables over
+    the one table of 256 B rows (the packer is stubbed: 2^24 real rows
+    would take 4 GiB)."""
+    from avxwindowfmindex_tpu_torch.models import index as index_mod
+
+    fm = _hollow_index(2**32 + 5, ratio=8)
+    seen = {}
+
+    def fake_pack(letters, milestones, alphabet):
+        seen["called"] = True
+        return np.zeros((2, index_mod.device_row_bytes64(alphabet)), np.uint8)
+
+    monkeypatch.setattr(index_mod, "pack_device_blocks64", fake_pack)
+    monkeypatch.setattr(pt.FmIndex, "milestones", lambda self: np.zeros((2, 6), np.uint64))
+    dev = fm.to_device("cpu")
+    assert seen["called"] and dev.wide and dev.packed is dev.packed_pair
+    assert dev.packed.shape[1] == 256 and dev.plane_stride == 64 and dev.milestone_bytes == 8
+    assert dev.prefix_sums.dtype == torch.int64 and dev.seed_table.dtype == torch.int64
+    assert dev.bwt_length == 2**32 + 5
+    assert fm.to_device("cpu") is dev
 
 
 def test_create_index_rejects_device_sa_ratio():

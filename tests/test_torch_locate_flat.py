@@ -201,9 +201,13 @@ def test_densify_ratios_and_validation(tmp_path):
     on_disk = pt.read_index_from_file(ppath, keep_suffix_array_in_memory=False)
     with pytest.raises(ValueError, match="suffix array"):
         on_disk.densify_device_sa(2, device="cpu")
-    wide = pt.FmIndex(
-        config=pcfg, bwt_length=2**32, bwt_letters=np.zeros(4, np.uint8),
-        prefix_sums=np.zeros(6, np.uint64), kmer_seed_table=None, sampled_sa=None,
+    # a wide view densifies through the same pass, to the same values
+    narrow2 = loaded.densify_device_sa(2, device="cpu")
+    fresh = pt.read_index_from_file(ppath)
+    wide2 = fresh.densify_device_sa(2, device="cpu", wide=True)
+    assert wide2.wide and wide2.ratio == 2 and wide2.sampled_sa.dtype == torch.int64
+    np.testing.assert_array_equal(
+        wide2.sampled_sa.numpy(), narrow2.sampled_sa.numpy().view(np.uint32).astype(np.int64)
     )
-    with pytest.raises(NotImplementedError, match="positions >= 2\\^32"):
-        wide.densify_device_sa(2, device="cpu")
+    # an installed wide view is densified as it is (no width given)
+    assert fresh.densify_device_sa(4, device="cpu").wide

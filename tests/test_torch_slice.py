@@ -134,3 +134,19 @@ def test_chip_smoke_refuses_without_cuda():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "is_available() is False" in proc.stderr
+
+
+def test_host_cpp_is_the_ports_own_byte_equal_copy():
+    """The port compiles its own copy of the host C++ (SA-IS, FASTA) and
+    reads no file of the JAX package; the copy is byte-equal to the JAX
+    package's source, so both sort suffixes with the same code."""
+    from avxwindowfmindex_tpu_torch.native import hostlib
+
+    own = os.path.join(REPO, "avxwindowfmindex_tpu_torch", "csrc", "awfm_host.cpp")
+    theirs = os.path.join(REPO, "avxwindowfmindex_tpu", "native", "src", "awfm_host.cpp")
+    assert os.path.samefile(hostlib.SOURCE, own)
+    with open(own, "rb") as a, open(theirs, "rb") as b:
+        assert a.read() == b.read()
+    if hostlib.available():  # a g++ is at hand: the copy builds and sorts
+        sa = hostlib.suffix_array(np.frombuffer(b"banana$", np.uint8))
+        assert sa.tolist() == [6, 5, 3, 1, 0, 4, 2]
