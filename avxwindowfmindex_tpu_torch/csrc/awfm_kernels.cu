@@ -1,12 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Seven kernels, each one thread per item, each bound by dependent random
-// row loads from device memory (a 128 B block row or a 256 B pair row for
-// nucleotides, 256 B / 512 B for amino, a 384 B / 768 B n-gram pair row
-// for n = 2 / 3) followed by a few dozen integer
-// operations and __popc. The rows are read as uint4 (16 B) loads; nothing
-// else is worth optimising until those loads are scheduled better, which
-// is later work.
+// Seven kernels, each one thread per item (K4: one lane group per query),
+// each a chain of dependent random row loads from device memory (a 128 B
+// block row or a 256 B pair row for nucleotides, 256 B / 512 B for amino,
+// a 384 B / 768 B n-gram pair row for n = 2 / 3) followed by a few dozen
+// integer operations and __popc. The card moves memory in 32 B sectors,
+// and a row's planes lie 64 B apart, so what a step costs is the number
+// of sectors it asks for, not the row's width.
 //
 //   K1 awfm_k1_occ / awfm_k1_letter_lf
 //       Replaces avxwindowfmindex_tpu/ops/rank_pallas.py:_rank_kernel (the
@@ -19,8 +19,9 @@
 //       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
 //       backward_step and backward_step_pair, and the flag-and-rerun protocol
 //       search.py:_fixup_flagged. One thread walks one query right to left.
-//       A step whose range fits the 512-position pair window reads one pair
-//       row; a wider one reads two block rows, so no query is re-run.
+//       A step reads the pair row by window class (see K4): its first
+//       block's sectors, the whole 512-position window, or, for a wider
+//       range, two block rows, so no query is re-run.
 //   K3 awfm_k3_backtrace_resolve
 //       Replaces search.py:backtrace_all (and its compaction schedules) and
 //       _resolve_samples. One thread walks one hit with LF until p % ratio
@@ -30,16 +31,48 @@
 //       Replaces experiments/ab_r5_pallas_gather.py:_k2_kernel (Pallas P6,
 //       the digram pair-step compute of ops/ngram.py:_pair_occ_from_rows)
 //       and the host-driven n-gram step loop around it
-//       (search.py:_ngram_ranges_steploop, _fixup_flagged). One thread
-//       walks one query of a uniform-length clean batch: the seed lookup,
-//       floor(m / n) n-gram steps (m = kmer_len - k) over the n-gram pair
-//       rows, then the m mod n tail letters as single steps. An n-gram step
-//       whose range fits the 512-position window reads one 384 B (n = 2) or
-//       768 B (n = 3) pair row; a wider one reads the first-block halves of
-//       two rows, so no query is flagged or re-run. Bound, like K2, by the
-//       chain of dependent random row loads (6 for a 25-mer at k = 14 and
-//       n = 2, against K2's 11), now from a table that outgrows the L2 at
-//       64M bases (250,000 x 384 B = 96 MB).
+//       (search.py:_ngram_ranges_steploop, _fixup_flagged). One query of a
+//       uniform-length clean batch is walked from end to end: the seed
+//       lookup, floor(m / n) n-gram steps (m = kmer_len - k) over the
+//       n-gram pair rows, then the m mod n tail letters as single steps.
+//       What bounds it on this card: every step is a random visit to a
+//       table that outgrows the 50 MB L2 at 64M bases (250,000 x 384 B =
+//       96 MB for n = 2), and a visit costs by what it asks for at two
+//       levels: 32 B sectors between the L2 and the SM, and the 64 B
+//       pieces in which device memory is read (chip_smoke.py's walk over a
+//       1 GiB table: taking one sector of a piece instead of both saves
+//       about a quarter of the visit, not half). What the design does
+//       about it: a step is one of three window classes, chosen from
+//       delta = end - 256 * floor((start - 1) / 256):
+//         delta < 256   both counts lie in the row's first block: only
+//                       words 0-7 of each plane (its first 32 B sector)
+//                       and the one milestone word are loaded, 6 sectors
+//                       for n = 2 and 8 for n = 3 where the whole window
+//                       costs 12 and 24. At seed k = 14 a range is about
+//                       one position wide, so this is 255 of 256 steps.
+//                       The planes lie 64 B apart, so the step still
+//                       touches every 64 B piece of the row: the layout,
+//                       which both packages share, keeps the gain to the
+//                       sector level;
+//         delta < 512   the whole 512-position window of one row;
+//         otherwise     the first-block halves of two rows; no query is
+//                       flagged or re-run.
+//       The tail letters go through backward_step, which has the same
+//       three classes over the 256 B pair row (4 sectors, not 7), so K2
+//       and K2w read the first-block class too. Two neighbouring lanes
+//       share a query (Group<2>): lane j loads words [4j, 4j + 4) of each
+//       plane's sector, so one load instruction of a warp touches 16
+//       sectors, and the two counts are summed over the pair with a
+//       shuffle; the rarer classes both lanes compute in full. The
+//       seed-table entry, read once, is loaded evict-first and the ranges
+//       are stored streaming (.cs), to leave the L2 to the rows. 256
+//       threads a block and a budget of 128 registers a thread
+//       (__launch_bounds__(256, 2)): ptxas spends them on loads started
+//       early, and the kernel measured 2-3% ahead of its default choice
+//       of 58 and 7% ahead of a cap of 64. Two Hopper features
+//       have no use here: TMA copies tiles whose addresses follow from a
+//       descriptor and a coordinate, not 32 B pieces at data-dependent
+//       addresses, and there is no matrix product for wgmma.
 //
 //   K1w awfm_k1w_occ / awfm_k1w_letter_lf, K2w awfm_k2w_ranges,
 //   K3w awfm_k3w_backtrace_resolve
@@ -53,11 +86,11 @@
 //       geometry (Narrow or Wide: position type, plane stride of a block
 //       row, block-index rule), so both widths share one body. The wide
 //       index has ONE table of pair-fused rows with u64 milestones (256 B
-//       nucleotide, 512 B amino): a step inside the 512-position window
-//       reads one whole row, a single rank reads its first-block half (the
-//       first 32 B of each 64 B plane, then the milestone), 5 of a
-//       nucleotide row's 8 sectors. Bound like K1-K3 by dependent random row
-//       loads, now of rows twice as wide from a table twice as large.
+//       nucleotide, 512 B amino): a step reads it by window class, as the
+//       narrow step reads the pair row, and a single rank reads its
+//       first-block half (the first 32 B of each 64 B plane, then the
+//       milestone). Bound like K1-K3 by dependent random row loads, from a
+//       table twice as large as the narrow block rows.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -75,6 +108,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "awfm_common.cuh"
 
 extern "C" {
 // Mirrored by ops/kernels.py:_Tables (ctypes.Structure).
@@ -154,10 +189,33 @@ __device__ __forceinline__ typename G::pos_t c_select(const AwfmTables& t,
              : 0;
 }
 
+// W consecutive plane words (W = 1, 2, or a multiple of 4) from a pointer
+// aligned to their size, as the widest loads that cover them.
+template <int W>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&x)[W]) {
+  if constexpr (W == 1) {
+    x[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+  } else if constexpr (W == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+      x[4 * q + 0] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  }
+}
+
 // Match words of one row: bit p of word w is set iff the letter at local
 // position 32 * w + p has `code`. W = 8 words per plane for one block,
 // 16 for a pair; planes lie STRIDE bytes apart (32 in a narrow block row,
-// 64 in a pair row and in every wide row).
+// 64 in a pair row and in every wide row). `row` may point into the
+// planes: a lane of a group passes the offset of its own words.
 template <int NP, int W, int STRIDE>
 __device__ __forceinline__ void match_words(const uint8_t* row, uint32_t code,
                                             uint32_t (&m)[W]) {
@@ -166,35 +224,50 @@ __device__ __forceinline__ void match_words(const uint8_t* row, uint32_t code,
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const uint32_t cm = ((code >> i) & 1u) ? 0xFFFFFFFFu : 0u;
-    const uint4* p = reinterpret_cast<const uint4*>(row + i * STRIDE);
+    uint32_t x[W];
+    load_words<W>(row + i * STRIDE, x);
 #pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const uint4 v = __ldg(p + q);
-      m[4 * q + 0] |= v.x ^ cm;
-      m[4 * q + 1] |= v.y ^ cm;
-      m[4 * q + 2] |= v.z ^ cm;
-      m[4 * q + 3] |= v.w ^ cm;
-    }
+    for (int w = 0; w < W; ++w) m[w] |= x[w] ^ cm;
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) m[w] = ~m[w];
 }
 
-// Set bits of m at local positions 0..local inclusive.
+// Set bits of m at local positions 0..local inclusive; m[0] is word
+// `base` of the window (a lane of a group holds words base .. base + W - 1).
 template <int W>
 __device__ __forceinline__ uint32_t count_inclusive(const uint32_t (&m)[W],
-                                                    uint32_t local) {
+                                                    uint32_t local,
+                                                    uint32_t base = 0u) {
   const uint32_t lw = local >> 5;
   const uint32_t low = (2u << (local & 31u)) - 1u;  // 2u << 31 wraps to 0
   uint32_t c = 0u;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    const uint32_t uw = static_cast<uint32_t>(w);
+    const uint32_t uw = base + static_cast<uint32_t>(w);
     const uint32_t mask = uw < lw ? 0xFFFFFFFFu : (uw == lw ? low : 0u);
     c += __popc(m[w] & mask);
   }
   return c;
 }
+
+// A group of G neighbouring lanes (G = 1, 2, 4 or 8) that shares one query.
+template <int G>
+struct Group {
+  int sub;        // this lane's place in its group
+  uint32_t mask;  // the group's lanes within the warp
+  __device__ __forceinline__ Group() {
+    const int lane = threadIdx.x & 31;
+    sub = lane & (G - 1);
+    mask = G == 1 ? 0u : ((1u << G) - 1u) << (lane & ~(G - 1));
+  }
+  // the sum of c over the group, in every lane of it
+  __device__ __forceinline__ uint32_t sum(uint32_t c) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) c += __shfl_xor_sync(mask, c, o);
+    return c;
+  }
+};
 
 template <class G, int NP>
 __device__ __forceinline__ typename G::pos_t occ_at(const AwfmTables& t,
@@ -231,12 +304,15 @@ __device__ __forceinline__ typename G::pos_t lf_at(const AwfmTables& t,
          count_inclusive<8>(m, local) - 1u;
 }
 
-// One backward step of a valid range (start <= end) by letter l.
-template <class G, int NP>
+// One backward step of a valid range (start <= end) by letter l, by window
+// class. The lanes of a group hold the same range and share the loads of
+// the first-block class; the rarer classes each lane computes in full.
+template <class G, int NP, int GL = 1>
 __device__ __forceinline__ void backward_step(const AwfmTables& t,
                                               typename G::pos_t& start,
                                               typename G::pos_t& end,
-                                              uint32_t l) {
+                                              uint32_t l,
+                                              const Group<GL>& grp = Group<GL>()) {
   using pos_t = typename G::pos_t;
   const pos_t c = c_select<G>(t, l);
   const pos_t pos_s = start - 1u;
@@ -244,7 +320,19 @@ __device__ __forceinline__ void backward_step(const AwfmTables& t,
   // ops/rank64.py:470-472)
   const pos_t delta = end - (pos_s & ~static_cast<pos_t>(255));
   pos_t occ_s, occ_e;
-  if (delta < 512u) {
+  if (delta < 256u) {
+    // both ends in the first block: words 0-7 of each plane, one milestone
+    constexpr int W = 8 / GL;
+    const uint8_t* row =
+        t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
+    uint32_t m[W];
+    match_words<NP, W, 64>(row + grp.sub * (4 * W), letter_code(t, NP, l), m);
+    const pos_t ms = milestone<G>(row, NP * 64, l, t.card);
+    const uint32_t base = grp.sub * W;
+    occ_s = ms + grp.sum(count_inclusive<W>(
+                     m, static_cast<uint32_t>(pos_s) & 255u, base));
+    occ_e = ms + grp.sum(count_inclusive<W>(m, static_cast<uint32_t>(delta), base));
+  } else if (delta < 512u) {
     const uint8_t* row =
         t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
     uint32_t m[16];
@@ -264,7 +352,8 @@ __device__ __forceinline__ void backward_step(const AwfmTables& t,
 // set iff the n-gram code at pair-local position 32 * w + p equals v.
 // Planes 0..2N-1 hold the code's value bits and are XORed with bit i of v;
 // plane 2N marks dirty words and is ORed in as it is (P6's match). W = 16
-// covers the 512-position window, W = 8 the first block only.
+// covers the 512-position window, W = 8 the first block only, fewer a
+// group lane's share of it (`row` then points at the lane's words).
 template <int N, int W>
 __device__ __forceinline__ void ngram_match_words(const uint8_t* row,
                                                   uint32_t v,
@@ -274,15 +363,10 @@ __device__ __forceinline__ void ngram_match_words(const uint8_t* row,
 #pragma unroll
   for (int i = 0; i <= 2 * N; ++i) {
     const uint32_t cm = (i < 2 * N && ((v >> i) & 1u)) ? 0xFFFFFFFFu : 0u;
-    const uint4* p = reinterpret_cast<const uint4*>(row + i * 64);
+    uint32_t x[W];
+    load_words<W>(row + i * 64, x);
 #pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const uint4 x = __ldg(p + q);
-      m[4 * q + 0] |= x.x ^ cm;
-      m[4 * q + 1] |= x.y ^ cm;
-      m[4 * q + 2] |= x.z ^ cm;
-      m[4 * q + 3] |= x.w ^ cm;
-    }
+    for (int w = 0; w < W; ++w) m[w] |= x[w] ^ cm;
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) m[w] = ~m[w];
@@ -308,18 +392,30 @@ __device__ __forceinline__ uint32_t ngram_occ_at(const NgramTables& g,
   return ngram_milestone<N>(row, v) + count_inclusive<8>(m, pos & 255u);
 }
 
-// One n-gram backward step of a valid range (start <= end) by word v.
-template <int N>
+// One n-gram backward step of a valid range (start <= end) by word v, by
+// window class; the lanes of a group as in backward_step.
+template <int N, int GL>
 __device__ __forceinline__ void ngram_step(const NgramTables& g,
                                            uint32_t& start, uint32_t& end,
-                                           uint32_t v) {
+                                           uint32_t v, const Group<GL>& grp) {
   constexpr uint32_t kWords = 1u << (2 * N);
   const uint32_t cn = (g.biased || v >= kWords) ? 0u : g.cn[v];
   const uint32_t pos_s = start - 1u;
   // unsigned compare before any narrowing (ops/ngram.py:627-631)
   const uint32_t delta = end - (pos_s & ~255u);
   uint32_t occ_s, occ_e;
-  if (delta < 512u) {
+  if (delta < 256u) {
+    // both ends in the first block: the first sector of each plane and the
+    // milestone word (_pair_occ_from_rows with no mask bit in words 8-15)
+    constexpr int W = 8 / GL;
+    const uint8_t* row = g.packed + Narrow::block(g.nb, pos_s) * g.row_bytes;
+    uint32_t m[W];
+    ngram_match_words<N, W>(row + grp.sub * (4 * W), v, m);
+    const uint32_t ms = ngram_milestone<N>(row, v);
+    const uint32_t base = grp.sub * W;
+    occ_s = ms + grp.sum(count_inclusive<W>(m, pos_s & 255u, base));
+    occ_e = ms + grp.sum(count_inclusive<W>(m, delta, base));
+  } else if (delta < 512u) {
     const uint8_t* row = g.packed + Narrow::block(g.nb, pos_s) * g.row_bytes;
     uint32_t m[16];
     ngram_match_words<N, 16>(row, v, m);
@@ -335,8 +431,10 @@ __device__ __forceinline__ void ngram_step(const NgramTables& g,
 }
 
 // Seed-table range of the last k letters of a query of length len: the
-// base-|A| radix, leftmost most significant, clamped to the table.
-template <class P>
+// base-|A| radix, leftmost most significant, clamped to the table. With
+// STREAM the entry is loaded evict-first (ld.global.cs): it is read once
+// and should not push table rows out of the L2.
+template <class P, bool STREAM = false>
 __device__ __forceinline__ void seed_range(const P* seed_table,
                                            int64_t seed_rows, int k,
                                            uint32_t card, const uint8_t* row,
@@ -351,8 +449,13 @@ __device__ __forceinline__ void seed_range(const P* seed_table,
   const int64_t r = static_cast<int64_t>(idx) < seed_rows
                         ? static_cast<int64_t>(idx)
                         : seed_rows - 1;
-  start = seed_table[2 * r];
-  end = seed_table[2 * r + 1];
+  if constexpr (STREAM) {
+    start = __ldcs(seed_table + 2 * r);
+    end = __ldcs(seed_table + 2 * r + 1);
+  } else {
+    start = seed_table[2 * r];
+    end = seed_table[2 * r + 1];
+  }
 }
 
 template <class G, int NP>
@@ -445,22 +548,31 @@ __global__ void k3_backtrace_resolve_kernel(
   }
 }
 
+constexpr int kK4Group = 2;  // lanes per query
+
 // Every query has length kmer_len > k and letters < 4 (the n-gram fast
-// path's contract, checked by the host engine).
+// path's contract, checked by the host engine). kK4Group lanes walk one
+// query; the seed-table entry is loaded and the ranges are stored with
+// the streaming hints (.cs).
 template <int N, int NP>
-__global__ void k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
-                                       const uint32_t* __restrict__ seed_table,
-                                       int64_t seed_rows, int k,
-                                       const uint8_t* __restrict__ mat,
-                                       int64_t b, int64_t l_pad, int kmer_len,
-                                       int64_t* __restrict__ start_out,
-                                       int64_t* __restrict__ end_out) {
-  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+__global__ void __launch_bounds__(kThreads, 2)
+k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
+                       const uint32_t* __restrict__ seed_table,
+                       int64_t seed_rows, int k,
+                       const uint8_t* __restrict__ mat, int64_t b,
+                       int64_t l_pad, int kmer_len,
+                       int64_t* __restrict__ start_out,
+                       int64_t* __restrict__ end_out) {
+  constexpr int GL = kK4Group;
+  const int64_t q =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
   if (q >= b) return;
   const uint8_t* row = mat + q * l_pad;
+  const Group<GL> grp;
   uint32_t start, end;
-  seed_range(seed_table, seed_rows, k, static_cast<uint32_t>(t.card), row,
-             kmer_len, l_pad, start, end);
+  seed_range<uint32_t, true>(seed_table, seed_rows, k,
+                             static_cast<uint32_t>(t.card), row, kmer_len,
+                             l_pad, start, end);
   const int m = kmer_len - k;
   // step s prepends columns m - N(s+1) .. m - N s - 1, leftmost first
   for (int s = 0; s < m / N && start <= end; ++s) {
@@ -468,13 +580,15 @@ __global__ void k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
     uint32_t v = 0u;
 #pragma unroll
     for (int j = 0; j < N; ++j) v = v * 4u + w[j];
-    ngram_step<N>(g, start, end, v);
+    ngram_step<N, GL>(g, start, end, v, grp);
   }
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
-    backward_step<Narrow, NP>(t, start, end, row[p]);
+    backward_step<Narrow, NP, GL>(t, start, end, row[p], grp);
   }
-  start_out[q] = start;
-  end_out[q] = end;
+  if (grp.sub == 0) {
+    __stcs(reinterpret_cast<long long*>(start_out + q), static_cast<long long>(start));
+    __stcs(reinterpret_cast<long long*>(end_out + q), static_cast<long long>(end));
+  }
 }
 
 unsigned int grid_for(int64_t n) {
@@ -487,7 +601,7 @@ template <class G>
 int launch_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
                   const int32_t* letters, int64_t n, int64_t* out,
                   cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (t->n_planes == 3) {
     k1_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
@@ -503,7 +617,7 @@ template <class G>
 int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                         int64_t n, int32_t* letters_out, int64_t* lf_out,
                         cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (t->n_planes == 3) {
     k1_letter_lf_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
@@ -524,7 +638,7 @@ int launch_k2_ranges(int device, const AwfmTables* t,
                      const int32_t* lengths, const uint8_t* seeded,
                      int64_t* start_out, int64_t* end_out,
                      cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (t->n_planes == 3) {
     k2_ranges_kernel<G, 3><<<grid_for(b), kThreads, 0, stream>>>(
@@ -548,7 +662,7 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
                                 const typename G::pos_t* sa, int64_t* hits_out,
                                 int64_t* p_out, int64_t* off_out,
                                 cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ratio == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
@@ -557,6 +671,28 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
   } else if (t->n_planes == 5) {
     k3_backtrace_resolve_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
         *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
+              const uint32_t* seed_table, int64_t seed_rows, int k,
+              const uint8_t* mat, int64_t b, int64_t l_pad, int kmer_len,
+              int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int grid = grid_for(b * kK4Group);
+  if (t->n_planes != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (g->n == 2) {
+    k4_ngram_ranges_kernel<2, 3><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
+        end_out);
+  } else if (g->n == 3) {
+    k4_ngram_ranges_kernel<3, 3><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
+        end_out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -637,21 +773,8 @@ int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                          const uint8_t* mat, int64_t b, int64_t l_pad,
                          int kmer_len, int64_t* start_out, int64_t* end_out,
                          cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes != 3) return static_cast<int>(cudaErrorInvalidValue);
-  if (g->n == 2) {
-    k4_ngram_ranges_kernel<2, 3><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
-        end_out);
-  } else if (g->n == 3) {
-    k4_ngram_ranges_kernel<3, 3><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
-        end_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k4(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
+                   kmer_len, start_out, end_out, stream);
 }
 
 const char* awfm_error_string(int code) {

@@ -16,21 +16,34 @@
 //       walk entry runs
 //       bench.py's calibration walk, idx <- (idx * 1103515245 + sum of the
 //       row's bytes + 12345) mod nb in u32, for seg steps in one launch,
-//       one thread per lane, its R / 16 vector loads of a row all in flight
-//       together.
+//       one thread per lane, its vector loads of a row all in flight
+//       together. A sector mask (bit s: the row's 32 B sector s) limits the
+//       loads and the sum to the sectors a search step reads, so the walk
+//       can measure the rate of visits that touch only those.
 //   K6 awfm_k6_slab_gather / awfm_k6_slab_chain
 //       Replaces experiments/ab_r5_pallas_gather.py:_k1_kernel (P5):
 //       out[i, :] = slab[idx[i], :] over a (S, 128) u32 slab of 1-4 MiB.
-//       The slab does not fit one block's 227 KB of shared memory, so it is
-//       read from global memory, where it sits in the 50 MB L2. The chained
-//       entry runs k1_chain's idx <- (row[0] + row[37]) mod S for seg steps
-//       in one launch, one warp per lane, each step reading the whole 512 B
-//       row (one 16 B volatile load per lane).
+//       What bounds the single gather on this card: 4 MB in and 4 MB out
+//       of the L2 take 2 us at the HBM rate, so it is a launch, and what
+//       counts is how soon every load is in flight. The grid is sized to
+//       the card (at most a few blocks per SM); a warp takes tiles of R
+//       = 4 rows (8 measured a little behind at P5's 8,192 rows): lanes
+//       0..R-1 read the tile's indices in one coalesced load, every lane
+//       then starts its R independent 16 B loads (one warp moves one 512 B row
+//       per load instruction) before its first store, and the stores are
+//       streaming (st.global.cs), since nothing here reads them back. The
+//       chained entry runs k1_chain's idx <- (row[0] + row[37]) mod S for
+//       seg steps in one launch, one warp per lane, each step reading the
+//       whole 512 B row (one 16 B volatile load per lane); it is the
+//       calibration's slab rate and no library call computes it. The slab
+//       stays in global memory, where it sits in the 50 MB L2: one block's
+//       227 KB of shared memory cannot hold it, and the distributed shared
+//       memory of a 16-block cluster, 16 x 227 KB = 3.6 MB, is smaller
+//       than the 4 MiB slab the calibration uses.
 //
 // All four are bound by random row reads from device memory (K6: from L2)
 // and do a few integer operations per 16 B. An index outside the table is
-// clamped to the last row, as XLA's gather clamps. These are simple,
-// correct first kernels; making them fast is later work.
+// clamped to the last row, as XLA's gather clamps.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avxwindowfmindex_tpu_torch/ops/kernels.py).
@@ -38,6 +51,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "awfm_common.cuh"
 
 namespace {
 
@@ -138,10 +153,11 @@ k5_gather_reduce_kernel(const uint8_t* __restrict__ table, int64_t nb,
   }
 }
 
-template <int R>
+// MASKED false: every sector of the row, loaded unconditionally.
+template <int R, bool MASKED>
 __global__ void k5_gather_walk_kernel(const uint8_t* __restrict__ table,
                                       int64_t nb, const int32_t* __restrict__ idx,
-                                      int64_t n, int seg,
+                                      int64_t n, int seg, uint32_t sector_mask,
                                       int32_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
@@ -150,22 +166,59 @@ __global__ void k5_gather_walk_kernel(const uint8_t* __restrict__ table,
   for (int s = 0; s < seg; ++s) {
     const uint4* row = reinterpret_cast<const uint4*>(table + static_cast<int64_t>(x) * R);
     uint32_t sum = 0u;
+    if constexpr (!MASKED) {
 #pragma unroll
-    for (int q = 0; q < R / 16; ++q) sum += byte_sum(__ldg(row + q));
+      for (int q = 0; q < R / 16; ++q) sum += byte_sum(__ldg(row + q));
+    } else {
+      // two 16 B pieces per sector, kBatch pieces loaded before the first
+      // is summed: a load under its mask bit and nothing else, so that the
+      // compiler predicates it and the batch is in flight together
+      constexpr int kPieces = R / 16;
+      constexpr int kBatch = kPieces <= 24 ? kPieces : 16;
+#pragma unroll
+      for (int q0 = 0; q0 < kPieces; q0 += kBatch) {
+        uint4 v[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          v[j] = make_uint4(0u, 0u, 0u, 0u);
+          if ((sector_mask >> ((q0 + j) / 2)) & 1u) v[j] = __ldg(row + q0 + j);
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) sum += byte_sum(v[j]);
+      }
+    }
     x = (x * 1103515245u + sum + 12345u) % rows;
   }
   out[i] = static_cast<int32_t>(x);
 }
 
-__global__ void k6_slab_gather_kernel(const uint4* __restrict__ slab, int64_t s,
-                                      const int32_t* __restrict__ idx, int64_t n,
-                                      uint4* __restrict__ out) {
-  // one thread per 16 B piece: row i = t / 32, piece t % 32
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (t >= n * 32) return;
-  const int64_t i = t >> 5;
-  const int p = static_cast<int>(t & 31);
-  out[t] = slab[clamp_row(idx[i], s) * 32 + p];
+constexpr int kK6BlocksPerSm = 4;  // the grid's cap: this many blocks per SM
+constexpr int kK6Rows = 4;         // rows in flight per lane
+
+// A warp takes tiles of R rows, tile w, w + (warps in the grid), ...: R
+// loads in flight per lane, then R streaming stores.
+__global__ void __launch_bounds__(kThreads)
+k6_slab_gather_kernel(const uint4* __restrict__ slab, int64_t s,
+                      const int32_t* __restrict__ idx, int64_t n,
+                      uint4* __restrict__ out) {
+  constexpr int R = kK6Rows;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  const int64_t n_warps = (gridDim.x * static_cast<int64_t>(blockDim.x)) >> 5;
+  for (int64_t base = warp * R; base < n; base += n_warps * R) {
+    int32_t mine = 0;
+    if (lane < R && base + lane < n) mine = idx[base + lane];
+    uint4 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int32_t i = __shfl_sync(0xFFFFFFFFu, mine, r);
+      if (base + r < n) v[r] = __ldg(slab + clamp_row(i, s) * 32 + lane);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (base + r < n) __stcs(out + (base + r) * 32 + lane, v[r]);
+    }
+  }
 }
 
 __device__ __forceinline__ uint4 ld_volatile(const uint4* p) {
@@ -196,6 +249,40 @@ __global__ void k6_slab_chain_kernel(const uint4* __restrict__ slab, int64_t s,
 
 unsigned int blocks_for(int64_t threads) {
   return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
+}
+
+cudaError_t launch_slab_gather(int device, const int32_t* slab, int64_t s,
+                               const int32_t* idx, int64_t n, int32_t* out,
+                               cudaStream_t stream) {
+  static int sm_count[64] = {};  // per device, asked once
+  int sms = device < 64 ? sm_count[device] : 0;
+  if (sms == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (device < 64) sm_count[device] = sms;
+  }
+  const int64_t tiles = (n + kK6Rows - 1) / kK6Rows;  // one per warp, until the grid is full
+  const int64_t want = (tiles + kThreads / 32 - 1) / (kThreads / 32);
+  const int64_t cap = static_cast<int64_t>(sms) * kK6BlocksPerSm;
+  k6_slab_gather_kernel<<<static_cast<unsigned int>(want < cap ? want : cap), kThreads, 0, stream>>>(
+      reinterpret_cast<const uint4*>(slab), s, idx, n, reinterpret_cast<uint4*>(out));
+  return cudaGetLastError();
+}
+
+// A mask that holds every sector of the row takes the whole-row walk.
+template <int R>
+cudaError_t launch_walk(const uint8_t* table, int64_t nb, const int32_t* idx,
+                        int64_t n, int seg, uint32_t sector_mask, int32_t* out,
+                        cudaStream_t stream) {
+  constexpr uint32_t kAll = R / 32 == 32 ? 0xFFFFFFFFu : (1u << (R / 32)) - 1u;
+  if ((sector_mask & kAll) == kAll) {
+    k5_gather_walk_kernel<R, false><<<blocks_for(n), kThreads, 0, stream>>>(
+        table, nb, idx, n, seg, sector_mask, out);
+  } else {
+    k5_gather_walk_kernel<R, true><<<blocks_for(n), kThreads, 0, stream>>>(
+        table, nb, idx, n, seg, sector_mask, out);
+  }
+  return cudaGetLastError();
 }
 
 template <int R, int K>
@@ -233,7 +320,7 @@ int awfm_k5_gather_reduce(int device, const uint8_t* table, int64_t nb,
                           int row_bytes, const int32_t* idx, int64_t n,
                           int sum_bytes, int chunk, int ring, int32_t* out,
                           cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk < 1 || sum_bytes < 16 || sum_bytes > row_bytes || sum_bytes % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -252,35 +339,33 @@ int awfm_k5_gather_reduce(int device, const uint8_t* table, int64_t nb,
 
 int awfm_k5_gather_walk(int device, const uint8_t* table, int64_t nb,
                         int row_bytes, const int32_t* idx, int64_t n, int seg,
-                        int32_t* out, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+                        uint32_t sector_mask, int32_t* out,
+                        cudaStream_t stream) {
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int grid = blocks_for(n);
   switch (row_bytes) {
-    case 128: k5_gather_walk_kernel<128><<<grid, kThreads, 0, stream>>>(table, nb, idx, n, seg, out); break;
-    case 256: k5_gather_walk_kernel<256><<<grid, kThreads, 0, stream>>>(table, nb, idx, n, seg, out); break;
-    case 384: k5_gather_walk_kernel<384><<<grid, kThreads, 0, stream>>>(table, nb, idx, n, seg, out); break;
-    case 512: k5_gather_walk_kernel<512><<<grid, kThreads, 0, stream>>>(table, nb, idx, n, seg, out); break;
-    case 1024: k5_gather_walk_kernel<1024><<<grid, kThreads, 0, stream>>>(table, nb, idx, n, seg, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 128: err = launch_walk<128>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 256: err = launch_walk<256>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 384: err = launch_walk<384>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 512: err = launch_walk<512>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 1024: err = launch_walk<1024>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    default: err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 int awfm_k6_slab_gather(int device, const int32_t* slab, int64_t s,
                         const int32_t* idx, int64_t n, int32_t* out,
                         cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k6_slab_gather_kernel<<<blocks_for(n * 32), kThreads, 0, stream>>>(
-      reinterpret_cast<const uint4*>(slab), s, idx, n, reinterpret_cast<uint4*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_slab_gather(device, slab, s, idx, n, out, stream));
 }
 
 int awfm_k6_slab_chain(int device, const int32_t* slab, int64_t s,
                        const int32_t* idx, int64_t n, int seg, int32_t* out,
                        cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   k6_slab_chain_kernel<<<blocks_for(n * 32), kThreads, 0, stream>>>(
       reinterpret_cast<const uint4*>(slab), s, idx, n, seg, out);

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels: build, ctypes bindings, launch counts.
 
-The sources are ``avxwindowfmindex_tpu_torch/csrc/*.cu`` and nothing
-else. At first use each is compiled to an object, all at once, with
+The sources are ``avxwindowfmindex_tpu_torch/csrc/*.cu`` (with the
+header ``awfm_common.cuh`` they share) and nothing else. At first use
+each is compiled to an object, all at once, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -c
@@ -216,7 +217,9 @@ def build() -> float:
             i64, i64, i32, vp, vp, vp,
         ]
         lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
-        lib.awfm_k5_gather_walk.argtypes = [i32, vp, i64, i32, vp, i64, i32, vp, vp]
+        lib.awfm_k5_gather_walk.argtypes = [
+            i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, vp, vp,
+        ]
         lib.awfm_k6_slab_gather.argtypes = [i32, vp, i64, vp, i64, vp, vp]
         lib.awfm_k6_slab_chain.argtypes = [i32, vp, i64, vp, i64, i32, vp, vp]
         for fn in (
@@ -513,31 +516,41 @@ def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
     return out
 
 
-def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tensor:
-    """K5's walk entry: (n,) int32 indices after ``seg`` dependent steps."""
+def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
+                   sector_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+    """K5's walk entry: (n,) int32 indices after ``seg`` dependent steps,
+    each reading and summing the row's 32 B sectors set in ``sector_mask``."""
     from .probes import K5_ROW_BYTES
 
     device = _probe_table(table, "table", torch.uint8, K5_ROW_BYTES)
     n = _probe_idx(idx, device)
-    if seg < 0:
-        raise ValueError("seg must be >= 0")
+    if seg < 0 or not 0 <= sector_mask <= 0xFFFFFFFF:
+        raise ValueError("need seg >= 0 and a 32-bit sector_mask")
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
     rc = _library().awfm_k5_gather_walk(
         device.index, table.data_ptr(), int(table.shape[0]), int(table.shape[1]),
-        idx.data_ptr(), n, int(seg), out.data_ptr(), _stream(device),
+        idx.data_ptr(), n, int(seg), int(sector_mask), out.data_ptr(), _stream(device),
     )
     _check(rc, "awfm_k5_gather_walk")
     K5.launches += 1
     return out
 
 
-def k6_slab_gather(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K6: (n, 128) int32 rows ``slab[idx]`` of a (S, 128) u32 slab."""
+def k6_slab_gather(slab: torch.Tensor, idx: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: (n, 128) int32 rows ``slab[idx]`` of a (S, 128) u32 slab;
+    written into ``out`` when given (a caller that may not allocate, as
+    under CUDA-graph capture)."""
     device = _probe_table(slab, "slab", torch.int32, (512,))
     n = _probe_idx(idx, device)
-    out = torch.empty((n, slab.shape[1]), dtype=torch.int32, device=device)
+    if out is None:
+        out = torch.empty((n, slab.shape[1]), dtype=torch.int32, device=device)
+    else:
+        _require(out, "out", torch.int32, device)
+        if out.shape != (n, slab.shape[1]) or out.data_ptr() % 16:
+            raise ValueError(f"out must be ({n}, {slab.shape[1]}) and 16-byte aligned")
     if n == 0:
         return out
     rc = _library().awfm_k6_slab_gather(

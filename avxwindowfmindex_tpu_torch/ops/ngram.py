@@ -28,8 +28,10 @@ edge cases: ``start - 1`` wraps to 0xFFFFFFFF at start 0, the block index
 clamps to the last row, a row whose range is invalid keeps it. The
 one-row pair step (``ngram_backward_step_pair``) is the compute of the
 Pallas kernel ``experiments/ab_r5_pallas_gather.py:_k2_kernel``; on the
-card K4 (``csrc/awfm_kernels.cu``) runs it, and ``search.ngram_ranges``
-is its dispatch wrapper.
+card K4 (``csrc/awfm_kernels.cu``) runs it, for a range inside the first
+block of its row from that block's sectors alone
+(``ngram_backward_step_first_block``), and ``search.ngram_ranges`` is
+its dispatch wrapper.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from ..models.index import (
     num_blocks_from_bwt_length,
     widen_u32,
 )
-from .rank import _gather_rows, _inclusive_mask, _popcount_sum
+from .rank import _gather_rows, _inclusive_mask, _popcount_sum, window_delta
 
 
 def _geometry(n: int):
@@ -311,16 +313,17 @@ def _word_value(letter_list):
     return v
 
 
-def _pair_match(ng: NgramIndex, rows, v):
-    """(B, 64) uint8 match bits for word value v over a pair row: XOR of
-    value planes 0..2n-1 with bit i of v, OR the dirty plane 2n, NOT."""
+def _pair_match(ng: NgramIndex, rows, v, plane_bytes: int = 64):
+    """(B, plane_bytes) uint8 match bits for word value v over the first
+    plane_bytes of each plane of a pair row: XOR of value planes 0..2n-1
+    with bit i of v, OR the dirty plane 2n, NOT."""
     _, _, n_planes, _, _ = _geometry_pair(ng.n)
     diff = None
     for i in range(n_planes - 1):
         m = (((v >> i) & 1) * 0xFF).to(torch.uint8)
-        x = rows[:, i * 64 : (i + 1) * 64] ^ m[:, None]
+        x = rows[:, i * 64 : i * 64 + plane_bytes] ^ m[:, None]
         diff = x if diff is None else (diff | x)
-    diff = diff | rows[:, (n_planes - 1) * 64 : n_planes * 64]
+    diff = diff | rows[:, (n_planes - 1) * 64 : (n_planes - 1) * 64 + plane_bytes]
     return torch.bitwise_not(diff)
 
 
@@ -401,3 +404,29 @@ def ngram_backward_step_pair(ng: NgramIndex, start, end, letter_list, bad):
     keep = start <= end
     bad = bad | (overflow & keep)
     return torch.where(keep, new_start, start), torch.where(keep, new_end, end), bad
+
+
+def ngram_backward_step_first_block(ng: NgramIndex, start, end, letter_list):
+    """The first-block class of the one-row n-step: for a range with both
+    ends in the first block of its row (delta < 256) it reads only bytes
+    [64 p, 64 p + 32) of each plane p and the word's milestone, and gives
+    what :func:`ngram_backward_step_pair` gives (whose mask then has no
+    bit set in words 8-15). K4 takes this class for nearly every step.
+
+    Returns (new_start, new_end, first): ``first`` marks the valid rows
+    of that class; every other row keeps its range.
+    """
+    start = start.to(torch.int64) & MASK32
+    end = end.to(torch.int64) & MASK32
+    v = _word_value(letter_list)
+    cn = 0 if ng.biased else _cn_select(ng, v)
+    rows, local_s = _gather_rows(ng.packed, (start - 1) & MASK32)
+    delta = window_delta(start, end, MASK32)
+    first = (delta < 256) & (start <= end)
+    match = _pair_match(ng, rows, v, 32)
+    occ_s = _popcount_sum(match & _inclusive_mask(local_s, 32))
+    occ_e = _popcount_sum(match & _inclusive_mask(delta.clamp(max=255), 32))
+    ms = _pair_milestone(ng, rows, v)
+    new_start = (cn + ms + occ_s) & MASK32
+    new_end = (cn + ms + occ_e - 1) & MASK32
+    return torch.where(first, new_start, start), torch.where(first, new_end, end), first

@@ -24,6 +24,15 @@ CUDA tensors and runs the plain version beside it for CPU tensors.
 
 An index outside the table is clamped to the last row, as XLA's gather
 clamps, in the kernels and the plain versions alike.
+
+``sector_mask`` (the walk entry): the card moves memory in 32 B sectors,
+and a search step reads only some of a row's (the first 32 B of each
+64 B plane and the milestone word, ``utils/roofline.first_block_sector_mask``).
+Bit s of the mask set means that sector s of every visited row, bytes
+[32 s, 32 s + 32), is read and enters the sum; the default, all bits,
+is ``bench.py``'s walk over whole rows. The calibration walks each table
+with the mask of its step, so a rate it measures is one of visits that
+touch what a step touches.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ K5_ROW_BYTES = (128, 256, 384, 512, 1024)
 #: Ring depths (row loads in flight per warp) K5 is instantiated for.
 K5_RING_DEPTHS = (2, 4, 8, 16, 32)
 SLAB_LANES = 128  # K6 rows: 128 u32 words = 512 B
+ALL_SECTORS = 0xFFFFFFFF
 
 
 def _clamped(idx: torch.Tensor, nb: int) -> torch.Tensor:
@@ -80,26 +90,37 @@ def wrapped_total(partials: torch.Tensor) -> int:
     return t - 2**32 if t >= 2**31 else t
 
 
-def gather_walk_plain(table: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tensor:
+def sector_columns(row_bytes: int, sector_mask: int) -> list:
+    """The byte columns of a row that lie in the sectors of ``sector_mask``."""
+    return [c for c in range(row_bytes) if (sector_mask >> (c // 32)) & 1]
+
+
+def gather_walk_plain(table: torch.Tensor, idx: torch.Tensor, seg: int,
+                      sector_mask: int = ALL_SECTORS) -> torch.Tensor:
     """Plain torch version of K5's walk entry -> (n,) int32 indices after
     ``seg`` steps of ``idx <- (idx * 1103515245 + sum of the row's bytes
-    + 12345) mod nb`` in u32 (``bench.py:_calibrate_gather_rates``)."""
-    nb = table.shape[0]
+    + 12345) mod nb`` in u32 (``bench.py:_calibrate_gather_rates``), the
+    sum over the bytes of the sectors in ``sector_mask``."""
+    nb, row_bytes = table.shape
     idx = _clamped(idx, nb)
+    cols = sector_columns(row_bytes, sector_mask)
+    if len(cols) < row_bytes:
+        table = table[:, torch.tensor(cols, dtype=torch.int64, device=table.device)]
     for _ in range(seg):
         s = table[idx].to(torch.int64).sum(1)
         idx = ((idx * 1103515245 + s + 12345) & MASK32) % nb
     return idx.to(torch.int32)
 
 
-def gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tensor:
+def gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
+                sector_mask: int = ALL_SECTORS) -> torch.Tensor:
     """K5's walk entry for CUDA tensors (all ``seg`` steps in one launch,
     one chain per lane), the plain version for CPU ones."""
     if device_kind(table) == "cuda":
         from . import kernels
 
-        return kernels.k5_gather_walk(table, idx, seg)
-    return gather_walk_plain(table, idx, seg)
+        return kernels.k5_gather_walk(table, idx, seg, sector_mask)
+    return gather_walk_plain(table, idx, seg, sector_mask)
 
 
 # ---------------------------------------------------------------------------

@@ -237,6 +237,55 @@ def backward_step(dev, start, end, letters, active=None, check_valid=True,
     return torch.where(keep, new_start, start), torch.where(keep, new_end, end)
 
 
+def window_delta(start, end, pos_mask: int):
+    """Offset of ``end`` from the start of the block that holds ``start -
+    1``, as the unsigned value K2 and K4 pick a step's window class from
+    (a u64 value of 2^63 and more reads negative)."""
+    pos_s = (start - 1) & pos_mask
+    return (end - (pos_s & ~0xFF)) & pos_mask
+
+
+def window_classes(start, end, keep, pos_mask: int = MASK32) -> torch.Tensor:
+    """(3,) int64: how many of the steps marked by ``keep`` fall in each
+    window class: delta < 256 (both ends in the first block of the row),
+    256 <= delta < 512 (the whole pair window), and wider (two rows)."""
+    delta = window_delta(start.to(torch.int64) & pos_mask, end.to(torch.int64) & pos_mask,
+                         pos_mask)
+    first = (delta >= 0) & (delta < 256)
+    window = (delta >= 256) & (delta < 512)
+    return torch.stack([(keep & first).sum(), (keep & window).sum(),
+                        (keep & ~first & ~window).sum()])
+
+
+def backward_step_first_block(dev, start, end, letters, active=None):
+    """The first-block class of the pair-row step: for a range with both
+    ends in the first block of its row (delta < 256) it reads only bytes
+    [64 p, 64 p + 32) of each plane p and the letter's milestone, and
+    gives what :func:`backward_step_pair` gives.
+
+    Returns (new_start, new_end, first): ``first`` marks the valid,
+    active rows of that class; every other row keeps its range.
+    """
+    mask = dev.pos_mask
+    start = start.to(torch.int64) & mask
+    end = end.to(torch.int64) & mask
+    letters = letters.to(torch.int64)
+    c = _prefix_sum_select(dev, letters)
+    pos_s = (start - 1) & mask
+    rows, local_s = _gather_rows(dev.packed_pair, pos_s, dev.wide)
+    delta = window_delta(start, end, mask)
+    first = (delta >= 0) & (delta < 256) & le_unsigned(start, end, dev.wide)
+    if active is not None:
+        first = first & active
+    match = _match_bytes(dev, rows, letters, 32, 64)
+    occ_s = _popcount_sum(match & _inclusive_mask(local_s, 32))
+    occ_e = _popcount_sum(match & _inclusive_mask(delta.clamp(0, 255), 32))
+    ms = _milestone(dev, rows, letters, dev.pair_milestone_offset)
+    new_start = (c + ms + occ_s) & mask
+    new_end = (c + ms + occ_e - 1) & mask
+    return torch.where(first, new_start, start), torch.where(first, new_end, end), first
+
+
 def backward_step_pair(dev, start, end, letters, bad, active=None):
     """One-gather pair-row step; flags ranges wider than the pair window.
 

@@ -9,9 +9,10 @@ is a few kernels around one plain torch step:
 
   ranges     K2 (``search_ranges``): one thread per query does the seed
              lookup (or the whole-letter initial range) and every
-             backward step; a step whose range fits the 512-position
-             pair window reads one pair row, a wider one two block rows,
-             so no query is flagged or re-run;
+             backward step; a step reads its pair row by window class
+             (the first block's sectors when both ends of the range lie
+             there, else the whole 512-position window) and a wider range
+             two block rows, so no query is flagged or re-run;
              K4 (``ngram_ranges``, ``NgramSearchEngine``): the same for
              a uniform clean batch, n letters per step over the n-gram
              pair rows (ops/ngram.py), then the m mod n tail letters;
@@ -69,15 +70,24 @@ def _round_up(n: int, m: int) -> int:
 # K2: final BWT ranges
 # ---------------------------------------------------------------------------
 
-def _step_exact(dev, start, end, letters, active):
-    """One exact backward step the way K2 takes it: the one-row pair step
-    inside the pair window, the two-row classic step outside it."""
+def _step_exact(dev, start, end, letters, active, classes=None):
+    """One exact backward step the way K2 takes it, by window class: the
+    first block's sectors of the pair row, the whole pair window, or the
+    two-row classic step outside it. ``classes``: a (3,) int64 tensor
+    that gains the number of rows stepped in each class."""
     bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    fs, fe, first = rank_ops.backward_step_first_block(dev, start, end, letters, active)
     ps, pe, bad = rank_ops.backward_step_pair(dev, start, end, letters, bad, active)
     cs, ce = rank_ops.backward_step(
         dev, start, end, letters, active, occurrence_fn=rank_ops.occurrence_plain
     )
-    return torch.where(bad, cs, ps), torch.where(bad, ce, pe)
+    if classes is not None:
+        keep = rank_ops.le_unsigned(start & dev.pos_mask, end & dev.pos_mask, dev.wide)
+        if active is not None:
+            keep = keep & active
+        classes += rank_ops.window_classes(start, end, keep, dev.pos_mask)
+    return (torch.where(first, fs, torch.where(bad, cs, ps)),
+            torch.where(first, fe, torch.where(bad, ce, pe)))
 
 
 def _seed_lookup(dev, mat, lengths):
@@ -95,9 +105,11 @@ def _seed_lookup(dev, mat, lengths):
     return dev.widen(dev.seed_table[tidx])
 
 
-def ranges_plain(dev, mat, lengths, seeded):
+def ranges_plain(dev, mat, lengths, seeded, classes=None):
     """Plain torch version of K2 and K2w -> (start, end), (B,) int64
-    holding u32 values (u64 for a wide view).
+    holding u32 values (u64 for a wide view). ``classes``: a (3,) int64
+    tensor that gains the steps taken in each window class
+    (``ops/rank.window_classes``).
 
     mat (B, L) letter indices; lengths (B,); seeded (B,) bool/uint8:
     seed-table lookup of the last k letters (``_seed_lookup``) where
@@ -123,7 +135,7 @@ def ranges_plain(dev, mat, lengths, seeded):
     for t in range(n_steps):
         p = nxt - t
         lett = mat.gather(1, p.clamp(0, l_pad - 1)[:, None])[:, 0]
-        start, end = _step_exact(dev, start, end, lett, p >= 0)
+        start, end = _step_exact(dev, start, end, lett, p >= 0, classes)
     return start, end
 
 
@@ -145,17 +157,32 @@ def search_ranges(dev, mat, lengths, seeded):
 # K4: final BWT ranges through the n-gram table
 # ---------------------------------------------------------------------------
 
-def _ngram_step_exact(ng, start, end, letters):
-    """One exact n-gram step the way K4 takes it: the one-row pair step
-    inside the pair window, the two-row step outside it."""
+def _ngram_step_exact(ng, start, end, letters, classes=None):
+    """One exact n-gram step the way K4 takes it, by window class: the
+    first block's sectors of the row, the whole pair window, or the
+    two-row step outside it. ``classes`` as in :func:`_step_exact`."""
     bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    fs, fe, first = ngram_ops.ngram_backward_step_first_block(ng, start, end, letters)
     ps, pe, bad = ngram_ops.ngram_backward_step_pair(ng, start, end, letters, bad)
     cs, ce = ngram_ops.ngram_backward_step(ng, start, end, letters)
-    return torch.where(bad, cs, ps), torch.where(bad, ce, pe)
+    if classes is not None:
+        keep = (start & MASK32) <= (end & MASK32)
+        classes += rank_ops.window_classes(start, end, keep)
+    return (torch.where(first, fs, torch.where(bad, cs, ps)),
+            torch.where(first, fe, torch.where(bad, ce, pe)))
 
 
-def ngram_ranges_plain(dev, ng, mat, kmer_len: int):
+def new_step_classes(device) -> dict:
+    """Zeroed per-table step counts by window class, for ``classes=``:
+    ``"ngram_pair"`` (K4's n-gram steps) and ``"pair"`` (K2's steps, K4's
+    tail), each (3,) int64: first block, pair window, two rows."""
+    return {t: torch.zeros(3, dtype=torch.int64, device=device) for t in ("ngram_pair", "pair")}
+
+
+def ngram_ranges_plain(dev, ng, mat, kmer_len: int, classes=None):
     """Plain torch version of K4 -> (start, end), (B,) int64 u32 values.
+    ``classes``: a dict from :func:`new_step_classes` that gains the steps
+    taken in each window class, by table.
 
     mat (B, L) letter indices of a uniform batch of length kmer_len > k
     with letters < 4: the seed lookup of the last k letters, then
@@ -171,9 +198,14 @@ def ngram_ranges_plain(dev, ng, mat, kmer_len: int):
     start, end = seed[:, 0], seed[:, 1]
     for t in range(m // n):
         cols = [m - n * (t + 1) + j for j in range(n)]
-        start, end = _ngram_step_exact(ng, start, end, [mat[:, c] for c in cols])
+        start, end = _ngram_step_exact(
+            ng, start, end, [mat[:, c] for c in cols],
+            None if classes is None else classes["ngram_pair"],
+        )
     for c in range(m % n - 1, -1, -1):
-        start, end = _step_exact(dev, start, end, mat[:, c], None)
+        start, end = _step_exact(
+            dev, start, end, mat[:, c], None, None if classes is None else classes["pair"]
+        )
     return start, end
 
 

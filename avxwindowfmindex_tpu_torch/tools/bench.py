@@ -22,8 +22,11 @@ with ``torch.cuda.synchronize()`` inside the timed window:
 Before the stages, the K2 and K4 ranges must agree on every chunk; after
 them, 32 counts and 64 multi-hit locates are checked against a host scan
 of the text. Then each table's random-row rate is measured in-process
-(``utils/roofline.calibrate_gather_rates``: K5's walk, and K6's slab
-rate) and every stage is set against its gather ceiling.
+(``utils/roofline.calibrate_gather_rates``: K5's walk over the sectors a
+first-block step reads of a row, and K6's slab rate) and every stage is
+set against its gather ceiling and, at the bytes a visit reads (192 B of
+an n-gram row, 128 B of a pair row or a block row), against the card's
+HBM rate.
 
 Prints one ``{"meta": ...}`` line (the keys of ``bench.py``'s, with the
 ``nvidia-smi`` name and power limit under ``device``) and then the
@@ -373,14 +376,19 @@ def run_protocol(p: Protocol, index, seq_arr: np.ndarray, rng, *, dev, dev_dense
              f"workspace peak {peak - resident} B")
 
     # roofline against the rates measured here, on these tables
+    # and at the bytes a visit reads: the calibration walks the sectors of
+    # a first-block step, the byte model charges them
+    calib_tables = {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed}
+    visits = roofline.first_block_visits(ngram_n=p.ngram_n)
     rates = roofline.calibrate_gather_rates(
-        {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed},
-        batch=p.calib_batch, device=device, log=_log,
+        calib_tables, batch=p.calib_batch, device=device, log=_log,
+        sector_masks={t: mask for t, (mask, _) in visits.items()},
     )
     chip = roofline.detect_chip(device)
     rb = roofline.table_row_bytes(ngram_n=p.ngram_n)
     roof_kw = dict(kmer_len=kmer_len, seed_k=p.seed_k, ratio=dev.ratio, rates=rates,
-                   row_bytes=rb, chip=chip)
+                   row_bytes=rb, visit_bytes={t: b for t, (_, b) in visits.items()},
+                   chip=chip)
     count_roof = roofline.report(count_qps, ngram_n=1, **roof_kw)
     count2_roof = roofline.report(count2_qps, ngram_n=p.ngram_n, **roof_kw)
     locate_roof = roofline.report(locate_qps, ngram_n=p.ngram_n,

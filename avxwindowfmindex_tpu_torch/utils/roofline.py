@@ -18,7 +18,15 @@ Tables and their row bytes (nucleotide):
   ngram_pair  NgramIndex.packed 384 B   K4's n-gram step (n = 2)
 
 ``range_phase_rows`` and ``table_row_bytes`` keep the JAX formulas: K2
-and K4 read exactly those rows per step. ``backtrace_rows_per_position``
+and K4 visit exactly those rows per step. What a visit reads of its row
+is less: a step whose range lies in the first block of the row (nearly
+every step at the bench's seed k) loads the first 32 B sector of each
+64 B plane and the sector of its milestone, 192 of an n-gram row's 384 B
+and 128 of a pair row's 256 B (:func:`first_block_visits`). So
+:func:`report` takes per-table *visit bytes* beside the row bytes (the
+default, whole rows, is the JAX package's model), and the calibration
+walks each table with the visit's sector mask: bytes and rates both
+describe the visits the kernels make. ``backtrace_rows_per_position``
 models K3 (one block row per LF step, no compaction passes), not the JAX
 compaction schedule; the routed (slab) terms do not carry over. Without
 measured rates :func:`report` returns the byte model with
@@ -123,6 +131,39 @@ def table_row_bytes(alphabet=None, *, ngram_n: int = 2) -> Dict[str, int]:
     return out
 
 
+def first_block_sector_mask(n_planes: int, plane_stride: int, milestone_offset: int) -> int:
+    """The 32 B sectors of a row that a first-block visit reads: the one
+    holding the first 32 B of each plane and the one at the milestones'
+    offset (a letter's or word's milestone lies in one sector; where the
+    milestones span two, the first stands for it). Bit s: sector s."""
+    mask = 1 << (milestone_offset // 32)
+    for i in range(n_planes):
+        mask |= 1 << (i * plane_stride // 32)
+    return mask
+
+
+def first_block_visits(alphabet=None, *, ngram_n: int = 2) -> Dict[str, tuple]:
+    """(sector mask, bytes) of a first-block visit to each table of the
+    narrow engine: what K1 and K3 read of a block row (all of it) and
+    what a step of K2 and K4 reads of a pair row and an n-gram pair row
+    when both ends of its range lie in the row's first block."""
+    from ..models import alphabet as alpha
+    from ..models.config import AlphabetType
+
+    alphabet = alphabet or AlphabetType.DNA
+    n_planes = alpha.num_bit_planes(alphabet)
+    masks = {
+        "single": first_block_sector_mask(n_planes, 32, n_planes * 32),
+        "pair": first_block_sector_mask(n_planes, 64, n_planes * 64),
+    }
+    if alphabet != AlphabetType.AMINO and ngram_n >= 2:
+        from ..ops import ngram as ngram_ops
+
+        _, _, ng_planes, ms_offset, _ = ngram_ops._geometry_pair(ngram_n)
+        masks["ngram_pair"] = first_block_sector_mask(ng_planes, 64, ms_offset)
+    return {t: (m, 32 * bin(m).count("1")) for t, m in masks.items()}
+
+
 def report(
     queries_per_sec: float,
     *,
@@ -135,6 +176,7 @@ def report(
     locate_positions_per_query: float = 0.0,
     row_bytes: Optional[Dict[str, int]] = None,
     rates: Optional[Dict[str, float]] = None,
+    visit_bytes: Optional[Dict[str, int]] = None,
 ) -> dict:
     """Roofline summary of a measured throughput on the active engine.
 
@@ -143,9 +185,13 @@ def report(
     full-hit-list locate (K3 walks every slot of the capacity batch,
     masked ones included). ``rates``: per-table measured row rates
     (rows/s) from :func:`calibrate_gather_rates`; without them the
-    gather ceiling is null and ``calibrated`` is False.
+    gather ceiling is null and ``calibrated`` is False. ``visit_bytes``:
+    the bytes one visit reads of a row of each table, where that is less
+    than the row (:func:`first_block_visits`); the default charges whole
+    rows.
     """
     row_bytes = row_bytes or table_row_bytes(ngram_n=ngram_n)
+    visit_bytes = {**row_bytes, **(visit_bytes or {})}
     calibrated = rates is not None
     phase_rows = {"range": range_phase_rows(
         kmer_len, seed_k, ngram_n=ngram_n, pair_rows=pair_rows
@@ -156,7 +202,7 @@ def report(
 
     phases = {}
     for name, rows_by_table in phase_rows.items():
-        bytes_q = sum(n * row_bytes[t] for t, n in rows_by_table.items())
+        bytes_q = sum(n * visit_bytes[t] for t, n in rows_by_table.items())
         if name == "backtrace":
             # the sampled-SA resolve: one 4 B element per position
             bytes_q += 4.0 * locate_positions_per_query
@@ -247,10 +293,13 @@ def difference_rate(run, lanes: int, runs: int, seg_lo: int, seg_hi: int) -> flo
 
 def calibrate_gather_rates(
     tables, batch: int, *, device, runs: int = 3, seg_lo: int = 4, seg_hi: int = 20,
-    log=None,
+    log=None, sector_masks: Optional[Dict[str, int]] = None,
 ) -> Dict[str, float]:
     """Measured random row-read rate of each table (rows/s), plus the
-    L2-resident slab rate under ``"slab"``.
+    L2-resident slab rate under ``"slab"``. ``sector_masks``: per table,
+    the 32 B sectors of a row that a visit reads and sums (K5's masked
+    walk; :func:`first_block_visits`); a table without one is walked over
+    whole rows, as ``bench.py`` walks it.
 
     The walk is ``bench.py``'s: each of ``batch`` lanes reads the row at
     its index and moves to ``(idx * 1103515245 + sum of the row's bytes
@@ -277,13 +326,16 @@ def calibrate_gather_rates(
         nb = table.shape[0]
         idx0 = torch.from_numpy(rng.integers(0, nb, size=batch).astype(np.int32)).to(device)
 
-        def run(seg, table=table, idx0=idx0):
-            return int(probes.gather_walk(table, idx0, seg)[0])  # the readback syncs
+        mask = (sector_masks or {}).get(name, probes.ALL_SECTORS)
+
+        def run(seg, table=table, idx0=idx0, mask=mask):
+            return int(probes.gather_walk(table, idx0, seg, mask)[0])  # the readback syncs
 
         rates[name] = difference_rate(run, batch, runs, seg_lo, seg_hi)
         if log:
+            read = len(probes.sector_columns(table.shape[1], mask))
             log(f"calib {name}: {rates[name] / 1e6:.1f}M rows/s "
-                f"(row {table.shape[1]} B, {nb} rows)")
+                f"({read} B read of a {table.shape[1]} B row, {nb} rows)")
     slab = torch.from_numpy(
         rng.integers(0, 2**32, size=(SLAB_ROWS, probes.SLAB_LANES), dtype=np.uint32).view(np.int32)
     ).to(device)

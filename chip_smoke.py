@@ -9,8 +9,11 @@ Phases (any failure raises and the script exits nonzero):
   3. each kernel against its plain torch version on the same CUDA
      tensors (1M-base DNA and amino indexes; K4 through n = 2 and 3
      tables, biased and unbiased; a repeat-rich corpus whose ranges
-     outgrow the 512-position pair window), with kernel and plain times
-     side by side;
+     outgrow the 512-position pair window; a window-class corpus, runs of
+     one letter of 700, 300 and 420 inside random text, on which K2 and
+     K4, n = 2 and 3, must take each of the three window classes of a
+     step at least once, by the plain versions' class counts), with
+     kernel and plain times side by side;
   3w. the same for K1w, K2w and K3w on the forced-wide views of such
      indexes (u64 positions over 256 B / 512 B rows), with positions no
      search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
@@ -24,13 +27,19 @@ Phases (any failure raises and the script exits nonzero):
      against host scans; the kernels' launch counts are reset just
      before and read just after; then a stage breakdown of one digram
      locate, and each kernel against its plain version at the shapes the
-     main path gave it, timed in turns;
+     main path gave it, timed in turns; the share of K4's and K2's
+     steps in each window class, and their bounds charged by class;
   3b. the gather-rate probes against their plain versions: K5 at each
      experiment's own shapes (P2/P4: 2^19 indices over 1 GiB tables of
      128 B and 512 B rows, ring depths 8 and 16; P3: (2^20, 8, 128) 1 KB
      rows, the first 128 B summed; an all-0xFF table for the int32 wrap)
-     and K6 at P5's (S = 2048 and 8192, single and chained), timed in
-     turns;
+     and K6 at P5's (S = 2048 and 8192, single and chained, a ragged
+     count with indices out of range), timed in
+     turns; K6's single gather and torch.index_select both per call and
+     as the device time of 20 launches captured in one CUDA graph and
+     replayed; and K5's walk over the 1 GiB table of 512 B rows reading
+     8 of a row's 16 sectors, every other one or the first 8, and all 16
+     (in what pieces device memory is read);
   5. a .awfmi round trip of the 1M-base index;
   6. the bench protocol (avxwindowfmindex_tpu_torch/tools/bench.py) on
      the phase-4 index at 1,048,576 queries and 3 runs: a ratio-4 device
@@ -38,8 +47,11 @@ Phases (any failure raises and the script exits nonzero):
      host suffix array; every stage, the cross-engine parity and the host
      spot checks, the calibration through K5 and K6 (their launches are
      counted here), and the meta line; locate_flat_device held equal to
-     SearchEngine.locate on 4,096 queries; then K5's walk and K6's chain
-     against their plain versions at the calibration shapes.
+     SearchEngine.locate on 4,096 queries; then K5's walk, over whole
+     rows and over the sectors a first-block step reads, and K6's chain
+     against their plain versions at the calibration shapes, each table's
+     masked rate beside its whole-row rate; every fraction of a gather
+     ceiling and of the HBM rate that the bench printed must be <= 1.
 
   4w. the 64-bit path at full width: the phase-4 index as a wide view
      (to_device(device, wide=True)): the k = 14 seed table widened from
@@ -68,12 +80,13 @@ the same function, that call's), and the result line {"ok": true,
 "device": {...}}. The bound is the larger of the bytes the call must
 move, each read or written once (the table rows it touches, counted as
 the expected number of distinct rows under uniformly random visits, at
-the bytes a visit needs; the batch's inputs and outputs), over the
-published 3.35 TB/s, and its integer operations over 67 TOP/s (the
-published float32 rate outside the tensor cores stands in: the data
-sheet gives no integer rate). K5's and K6's row describes the entry one
-PyTorch call computes too (the ring reduce, the single slab gather); their
-walk and chain at the calibration shapes are compared and timed in phase 6
+the bytes a visit of its window class needs; the batch's inputs and
+outputs), over the published 3.35 TB/s, and its integer operations over
+67 TOP/s (the published float32 rate outside the tensor cores stands in:
+the data sheet gives no integer rate). K5's and K6's row describes the
+entry one PyTorch call computes too (the ring reduce, the single slab
+gather; K6's ms and library_ms are the graph-replay pair); their walk
+and chain at the calibration shapes are compared and timed in phase 6
 and logged there. Two looser models of each index kernel are logged and
 kept out of that line: every visit's row sectors over the same 3.35 TB/s
 (the stages' roofline), and the visits at the in-process calibrated
@@ -156,6 +169,24 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 20) -> float:
+    """Device milliseconds per call of fn: ``launches`` calls captured in
+    one CUDA graph on a side stream and replayed, so that no host work
+    lies between two launches. fn must allocate nothing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, replays) / launches
+
+
 def time_in_turns(label: str, kernel_fn, plain_fn, kernel_reps: int, plain_reps: int):
     """(kernel ms, plain ms), each the best of two runs taken in turns:
     plain, kernel, kernel, plain."""
@@ -187,12 +218,16 @@ class Record:
         self.bound = {}
         self.model = {}  # logged only: row traffic and visits per table
         self.library = {}
+        self.k6 = {}  # K6's single gather and index_select, per call and by graph replay
 
-    def set_bound(self, kernel: str, tables, stream_bytes: int, ops: float) -> None:
+    def set_bound(self, kernel: str, tables, stream_bytes: int, ops: float,
+                  row_visits=None) -> None:
         """The least time the card could take for the launch timed in
         ``ms[kernel]``. ``tables``: one (rows in the table, bytes a visit
-        needs, visits) per table read; ``stream_bytes``: the batch's
-        inputs and outputs, each once."""
+        needs, visits) per table read and per part of its rows that only
+        some visits need; ``stream_bytes``: the batch's inputs and
+        outputs, each once; ``row_visits``: row visits by calibrated
+        table, for the logged model (default: those of ``tables``)."""
         once = float(stream_bytes)
         traffic = float(stream_bytes)
         for nb, need, visits in tables:
@@ -207,7 +242,7 @@ class Record:
         self.model[kernel] = {
             "bytes_once": int(once), "operations": int(ops),
             "row_traffic_ms": traffic / HBM_BYTES_PER_S * 1e3,
-            "row_visits": [int(v) for _, _, v in tables],
+            "row_visits": row_visits or [int(v) for _, _, v in tables],
         }
         log(f"  {kernel} bound: {json.dumps({**self.bound[kernel], **self.model[kernel]})}")
 
@@ -236,10 +271,56 @@ def rank_ops(n_planes: int) -> int:
     return match_ops(n_planes, 8) + count_ops(8)
 
 
-def pair_step_ops(n_planes: int) -> int:
+def pair_step_ops(n_planes: int, words: int = 16) -> int:
     """One backward step inside the window: the pair row's 16 match words
-    are formed once and counted twice (start and end)."""
-    return match_ops(n_planes, 16) + 2 * count_ops(16)
+    (8 when both ends lie in the first block) are formed once and counted
+    twice (start and end)."""
+    return match_ops(n_planes, words) + 2 * count_ops(words)
+
+
+def step_tables(nb: int, n_planes: int, ms_bytes: int, classes):
+    """(table entries for ``Record.set_bound``, integer operations) of
+    backward steps over a table of ``nb`` pair rows with ``n_planes``
+    planes 64 B apart, ``classes`` = steps in (first block, pair window,
+    two rows). Every step needs the first 32 B of each plane and one
+    milestone of its row (a two-row step of two rows); a pair-window
+    step the planes' second halves too."""
+    first, window, two = (int(c) for c in classes)
+    tables = [(nb, n_planes * 32 + ms_bytes, first + window + 2 * two),
+              (nb, n_planes * 32, window)]
+    ops = (first * pair_step_ops(n_planes, 8) + window * pair_step_ops(n_planes)
+           + two * 2 * rank_ops(n_planes))
+    return tables, ops
+
+
+def class_shares(classes) -> str:
+    total = max(int(sum(classes)), 1)
+    return ", ".join(f"{name} {int(c)} ({int(c) / total:.5f})" for name, c in
+                     zip(("first block", "pair window", "two rows"), classes))
+
+
+def window_class_corpus(rng):
+    """(text, K2 queries, K4 41-mers): runs of one letter (700 A, 300 C,
+    420 G) inside random text, so that at seed k = 6 the steps of queries
+    from the runs sit in the pair-window and two-row classes and those of
+    random windows in the first block."""
+    import numpy as np
+    from avxwindowfmindex_tpu_torch import AlphabetType
+
+    def rand(n):
+        return random_text(rng, n, AlphabetType.DNA).upper()
+
+    text = rand(2500) + b"A" * 700 + rand(2500) + b"C" * 300 + rand(1500) + b"G" * 420 + rand(2000)
+    runs = ((2500, 700), (5700, 300), (7500, 420))
+    klen = 41
+    starts = [lo for lo, _ in runs]
+    for lo, length in runs:  # windows across the end of each run
+        starts += list(rng.integers(lo + length - klen, lo + length, 40))
+    starts += list(rng.integers(0, len(text) - klen, 389))
+    k4_qs = [text[s : s + klen] for s in starts]
+    k2_qs = (k4_qs[:200] + [text[lo : lo + L] for lo, _ in runs for L in range(7, 40)]
+             + [text[s : s + 14] for s in rng.integers(0, len(text) - 14, 256)])
+    return text, k2_qs, k4_qs, klen
 
 
 def random_text(rng, n: int, alphabet) -> bytes:
@@ -432,6 +513,30 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
     if list(counts) != want:
         raise AssertionError(f"overflow corpus counts {list(counts)} != {want}")
     log(f"  overflow corpus: widest range {widest}, {len(qs)} queries exact")
+
+    # the window-class corpus: K2's steps must take every class
+    wc_text, k2_qs, k4_qs, wc_len = window_class_corpus(rng)
+    wc_index = create_index(wc_text, IndexConfiguration(8, 6, AlphabetType.DNA), device=device)
+    wc_dev = wc_index.to_device(device, wide=wide)
+    wc_eng = SearchEngine(wc_index, device=device, wide=wide)
+    mat, lengths, _ = wc_eng.encode_kmers(k2_qs)
+    seeded = wc_eng._seed_eligibility(mat, lengths)
+    args = (
+        torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+        torch.from_numpy(seeded.astype(np.uint8)).to(device),
+    )
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ks, ke = kernels.k2_ranges(wc_dev, *args)
+    ps, pe = search.ranges_plain(wc_dev, *args, classes)
+    rec.compare(k2, "window-class corpus start", ks, ps)
+    rec.compare(k2, "window-class corpus end", ke, pe)
+    log(f"  window-class corpus {k2}: {len(k2_qs)} queries exact; steps: {class_shares(classes.tolist())}")
+    if min(classes.tolist()) < 1:
+        raise AssertionError(f"{k2}: a window class was never taken: {classes.tolist()}")
+    counts = wc_eng.count(k2_qs[200:299])
+    want = [count_overlapping(wc_text, q) for q in k2_qs[200:299]]
+    if list(counts) != want:
+        raise AssertionError(f"window-class corpus counts {list(counts)} != {want}")
     if wide:
         return None
 
@@ -457,6 +562,32 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
         if list(counts) != want:
             raise AssertionError(f"overflow corpus n={n_gram} counts {list(counts)} != {want}")
     log(f"  overflow corpus K4: widest range {widest} (two-row branch taken), {len(qs)} 40-mers exact")
+
+    # K4 on it: 41-mers (35 letters beyond the seed: a tail step for n = 2
+    # and for n = 3), every class for the n-gram steps of both n
+    mat = torch.from_numpy(wc_eng.encode_kmers(k4_qs)[0]).to(device)
+    want = [count_overlapping(wc_text, q) for q in k4_qs[:16]]
+    for n_gram in (2, 3):
+        for biased in (True, False):
+            ng = ngram.build_ngram_device(wc_index, n_gram, device=device, bias_cn=biased)
+            what = f"window-class corpus n={n_gram} {'biased' if biased else 'unbiased'}"
+            classes = search.new_step_classes(device)
+            ps, pe = search.ngram_ranges_plain(wc_dev, ng, mat, wc_len, classes)
+            ks, ke = kernels.k4_ngram_ranges(wc_dev, ng, mat, wc_len)
+            rec.compare("k4_ngram_ranges", f"{what} start x{len(k4_qs)}", ks, ps)
+            rec.compare("k4_ngram_ranges", f"{what} end x{len(k4_qs)}", ke, pe)
+            # a batch that ends inside a block and inside a lane group's warp
+            ks, ke = kernels.k4_ngram_ranges(wc_dev, ng, mat[:501], wc_len)
+            rec.compare("k4_ngram_ranges", f"{what} ragged start x501", ks, ps[:501])
+            rec.compare("k4_ngram_ranges", f"{what} ragged end x501", ke, pe[:501])
+            shares = {t: c.tolist() for t, c in classes.items()}
+            log(f"  {what}: n-gram steps {class_shares(shares['ngram_pair'])}; "
+                f"tail steps {class_shares(shares['pair'])}")
+            if min(shares["ngram_pair"]) < 1 or sum(shares["pair"]) < 1:
+                raise AssertionError(f"{what}: a window class was never taken: {shares}")
+        counts = NgramSearchEngine(wc_index, n_gram, device=device).count(k4_qs[:16])
+        if list(counts) != want:
+            raise AssertionError(f"window-class corpus n={n_gram} counts {list(counts)} != {want}")
     return kept
 
 
@@ -673,13 +804,20 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         "k1_rank", f"main occ x{b}",
         kernels.k1_occurrence(dev, occ_pos, occ_lett), rank.occurrence_plain(dev, occ_pos, occ_lett),
     )
-    ps, pe = search.ranges_plain(dev, *args)
+    k2_classes = torch.zeros(3, dtype=torch.int64, device=engine.device)
+    ps, pe = search.ranges_plain(dev, *args, k2_classes)
     rec.compare("k2_ranges", f"main start x{n}", k2_s, ps)
     rec.compare("k2_ranges", f"main end x{n}", k2_e, pe)
-    ps, pe = search.ngram_ranges_plain(dev, ng, mat_d, KMER_LEN)
+    k4_classes = search.new_step_classes(engine.device)
+    ps, pe = search.ngram_ranges_plain(dev, ng, mat_d, KMER_LEN, k4_classes)
     rec.compare("k4_ngram_ranges", f"main n={ng.n} start x{n}", start, ps)
     rec.compare("k4_ngram_ranges", f"main n={ng.n} end x{n}", end, pe)
     del ps, pe
+    k2_classes = k2_classes.tolist()
+    k4_classes = {t: c.tolist() for t, c in k4_classes.items()}
+    log(f"[4] window classes of the main batch ({dev.bwt_length} positions, seed k={k}): "
+        f"K4's n-gram steps {class_shares(k4_classes['ngram_pair'])}; its tail steps "
+        f"{class_shares(k4_classes['pair'])}; K2's steps {class_shares(k2_classes)}")
     rec.compare(
         "k3_backtrace_resolve", f"main hits x{positions.numel()}",
         hits, search.backtrace_resolve_plain(dev, positions),
@@ -703,25 +841,31 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         lambda: kernels.k3_backtrace_resolve(dev, positions),
         lambda: search.backtrace_resolve_plain(dev, positions), 10, 1,
     )
-    set_index_bounds(rec, MAIN_PATH_KERNELS[:3], dev, b, args[0], positions)
-    # K4: floor(m / n) n-gram rows per query, then m mod n single steps
+    set_index_bounds(rec, MAIN_PATH_KERNELS[:3], dev, b, args[0], positions, k2_classes)
+    # K4: floor(m / n) n-gram steps per query, then m mod n single steps,
+    # each charged by its window class
     m = KMER_LEN - k
-    np_ = dev.n_planes
+    ng_tables, ng_ops = step_tables(ng.packed.shape[0], 2 * ng.n + 1, 4, k4_classes["ngram_pair"])
+    tail_tables, tail_ops = step_tables(dev.packed_pair.shape[0], dev.n_planes, 4, k4_classes["pair"])
     rec.set_bound(
-        "k4_ngram_ranges",
-        [(ng.packed.shape[0], (2 * ng.n + 1) * 64 + 4, n * (m // ng.n)),
-         (dev.packed_pair.shape[0], np_ * 64 + 4, n * (m % ng.n))],
-        n * (mat_d.shape[1] + 2 * dev.seed_table.element_size() + 16),
-        n * ((m // ng.n) * pair_step_ops(2 * ng.n + 1) + (m % ng.n) * pair_step_ops(np_)),
+        "k4_ngram_ranges", ng_tables + tail_tables,
+        n * (mat_d.shape[1] + 2 * dev.seed_table.element_size() + 16), ng_ops + tail_ops,
+        row_visits=[sum(k4_classes["ngram_pair"]) + k4_classes["ngram_pair"][2],
+                    sum(k4_classes["pair"]) + k4_classes["pair"][2]],
     )
+    traffic = rec.model["k4_ngram_ranges"]["row_traffic_ms"] * 1e-3 * HBM_BYTES_PER_S
+    log(f"  k4_ngram_ranges row traffic: {(traffic - n * (mat_d.shape[1] + 24)) / n:.1f} B of row "
+        f"sectors per query (whole windows: {(m // ng.n) * 12 * 32 + (m % ng.n) * 7 * 32} B)")
     return out
 
 
-def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions) -> None:
+def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions,
+                     step_classes) -> None:
     """Bounds of K1, K2 and K3 (or K1w, K2w, K3w) for the launches timed at
     the main shapes: ``occ_pairs`` (position, letter) pairs; the batch
     ``mat_d`` of seeded KMER_LEN-mers, every one present in the text, so
-    each takes all KMER_LEN - k steps, one pair row each; and the hits at
+    each takes all KMER_LEN - k steps, ``step_classes`` of them in each
+    window class (from the plain version's run); and the hits at
     ``positions``, whose LF steps are counted by the kernel itself (its
     on-disk form returns them)."""
     from avxwindowfmindex_tpu_torch.ops import kernels
@@ -733,9 +877,11 @@ def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions) 
     rec.set_bound(k1, [(nb, np_ * 32 + ms_b, occ_pairs)], occ_pairs * (8 + 4 + 8),
                   occ_pairs * rank_ops(np_))
     n, l_pad = mat_d.shape
-    steps = n * (KMER_LEN - dev.kmer_length_in_seed_table)
-    rec.set_bound(k2, [(dev.packed_pair.shape[0], np_ * 64 + ms_b, steps)],
-                  n * (l_pad + 4 + 1 + 2 * pos_b + 16), steps * pair_step_ops(np_))
+    if sum(step_classes) != n * (KMER_LEN - dev.kmer_length_in_seed_table):
+        raise AssertionError(f"{k2}: {sum(step_classes)} steps counted for {n} queries")
+    k2_tables, k2_ops = step_tables(dev.packed_pair.shape[0], np_, ms_b, step_classes)
+    rec.set_bound(k2, k2_tables, n * (l_pad + 4 + 1 + 2 * pos_b + 16), k2_ops,
+                  row_visits=[sum(step_classes) + step_classes[2]])
     _, off = kernels.k3_backtrace_resolve(dataclasses.replace(dev, sampled_sa=None), positions)
     walked = int(off.sum())
     hits = positions.numel()
@@ -786,6 +932,18 @@ def phase_probes(rec: Record, device: str) -> None:
                     lambda: table[idx64].sum(dtype=torch.int64), 20)
                 log(f"  k5_gather_reduce library table[idx].sum(): {rec.library['k5_gather_reduce']:.4f} ms")
         if r == 512:
+            # in what pieces device memory is read: the walk over this
+            # 1 GiB table (no L2 reuse) reading 8 of a row's 16 sectors,
+            # every other one (8 pieces of 64 B touched) or the first 8
+            # (4 pieces of 64 B), and all 16
+            for what, mask in (("every other sector", 0x5555), ("the first 8 sectors", 0x00FF),
+                               ("all 16 sectors", 0xFFFF)):
+                rec.compare("k5_gather_reduce", f"walk u8x512 {what} seg=8 x{batch}",
+                            probes.gather_walk(table, idx, 8, mask),
+                            probes.gather_walk_plain(table, idx, 8, mask))
+                t1 = cuda_ms(lambda: probes.gather_walk(table, idx, 8, mask), 10)
+                log(f"  walk over 1 GiB of 512 B rows, {what}: {t1:.4f} ms for {batch} lanes x 8 steps "
+                    f"({batch * 8 / t1 / 1e6:.2f}G rows/s)")
             # every byte 0xFF: each partial and the total wrap as int32
             table.fill_(0xFF)
             got = probes.gather_reduce(table, idx, sum_bytes=512, chunk=512, ring=8)
@@ -801,8 +959,14 @@ def phase_probes(rec: Record, device: str) -> None:
         slab = torch.randint(-(2**31), 2**31, (s_rows, probes.SLAB_LANES), dtype=torch.int32,
                              device=device, generator=gen)
         idx = gp._random_idx(s_rows, s_rows, device, 11)
-        rec.compare("k6_slab_gather", f"P5 S={s_rows} single", probes.slab_gather(slab, idx),
-                    probes.slab_gather_plain(slab, idx))
+        # a count that is no multiple of a tile of rows or of a block's
+        # tiles, with indices below 0 and past the slab (clamped)
+        ragged = torch.cat([idx[: s_rows - 13], torch.tensor(
+            [-1, -(2**31), s_rows, s_rows + 7, 2**31 - 1], dtype=torch.int32, device=device)])
+        rec.compare("k6_slab_gather", f"P5 S={s_rows} single",
+                    probes.slab_gather(slab, idx), probes.slab_gather_plain(slab, idx))
+        rec.compare("k6_slab_gather", f"P5 S={s_rows} ragged x{ragged.numel()}",
+                    probes.slab_gather(slab, ragged), probes.slab_gather_plain(slab, ragged))
         for seg in (2, 8):
             rec.compare("k6_slab_gather", f"P5 S={s_rows} chain seg={seg}",
                         probes.slab_chain(slab, idx, seg), probes.slab_chain_plain(slab, idx, seg))
@@ -810,17 +974,43 @@ def phase_probes(rec: Record, device: str) -> None:
                               lambda: probes.slab_gather_plain(slab, idx), 20, 3)
         if s_rows == 8192:
             # the launch the kernels line reports (P5's shape): a pure move,
-            # no operation counted; the one PyTorch call is index_select
+            # no operation counted; the one PyTorch call is index_select.
+            # Both ways, in turns: per call (the wrapper's or the
+            # dispatcher's host work between launches) and the device time
+            # of 20 launches replayed from one CUDA graph.
+            from avxwindowfmindex_tpu_torch.ops import kernels
+
             row_b = 4 * probes.SLAB_LANES
-            rec.ms["k6_slab_gather"] = times
             rec.set_bound("k6_slab_gather", [(s_rows, row_b, s_rows)], s_rows * (4 + row_b), 0)
             idx64 = idx.long()
-            rec.library["k6_slab_gather"] = cuda_ms(lambda: torch.index_select(slab, 0, idx64), 20)
-            log(f"  k6_slab_gather library index_select: {rec.library['k6_slab_gather']:.4f} ms")
+            out_k = torch.empty_like(slab)
+            out_l = torch.empty_like(slab)
+            fns = {
+                "k6": lambda: kernels.k6_slab_gather(slab, idx, out_k),
+                "index_select": lambda: torch.index_select(slab, 0, idx64, out=out_l),
+            }
+            per_call = {name: [] for name in fns}
+            replay = {name: [] for name in fns}
+            order = list(fns) + list(fns)[::-1]
+            for name in order:
+                per_call[name].append(cuda_ms(fns[name], 200))
+            for name in order:
+                replay[name].append(graph_ms(fns[name]))
+            for name in fns:
+                log(f"  {name} at S={s_rows}: per call {per_call[name][0]:.4f} / {per_call[name][1]:.4f} ms, "
+                    f"graph replay {replay[name][0]:.4f} / {replay[name][1]:.4f} ms")
+            if not torch.equal(out_k, out_l):
+                raise AssertionError("K6 under graph replay differs from index_select")
+            log("  the kernels line takes the graph-replay pair: K6 and index_select")
+            rec.ms["k6_slab_gather"] = (min(replay["k6"]), times[1])
+            rec.library["k6_slab_gather"] = min(replay["index_select"])
+            rec.k6 = {name: {"per_call_ms": min(per_call[name]), "graph_replay_ms": min(replay[name])}
+                      for name in fns}
         time_in_turns(f"k6_slab_gather P5 S={s_rows} chain seg=8",
                       lambda: probes.slab_chain(slab, idx, 8),
                       lambda: probes.slab_chain_plain(slab, idx, 8), 20, 3)
-    log("[3b] K6 equals its plain version at S = 2048 and 8192, single and chained")
+    log("[3b] K6 equals its plain version at S = 2048 and 8192, single (ragged and "
+        "out-of-range indices) and chained")
 
 
 def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
@@ -835,6 +1025,7 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
     from avxwindowfmindex_tpu_torch.ops import kernels, probes
     from avxwindowfmindex_tpu_torch.search import locate_flat_device, ngram_ranges, total_hits_host
     from avxwindowfmindex_tpu_torch.tools import bench
+    from avxwindowfmindex_tpu_torch.utils import roofline
 
     index, ng = engine.host_index, engine.ng
     dev = index.to_device(device)  # the config-ratio view, before densify replaces it
@@ -873,6 +1064,15 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
         raise AssertionError(f"the bench protocol never launched {missing}")
     log(f"[6] meta: {json.dumps(meta)}")
     log(f"[6] headline: {json.dumps(headline)}")
+    # a ceiling is a ceiling: with the masked walk and visit bytes in
+    # place no stage may read above its gather ceiling or the HBM rate
+    for key, roof in meta.items():
+        if key.endswith("_roofline") and roof is not None:
+            fractions = (roof["fraction_of_gather_ceiling"], roof["fraction_of_hbm_sol"])
+            log(f"[6] {key}: {fractions[0]} of the gather ceiling, {fractions[1]} of the HBM rate, "
+                f"{roof['bytes_per_query']} B per query")
+            if not all(f is not None and f <= 1 for f in fractions):
+                raise AssertionError(f"{key}: a fraction above 1: {fractions}")
 
     # locate_flat_device by query == SearchEngine.locate on 4,096 queries
     sub = kmers[:4096]
@@ -889,24 +1089,37 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
         raise AssertionError("locate_flat_device differs from SearchEngine.locate")
     log(f"[6] locate_flat_device == SearchEngine.locate on {n} queries ({int(lens.sum())} hits)")
 
-    # K5's walk and K6's chain at the calibration shapes
+    # K5's walk and K6's chain at the calibration shapes: over whole rows
+    # and over the sectors of a first-block visit, which the bench walked
     rng = np.random.default_rng(99)
     tables = {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed}
+    visits = roofline.first_block_visits(ngram_n=ng.n)
     for name, table in tables.items():
         idx = torch.from_numpy(rng.integers(0, table.shape[0], size=QUERIES).astype(np.int32)).to(device)
-        for seg in (4, 20):
-            rec.compare("k5_gather_reduce", f"walk {name} ({table.shape[1]} B) seg={seg} x{QUERIES}",
-                        probes.gather_walk(table, idx, seg), probes.gather_walk_plain(table, idx, seg))
-        time_in_turns(
-            f"k5_gather_reduce walk {name} seg=20 x{QUERIES}",
-            lambda: probes.gather_walk(table, idx, 20),
-            lambda: probes.gather_walk_plain(table, idx, 20), 10, 1,
-        )
-        # logged, not in the kernels line: every byte of a row is summed
-        rec.set_bound(f"k5 walk {name}", [(table.shape[0], table.shape[1], QUERIES * 20)],
-                      QUERIES * (4 + 4), QUERIES * 20 * table.shape[1])
-    from avxwindowfmindex_tpu_torch.utils.roofline import SLAB_ROWS
-
+        mask, read = visits[name]
+        for what, m, nbytes in (("whole rows", probes.ALL_SECTORS, table.shape[1]),
+                                ("first-block visit", mask, read)):
+            if what != "whole rows" and read == table.shape[1]:
+                continue  # the visit is the whole row
+            for seg in (4, 20):
+                rec.compare(
+                    "k5_gather_reduce",
+                    f"walk {name} ({nbytes} of {table.shape[1]} B, {what}) seg={seg} x{QUERIES}",
+                    probes.gather_walk(table, idx, seg, m), probes.gather_walk_plain(table, idx, seg, m))
+            time_in_turns(
+                f"k5_gather_reduce walk {name} {what} seg=20 x{QUERIES}",
+                lambda: probes.gather_walk(table, idx, 20, m),
+                lambda: probes.gather_walk_plain(table, idx, 20, m), 10, 1,
+            )
+            # logged, not in the kernels line: every byte read is summed
+            rec.set_bound(f"k5 walk {name} {what}", [(table.shape[0], nbytes, QUERIES * 20)],
+                          QUERIES * (4 + 4), QUERIES * 20 * nbytes)
+    whole_rates = roofline.calibrate_gather_rates(tables, QUERIES, device=device)
+    for name in tables:
+        log(f"[6] calibrated rate of {name}: {meta['gather_rates_rows_per_sec'][name]} rows/s over the "
+            f"{visits[name][1]} B of a first-block visit (the ceilings), {whole_rates[name]:.0f} rows/s "
+            f"over whole {tables[name].shape[1]} B rows")
+    SLAB_ROWS = roofline.SLAB_ROWS
     gen = torch.Generator(device=device).manual_seed(SLAB_ROWS)
     slab = torch.randint(-(2**31), 2**31, (SLAB_ROWS, probes.SLAB_LANES), dtype=torch.int32,
                          device=device, generator=gen)
@@ -921,7 +1134,8 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
     )
     rec.set_bound("k6 chain", [(SLAB_ROWS, 4 * probes.SLAB_LANES, QUERIES * 20)],
                   QUERIES * (4 + 4), QUERIES * 20 * 3)
-    return {"launches": launches, "meta": meta, "headline": headline, "dense": dense}
+    return {"launches": launches, "meta": meta, "headline": headline, "dense": dense,
+            "whole_row_rates": {t: round(r) for t, r in whole_rates.items()}}
 
 
 def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmers, seq_arr,
@@ -1064,7 +1278,8 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
         torch.from_numpy(seeded.astype(np.uint8)).to(device),
     )
     ws, we = search.search_ranges(dev, *args)
-    ps, pe = search.ranges_plain(dev, *args)
+    k2w_classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ps, pe = search.ranges_plain(dev, *args, k2w_classes)
     rec.compare("k2w_ranges", f"main start x{n}", ws, ps)
     rec.compare("k2w_ranges", f"main end x{n}", we, pe)
     del ps, pe
@@ -1082,7 +1297,7 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
         f"k3w_backtrace_resolve main x{positions.numel()}",
         lambda: kernels.k3_backtrace_resolve(dev, positions),
         lambda: search.backtrace_resolve_plain(dev, positions), 10, 1)
-    set_index_bounds(rec, WIDE_PATH_KERNELS, dev, b, args[0], positions)
+    set_index_bounds(rec, WIDE_PATH_KERNELS, dev, b, args[0], positions, k2w_classes.tolist())
     for narrow_name, wide_name in zip(MAIN_PATH_KERNELS[:3], WIDE_PATH_KERNELS):
         log(f"[4w] {wide_name} {rec.ms[wide_name][0]:.4f} ms against {narrow_name} "
             f"{rec.ms[narrow_name][0]:.4f} ms at the same shape "
@@ -1270,6 +1485,8 @@ def main(argv=None) -> int:
     for name in BENCH_KERNELS:
         launches[name] = bench_stats["launches"][name]
     main_stats["bench"] = {k: bench_stats["meta"][k] for k in BENCH_SUMMARY_KEYS}
+    main_stats["bench"]["gather_rates_whole_rows"] = bench_stats["whole_row_rates"]
+    main_stats["k6_single_gather"] = rec.k6
     mark("phases 5 and 6")
 
     wide_stats = phase_wide_main(

@@ -224,6 +224,49 @@ def test_report_fractions_are_ceilings():
         assert proof.report(0.5 * ceiling, **skw)["fraction_of_gather_ceiling"] <= 1.0
 
 
+def test_first_block_visits_name_the_sectors_a_step_reads():
+    """Per table: the first 32 B sector of each plane and the sector of
+    the milestones, against the layouts written out by hand."""
+    assert proof.first_block_visits(ngram_n=2) == {
+        "single": (0b1111, 128),  # 3 planes x 32 B, milestones at 96: the whole row
+        "pair": (0b1010101, 128),  # planes at 0, 64, 128, milestones at 192
+        "ngram_pair": (0b10101010101, 192),  # 5 planes 64 B apart, milestones at 320
+    }
+    assert proof.first_block_visits(ngram_n=3)["ngram_pair"] == (0b101010101010101, 256)
+    amino = proof.first_block_visits(pt.AlphabetType.AMINO)
+    assert amino == {"single": (0b111111, 192), "pair": (0b10101010101, 192)}
+    for alphabet, n in ((pt.AlphabetType.DNA, 2), (pt.AlphabetType.DNA, 3), (pt.AlphabetType.AMINO, 1)):
+        rb = proof.table_row_bytes(alphabet, ngram_n=n)
+        for t, (mask, nbytes) in proof.first_block_visits(alphabet, ngram_n=n).items():
+            assert mask < 1 << (rb[t] // 32) and nbytes <= rb[t]
+
+
+def test_report_with_visit_bytes_against_a_hand_computed_case():
+    """25-mers at k = 14, n = 2, ratio 8, one position per query: 5 n-gram
+    visits of 192 B, 1 pair visit of 128 B, 7 block rows of 128 B and the
+    4 B resolve; rates are per visit and do not change with the bytes."""
+    kw = dict(kmer_len=25, seed_k=14, ratio=8, ngram_n=2, locate_positions_per_query=1.0,
+              row_bytes=ROWB, rates=RATES, chip=H100)
+    visit = {"single": 128, "pair": 128, "ngram_pair": 192}
+    rep = proof.report(1e8, visit_bytes=visit, **kw)
+    assert rep["phases"]["range"]["bytes_per_query"] == 5 * 192 + 128 == 1088
+    assert rep["phases"]["backtrace"]["bytes_per_query"] == 7 * 128 + 4
+    assert rep["bytes_per_query"] == 1088 + 900 and rep["rows_per_query"] == 13.0
+    assert rep["hbm_speed_of_light_qps"] == round(3350e9 / 1988)
+    assert rep["fraction_of_hbm_sol"] == round(1e8 / (3350e9 / 1988), 4)
+    secs = 5 / RATES["ngram_pair"] + 1 / RATES["pair"] + 7 / RATES["single"]
+    assert rep["gather_ceiling_qps"] == round(1 / secs)
+    # the default charges whole rows, as before: 5 x 384 + 256 in the range phase
+    whole = proof.report(1e8, **kw)
+    assert whole["phases"]["range"]["bytes_per_query"] == 5 * 384 + 256 == 2176
+    assert whole == proof.report(1e8, visit_bytes=ROWB, **kw)
+    assert whole["gather_ceiling_qps"] == rep["gather_ceiling_qps"]
+    assert whole["fraction_of_hbm_sol"] > rep["fraction_of_hbm_sol"]
+    # a table the caller names no visit for keeps its whole row
+    part = proof.report(1e8, visit_bytes={"ngram_pair": 192}, **kw)
+    assert part["phases"]["range"]["bytes_per_query"] == 5 * 192 + 256
+
+
 def test_report_uncalibrated_and_zero_gather():
     rep = proof.report(1e6, kmer_len=25, seed_k=12, ratio=8, ngram_n=2, row_bytes=ROWB, chip=H100)
     assert rep["calibrated"] is False
@@ -247,6 +290,34 @@ def test_calibration_runs_on_every_table():
         batch=256, device="cpu", runs=1, seg_lo=1, seg_hi=2,
     )
     assert set(rates) == {"single", "pair", "slab"} and all(r > 0 for r in rates.values())
+
+
+def test_calibration_walks_the_masked_sectors(monkeypatch):
+    """With sector masks the calibration hands each table's mask to K5's
+    walk, and whole rows to a table without one."""
+    from avxwindowfmindex_tpu_torch.ops import probes
+
+    seen = {}
+    real = probes.gather_walk
+
+    def spy(table, idx, seg, mask=probes.ALL_SECTORS):
+        seen[table.shape[1]] = mask
+        return real(table, idx, seg, mask)
+
+    monkeypatch.setattr(probes, "gather_walk", spy)
+    seq = random_sequence(np.random.default_rng(16), 3000, DNA, clean=True)
+    _, pcfg = configs(8, 3, DNA)
+    idx = pt.create_index(seq, pcfg, device="cpu")
+    dev = idx.to_device("cpu")
+    ng = pt.build_ngram_device(idx, 2, device="cpu")
+    visits = proof.first_block_visits(ngram_n=2)
+    rates = proof.calibrate_gather_rates(
+        {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed},
+        batch=128, device="cpu", runs=1, seg_lo=1, seg_hi=2,
+        sector_masks={"pair": visits["pair"][0], "ngram_pair": visits["ngram_pair"][0]},
+    )
+    assert seen == {128: probes.ALL_SECTORS, 256: 0b1010101, 384: 0b10101010101}
+    assert all(r > 0 for r in rates.values())
 
 
 # ---------------------------------------------------------------------------

@@ -308,6 +308,47 @@ def test_k5_walk_equals_bench_formula(seg):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("mask", [0b010101010101, 0b000000000001, 0b101000000010],
+                         ids=["first-block-visit", "one-sector", "scattered"])
+def test_k5_masked_walk_equals_a_numpy_loop(mask):
+    """The walk that reads and sums only the 32 B sectors in the mask,
+    against the same recurrence written lane by lane in numpy."""
+    rng = np.random.default_rng(mask)
+    nb, row_bytes, seg = 777, 384, 5
+    table = _table(rng, nb, row_bytes)
+    idx = rng.integers(0, nb, size=300, dtype=np.int32)
+    idx[:3] = [-4, nb, nb + 100]  # clamped
+    want = []
+    for x in np.clip(idx.astype(np.int64), 0, nb - 1):
+        for _ in range(seg):
+            total = sum(int(table[x, 32 * sec : 32 * sec + 32].sum())
+                        for sec in range(row_bytes // 32) if (mask >> sec) & 1)
+            x = ((int(x) * 1103515245 + total + 12345) % 2**32) % nb
+        want.append(x)
+    got = probes.gather_walk(torch.from_numpy(table), torch.from_numpy(idx), seg, mask)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    # it differs from the whole-row walk, which the all-sectors mask is
+    whole = probes.gather_walk(torch.from_numpy(table), torch.from_numpy(idx), seg)
+    assert not torch.equal(got, whole)
+    assert torch.equal(
+        whole, probes.gather_walk(torch.from_numpy(table), torch.from_numpy(idx), seg, 0xFFF)
+    )
+    assert probes.sector_columns(64, 0b10) == list(range(32, 64))
+
+
+@pytest.mark.parametrize("n", [1, 37])
+def test_k6_ragged_batch_with_indices_out_of_range(n):
+    """A batch that is no multiple of the kernel's tile of rows, some
+    indices outside the slab: clamped to its first and last row."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-(2**31), 2**31, size=(64, LANES), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(-3, 70, size=n, dtype=np.int32)
+    idx[0] = 66
+    got = probes.slab_gather(torch.from_numpy(x), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), x[np.clip(idx, 0, 63)])
+
+
 @pytest.mark.parametrize("s", [64, 256])
 def test_k6_single_equals_p5(s):
     rng = np.random.default_rng(s)
