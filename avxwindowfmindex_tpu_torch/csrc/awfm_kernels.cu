@@ -1,32 +1,70 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Seven kernels, each one thread per item (K4: one lane group per query),
-// each a chain of dependent random row loads from device memory (a 128 B
-// block row or a 256 B pair row for nucleotides, 256 B / 512 B for amino,
-// a 384 B / 768 B n-gram pair row for n = 2 / 3) followed by a few dozen
-// integer operations and __popc. The card moves memory in 32 B sectors,
-// and a row's planes lie 64 B apart, so what a step costs is the number
-// of sectors it asks for, not the row's width.
+// Seven kernels, each a chain of dependent random row loads from device
+// memory (a 128 B block row or a 256 B pair row for nucleotides, 256 B /
+// 512 B for amino, a 384 B / 768 B n-gram pair row for n = 2 / 3) followed
+// by a few dozen integer operations and __popc. The card moves memory in
+// 32 B sectors, and a row's planes lie 64 B apart, so what a step costs is
+// the number of sectors it asks for, not the row's width.
 //
 //   K1 awfm_k1_occ / awfm_k1_letter_lf
 //       Replaces avxwindowfmindex_tpu/ops/rank_pallas.py:_rank_kernel (the
 //       one Pallas kernel) and ops/rank.py:_gather_rows / _count_rows /
 //       letter_and_lf_from_rows. Unlike the Pallas kernel it gathers the
 //       block row itself. occ(l, p) = milestone[l] + popcount(match(code(l))
-//       & inclusive_mask(p % 256)); the LF mode reads the letter at p from one
-//       bit per plane and returns LF = C[l] + occ(l, p) - 1, sentinel -> 0.
+//       & inclusive_mask(p % 256)); the LF mode returns the letter at p and
+//       LF = C[l] + occ(l, p) - 1, sentinel -> 0, through the same LF step
+//       as K3 (BlockRow). One thread per item.
 //   K2 awfm_k2_ranges
 //       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
 //       backward_step and backward_step_pair, and the flag-and-rerun protocol
-//       search.py:_fixup_flagged. One thread walks one query right to left.
-//       A step reads the pair row by window class (see K4): its first
-//       block's sectors, the whole 512-position window, or, for a wider
-//       range, two block rows, so no query is re-run.
+//       search.py:_fixup_flagged. A query is walked right to left; a step
+//       reads the pair row by window class (see K4): its first block's
+//       sectors, the whole 512-position window, or, for a wider range, two
+//       block rows, so no query is re-run.
+//       What bounds it on this card: the steps, not the seed table. Over
+//       1,048,576 sampled queries of k + s letters at 64M bases, seed k = 14,
+//       one thread per query took 0.055 ms + 0.064 ms x s (H100 80GB HBM3,
+//       700 W): the one 8 B visit to the 2.15 GB seed table is a fourteenth
+//       of a 25-mer, and a step ran at 16G a second where a walk that only
+//       reads the same sectors of the pair table makes 26-28G. What the
+//       design does about it: two neighbouring lanes share a query
+//       (Group<2>, as K4), each loading half of every plane's sector, so a
+//       warp's load instruction touches 16 sectors and not 32 and twice as
+//       many row loads are in flight per query; the query's letters are read
+//       once, as 4 B words into registers (QueryRow), so the milestone's
+//       address does not wait for a byte load inside the dependent loop;
+//       a letter's plane code comes from a table in the kernel's parameters
+//       and not from memory; the seed-table entry is loaded evict-first and
+//       the ranges are stored streaming. A step now runs at 22.9G a second
+//       and a 25-mer batch in 0.57 ms (from 0.75). Of these, the lanes gave
+//       21% and the letters 4% more; C[] and the codes staged per block in
+//       shared memory gave nothing and are not kept here.
 //   K3 awfm_k3_backtrace_resolve
 //       Replaces search.py:backtrace_all (and its compaction schedules) and
-//       _resolve_samples. One thread walks one hit with LF until p % ratio
-//       == 0, then resolves (SA[p / ratio] + off) mod bwtLength in 64 bits,
-//       or returns (p, off) for a suffix array kept on disk.
+//       _resolve_samples. Each hit is walked with LF until p % ratio == 0,
+//       then resolved as (SA[p / ratio] + off) mod bwtLength in 64 bits, or
+//       returned as (p, off) for a suffix array kept on disk.
+//       What bounds it on this card: idle lanes, then the round trips of a
+//       step; the SA visit is nothing (1,048,576 hits that need no step:
+//       0.03 ms of 0.39). Walks are geometric (mean 7 steps at ratio 8), and
+//       with one thread per hit a warp runs until its longest walk ends:
+//       32 x the longest walk over the steps walked is 4.3, at ratio 4 as
+//       at ratio 8. What the design does about it: a persistent grid in
+//       which a lane whose walk has ended takes the block's next hit (a
+//       warp-aggregated atomicAdd on a counter in shared memory; each block
+//       owns an equal share of the hits, so no state outlives a launch),
+//       and an LF step of one round trip: the planes and the milestone
+//       sector of the 128 B row are asked for together before the letter is
+//       known, the letter's bits are taken out of the words in registers,
+//       and letter, C[], match code and milestone column come from one
+//       shared-memory entry; positions and SA entries, read once, are
+//       loaded evict-first. 0.33 ms for the 1,048,576 hits of the main batch
+//       (from 0.39: the one round trip gave 4%, the lanes 9%, the evict-first
+//       loads 4%), 2.0 ms for 8.5M hits in range order (from 2.37). What
+//       keeps it from the walk's rate (32G rows a second): a lane has only
+//       8 hits at 1M hits and 135,168 lanes, so the last walks run on a
+//       thinning grid.
 //   K4 awfm_k4_ngram_ranges
 //       Replaces experiments/ab_r5_pallas_gather.py:_k2_kernel (Pallas P6,
 //       the digram pair-step compute of ops/ngram.py:_pair_occ_from_rows)
@@ -90,7 +128,11 @@
 //       narrow step reads the pair row, and a single rank reads its
 //       first-block half (the first 32 B of each 64 B plane, then the
 //       milestone). Bound like K1-K3 by dependent random row loads, from a
-//       table twice as large as the narrow block rows.
+//       table twice as large as the narrow block rows: it outgrows the L2,
+//       and the walk is bound by the 64 B pieces device memory moves. K2w
+//       takes K2's design whole. K3w keeps one thread per hit and the LF
+//       step of three dependent reads (lf_bytes): the persistent grid and
+//       the row in registers both measured level or behind there.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -118,12 +160,15 @@ struct AwfmTables {
   const uint8_t* packed_pair;   // (nb, pair_row_bytes) pair rows (wide: packed itself)
   const void* prefix_sums;      // (card + 2) C[] with C[0] = 1: u32, or u64 (wide)
   const uint8_t* code_masks;    // (card + 2, n_planes) 0xFF / 0x00
-  const int32_t* vec_to_index;  // (1 << n_planes) code -> letter
   int64_t nb;
   int32_t row_bytes;
   int32_t pair_row_bytes;
   int32_t card;
   int32_t n_planes;
+  // models/index.py:kernel_letter_tables, staged per block (BlockConsts)
+  // 32 bytes each, byte i in bits 8 (i % 8) .. of word i / 8
+  uint64_t letter_code[4];  // letter -> plane code; 0 above the ambiguity letter
+  uint64_t code_letter[4];  // plane code -> letter (vec_to_index); 0 past 2^n_planes
 };
 
 // Mirrored by ops/kernels.py:_NgramTables (ctypes.Structure).
@@ -141,8 +186,11 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t letter_code(const AwfmTables& t, int np,
-                                                uint32_t l) {
+// K1's occ mode takes a letter's plane code from code_masks: a rank is too
+// short to pay for a block's staging, and the table in the kernel's
+// parameters measured 2.5% behind on wide rows.
+__device__ __forceinline__ uint32_t code_of_letter(const AwfmTables& t, int np,
+                                                   uint32_t l) {
   if (l > static_cast<uint32_t>(t.card)) return 0u;
   uint32_t c = 0u;
   for (int i = 0; i < np; ++i) {
@@ -173,20 +221,80 @@ struct Wide {
   }
 };
 
-template <class G>
-__device__ __forceinline__ typename G::pos_t milestone(const uint8_t* row,
-                                                       int ms_off, uint32_t l,
-                                                       int card) {
-  if (l > static_cast<uint32_t>(card)) return 0;
-  return reinterpret_cast<const typename G::pos_t*>(row + ms_off)[l];
+// What a step needs to know of a letter: its C[] term and, packed in
+// `meta`, the plane code to match (bits 0-7), the letter itself (8-15), its
+// milestone column (16-23) and a flag (24): for a backward step, the letter
+// has a milestone (it is not above the ambiguity letter); for an LF step,
+// the position does not hold the sentinel.
+template <class P>
+struct alignas(2 * sizeof(P)) LetterEntry {
+  P c;
+  uint32_t meta;
+  __device__ __forceinline__ uint32_t code() const { return meta & 255u; }
+  __device__ __forceinline__ uint32_t letter() const { return (meta >> 8) & 255u; }
+  __device__ __forceinline__ uint32_t column() const { return (meta >> 16) & 255u; }
+  __device__ __forceinline__ bool flag() const { return (meta >> 24) != 0u; }
+};
+
+// What an LF step needs, staged once per block in shared memory so that
+// nothing between a row's arrival and the next address touches global
+// memory: by_code[c] serves a position whose planes spell code c with the
+// letter there, and C, match code and milestone column of min(letter,
+// ambiguity letter), in one 8 B or 16 B entry.
+template <class P>
+struct BlockConsts {
+  LetterEntry<P> by_code[32];
+};
+
+// Byte i < 32 of a table passed by value (selects: a dynamic index would
+// copy the kernel's parameters to local memory).
+__device__ __forceinline__ uint32_t table_byte(const uint64_t (&w)[4], uint32_t i) {
+  const uint32_t k = i >> 3;
+  const uint64_t word = k == 0u ? w[0] : (k == 1u ? w[1] : (k == 2u ? w[2] : w[3]));
+  return static_cast<uint32_t>(word >> ((i & 7u) * 8u)) & 255u;
 }
 
+// Every thread of the block calls this before any of them leaves.
 template <class G>
-__device__ __forceinline__ typename G::pos_t c_select(const AwfmTables& t,
-                                                      uint32_t l) {
-  return l <= static_cast<uint32_t>(t.card + 1)
-             ? static_cast<const typename G::pos_t*>(t.prefix_sums)[l]
-             : 0;
+__device__ __forceinline__ void stage_consts(
+    const AwfmTables& t, BlockConsts<typename G::pos_t>& s) {
+  using pos_t = typename G::pos_t;
+  const uint32_t i = threadIdx.x;
+  if (i < 32u) {
+    const uint32_t card = static_cast<uint32_t>(t.card);
+    const uint32_t lett = table_byte(t.code_letter, i);
+    const uint32_t col = lett < card ? lett : card;
+    LetterEntry<pos_t> e;
+    e.c = static_cast<const pos_t*>(t.prefix_sums)[col];
+    e.meta = table_byte(t.letter_code, col) | (lett << 8) | (col << 16) |
+             ((lett != card + 1u ? 1u : 0u) << 24);
+    s.by_code[i] = e;
+  }
+  __syncthreads();
+}
+
+// What a backward step by letter l needs: C[] from global memory, the
+// code from the table in the kernel's parameters. (Staged in shared memory
+// instead, it measured level in K2 and, for the barrier, 5% behind in K4.)
+template <class G>
+__device__ __forceinline__ LetterEntry<typename G::pos_t> letter_entry(
+    const AwfmTables& t, uint32_t l) {
+  using pos_t = typename G::pos_t;
+  const uint32_t card = static_cast<uint32_t>(t.card);
+  LetterEntry<pos_t> e;
+  e.c = l <= card + 1u ? static_cast<const pos_t*>(t.prefix_sums)[l] : 0;
+  e.meta = table_byte(t.letter_code, l < 31u ? l : 31u) | (l << 16) |
+           ((l <= card ? 1u : 0u) << 24);
+  return e;
+}
+
+// The milestone of an entry's column in a row whose milestones start at
+// row + ms_off; 0 for a letter that has none.
+template <class G>
+__device__ __forceinline__ typename G::pos_t milestone(
+    const uint8_t* row, int ms_off, const LetterEntry<typename G::pos_t>& e) {
+  if (!e.flag()) return 0;
+  return reinterpret_cast<const typename G::pos_t*>(row + ms_off)[e.column()];
 }
 
 // W consecutive plane words (W = 1, 2, or a multiple of 4) from a pointer
@@ -269,52 +377,121 @@ struct Group {
   }
 };
 
+// occ at pos, inclusive, of the letter with plane code `code` and, if it
+// has one, the milestone column `col`: one block row.
 template <class G, int NP>
-__device__ __forceinline__ typename G::pos_t occ_at(const AwfmTables& t,
-                                                    typename G::pos_t pos,
-                                                    uint32_t l) {
+__device__ __forceinline__ typename G::pos_t occ_at(
+    const AwfmTables& t, typename G::pos_t pos, uint32_t code, bool has_ms,
+    uint32_t col) {
+  using pos_t = typename G::pos_t;
   const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
   uint32_t m[8];
-  match_words<NP, 8, G::kStride>(row, letter_code(t, NP, l), m);
-  return milestone<G>(row, NP * G::kStride, l, t.card) +
-         count_inclusive<8>(m, static_cast<uint32_t>(pos) & 255u);
+  match_words<NP, 8, G::kStride>(row, code, m);
+  const pos_t ms =
+      has_ms ? reinterpret_cast<const pos_t*>(row + NP * G::kStride)[col] : 0;
+  return ms + count_inclusive<8>(m, static_cast<uint32_t>(pos) & 255u);
 }
 
-// LF(pos) and the letter at pos (AwFmSearch.c:369-427 semantics).
+// A block row as an LF step needs it, in registers: the 8 words of each
+// plane and the milestones, asked for together before the letter at the
+// position is known, so a step is one round trip to memory. That holds
+// where the milestones lie in the sector the planes leave of the row's
+// last 64 B piece, the narrow nucleotide row. An amino row's 21 milestones
+// span three sectors and a wide nucleotide row's two, and asking for them
+// all measured behind the planes first and then the one milestone.
 template <class G, int NP>
-__device__ __forceinline__ typename G::pos_t lf_at(const AwfmTables& t,
-                                                   typename G::pos_t pos,
-                                                   uint32_t* letter) {
-  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
-  const uint32_t local = static_cast<uint32_t>(pos) & 255u;
-  uint32_t code = 0u;
+struct BlockRow {
+  using pos_t = typename G::pos_t;
+  static constexpr int kMs = NP == 3 ? 5 : 21;  // card + 1 milestones
+  static constexpr bool kUpFront = NP == 3 && sizeof(pos_t) == 4;
+  static constexpr int kMsVec =
+      kUpFront ? (kMs * static_cast<int>(sizeof(pos_t)) + 15) / 16 : 1;
+  uint32_t x[NP][8];
+  uint4 ms[kMsVec];
+  const uint8_t* row;
+
+  __device__ __forceinline__ void load(const AwfmTables& t, pos_t pos) {
+    row = t.packed + G::block(t.nb, pos) * t.row_bytes;
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    code |= ((row[i * G::kStride + (local >> 3)] >> (local & 7u)) & 1u) << i;
+    for (int i = 0; i < NP; ++i) load_words<8>(row + i * G::kStride, x[i]);
+    if constexpr (kUpFront) {
+#pragma unroll
+      for (int q = 0; q < kMsVec; ++q) {
+        ms[q] = __ldg(reinterpret_cast<const uint4*>(row + NP * G::kStride) + q);
+      }
+    }
   }
-  const uint32_t lett = static_cast<uint32_t>(t.vec_to_index[code]);
-  *letter = lett;
-  if (lett == static_cast<uint32_t>(t.card + 1)) return 0;  // sentinel
-  const uint32_t lc = lett < static_cast<uint32_t>(t.card)
-                          ? lett
-                          : static_cast<uint32_t>(t.card);
-  uint32_t m[8];
-  match_words<NP, 8, G::kStride>(row, letter_code(t, NP, lc), m);
-  return c_select<G>(t, lc) + milestone<G>(row, NP * G::kStride, lc, t.card) +
-         count_inclusive<8>(m, local) - 1u;
-}
+
+  // the plane code of the letter at block-local position `local`
+  __device__ __forceinline__ uint32_t code_at(uint32_t local) const {
+    const uint32_t w = local >> 5, bit = local & 31u;
+    uint32_t code = 0u;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      uint32_t word = x[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) word = w == static_cast<uint32_t>(j) ? x[i][j] : word;
+      code |= ((word >> bit) & 1u) << i;
+    }
+    return code;
+  }
+
+  // milestone of column col <= card, by selects over the loaded words
+  __device__ __forceinline__ pos_t milestone_of(uint32_t col) const {
+    if constexpr (!kUpFront) {
+      return reinterpret_cast<const pos_t*>(row + NP * G::kStride)[col];
+    } else {
+      pos_t v = 0;
+#pragma unroll
+      for (int e = 0; e < kMs; ++e) {
+        pos_t cand;
+        if constexpr (sizeof(pos_t) == 4) {
+          const uint4 q = ms[e / 4];
+          cand = e % 4 == 0 ? q.x : (e % 4 == 1 ? q.y : (e % 4 == 2 ? q.z : q.w));
+        } else {
+          const uint4 q = ms[e / 2];
+          cand = e % 2 == 0 ? (static_cast<uint64_t>(q.y) << 32) | q.x
+                            : (static_cast<uint64_t>(q.w) << 32) | q.z;
+        }
+        v = col == static_cast<uint32_t>(e) ? cand : v;
+      }
+      return v;
+    }
+  }
+
+  // LF(pos) from the loaded row, and the letter at pos
+  __device__ __forceinline__ pos_t lf(const BlockConsts<pos_t>& s, pos_t pos,
+                                      uint32_t* letter) const {
+    const uint32_t local = static_cast<uint32_t>(pos) & 255u;
+    const LetterEntry<pos_t> e = s.by_code[code_at(local)];
+    *letter = e.letter();
+    if (!e.flag()) return 0;  // sentinel
+    const uint32_t code = e.code();
+    uint32_t m[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) m[w] = 0u;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const uint32_t cm = ((code >> i) & 1u) ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) m[w] |= x[i][w] ^ cm;
+    }
+#pragma unroll
+    for (int w = 0; w < 8; ++w) m[w] = ~m[w];
+    return e.c + milestone_of(e.column()) + count_inclusive<8>(m, local) - 1u;
+  }
+};
 
 // One backward step of a valid range (start <= end) by letter l, by window
 // class. The lanes of a group hold the same range and share the loads of
 // the first-block class; the rarer classes each lane computes in full.
 template <class G, int NP, int GL = 1>
-__device__ __forceinline__ void backward_step(const AwfmTables& t,
-                                              typename G::pos_t& start,
-                                              typename G::pos_t& end,
-                                              uint32_t l,
-                                              const Group<GL>& grp = Group<GL>()) {
+__device__ __forceinline__ void backward_step(
+    const AwfmTables& t, const LetterEntry<typename G::pos_t>& e,
+    typename G::pos_t& start, typename G::pos_t& end,
+    const Group<GL>& grp = Group<GL>()) {
   using pos_t = typename G::pos_t;
-  const pos_t c = c_select<G>(t, l);
+  const uint32_t code = e.code();
   const pos_t pos_s = start - 1u;
   // unsigned compare at the full position width (ops/rank.py:382-388,
   // ops/rank64.py:470-472)
@@ -326,8 +503,8 @@ __device__ __forceinline__ void backward_step(const AwfmTables& t,
     const uint8_t* row =
         t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
     uint32_t m[W];
-    match_words<NP, W, 64>(row + grp.sub * (4 * W), letter_code(t, NP, l), m);
-    const pos_t ms = milestone<G>(row, NP * 64, l, t.card);
+    match_words<NP, W, 64>(row + grp.sub * (4 * W), code, m);
+    const pos_t ms = milestone<G>(row, NP * 64, e);
     const uint32_t base = grp.sub * W;
     occ_s = ms + grp.sum(count_inclusive<W>(
                      m, static_cast<uint32_t>(pos_s) & 255u, base));
@@ -336,16 +513,16 @@ __device__ __forceinline__ void backward_step(const AwfmTables& t,
     const uint8_t* row =
         t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
     uint32_t m[16];
-    match_words<NP, 16, 64>(row, letter_code(t, NP, l), m);
-    const pos_t ms = milestone<G>(row, NP * 64, l, t.card);
+    match_words<NP, 16, 64>(row, code, m);
+    const pos_t ms = milestone<G>(row, NP * 64, e);
     occ_s = ms + count_inclusive<16>(m, static_cast<uint32_t>(pos_s) & 255u);
     occ_e = ms + count_inclusive<16>(m, static_cast<uint32_t>(delta));
   } else {
-    occ_s = occ_at<G, NP>(t, pos_s, l);
-    occ_e = occ_at<G, NP>(t, end, l);
+    occ_s = occ_at<G, NP>(t, pos_s, code, e.flag(), e.column());
+    occ_e = occ_at<G, NP>(t, end, code, e.flag(), e.column());
   }
-  start = c + occ_s;
-  end = c + occ_e - 1u;
+  start = e.c + occ_s;
+  end = e.c + occ_e - 1u;
 }
 
 // Match words of an n-gram pair row for word value v: bit p of word w is
@@ -430,14 +607,44 @@ __device__ __forceinline__ void ngram_step(const NgramTables& g,
   end = cn + occ_e - 1u;
 }
 
+// A query's letters. QueryRow<0> reads them from its row of the letter matrix
+// as they are needed; QueryRow<LW> holds the first 4 * LW of them in registers,
+// read once as 4 B words before the first step (the matrix rows are a
+// multiple of 4 B long), so that no load but a table row's stands between
+// two steps.
+template <int LW>
+struct QueryRow {
+  uint32_t w[LW];
+  __device__ __forceinline__ QueryRow(const uint8_t* row, int64_t l_pad) {
+#pragma unroll
+    for (int i = 0; i < LW; ++i) {
+      w[i] = 4 * i < l_pad ? __ldg(reinterpret_cast<const uint32_t*>(row) + i) : 0u;
+    }
+  }
+  __device__ __forceinline__ uint32_t operator[](int64_t c) const {
+    const uint32_t wi = static_cast<uint32_t>(c) >> 2;
+    uint32_t word = w[0];
+#pragma unroll
+    for (int i = 1; i < LW; ++i) word = wi == static_cast<uint32_t>(i) ? w[i] : word;
+    return (word >> ((static_cast<uint32_t>(c) & 3u) * 8u)) & 255u;
+  }
+};
+
+template <>
+struct QueryRow<0> {
+  const uint8_t* row;
+  __device__ __forceinline__ QueryRow(const uint8_t* r, int64_t) : row(r) {}
+  __device__ __forceinline__ uint32_t operator[](int64_t c) const { return row[c]; }
+};
+
 // Seed-table range of the last k letters of a query of length len: the
-// base-|A| radix, leftmost most significant, clamped to the table. With
-// STREAM the entry is loaded evict-first (ld.global.cs): it is read once
-// and should not push table rows out of the L2.
-template <class P, bool STREAM = false>
+// base-|A| radix, leftmost most significant, clamped to the table. The
+// entry is read once, so it is loaded evict-first (ld.global.cs) and does
+// not push table rows out of the L2.
+template <class P, class Q>
 __device__ __forceinline__ void seed_range(const P* seed_table,
                                            int64_t seed_rows, int k,
-                                           uint32_t card, const uint8_t* row,
+                                           uint32_t card, const Q& row,
                                            int64_t len, int64_t l_pad,
                                            P& start, P& end) {
   uint32_t idx = 0u;
@@ -449,13 +656,21 @@ __device__ __forceinline__ void seed_range(const P* seed_table,
   const int64_t r = static_cast<int64_t>(idx) < seed_rows
                         ? static_cast<int64_t>(idx)
                         : seed_rows - 1;
-  if constexpr (STREAM) {
-    start = __ldcs(seed_table + 2 * r);
-    end = __ldcs(seed_table + 2 * r + 1);
+  if constexpr (sizeof(P) == 4) {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(seed_table) + r);
+    start = v.x;
+    end = v.y;
   } else {
-    start = seed_table[2 * r];
-    end = seed_table[2 * r + 1];
+    const ulonglong2 v = __ldcs(reinterpret_cast<const ulonglong2*>(seed_table) + r);
+    start = v.x;
+    end = v.y;
   }
+}
+
+__device__ __forceinline__ void store_range(int64_t* start_out, int64_t* end_out,
+                                            int64_t q, uint64_t start, uint64_t end) {
+  __stcs(reinterpret_cast<long long*>(start_out + q), static_cast<long long>(start));
+  __stcs(reinterpret_cast<long long*>(end_out + q), static_cast<long long>(end));
 }
 
 template <class G, int NP>
@@ -464,9 +679,10 @@ __global__ void k1_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
                               int64_t* __restrict__ out) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  out[i] = static_cast<int64_t>(
-      occ_at<G, NP>(t, static_cast<typename G::pos_t>(pos[i]),
-                    static_cast<uint32_t>(letters[i])));
+  const uint32_t l = static_cast<uint32_t>(letters[i]);
+  out[i] = static_cast<int64_t>(occ_at<G, NP>(
+      t, static_cast<typename G::pos_t>(pos[i]), code_of_letter(t, NP, l),
+      l <= static_cast<uint32_t>(t.card), l));
 }
 
 template <class G, int NP>
@@ -474,36 +690,48 @@ __global__ void k1_letter_lf_kernel(AwfmTables t,
                                     const int64_t* __restrict__ pos, int64_t n,
                                     int32_t* __restrict__ letters_out,
                                     int64_t* __restrict__ lf_out) {
+  using pos_t = typename G::pos_t;
+  __shared__ BlockConsts<pos_t> s;
+  stage_consts<G>(t, s);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
+  const pos_t p = static_cast<pos_t>(pos[i]);
+  BlockRow<G, NP> r;
+  r.load(t, p);
   uint32_t lett;
-  lf_out[i] = static_cast<int64_t>(
-      lf_at<G, NP>(t, static_cast<typename G::pos_t>(pos[i]), &lett));
+  lf_out[i] = static_cast<int64_t>(r.lf(s, p, &lett));
   letters_out[i] = static_cast<int32_t>(lett);
 }
 
-template <class G, int NP>
-__global__ void k2_ranges_kernel(AwfmTables t,
-                                 const typename G::pos_t* __restrict__ seed_table,
-                                 int64_t seed_rows, int k,
-                                 const uint8_t* __restrict__ mat, int64_t b,
-                                 int64_t l_pad,
-                                 const int32_t* __restrict__ lengths,
-                                 const uint8_t* __restrict__ seeded,
-                                 int64_t* __restrict__ start_out,
-                                 int64_t* __restrict__ end_out) {
+constexpr int kK2Group = 2;  // lanes per query in K2 and K2w
+
+// GL neighbouring lanes walk one query right to left; LW as in QueryRow.
+template <class G, int NP, int GL, int LW>
+__global__ void __launch_bounds__(kThreads)
+k2_ranges_kernel(AwfmTables t,
+                 const typename G::pos_t* __restrict__ seed_table,
+                 int64_t seed_rows, int k,
+                 const uint8_t* __restrict__ mat, int64_t b, int64_t l_pad,
+                 const int32_t* __restrict__ lengths,
+                 const uint8_t* __restrict__ seeded,
+                 int64_t* __restrict__ start_out,
+                 int64_t* __restrict__ end_out) {
   using pos_t = typename G::pos_t;
-  const int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (q >= b) return;
-  const uint8_t* row = mat + q * l_pad;
-  const int64_t len = lengths[q];
+  const int64_t q =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
+  const bool live = q < b;
+  const int64_t qq = live ? q : 0;
+  const QueryRow<LW> row(mat + qq * l_pad, l_pad);
+  const int64_t len = lengths[qq];
+  const bool from_seed = seeded[qq] != 0;
   const uint32_t card = static_cast<uint32_t>(t.card);
-  pos_t start, end;
-  int64_t next;
-  if (seeded[q]) {
+  pos_t start = 1, end = 0;
+  if (from_seed) {
     seed_range(seed_table, seed_rows, k, card, row, len, l_pad, start, end);
-    next = len - k - 1;
-  } else {
+  }
+  if (!live) return;
+  int64_t next = len - k - 1;
+  if (!from_seed) {
     const int64_t c = len - 1 < 0 ? 0 : len - 1;
     const uint32_t last = row[c];
     const uint32_t a = last < card + 1u ? last : card + 1u;
@@ -513,29 +741,63 @@ __global__ void k2_ranges_kernel(AwfmTables t,
     end = ps[z] - 1u;
     next = len - 2;
   }
+  const Group<GL> grp;
   for (int64_t p = next; p >= 0 && start <= end; --p) {
-    backward_step<G, NP>(t, start, end, row[p]);
+    backward_step<G, NP, GL>(t, letter_entry<G>(t, row[p]), start, end, grp);
   }
-  start_out[q] = static_cast<int64_t>(start);
-  end_out[q] = static_cast<int64_t>(end);
+  if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
 }
 
+constexpr int kK3Threads = 256;
+
+// LF(pos) in three dependent reads: the letter from one byte load per
+// plane, then the row's words and the one milestone of that letter (the
+// tables of the kernel's parameters give letter and code). K3w keeps it:
+// on wide rows, where the walk is bound by the 64 B pieces device memory
+// moves and not by round trips, the block row in registers measured level
+// on random hits and 5% behind on hits in range order.
 template <class G, int NP>
-__global__ void k3_backtrace_resolve_kernel(
-    AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
-    typename G::pos_t ratio, typename G::pos_t bwt_length,
-    const typename G::pos_t* __restrict__ sa, int64_t* __restrict__ hits_out,
-    int64_t* __restrict__ p_out, int64_t* __restrict__ off_out) {
+__device__ __forceinline__ typename G::pos_t lf_bytes(const AwfmTables& t,
+                                                      typename G::pos_t pos) {
+  using pos_t = typename G::pos_t;
+  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
+  const uint32_t local = static_cast<uint32_t>(pos) & 255u;
+  uint32_t code = 0u;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    code |= ((row[i * G::kStride + (local >> 3)] >> (local & 7u)) & 1u) << i;
+  }
+  const uint32_t card = static_cast<uint32_t>(t.card);
+  const uint32_t lett = table_byte(t.code_letter, code);
+  if (lett == card + 1u) return 0;  // sentinel
+  const uint32_t lc = lett < card ? lett : card;
+  uint32_t m[8];
+  match_words<NP, 8, G::kStride>(row, table_byte(t.letter_code, lc), m);
+  return static_cast<const pos_t*>(t.prefix_sums)[lc] +
+         reinterpret_cast<const pos_t*>(row + NP * G::kStride)[lc] +
+         count_inclusive<8>(m, local) - 1u;
+}
+
+// K3w: one thread walks one hit, in launch order. A warp ends with its
+// longest walk, which on wide rows costs nothing the card could use: the
+// grid that hands out hits (below) measured 4% behind this on random hits
+// and 16% behind in the on-disk form.
+template <class G, int NP>
+__global__ void __launch_bounds__(kK3Threads)
+k3_per_hit_kernel(AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
+                  typename G::pos_t ratio, typename G::pos_t bwt_length,
+                  const typename G::pos_t* __restrict__ sa,
+                  int64_t* __restrict__ hits_out, int64_t* __restrict__ p_out,
+                  int64_t* __restrict__ off_out) {
   using pos_t = typename G::pos_t;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   pos_t p = static_cast<pos_t>(pos[i]);
   pos_t off = 0;
-  uint32_t lett;
   // a valid BWT's LF walk reaches a sampled position in < bwtLength steps;
   // the bound only keeps a malformed index from spinning forever
   while (p % ratio != 0 && off < bwt_length) {
-    p = lf_at<G, NP>(t, p, &lett);
+    p = lf_bytes<G, NP>(t, p);
     ++off;
   }
   if (sa != nullptr) {
@@ -545,6 +807,88 @@ __global__ void k3_backtrace_resolve_kernel(
   } else {
     p_out[i] = static_cast<int64_t>(p);
     off_out[i] = static_cast<int64_t>(off);
+  }
+}
+
+// K3 (narrow rows): block b walks hits [b * chunk, (b + 1) * chunk) on a
+// grid the card holds at once. A lane whose walk has ended writes its
+// result at the hit's own index and takes the block's next hit, so the
+// lanes of a warp stay busy whatever the walks' lengths. One turn of the
+// loop is one round trip: the walking lanes' rows, the ending lanes' SA
+// entries and the next hits' positions (both read once, so loaded
+// evict-first) are asked for together and used after. The results are
+// stored plainly: the 8 B of neighbouring hits arrive at different times
+// and meet in the L2. shift: log2(ratio), or -1 when ratio is no power of
+// two.
+template <class G, int NP>
+__global__ void __launch_bounds__(kK3Threads)
+k3_backtrace_resolve_kernel(
+    AwfmTables t, const int64_t* __restrict__ pos, int64_t n, int64_t chunk,
+    typename G::pos_t ratio, int shift, typename G::pos_t bwt_length,
+    const typename G::pos_t* __restrict__ sa, int64_t* __restrict__ hits_out,
+    int64_t* __restrict__ p_out, int64_t* __restrict__ off_out) {
+  using pos_t = typename G::pos_t;
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  __shared__ BlockConsts<pos_t> s;
+  __shared__ unsigned long long taken;  // hits of the chunk handed out
+  const int64_t lo = blockIdx.x * chunk;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  if (threadIdx.x == 0) taken = 0ull;
+  stage_consts<G>(t, s);
+  const unsigned lane = threadIdx.x & 31u;
+  int64_t i = -1;  // the hit this lane walks; -1: none
+  pos_t p = 0, off = 0;
+  bool exhausted = false;  // the chunk has no hit left (the same in a warp)
+  for (;;) {
+    // off < bwt_length: as in k3_per_hit_kernel
+    const bool sampled = shift >= 0 ? (p & (ratio - 1u)) == 0 : p % ratio == 0;
+    const bool walking = i >= 0 && !sampled && off < bwt_length;
+    const bool ending = i >= 0 && !walking;
+    BlockRow<G, NP> r;
+    if (walking) r.load(t, p);
+    pos_t sav = 0;
+    if (ending && sa != nullptr) {
+      const pos_t* entry = sa + (shift >= 0 ? p >> shift : p / ratio);
+      sav = __ldcs(entry);
+    }
+    int64_t j = -1;
+    pos_t pj = 0;
+    if (!exhausted) {
+      const unsigned want = __ballot_sync(kAll, !walking);
+      if (want != 0u) {
+        unsigned long long base = 0ull;
+        if (lane == 0u) base = atomicAdd(&taken, static_cast<unsigned long long>(__popc(want)));
+        base = __shfl_sync(kAll, base, 0);
+        if (!walking) {
+          const int64_t mine = lo + static_cast<int64_t>(base) + __popc(want & ((1u << lane) - 1u));
+          if (mine < hi) {
+            j = mine;
+            pj = static_cast<pos_t>(__ldcs(pos + mine));
+          }
+        }
+        exhausted = lo + static_cast<int64_t>(base) + __popc(want) >= hi;
+      }
+    }
+    if (walking) {
+      uint32_t lett;
+      p = r.lf(s, p, &lett);
+      ++off;
+    } else {
+      if (ending) {
+        if (sa != nullptr) {
+          // sa < bwtLength and off <= bwtLength < 2^39: the sum cannot wrap
+          const uint64_t h = static_cast<uint64_t>(sav) + off;
+          hits_out[i] = static_cast<int64_t>(h % bwt_length);
+        } else {
+          p_out[i] = static_cast<int64_t>(p);
+          off_out[i] = static_cast<int64_t>(off);
+        }
+      }
+      i = j;
+      p = pj;
+      off = 0;
+    }
+    if (__all_sync(kAll, i < 0)) break;
   }
 }
 
@@ -567,28 +911,24 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
   if (q >= b) return;
-  const uint8_t* row = mat + q * l_pad;
+  const QueryRow<0> row(mat + q * l_pad, l_pad);
   const Group<GL> grp;
   uint32_t start, end;
-  seed_range<uint32_t, true>(seed_table, seed_rows, k,
-                             static_cast<uint32_t>(t.card), row, kmer_len,
-                             l_pad, start, end);
+  seed_range(seed_table, seed_rows, k, static_cast<uint32_t>(t.card), row,
+             kmer_len, l_pad, start, end);
   const int m = kmer_len - k;
   // step s prepends columns m - N(s+1) .. m - N s - 1, leftmost first
-  for (int s = 0; s < m / N && start <= end; ++s) {
-    const uint8_t* w = row + (m - N * (s + 1));
+  for (int st = 0; st < m / N && start <= end; ++st) {
+    const uint8_t* w = row.row + (m - N * (st + 1));
     uint32_t v = 0u;
 #pragma unroll
     for (int j = 0; j < N; ++j) v = v * 4u + w[j];
     ngram_step<N, GL>(g, start, end, v, grp);
   }
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
-    backward_step<Narrow, NP, GL>(t, start, end, row[p], grp);
+    backward_step<Narrow, NP, GL>(t, letter_entry<Narrow>(t, row[p]), start, end, grp);
   }
-  if (grp.sub == 0) {
-    __stcs(reinterpret_cast<long long*>(start_out + q), static_cast<long long>(start));
-    __stcs(reinterpret_cast<long long*>(end_out + q), static_cast<long long>(end));
-  }
+  if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
 }
 
 unsigned int grid_for(int64_t n) {
@@ -631,6 +971,35 @@ int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class G, int NP, int LW>
+void launch_k2_form(const AwfmTables* t, const typename G::pos_t* seed_table,
+                    int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                    int64_t l_pad, const int32_t* lengths,
+                    const uint8_t* seeded, int64_t* start_out,
+                    int64_t* end_out, cudaStream_t stream) {
+  k2_ranges_kernel<G, NP, kK2Group, LW>
+      <<<grid_for(b * kK2Group), kThreads, 0, stream>>>(
+          *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
+          start_out, end_out);
+}
+
+template <class G, int NP>
+void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
+                      int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                      int64_t l_pad, const int32_t* lengths,
+                      const uint8_t* seeded, int64_t* start_out,
+                      int64_t* end_out, cudaStream_t stream) {
+  // letters in registers where the rows are whole aligned words of at most
+  // 32 letters (the bench protocol's 25-mers); longer ones are not measured
+  if (l_pad % 4 == 0 && l_pad <= 32 && reinterpret_cast<uintptr_t>(mat) % 4 == 0) {
+    launch_k2_form<G, NP, 8>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                             lengths, seeded, start_out, end_out, stream);
+  } else {
+    launch_k2_form<G, NP, 0>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                             lengths, seeded, start_out, end_out, stream);
+  }
+}
+
 template <class G>
 int launch_k2_ranges(int device, const AwfmTables* t,
                      const typename G::pos_t* seed_table, int64_t seed_rows,
@@ -641,15 +1010,47 @@ int launch_k2_ranges(int device, const AwfmTables* t,
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (t->n_planes == 3) {
-    k2_ranges_kernel<G, 3><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
-        start_out, end_out);
+    launch_k2_planes<G, 3>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                           seeded, start_out, end_out, stream);
   } else if (t->n_planes == 5) {
-    k2_ranges_kernel<G, 5><<<grid_for(b), kThreads, 0, stream>>>(
-        *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
-        start_out, end_out);
+    launch_k2_planes<G, 5>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                           seeded, start_out, end_out, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G, int NP>
+int launch_k3_planes(int device, const AwfmTables* t, const int64_t* pos,
+                     int64_t n, typename G::pos_t ratio,
+                     typename G::pos_t bwt_length,
+                     const typename G::pos_t* sa, int64_t* hits_out,
+                     int64_t* p_out, int64_t* off_out, cudaStream_t stream) {
+  if constexpr (sizeof(typename G::pos_t) == 8) {
+    k3_per_hit_kernel<G, NP><<<grid_for(n), kK3Threads, 0, stream>>>(
+        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+  } else {
+    // a grid the card holds at once, each block with an equal share of the hits
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k3_backtrace_resolve_kernel<G, NP>, kK3Threads, 0);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int64_t blocks = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+    const int64_t fit = (n + kK3Threads - 1) / kK3Threads;
+    if (blocks > fit) blocks = fit;
+    const int64_t chunk = (n + blocks - 1) / blocks;
+    int shift = -1;
+    if ((ratio & (ratio - 1u)) == 0) {
+      for (shift = 0; (static_cast<typename G::pos_t>(1) << shift) != ratio; ++shift) {}
+    }
+    k3_backtrace_resolve_kernel<G, NP>
+        <<<static_cast<unsigned int>(blocks), kK3Threads, 0, stream>>>(
+            *t, pos, n, chunk, ratio, shift, bwt_length, sa, hits_out, p_out,
+            off_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -664,17 +1065,16 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
                                 cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ratio == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ratio == 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
-    k3_backtrace_resolve_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
-  } else if (t->n_planes == 5) {
-    k3_backtrace_resolve_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
-        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_k3_planes<G, 3>(device, t, pos, n, ratio, bwt_length, sa,
+                                  hits_out, p_out, off_out, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (t->n_planes == 5) {
+    return launch_k3_planes<G, 5>(device, t, pos, n, ratio, bwt_length, sa,
+                                  hits_out, p_out, off_out, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int launch_k4(int device, const AwfmTables* t, const NgramTables* g,

@@ -358,6 +358,60 @@ def device_code_masks(alphabet: AlphabetType) -> np.ndarray:
     return (bits * np.uint8(0xFF)).astype(np.uint8)
 
 
+KERNEL_TABLE_ENTRIES = 32  # 2^n_planes codes and card + 2 letters both fit
+
+
+def kernel_letter_tables(alphabet: AlphabetType):
+    """The two letter tables the CUDA kernels take by value, each (32,)
+    uint8.
+
+    ``letter_code[l]``: the plane code that letter ``l`` matches, i.e.
+    row ``l`` of :func:`device_code_masks` folded to one bit per plane,
+    for ``l`` up to the ambiguity letter; 0 above it (the sentinel and
+    anything a query may carry beyond it match nothing, as the one-hot
+    selects of the JAX package give). ``code_letter[c]``: the letter
+    whose planes spell code ``c`` (``vector_to_index_lut``); 0 past
+    ``2 ** n_planes``.
+    """
+    card = alpha.cardinality(alphabet)
+    n_planes = alpha.num_bit_planes(alphabet)
+    masks = device_code_masks(alphabet)
+    folded = ((masks != 0).astype(np.uint32) << np.arange(n_planes)[None, :]).sum(axis=1)
+    letter_code = np.zeros(KERNEL_TABLE_ENTRIES, dtype=np.uint8)
+    letter_code[: card + 1] = folded[: card + 1]
+    code_letter = np.zeros(KERNEL_TABLE_ENTRIES, dtype=np.uint8)
+    code_letter[: 1 << n_planes] = alpha.vector_to_index_lut(alphabet)[: 1 << n_planes]
+    return letter_code, code_letter
+
+
+def kernel_block_constants(alphabet: AlphabetType, prefix_sums):
+    """What the CUDA kernels make of those tables and C[], as NumPy
+    arrays (the plain statement of ``letter_entry`` and ``stage_consts``
+    in ``csrc/awfm_kernels.cu``): for a backward step by letter ``l``, at
+    ``min(l, 31)``: ``c`` (C[l]; 0 above the sentinel), ``code`` and
+    ``has_milestone``; for an LF step from a position whose planes spell
+    code ``c`` (one entry of a block's shared memory): ``letter``,
+    ``column = min(letter, ambiguity letter)``, ``c_of_code = C[column]``,
+    ``match_code = letter_code[column]`` and ``is_sentinel``.
+    ``prefix_sums``: the (card + 2,) C[] array."""
+    card = alpha.cardinality(alphabet)
+    letter_code, code_letter = kernel_letter_tables(alphabet)
+    ps = np.asarray(prefix_sums).astype(np.uint64)
+    c = np.zeros(KERNEL_TABLE_ENTRIES, dtype=np.uint64)
+    c[: card + 2] = ps[: card + 2]
+    column = np.minimum(code_letter, card)
+    return {
+        "c": c,
+        "code": letter_code,
+        "has_milestone": np.arange(KERNEL_TABLE_ENTRIES) <= card,
+        "letter": code_letter,
+        "column": column,
+        "c_of_code": ps[column],
+        "match_code": letter_code[column],
+        "is_sentinel": code_letter == card + 1,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Host-side canonical index
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ else, so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -109,12 +110,13 @@ class _Tables(ctypes.Structure):
         ("packed_pair", ctypes.c_void_p),
         ("prefix_sums", ctypes.c_void_p),
         ("code_masks", ctypes.c_void_p),
-        ("vec_to_index", ctypes.c_void_p),
         ("nb", ctypes.c_int64),
         ("row_bytes", ctypes.c_int32),
         ("pair_row_bytes", ctypes.c_int32),
         ("card", ctypes.c_int32),
         ("n_planes", ctypes.c_int32),
+        ("letter_code", ctypes.c_uint64 * 4),
+        ("code_letter", ctypes.c_uint64 * 4),
     ]
 
 
@@ -268,7 +270,6 @@ def _tables(dev) -> _Tables:
     for name, dtype in (
         ("packed", torch.uint8), ("packed_pair", torch.uint8),
         ("prefix_sums", _pos_dtype(dev)), ("code_masks", torch.uint8),
-        ("vec_to_index", torch.int32),
     ):
         _require(getattr(dev, name), name, dtype, device)
     if dev.wide:
@@ -284,18 +285,31 @@ def _tables(dev) -> _Tables:
             )
     if dev.packed.data_ptr() % 16 or dev.packed_pair.data_ptr() % 16:
         raise ValueError("row tables must be 16-byte aligned")
+    if dev.prefix_sums.shape != (dev.cardinality + 2,):
+        raise ValueError("prefix_sums must hold cardinality + 2 entries")
+    letter_code, code_letter = _letter_tables(dev.alphabet)
     return _Tables(
         packed=dev.packed.data_ptr(),
         packed_pair=dev.packed_pair.data_ptr(),
         prefix_sums=dev.prefix_sums.data_ptr(),
         code_masks=dev.code_masks.data_ptr(),
-        vec_to_index=dev.vec_to_index.data_ptr(),
         nb=int(dev.packed.shape[0]),
         row_bytes=int(dev.packed.shape[1]),
         pair_row_bytes=int(dev.packed_pair.shape[1]),
         card=int(dev.cardinality),
         n_planes=int(dev.n_planes),
+        letter_code=letter_code, code_letter=code_letter,
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _letter_tables(alphabet):
+    """``kernel_letter_tables`` of an alphabet as the ctypes arrays of
+    ``_Tables``."""
+    from ..models.index import kernel_letter_tables
+
+    return tuple((ctypes.c_uint64 * 4)(*t.view("<u8").tolist())
+                 for t in kernel_letter_tables(alphabet))
 
 
 def _stream(device) -> int:
@@ -390,7 +404,7 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
 def k3_backtrace_resolve(dev, positions: torch.Tensor):
     """K3 (K3w for a wide view): hits (n,) int64 when the sampled SA is
     resident, else the sampled positions and walk offsets ((n,) int64
-    each)."""
+    each), each at its hit's own index whatever lane walked it."""
     tables = _tables(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)

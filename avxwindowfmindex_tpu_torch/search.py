@@ -7,7 +7,7 @@ backward steps with a pair-window flag and an exact re-run, range
 enumeration, a compacting LF backtrace, the sampled-SA resolve. Here it
 is a few kernels around one plain torch step:
 
-  ranges     K2 (``search_ranges``): one thread per query does the seed
+  ranges     K2 (``search_ranges``): two lanes per query do the seed
              lookup (or the whole-letter initial range) and every
              backward step; a step reads its pair row by window class
              (the first block's sectors when both ends of the range lie
@@ -19,8 +19,10 @@ is a few kernels around one plain torch step:
   enumerate  plain torch ops (``enumerate_range_positions``): ranges to
              flat BWT positions, in range order; ``enumerate_flat``, the
              same into a fixed capacity with query ids and a mask;
-  locate     K3 (``backtrace_resolve``): one thread per hit walks LF to
-             a sampled position and resolves the suffix-array value.
+  locate     K3 (``backtrace_resolve``): each hit is walked with LF to a
+             sampled position and its suffix-array value resolved; a
+             lane whose walk has ended takes the next hit (K3w: one
+             thread per hit).
              ``locate_flat_device`` and ``locate_first_hit`` run it on
              device-resident ranges with no host readback.
 

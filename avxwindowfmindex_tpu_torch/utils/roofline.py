@@ -114,6 +114,28 @@ def backtrace_rows_per_position(ratio: int) -> float:
     return float(max(0, ratio - 1))
 
 
+def warp_lane_occupancy(off, warp: int = 32) -> float:
+    """The lane-occupancy ratio of a backtrace that walks one hit per
+    lane, ``warp`` neighbouring hits per warp, in the order of ``off``
+    (the LF steps each hit walks, a 1-D integer tensor; K3's on-disk form
+    returns it): the lane-steps the warps hold, ``warp`` x the longest
+    walk of each warp, over the steps walked. A warp runs until its
+    longest walk ends, so 1 means every lane works all the time and 4
+    that a lane works a quarter of it. The last warp counts all its
+    lanes, filled or not; a batch that walks nothing has ratio 1."""
+    import torch
+
+    off = off.to(torch.int64).reshape(-1)
+    walked = int(off.sum())
+    if walked == 0:
+        return 1.0
+    pad = -off.numel() % warp
+    if pad:
+        off = torch.cat([off, off.new_zeros(pad)])
+    held = int(off.reshape(-1, warp).max(dim=1).values.sum()) * warp
+    return held / walked
+
+
 def table_row_bytes(alphabet=None, *, ngram_n: int = 2) -> Dict[str, int]:
     """Row bytes of each table of the active engine."""
     from ..models import index as index_mod

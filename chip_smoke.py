@@ -12,8 +12,15 @@ Phases (any failure raises and the script exits nonzero):
      outgrow the 512-position pair window; a window-class corpus, runs of
      one letter of 700, 300 and 420 inside random text, on which K2 and
      K4, n = 2 and 3, must take each of the three window classes of a
-     step at least once, by the plain versions' class counts), with
-     kernel and plain times side by side;
+     step at least once, by the plain versions' class counts; for K2,
+     whose two lanes share a query and hold its letters in registers,
+     seeded and unseeded queries mixed in one odd-sized batch, every
+     length from 1 to the matrix's width and matrices of 44 and 72
+     columns; for K3, whose grid hands a lane its next hit, every position
+     of the index (more hits than the grid holds at once, the sentinel's
+     row among them), walks of 0 steps, 19 hits and 1 hit, and an index
+     of SA ratio 3, each with the SA resident and on disk), with kernel
+     and plain times side by side;
   3w. the same for K1w, K2w and K3w on the forced-wide views of such
      indexes (u64 positions over 256 B / 512 B rows), with positions no
      search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
@@ -40,6 +47,15 @@ Phases (any failure raises and the script exits nonzero):
      replayed; and K5's walk over the 1 GiB table of 512 B rows reading
      8 of a row's 16 sectors, every other one or the first 8, and all 16
      (in what pieces device memory is read);
+  4s. what K2, K4 and K3 pay per query or hit and what per step, on the
+     phase-4 index (it runs after phase 6, whose calibrated rates it sets
+     the steps against): K2 and K4 on the last L letters of the main
+     batch's 25-mers for several L, fitted to fixed + steps x per step
+     (a query of k letters is the seed-table visit alone); K2 again over
+     a k = 12 seed table (134 MB against 2.15 GB); K3 on hits that need
+     no LF step (the SA visit alone) and on the main batch's, at the
+     index's SA ratio and on the ratio-4 device SA; and the
+     lane-occupancy ratio of one thread a hit;
   5. a .awfmi round trip of the 1M-base index;
   6. the bench protocol (avxwindowfmindex_tpu_torch/tools/bench.py) on
      the phase-4 index at 1,048,576 queries and 3 runs: a ratio-4 device
@@ -89,8 +105,11 @@ gather; K6's ms and library_ms are the graph-replay pair); their walk
 and chain at the calibration shapes are compared and timed in phase 6
 and logged there. Two looser models of each index kernel are logged and
 kept out of that line: every visit's row sectors over the same 3.35 TB/s
-(the stages' roofline), and the visits at the in-process calibrated
-random-row rate of the table.
+(the stages' roofline), and every visit the kernel makes at a rate
+measured in this process: its row visits at the calibrated random-row
+rate of the table, and the seed-table visit of K2, K2w and K4 and the SA
+visit of K3 and K3w at the time of a launch that makes those visits and
+no step.
 --bases (default 64,000,000) is for local trials only.
 """
 
@@ -217,17 +236,21 @@ class Record:
         self.ms = {}
         self.bound = {}
         self.model = {}  # logged only: row traffic and visits per table
+        self.fixed = {}  # logged only: the visits that are no row visits (zero_step_costs)
         self.library = {}
         self.k6 = {}  # K6's single gather and index_select, per call and by graph replay
 
     def set_bound(self, kernel: str, tables, stream_bytes: int, ops: float,
-                  row_visits=None) -> None:
+                  row_visits=None, other_visits=None) -> None:
         """The least time the card could take for the launch timed in
         ``ms[kernel]``. ``tables``: one (rows in the table, bytes a visit
         needs, visits) per table read and per part of its rows that only
         some visits need; ``stream_bytes``: the batch's inputs and
         outputs, each once; ``row_visits``: row visits by calibrated
-        table, for the logged model (default: those of ``tables``)."""
+        table, for the logged model (default: those of ``tables``);
+        ``other_visits``: its visits to tables that are no row tables
+        (the seed table, the sampled SA), whose bytes ``stream_bytes``
+        counts and whose time the model takes from ``zero_step_costs``."""
         once = float(stream_bytes)
         traffic = float(stream_bytes)
         for nb, need, visits in tables:
@@ -243,6 +266,7 @@ class Record:
             "bytes_once": int(once), "operations": int(ops),
             "row_traffic_ms": traffic / HBM_BYTES_PER_S * 1e3,
             "row_visits": row_visits or [int(v) for _, _, v in tables],
+            "other_visits": other_visits or {},
         }
         log(f"  {kernel} bound: {json.dumps({**self.bound[kernel], **self.model[kernel]})}")
 
@@ -428,6 +452,58 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
         pp, po = search.backtrace_resolve_plain(disk, bpos)
         rec.compare(k3, f"{name} on-disk p", kp, pp)
         rec.compare(k3, f"{name} on-disk off", ko, po)
+
+        # K2, what two lanes a query and letters held in registers could
+        # break: seeded and unseeded queries mixed in one odd-sized batch,
+        # every length from 1 to the matrix's width, and matrices wider
+        # than the registers hold (33-64 letters, then more)
+        mixed = seeded_q[:1500] + short[:700] + ambig[:300]
+        mixed = [mixed[i] for i in rng.permutation(len(mixed))]
+        by_len = [text[s : s + L] for L in range(1, 29) for s in rng.integers(0, len(text) - 80, 24)]
+        long_q = [text[s : s + int(L)] for s, L in zip(rng.integers(0, len(text) - 80, 600),
+                                                        rng.integers(1, 71, 600))]
+        for label, qs, odd in (("mixed", mixed, 2499), ("lengths 1-28", by_len, 671),
+                               ("lengths to 44", [q[:44] for q in long_q], 599),
+                               ("lengths to 70", long_q, 597)):
+            mat, lengths, _ = eng.encode_kmers(qs)
+            seeded = eng._seed_eligibility(mat, lengths)
+            args = (
+                torch.from_numpy(mat[:odd]).to(device),
+                torch.from_numpy(lengths[:odd]).to(device),
+                torch.from_numpy(seeded[:odd].astype(np.uint8)).to(device),
+            )
+            if label == "mixed" and not 0 < int(seeded[:odd].sum()) < odd:
+                raise AssertionError("the mixed batch must hold seeded and unseeded queries")
+            ks, ke = kernels.k2_ranges(dev, *args)
+            ps, pe = search.ranges_plain(dev, *args)
+            rec.compare(k2, f"{name} {label} (l_pad {mat.shape[1]}) start x{odd}", ks, ps)
+            rec.compare(k2, f"{name} {label} (l_pad {mat.shape[1]}) end x{odd}", ke, pe)
+
+        # K3, what a grid that hands out hits could break: every position
+        # of the index (more hits than the grid holds at once, the
+        # sentinel's row among them), walks of 0 steps only, fewer hits
+        # than a warp has lanes, and a ratio that is no power of two
+        every = torch.arange(n, dtype=torch.int64, device=device)
+        sampled = (bpos // dev.ratio) * dev.ratio
+        odd_ratio = create_index(text[:200_000], IndexConfiguration(3, k, alphabet), device=device)
+        odd_dev = odd_ratio.to_device(device, wide=wide)
+        odd_pos = torch.arange(odd_dev.bwt_length, dtype=torch.int64, device=device)
+        for label, view, positions in (
+            ("every position", dev, every), ("0-step walks", dev, sampled),
+            ("19 hits", dev, bpos[:19].contiguous()), ("1 hit", dev, bpos[:1].contiguous()),
+            ("ratio 3, every position", odd_dev, odd_pos),
+        ):
+            rec.compare(k3, f"{name} {label} hits x{positions.numel()}",
+                        kernels.k3_backtrace_resolve(view, positions),
+                        search.backtrace_resolve_plain(view, positions))
+            on_disk = dataclasses.replace(view, sampled_sa=None)
+            kp, ko = kernels.k3_backtrace_resolve(on_disk, positions)
+            pp, po = search.backtrace_resolve_plain(on_disk, positions)
+            rec.compare(k3, f"{name} {label} on-disk p", kp, pp)
+            rec.compare(k3, f"{name} {label} on-disk off", ko, po)
+            if label == "0-step walks" and int(ko.max()) != 0:
+                raise AssertionError("the sampled positions must need no LF step")
+        del every, odd_ratio, odd_dev, odd_pos
 
         if wide:
             # the wide engine's answers are the narrow engine's
@@ -852,6 +928,7 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         n * (mat_d.shape[1] + 2 * dev.seed_table.element_size() + 16), ng_ops + tail_ops,
         row_visits=[sum(k4_classes["ngram_pair"]) + k4_classes["ngram_pair"][2],
                     sum(k4_classes["pair"]) + k4_classes["pair"][2]],
+        other_visits={"seed_table": n},
     )
     traffic = rec.model["k4_ngram_ranges"]["row_traffic_ms"] * 1e-3 * HBM_BYTES_PER_S
     log(f"  k4_ngram_ranges row traffic: {(traffic - n * (mat_d.shape[1] + 24)) / n:.1f} B of row "
@@ -881,13 +958,144 @@ def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions,
         raise AssertionError(f"{k2}: {sum(step_classes)} steps counted for {n} queries")
     k2_tables, k2_ops = step_tables(dev.packed_pair.shape[0], np_, ms_b, step_classes)
     rec.set_bound(k2, k2_tables, n * (l_pad + 4 + 1 + 2 * pos_b + 16), k2_ops,
-                  row_visits=[sum(step_classes) + step_classes[2]])
+                  row_visits=[sum(step_classes) + step_classes[2]], other_visits={"seed_table": n})
     _, off = kernels.k3_backtrace_resolve(dataclasses.replace(dev, sampled_sa=None), positions)
     walked = int(off.sum())
     hits = positions.numel()
     log(f"  {k3}: {walked} LF steps for {hits} hits ({walked / max(hits, 1):.3f} per hit)")
     rec.set_bound(k3, [(nb, np_ * 32 + ms_b, walked)], hits * (8 + 8 + pos_b),
-                  walked * rank_ops(np_))
+                  walked * rank_ops(np_), other_visits={"sampled_sa": hits})
+    zero_step_costs(rec, names, dev, mat_d, positions)
+
+
+def linear_fit(steps, ms):
+    """(fixed ms, ms per step) of the least-squares line through the
+    (steps, ms) points."""
+    import numpy as np
+
+    per_step, fixed = np.polyfit(np.asarray(steps, float), np.asarray(ms, float), 1)
+    return float(fixed), float(per_step)
+
+
+def zero_step_costs(rec: Record, names, dev, mat_d, positions) -> dict:
+    """The visits of K2 and K3 (or K2w, K3w) that are no row visits, timed
+    by launches that make them and nothing else: K2 on the last k letters
+    of each query of ``mat_d`` (the letter reads, the seed-table visit,
+    the stores; no step) and K3 on ``positions`` rounded down to sampled
+    ones (the position read, the SA visit, the store; no LF step). Kept in
+    ``rec.fixed`` for the [models] lines, which charge them beside the row
+    visits."""
+    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+
+    _, k2, k3 = names
+    k = dev.kmer_length_in_seed_table
+    seed_only = lengthwise_batch(mat_d, KMER_LEN, k)
+    sampled = (positions // dev.ratio) * dev.ratio
+    out = {
+        k2: min(cuda_ms(lambda: kernels.k2_ranges(dev, *seed_only), 10) for _ in range(2)),
+        k3: min(cuda_ms(lambda: kernels.k3_backtrace_resolve(dev, sampled), 10) for _ in range(2)),
+    }
+    entry = 2 * dev.seed_table.element_size()
+    log(f"  {k2} with no step: {out[k2]:.4f} ms for {mat_d.shape[0]} queries: one {entry} B visit each "
+        f"to a seed table of {dev.seed_table.numel() * dev.seed_table.element_size() / 1e6:.0f} MB "
+        f"({mat_d.shape[0] / out[k2] / 1e6:.2f}G visits/s)")
+    log(f"  {k3} with no LF step: {out[k3]:.4f} ms for {positions.numel()} hits: one "
+        f"{dev.sampled_sa.element_size()} B visit each to a sampled SA of "
+        f"{dev.sampled_sa.numel() * dev.sampled_sa.element_size() / 1e6:.0f} MB "
+        f"({positions.numel() / out[k3] / 1e6:.2f}G visits/s)")
+    rec.fixed.update(out)
+    return out
+
+
+def phase_step_costs(rec: Record, engine, kmers, dense, rates: dict) -> dict:
+    """Phase 4s: what K2, K4 and K3 pay per query or hit and what per
+    step, on the phase-4 index. K2 and K4 on the last L letters of the
+    main batch's 25-mers for several L, fitted to fixed + steps x per
+    step; K2 again over a k = 12 seed table built on the same index; K3
+    on hits that need no LF step and on the main batch's; and the
+    lane-occupancy ratio of a thread-per-hit launch (32 x the longest walk
+    of each warp over the steps walked) at the SA ratio of the index and
+    on the ratio-4 device SA ``dense``."""
+    import torch
+    from avxwindowfmindex_tpu_torch import search
+    from avxwindowfmindex_tpu_torch.ops import kernels, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+    from avxwindowfmindex_tpu_torch.utils import roofline
+
+    dev, ng = engine.dev, engine.ng
+    device = engine.device
+    k = dev.kmer_length_in_seed_table
+    mat, _, n = engine.encode_kmers(kmers)
+    mat_d = torch.from_numpy(mat).to(device)
+    out = {}
+
+    def best(fn):
+        return min(cuda_ms(fn, 10) for _ in range(2))
+
+    def k2_fit(view, label):
+        kk = view.kmer_length_in_seed_table
+        steps = [s for s in (0, 1, 3, 7, 11, 13) if kk + s <= KMER_LEN]
+        ms = []
+        for st in steps:
+            args = lengthwise_batch(mat_d, KMER_LEN, kk + st)
+            ms.append(best(lambda: kernels.k2_ranges(view, *args)))
+        fixed, per_step = linear_fit(steps, ms)
+        table_mb = view.seed_table.numel() * view.seed_table.element_size() / 1e6
+        log(f"[4s] k2_ranges, seed k={kk} ({table_mb:.0f} MB seed table), {n} queries of k + "
+            f"{steps} letters: {[round(m, 4) for m in ms]} ms -> fixed {fixed:.4f} ms + "
+            f"{per_step:.4f} ms a step ({n / per_step / 1e6:.2f}G steps/s; the masked walk on the pair "
+            f"table: {rates['pair'] / 1e9:.2f}G rows/s)")
+        out[label] = {"steps": steps, "ms": ms, "fixed_ms": fixed, "per_step_ms": per_step}
+
+    k2_fit(dev, "k2_by_length")
+    t = time.time()
+    table12 = seed_table.build_seed_table(dev, dev.cardinality, 12, engine.host_index.prefix_sums)
+    torch.cuda.synchronize()
+    log(f"[4s] a k=12 seed table of the same index through K1: {time.time() - t:.3f}s")
+    dev12 = dataclasses.replace(dev, seed_table=table12, kmer_length_in_seed_table=12)
+    s12, e12 = kernels.k2_ranges(dev12, *lengthwise_batch(mat_d, KMER_LEN, KMER_LEN))
+    s14, e14 = kernels.k2_ranges(dev, *lengthwise_batch(mat_d, KMER_LEN, KMER_LEN))
+    rec.compare("k2_ranges", f"ranges over the k=12 seed table == over k={k} start x{n}", s12, s14)
+    rec.compare("k2_ranges", f"ranges over the k=12 seed table == over k={k} end x{n}", e12, e14)
+    k2_fit(dev12, "k2_by_length_seed_k12")
+    del table12, dev12, s12, e12
+
+    # K4: m = kmer_len - k letters beyond the seed, m / 2 n-gram steps and
+    # for odd m one tail step (the main batch: m = 11)
+    ms_k4, ngram_steps = [], []
+    for m in (2, 4, 8, 10):
+        args = lengthwise_batch(mat_d, KMER_LEN, k + m)
+        ms_k4.append(best(lambda: kernels.k4_ngram_ranges(dev, ng, args[0], k + m)))
+        ngram_steps.append(m // ng.n)
+    fixed, per_step = linear_fit(ngram_steps, ms_k4)
+    log(f"[4s] k4_ngram_ranges, {n} queries of k + (2, 4, 8, 10) letters: "
+        f"{[round(m, 4) for m in ms_k4]} ms -> fixed {fixed:.4f} ms + {per_step:.4f} ms an n-gram step "
+        f"({n / per_step / 1e6:.2f}G steps/s; the masked walk on the n-gram table: "
+        f"{rates['ngram_pair'] / 1e9:.2f}G rows/s)")
+    out["k4_by_length"] = {"ngram_steps": ngram_steps, "ms": ms_k4, "fixed_ms": fixed,
+                           "per_step_ms": per_step}
+    rec.fixed["k4_ngram_ranges"] = fixed
+
+    # K3: the main batch's hits, at the index's ratio and on the dense SA
+    start, end = s14[:n], e14[:n]
+    positions = search.enumerate_range_positions(start, search.range_counts(start, end))
+    for label, view in (("k3_by_walk", dev), ("k3_by_walk_dense", dense)):
+        sampled = (positions // view.ratio) * view.ratio
+        zero_ms = best(lambda: kernels.k3_backtrace_resolve(view, sampled))
+        main_ms = best(lambda: kernels.k3_backtrace_resolve(view, positions))
+        _, off = kernels.k3_backtrace_resolve(dataclasses.replace(view, sampled_sa=None), positions)
+        walked = int(off.sum())
+        occupancy = roofline.warp_lane_occupancy(off)
+        log(f"[4s] k3_backtrace_resolve at ratio {view.ratio}: {positions.numel()} hits with no LF step "
+            f"{zero_ms:.4f} ms; the main batch's hits ({walked} steps, longest walk {int(off.max())}) "
+            f"{main_ms:.4f} ms -> {(main_ms - zero_ms) / max(walked, 1) * 1e6:.4f} ns a step beyond "
+            f"the zero-step launch ({walked / max(main_ms - zero_ms, 1e-9) / 1e6:.2f}G steps/s; the walk "
+            f"on the block rows: {rates['single'] / 1e9:.2f}G rows/s); lane-occupancy ratio of one "
+            f"thread a hit: {occupancy:.4f}")
+        out[label] = {"ratio": view.ratio, "hits": positions.numel(), "lf_steps": walked,
+                      "zero_step_ms": zero_ms, "ms": main_ms, "lane_occupancy_ratio": occupancy}
+    return out
 
 
 def phase_probes(rec: Record, device: str) -> None:
@@ -1488,6 +1696,9 @@ def main(argv=None) -> int:
     main_stats["bench"]["gather_rates_whole_rows"] = bench_stats["whole_row_rates"]
     main_stats["k6_single_gather"] = rec.k6
     mark("phases 5 and 6")
+    main_stats["step_costs"] = phase_step_costs(
+        rec, engine, kmers, bench_stats["dense"], bench_stats["meta"]["gather_rates_rows_per_sec"])
+    mark("phase 4s")
 
     wide_stats = phase_wide_main(
         rec, engine.host_index, engine.dev, bench_stats["dense"], kmers, mh_kmers, seq_arr, device
@@ -1504,8 +1715,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # logged, not in the kernels line: each index kernel's row visits over
-    # 3.35 TB/s (the stages' roofline) and at the in-process calibrated
-    # random-row rate of the table it reads, where a table sits in the L2
+    # 3.35 TB/s (the stages' roofline), and every visit it makes at a rate
+    # measured in this process: the row visits at the calibrated random-row
+    # rate of the table (where a table sits in the L2), the seed-table
+    # visit of K2, K2w and K4 and the SA visit of K3 and K3w at the time of
+    # a launch that makes those visits and no step (K4: the fixed term of
+    # its fit over query lengths)
     rates = dict(main_stats["bench"]["gather_rates_rows_per_sec"],
                  wide=wide_stats["gather_rate_rows_per_sec"])
     rate_of = {
@@ -1513,11 +1728,19 @@ def main(argv=None) -> int:
         "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
         "k2w_ranges": ("wide",), "k3w_backtrace_resolve": ("wide",),
     }
+    main_stats["models"] = {}
     for name, tables in rate_of.items():
         model = rec.model[name]
-        calibrated = sum(v / rates[t] for v, t in zip(model["row_visits"], tables)) * 1e3
+        rows_ms = sum(v / rates[t] for v, t in zip(model["row_visits"], tables)) * 1e3
+        all_ms = rows_ms + rec.fixed.get(name, 0.0)
+        if model["other_visits"] and name not in rec.fixed:
+            raise AssertionError(f"{name}: no time measured for its {model['other_visits']}")
+        main_stats["models"][name] = {"ms": rec.ms[name][0], "row_visits_ms": rows_ms,
+                                      "all_visits_ms": all_ms}
         log(f"[models] {name}: {rec.ms[name][0]:.4f} ms; row traffic over 3.35 TB/s "
-            f"{model['row_traffic_ms']:.4f} ms; visits at the calibrated rate {calibrated:.4f} ms")
+            f"{model['row_traffic_ms']:.4f} ms; row visits at the calibrated rate {rows_ms:.4f} ms; "
+            f"with {model['other_visits'] or 'no other visit'} {all_ms:.4f} ms: "
+            f"ms / model {rec.ms[name][0] / all_ms:.3f}")
 
     log(f"[summary] {json.dumps(main_stats)}")
     log(smi)
