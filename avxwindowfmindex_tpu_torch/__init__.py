@@ -15,7 +15,11 @@ positions and more (or ``wide=True``) runs the same functions over u64
 positions through K1w, K2w and K3w. K5 and K6 are the
 gather-rate probes that the bench's roofline calibrates with
 (``tools/bench.py``, ``tools/gather_probe.py``). Every entry point that
-touches a tensor takes an explicit ``device``.
+touches a tensor takes an explicit ``device``; those of the JAX
+package's wider API (``.awfmx`` artifacts, the ``parallel_search_*``
+batch API, ``parallel/``: the retrying engine, the chunked corpus, the
+query-parallel engine) take ``device=None`` as the card and raise
+without one.
 
 Quick start::
 
@@ -62,6 +66,32 @@ from .search import (
 )
 
 
+def chunked_corpus_index(sequence, config=None, chunk_bases=(1 << 31), overlap=255, *,
+                         device=None):
+    """Build a ChunkedCorpusIndex (overlapping sub-indexes behaving like
+    one big index) on ``device``; ``None`` means the card."""
+    from .parallel.chunked import ChunkedCorpusIndex
+
+    return ChunkedCorpusIndex.build(
+        sequence, config, chunk_bases=chunk_bases, overlap=overlap, device=device
+    )
+
+
+def save_artifact(index, path: str) -> None:
+    """Serialize to the native .awfmx NPZ artifact (fast load path)."""
+    from .io import artifact
+
+    artifact.save_artifact(index, path)
+
+
+def load_artifact(path: str, *, device=None):
+    """Load a native .awfmx NPZ artifact; a seed table the file lacks is
+    rebuilt on ``device`` (``None``: the card)."""
+    from .io import artifact
+
+    return artifact.load_artifact(path, device=device)
+
+
 def read_index_from_file(path: str, keep_suffix_array_in_memory: bool = True):
     """awFmReadIndexFromFile parity — load a `.awfmi` index."""
     from .io import awfmi
@@ -76,6 +106,24 @@ def write_index_to_file(index, path: str) -> None:
     awfmi.write_index(index, path)
 
 
+def parallel_search_count(index, kmers, num_threads: int = 0, *, device=None):
+    """awFmParallelSearchCount parity (``num_threads`` is accepted and
+    ignored: one batched call on ``device``, ``None`` meaning the card)."""
+    from .parallel.api import parallel_search_count as _f
+
+    return _f(index, kmers, num_threads, device=device)
+
+
+def parallel_search_locate(index, kmers, num_threads: int = 0, *, device=None):
+    """awFmParallelSearchLocate parity (``num_threads`` is accepted and
+    ignored: one batched call on ``device``, ``None`` meaning the card)."""
+    from .parallel.api import parallel_search_locate as _f
+
+    return _f(index, kmers, num_threads, device=device)
+
+
+__version__ = "0.1.0"
+
 __all__ = [
     "AlphabetType",
     "IndexConfiguration",
@@ -87,6 +135,11 @@ __all__ = [
     "create_index_from_fasta",
     "read_index_from_file",
     "write_index_to_file",
+    "parallel_search_count",
+    "parallel_search_locate",
+    "save_artifact",
+    "load_artifact",
+    "chunked_corpus_index",
     "SearchEngine",
     "NgramSearchEngine",
     "DigramSearchEngine",

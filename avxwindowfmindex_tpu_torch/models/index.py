@@ -102,12 +102,28 @@ def device_row_bytes64(alphabet: AlphabetType) -> int:
 # ---------------------------------------------------------------------------
 
 def as_device(device) -> torch.device:
-    """``device`` as a torch.device, with a CUDA index filled in, so two
-    spellings of one card compare equal."""
+    """``device`` as a torch.device, with a CUDA index filled in and a
+    CPU index dropped (tensors on ``cpu:0`` report ``cpu``), so two
+    spellings of one device compare equal."""
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
+    elif d.type == "cpu":
+        d = torch.device("cpu")
     return d
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point with ``device=None`` runs on: the card.
+    Without CUDA that raises, naming ``device=``; nothing runs on the CPU
+    unless the caller asks for it."""
+    d = torch.device("cuda" if device is None else device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "torch.cuda.is_available() is False; pass device='cpu' explicitly "
+            "to run the plain versions"
+        )
+    return as_device(d)
 
 
 def u32_tensor(values, device) -> torch.Tensor:

@@ -478,6 +478,13 @@ class SearchEngine:
     def locate(self, kmers: Sequence[Union[str, bytes]]) -> List[np.ndarray]:
         """Database hit positions per kmer, in range order
         (awFmParallelSearchLocate parity)."""
+        hits, counts = self._locate_flat(kmers)
+        return np.split(hits, np.cumsum(counts)[:-1])
+
+    def _locate_flat(self, kmers: Sequence[Union[str, bytes]]):
+        """(every kmer's hits in range order, one flat uint64 array; the
+        hits per kmer): ``locate`` before its split into one array per
+        kmer, which callers that merge hits (the chunked corpus) skip."""
         metrics.counter("search.locate.queries").add(len(kmers))
         with metrics.timer("search.locate.seconds"):
             mat, lengths, n = self.encode_kmers(kmers)
@@ -486,7 +493,7 @@ class SearchEngine:
             hits = self._resolve(enumerate_range_positions(start[:n], counts))
             counts = counts.cpu().numpy()
         metrics.counter("search.locate.hits").add(int(counts.sum()))
-        return np.split(hits, np.cumsum(counts)[:-1])
+        return hits, counts
 
     def resolve_positions(self, bwt_positions: np.ndarray) -> np.ndarray:
         """Backtrace + resolve a flat array of BWT positions to hits."""
@@ -495,14 +502,21 @@ class SearchEngine:
         pos = torch.from_numpy(np.asarray(bwt_positions).astype(np.int64))
         return self._resolve(pos.to(self.device))
 
-    def _resolve(self, positions: torch.Tensor) -> np.ndarray:
+    def _sa_on_disk(self) -> bool:
+        """True when the sampled SA is read from the index file; raises
+        when it is neither in memory nor backed by a file."""
         if self.dev.sampled_sa is not None:
-            return backtrace_resolve(self.dev, positions).cpu().numpy().astype(np.uint64)
+            return False
         if self.host_index is None or self.host_index.file_path is None:
             raise ValueError(
                 "suffix array not in memory and no backing file to read "
                 "from (build or load the index with a file_src)"
             )
+        return True
+
+    def _resolve(self, positions: torch.Tensor) -> np.ndarray:
+        if not self._sa_on_disk():
+            return backtrace_resolve(self.dev, positions).cpu().numpy().astype(np.uint64)
         p, off = backtrace_resolve(self.dev, positions)
         return self._resolve_from_file(p.cpu().numpy(), off.cpu().numpy())
 

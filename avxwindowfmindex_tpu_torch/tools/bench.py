@@ -37,7 +37,9 @@ not a measurement), and the line says so. Progress goes to stderr.
 
 Runs on ``--device cuda:0`` by default and raises when CUDA is absent;
 ``--device cpu`` runs every kernel's plain version, at a small size,
-for tests.
+for tests. ``--cache DIR`` warm-starts later runs from the index saved
+as an ``.awfmx`` artifact and the finished n-gram rows (the build is
+the step it skips; the seed table is rebuilt on the card).
 """
 
 from __future__ import annotations
@@ -108,6 +110,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="lanes of the gather-rate calibration walk")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one locate_all pass to DIR")
+    ap.add_argument("--cache", default=None, metavar="DIR",
+                    help="warm-start from DIR: the index as an .awfmx artifact and the "
+                         "n-gram rows as an .npz, written on the first run (bench.py's "
+                         "AWFM_BENCH_CACHE, same file names)")
     return ap.parse_args(argv)
 
 
@@ -492,16 +498,40 @@ def main(argv=None) -> int:
         kmer_length_in_seed_table=p.seed_k,
         alphabet_type=AlphabetType.DNA,
     )
-    _log(f"building index: {p.num_bases} bases, seed k={p.seed_k}, on {device}")
+    art_path = ng_cache_path = None
+    if args.cache:
+        # keyed as bench.py keys them: the artifact on every build input,
+        # the n-gram rows on what shapes them (corpus size, n, Cn bias)
+        os.makedirs(args.cache, exist_ok=True)
+        art_path = os.path.join(
+            args.cache,
+            f"b{p.num_bases}_k{p.seed_k}_r{cfg.suffix_array_compression_ratio}"
+            f"_d{p.device_sa_ratio}.awfmx",
+        )
+        ng_cache_path = os.path.join(args.cache, f"b{p.num_bases}_ng{p.ngram_n}_pb1.npz")
+    cached = bool(art_path) and os.path.exists(art_path)
     t0 = time.perf_counter()
-    index = create_index(
-        seq_arr.tobytes(), cfg, device_sa_ratio=p.device_sa_ratio or None, device=device
-    )
+    if cached:
+        from ..io.artifact import load_artifact
+
+        index = load_artifact(art_path, device=device)
+    else:
+        _log(f"building index: {p.num_bases} bases, seed k={p.seed_k}, on {device}")
+        index = create_index(
+            seq_arr.tobytes(), cfg, device_sa_ratio=p.device_sa_ratio or None, device=device
+        )
     dev = index.to_device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
-    _log(f"index built in {build_s:.2f}s")
+    _log(f"index loaded from cache in {build_s:.2f}s ({art_path})" if cached
+         else f"index built in {build_s:.2f}s")
+    if art_path and not cached:
+        from ..io.artifact import save_artifact
+
+        t0 = time.perf_counter()
+        save_artifact(index, art_path, compress=False)
+        _log(f"index cached in {time.perf_counter() - t0:.2f}s ({art_path})")
     dev_dense = None
     if index.device_sa is not None:
         # to_device prefers the dense SA; the protocol's view swaps the
@@ -514,7 +544,7 @@ def main(argv=None) -> int:
             ratio=int(cfg.suffix_array_compression_ratio),
         )
     t0 = time.perf_counter()
-    ng = build_ngram_device(index, p.ngram_n, device=device)
+    ng = build_ngram_device(index, p.ngram_n, device=device, cache_path=ng_cache_path)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     digram_build_s = time.perf_counter() - t0

@@ -87,6 +87,24 @@ Phases (any failure raises and the script exits nonzero):
      on ranges that straddle 2^32 against the plain version. (No text of
      4.3G bases is indexed: its suffix array on the host alone would
      outlast the script's time limit.)
+  7. the public API at full size, on the phase-4 index, each part's
+     launch counts reset before it and read after it: 7a, the index
+     saved as an .awfmx artifact without its seed table and loaded on the
+     card (K1 rebuilds the table, torch.equal to phase 4's; a
+     DigramSearchEngine over it gives phase 4's counts and hits), and
+     the 1M-base index saved with its table, whose load launches no K1;
+     7b, parallel_search_count / _locate of 65,536 25-mers and a
+     KmerSearchList round equal to SearchEngine's; 7c, the retrying
+     engine on phase 5's .awfmi with a RuntimeError injected on the
+     first call (one retry, one reload, equal answers) and on the 64M
+     index in shards of 2^18; 7d, the 64M text as 4 chunks of 2^24 bases
+     (overlap 255) served by digram engines, equal to phase 4's answers
+     and to the monolithic engine on 25-mers across each boundary, with
+     build and q/s beside the monolithic engine's; 7e, the query-parallel
+     engine over two parts on the card (or every card), count, locate
+     and count_replicated equal to phase 4's with K2 once a part and no
+     range copied to the host before K3, and its count over the
+     forced-wide view (K2w once a part).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
@@ -128,6 +146,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MAIN_SEED_K = 14
 KMER_LEN = 25
 QUERIES = 1 << 20
+CHUNK_BASES = 1 << 24  # phase 7d: 4 chunks of the 64M text
 MULTIHIT_LEN = 11
 MULTIHIT_QUERIES = 4096
 BENCH_MULTIHIT_QUERIES = 1 << 19  # bench.py's multi-hit stage below 1G bases
@@ -226,6 +245,23 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def expect_launches(tag: str, names, exact=None) -> dict:
+    """The launch counts since the last reset; fails when a kernel of
+    ``names`` was not launched, or launched other than ``exact[name]``
+    times."""
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    log(f"[{tag}] launches: { {n: c for n, c in launches.items() if c} }")
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"[{tag}] never launched {missing}")
+    for name, want in (exact or {}).items():
+        if launches[name] != want:
+            raise AssertionError(f"[{tag}] launched {name} {launches[name]} times, not {want}")
+    return launches
 
 
 class Record:
@@ -720,6 +756,7 @@ def phase_main(bases: int, device: str):
         return out, float(np.median(times)), times
 
     stats = {"build_s": build_s, "ngram_build_s": ngram_build_s}
+    answers = None  # the digram engine's (counts, lengths, flat hits), for phase 7
     for label, eng in (("digram", engine), ("single", single)):
         counts, count_s, count_times = timed(eng.count)
         hits, locate_s, locate_times = timed(eng.locate)
@@ -748,6 +785,8 @@ def phase_main(bases: int, device: str):
         if not (windows[flat] == kmer_ascii[qid]).all():
             raise AssertionError(f"{label}: locate returned a non-matching position")
         log(f"[4] {label} locate: {len(flat)} hits, every one matches its window")
+        if answers is None:
+            answers = (counts, lens, flat.astype(np.uint64))
         del hits, flat, qid
 
     # bench.py's assertion, on the card: digram ranges == single-step ranges
@@ -783,7 +822,7 @@ def phase_main(bases: int, device: str):
     )
     log(f"[4] peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     stats["multihit_qps"] = MULTIHIT_QUERIES / mh_s
-    return stats, engine, kmers, seq_arr, mh_kmers
+    return stats, engine, kmers, seq_arr, mh_kmers, answers
 
 
 def phase_main_shapes(rec: Record, engine, kmers) -> dict:
@@ -1264,12 +1303,8 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
         device=as_device(device), build_s=None, digram_build_s=None,
         t_start=time.time(),
     )
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    log(f"[6] launches in the bench protocol: {launches}")
-    missing = [k for k in ("k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges",
-                           "k5_gather_reduce", "k6_slab_gather") if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"the bench protocol never launched {missing}")
+    launches = expect_launches("6", ("k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges",
+                                     "k5_gather_reduce", "k6_slab_gather"))
     log(f"[6] meta: {json.dumps(meta)}")
     log(f"[6] headline: {json.dumps(headline)}")
     # a ceiling is a ceiling: with the masked walk and visit bytes in
@@ -1347,9 +1382,10 @@ def phase_bench(rec: Record, engine, kmers, seq_arr, device: str) -> dict:
 
 
 def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmers, seq_arr,
-                    device: str) -> dict:
+                    answers, device: str) -> dict:
     """Phase 4w: the 64-bit path at full width, on the phase-4 index as a
-    wide view, held equal to the narrow engine's answers."""
+    wide view, held equal to the narrow engines' answers (phase 4's for
+    the main batch)."""
     import numpy as np
     import torch
     from avxwindowfmindex_tpu_torch import SearchEngine, search
@@ -1407,19 +1443,19 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
             times.append(time.time() - t0)
         return out, float(np.median(times)), times
 
-    answers = {}
-    for label, eng in (("narrow", narrow), ("wide", wide)):
-        counts, count_s, count_times = timed(eng.count)
-        hits, locate_s, locate_times = timed(eng.locate)
-        stats[f"{label}_count_qps"] = QUERIES / count_s
-        stats[f"{label}_locate_qps"] = QUERIES / locate_s
-        log(f"[4w] {label} count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of "
-            f"{count_times} -> {QUERIES / count_s:.1f} q/s")
-        log(f"[4w] {label} locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of "
-            f"{locate_times} -> {QUERIES / locate_s:.1f} q/s")
-        answers[label] = (counts, np.array([len(h) for h in hits]), np.concatenate(hits))
-        del hits
-    (n_counts, n_lens, n_flat), (w_counts, w_lens, w_flat) = answers["narrow"], answers["wide"]
+    # the narrow answers are phase 4's (its digram and single-step engines
+    # gave the same, in the same order), timed there
+    w_counts, count_s, count_times = timed(wide.count)
+    hits, locate_s, locate_times = timed(wide.locate)
+    stats["wide_count_qps"] = QUERIES / count_s
+    stats["wide_locate_qps"] = QUERIES / locate_s
+    log(f"[4w] wide count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of "
+        f"{count_times} -> {QUERIES / count_s:.1f} q/s")
+    log(f"[4w] wide locate {QUERIES} x {KMER_LEN}-mers: median {locate_s:.4f}s of "
+        f"{locate_times} -> {QUERIES / locate_s:.1f} q/s")
+    w_lens, w_flat = np.array([len(h) for h in hits]), np.concatenate(hits)
+    del hits
+    n_counts, n_lens, n_flat = answers
     if not (np.array_equal(w_counts, n_counts) and np.array_equal(w_lens, n_lens)
             and np.array_equal(w_flat, n_flat)):
         raise AssertionError("wide count or locate differs from the narrow engine's")
@@ -1432,7 +1468,7 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
     if (flat > bases - KMER_LEN).any() or not (windows[flat] == kmer_ascii[qid]).all():
         raise AssertionError("wide locate returned a non-matching position")
     log("[4w] wide count spot check 32/32 exact vs host scan; every wide hit matches its window")
-    del flat, qid, answers
+    del flat, qid
 
     mh_n = narrow.locate(mh_kmers)
     t = time.time()
@@ -1463,13 +1499,8 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
     rec.compare("k3w_backtrace_resolve",
                 f"wide densify_device_sa(4) == the narrow one x{dense.sampled_sa.numel()}",
                 dense.sampled_sa, widen_u32(dense_narrow.sampled_sa))
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    log(f"[4w] wide densify_device_sa(4): {stats['wide_densify_s']:.4f}s; "
-        f"launches on the wide path: {launches}")
-    missing = [name for name in WIDE_PATH_KERNELS if launches[name] <= 0]
-    if missing:
-        raise AssertionError(f"the wide path never launched {missing}")
-    stats["launches"] = launches
+    log(f"[4w] wide densify_device_sa(4): {stats['wide_densify_s']:.4f}s")
+    stats["launches"] = expect_launches("4w", WIDE_PATH_KERNELS)
     del dense
 
     # each wide kernel against its plain version at this path's shapes
@@ -1624,8 +1655,9 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_roundtrip(index, text: bytes, device: str) -> None:
-    """Phase 5: .awfmi write, read back, equal counts and locates."""
+def phase_roundtrip(index, text: bytes, device: str) -> str:
+    """Phase 5: .awfmi write, read back, equal counts and locates. Returns
+    the file's path (phase 7c reloads from it)."""
     import numpy as np
     from avxwindowfmindex_tpu_torch import SearchEngine, read_index_from_file, write_index_to_file
 
@@ -1643,8 +1675,302 @@ def phase_roundtrip(index, text: bytes, device: str) -> None:
             raise AssertionError(f"round trip counts differ (SA in memory: {in_memory})")
         if not all((a == b).all() for a, b in zip(eng.locate(qs), want_l)):
             raise AssertionError(f"round trip locates differ (SA in memory: {in_memory})")
-    os.remove(path)
     log(f"[5] .awfmi round trip: {len(qs)} counts and locates equal (SA in memory and on disk)")
+    return path
+
+def same_locates(got, lens, flat) -> bool:
+    """``got`` (one hit array per query) equals phase 4's answers given as
+    per-query lengths and the flat hits."""
+    import numpy as np
+
+    return (len(got) == len(lens)
+            and np.array_equal(np.array([len(h) for h in got]), lens)
+            and np.array_equal(np.concatenate(got).astype(np.uint64), flat))
+
+
+def timed_call(fn, *args):
+    import torch
+
+    t = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def host_copies(fn, *args):
+    """``(fn(*args), copies)``: every copy of a CUDA tensor of more than
+    one element to the host during the call, as (elements, K3 launches so
+    far), so a caller can tell whether ranges left the card before the
+    backtrace."""
+    from unittest import mock
+
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    seen = []
+    real_cpu, real_to = torch.Tensor.cpu, torch.Tensor.to
+
+    def cpu(t, *a, **kw):
+        if t.is_cuda and t.numel() > 1:
+            seen.append((t.numel(), kernels.K3.launches))
+        return real_cpu(t, *a, **kw)
+
+    def to(t, *a, **kw):
+        out = real_to(t, *a, **kw)
+        if t.is_cuda and not out.is_cuda and t.numel() > 1:
+            seen.append((t.numel(), kernels.K3.launches))
+        return out
+
+    with mock.patch.object(torch.Tensor, "cpu", cpu), mock.patch.object(torch.Tensor, "to", to):
+        return fn(*args), seen
+
+
+def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: bytes,
+                     small_path: str, main: dict, device: str) -> dict:
+    """Phase 7: the public API at full size, on the phase-4 index (64M
+    bases, k = 14, ratio 8): .awfmx artifacts (7a), the batch API (7b),
+    the retrying engine (7c), the chunked corpus (7d) and the
+    query-parallel engine (7e); each part's launches reset before it and
+    read after it. ``main``: phase 4's stats, whose build time and API q/s
+    (same process) the chunked and query-parallel engines are set beside."""
+    import functools
+
+    import numpy as np
+    import torch
+    import avxwindowfmindex_tpu_torch as pt
+    from avxwindowfmindex_tpu_torch import build as build_mod
+    from avxwindowfmindex_tpu_torch.io import artifact
+    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.parallel import api, chunked, dist, reliability
+
+    index = engine.host_index
+    counts, lens, flat = answers
+    stats = {}
+    out_dir = os.path.dirname(small_path)
+
+    # 7a. artifacts: the 64M index without its seed table, rebuilt by K1
+    path = os.path.join(out_dir, "main.awfmx")
+    t = time.time()
+    artifact.save_artifact(index, path, compress=False)
+    stats["save_s"] = time.time() - t
+    stats["file_mb"] = os.path.getsize(path) / 1e6
+    rebuild = []
+    real_attach = build_mod.attach_seed_table
+
+    def timed_attach(idx, dev):
+        t0 = time.time()
+        real_attach(idx, dev)
+        torch.cuda.synchronize()
+        rebuild.append(time.time() - t0)
+
+    kernels.reset_launch_counts()
+    build_mod.attach_seed_table = timed_attach
+    try:
+        loaded, stats["load_s"] = timed_call(functools.partial(artifact.load_artifact, device=device),
+                                             path)
+    finally:
+        build_mod.attach_seed_table = real_attach
+    expect_launches("7a", ("k1_rank",))
+    stats["rebuild_s"] = rebuild[0]
+    with np.load(path) as z:
+        if "kmer_seed_table" in z:
+            raise AssertionError("the artifact of an index built on the card carries its seed table")
+    if not torch.equal(loaded._device_cache.seed_table, engine.dev.seed_table):
+        raise AssertionError("the seed table rebuilt by load_artifact differs from phase 4's")
+    log(f"[7a] save_artifact(compress=False) {stats['save_s']:.3f}s, {stats['file_mb']:.1f} MB "
+        f"without the seed table; load_artifact {stats['load_s']:.3f}s, of which the view and "
+        f"K1's BFS {stats['rebuild_s']:.3f}s; seed table torch.equal to phase 4's")
+    kernels.reset_launch_counts()
+    t = time.time()
+    dg = pt.DigramSearchEngine(loaded, device=device)
+    got_c = dg.count(kmers)
+    got_l = dg.locate(kmers)
+    if not (np.array_equal(got_c, counts) and same_locates(got_l, lens, flat)):
+        raise AssertionError("the loaded index's digram answers differ from phase 4's")
+    expect_launches("7a", ("k4_ngram_ranges", "k3_backtrace_resolve"))
+    log(f"[7a] DigramSearchEngine over the loaded index: {len(kmers)} counts and "
+        f"{len(flat)} hits equal to phase 4's ({time.time() - t:.3f}s with its n-gram table)")
+    del dg, got_l, loaded
+    os.remove(path)
+
+    small = os.path.join(out_dir, "small.awfmx")
+    artifact.save_artifact(small_index, small, pull_device_seed_table=True)
+    kernels.reset_launch_counts()
+    small_loaded = artifact.load_artifact(small, device=device)
+    if kernels.K1.launches:
+        raise AssertionError("a file that carries its seed table launched K1")
+    if not np.array_equal(small_loaded.kmer_seed_table, small_index.seed_table_host()):
+        raise AssertionError("the pulled seed table did not round-trip")
+    log("[7a] the 1M-base index saved with pull_device_seed_table=True loads with 0 K1 launches")
+    os.remove(small)
+    del small_loaded
+
+    # 7b. the batch API and the search-list shim on 65,536 of the 25-mers
+    sub = kmers[:1 << 16]
+    single = pt.SearchEngine(engine.dev, device=device)
+    want_c, want_l = single.count(sub), single.locate(sub)
+    kernels.reset_launch_counts()
+    got_c = pt.parallel_search_count(index, sub, device=device)
+    got_l = pt.parallel_search_locate(index, sub, num_threads=8, device=device)
+    if not (np.array_equal(got_c, want_c) and all(np.array_equal(a, b) for a, b in zip(got_l, want_l))
+            and len(got_l) == len(want_l)):
+        raise AssertionError("parallel_search_* differ from SearchEngine's")
+    if pt.parallel_search_count(index, [], device=device).shape != (0,) or \
+            pt.parallel_search_locate(index, [], device=device) != []:
+        raise AssertionError("an empty list must return an empty result")
+    slist = api.create_kmer_search_list(4096)
+    slist.set_kmers(sub[:4096])
+    slist.search_count(index, device=device)
+    slist.search_locate(index, device=device)
+    if not all(d.count == int(c) and np.array_equal(d.position_list, w)
+               for d, c, w in zip(slist.kmer_search_data, want_c, want_l)):
+        raise AssertionError("KmerSearchList differs from SearchEngine's")
+    expect_launches("7b", ("k2_ranges", "k3_backtrace_resolve"))
+    log(f"[7b] parallel_search_count / _locate of {len(sub)} 25-mers == SearchEngine's; empty "
+        f"list -> empty; a KmerSearchList round of {len(sub[:4096])} equal")
+    del got_l, want_l, slist
+
+    # 7c. the retrying engine: a fault injected on the first call, then
+    # the 64M index in shards of 2^18
+    class Flaky(pt.SearchEngine):
+        failures = 1
+
+        def count(self, kmers_):
+            if Flaky.failures:
+                Flaky.failures -= 1
+                raise RuntimeError("injected fault")
+            return super().count(kmers_)
+
+    rng = np.random.default_rng(71)
+    sm_q = [small_text[s : s + int(rng.integers(4, 20))]
+            for s in rng.integers(0, len(small_text) - 20, 4096)]
+    small_eng = pt.SearchEngine(small_index, device=device)
+    reloaded = pt.read_index_from_file(small_path)
+    kernels.reset_launch_counts()
+    rel = reliability.ReliableSearchEngine(
+        reloaded, shard_size=1024,
+        policy=reliability.RetryPolicy(max_attempts=3, backoff_seconds=0.0),
+        engine_factory=functools.partial(Flaky, device=device),
+    )
+    got = rel.count(sm_q)
+    if not np.array_equal(got, small_eng.count(sm_q)):
+        raise AssertionError("the retried counts differ")
+    if rel.stats != {"shards": 4, "retries": 1, "reloads": 1} or rel.index is reloaded:
+        raise AssertionError(f"retry statistics {rel.stats}")
+    expect_launches("7c", ("k2_ranges",))
+    log(f"[7c] a RuntimeError on the first shard: retried after a reload from {small_path}, "
+        f"answers equal, stats {rel.stats}")
+    n_shards = -(-len(kmers) // (1 << 18))
+    kernels.reset_launch_counts()
+    rel = reliability.ReliableSearchEngine(index, shard_size=1 << 18, device=device)
+    (got_c, got_l), rel_s = timed_call(lambda: (rel.count(kmers), rel.locate(kmers)))
+    if not (np.array_equal(got_c, counts) and same_locates(got_l, lens, flat)):
+        raise AssertionError("the sharded retrying engine's answers differ from phase 4's")
+    if rel.stats != {"shards": 2 * n_shards, "retries": 0, "reloads": 0}:
+        raise AssertionError(f"retry statistics {rel.stats}")
+    expect_launches("7c", ("k2_ranges", "k3_backtrace_resolve"),
+                    exact={"k2_ranges": 2 * n_shards, "k3_backtrace_resolve": n_shards})
+    log(f"[7c] ReliableSearchEngine, shards of 2^18: {len(kmers)} counts and locates equal to "
+        f"phase 4's in {rel_s:.3f}s, stats {rel.stats}")
+    del got_l, rel, small_eng, reloaded
+    os.remove(small_path)
+
+    # 7d. the chunked corpus: chunks of 2^24 bases, overlap 255, digram engines
+    boundaries = list(range(CHUNK_BASES, len(seq_arr), CHUNK_BASES))
+    kernels.reset_launch_counts()
+    t = time.time()
+    chunks = chunked.ChunkedCorpusIndex.build(
+        seq_arr, index.config, chunk_bases=CHUNK_BASES, overlap=255,
+        engine_factory=functools.partial(pt.DigramSearchEngine, device=device), device=device,
+    )
+    torch.cuda.synchronize()
+    stats["chunked_build_s"] = time.time() - t
+    if chunks.num_chunks != len(boundaries) + 1 or len(chunks.junction_texts) != len(boundaries):
+        raise AssertionError(f"{chunks.num_chunks} chunks, {len(chunks.junction_texts)} junctions")
+    ch_c, stats["chunked_count_s"] = timed_call(chunks.count, kmers)
+    ch_l, stats["chunked_locate_s"] = timed_call(chunks.locate, kmers)
+    if not np.array_equal(ch_c, counts):
+        raise AssertionError("chunked counts differ from phase 4's")
+    # phase 4's hits per query are in range order; the chunked merge sorts them
+    order = np.concatenate([np.sort(h) for h in np.split(flat, np.cumsum(lens)[:-1])])
+    if not same_locates(ch_l, lens, order):
+        raise AssertionError("chunked locates differ from phase 4's")
+    del ch_l, order
+    rng = np.random.default_rng(72)
+    cross = [seq_arr[s : s + KMER_LEN].tobytes()
+             for b in boundaries for s in rng.integers(b - KMER_LEN + 1, b, 4096)]
+    want_c, want_l = engine.count(cross), engine.locate(cross)
+    got_c, got_l = chunks.count(cross), chunks.locate(cross)
+    if not (np.array_equal(got_c, want_c) and all(
+            np.array_equal(a, np.sort(b)) for a, b in zip(got_l, want_l))):
+        raise AssertionError("chunked answers across the boundaries differ from the monolithic engine's")
+    expect_launches("7d", ("k1_rank", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges"))
+    log(f"[7d] chunked corpus: {chunks.num_chunks} chunks of {CHUNK_BASES} + 255 bases, digram "
+        f"engines, built in {stats['chunked_build_s']:.3f}s (phase 4's monolithic index and n-gram "
+        f"table: {main['build_s'] + main['ngram_build_s']:.3f}s); {len(kmers)} counts and locates "
+        f"equal to phase 4's, "
+        f"{len(cross)} 25-mers across the {len(boundaries)} boundaries equal to the monolithic "
+        f"engine's")
+    for op in ("count", "locate"):
+        log(f"[7d] {op} {len(kmers)} x {KMER_LEN}-mers: chunked {stats[f'chunked_{op}_s']:.3f}s "
+            f"-> {len(kmers) / stats[f'chunked_{op}_s']:.1f} q/s; the monolithic "
+            f"DigramSearchEngine (phase 4's median) {main[f'digram_{op}_qps']:.1f} q/s")
+    del chunks
+    torch.cuda.empty_cache()
+
+    # 7e. the query-parallel engine: every card, or two parts on the one card
+    devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+               if torch.cuda.device_count() > 1 else [device, device])
+    par = dist.DistributedSearchEngine(index, devices)
+    n_part = len(devices)
+    kernels.reset_launch_counts()
+    got_c, stats["dist_count_s"] = timed_call(par.count, kmers)
+    expect_launches("7e", ("k2_ranges",), exact={"k2_ranges": n_part})
+    kernels.reset_launch_counts()
+    (got_l, host_reads), first_s = timed_call(host_copies, par.locate, kmers)
+    expect_launches("7e", ("k2_ranges", "k3_backtrace_resolve"),
+                    exact={"k2_ranges": n_part, "k3_backtrace_resolve": n_part})
+    early = [c for c in host_reads if c[1] < n_part]
+    if early or not host_reads:
+        raise AssertionError(f"locate copied {early or 'nothing'} to the host before every "
+                             f"part's K3 had launched; only hits and counts may come back")
+    # phase 4's medians follow a warm-up call: time a second call beside them
+    again, stats["dist_locate_s"] = timed_call(par.locate, kmers)
+    if not same_locates(again, lens, flat):
+        raise AssertionError("the query-parallel engine's second locate differs from phase 4's")
+    del again
+    kernels.reset_launch_counts()
+    rep_c, stats["dist_count_replicated_s"] = timed_call(par.count_replicated, kmers)
+    expect_launches("7e", ("k2_ranges",), exact={"k2_ranges": n_part})
+    if not (np.array_equal(got_c, counts) and np.array_equal(rep_c, counts)
+            and same_locates(got_l, lens, flat)):
+        raise AssertionError("the query-parallel engine's answers differ from phase 4's")
+    copies = list(par.replicated_counts.values())
+    if not all(torch.equal(c.cpu(), copies[0].cpu()) for c in copies):
+        raise AssertionError("the replicated counts differ between devices")
+    del got_l
+    log(f"[7e] DistributedSearchEngine over {devices}: count, locate and count_replicated of "
+        f"{len(kmers)} 25-mers equal to phase 4's; K2 once a part; locate copied "
+        f"{len(host_reads)} tensors to the host, all after the last part's K3 "
+        f"(elements {[c[0] for c in host_reads]}); its first call {first_s:.3f}s")
+    for op in ("count", "locate"):
+        log(f"[7e] {op}: {n_part} parts {stats[f'dist_{op}_s']:.3f}s -> "
+            f"{len(kmers) / stats[f'dist_{op}_s']:.1f} q/s; SearchEngine (phase 4's median) "
+            f"{main[f'single_{op}_qps']:.1f} q/s")
+    log(f"[7e] count_replicated: {stats['dist_count_replicated_s']:.3f}s -> "
+        f"{len(kmers) / stats['dist_count_replicated_s']:.1f} q/s")
+    del par
+    wide_view = index.to_device(device, wide=True)
+    wpar = dist.DistributedSearchEngine(wide_view, devices)
+    kernels.reset_launch_counts()
+    got_c, stats["dist_wide_count_s"] = timed_call(wpar.count, kmers)
+    expect_launches("7e", ("k2w_ranges",), exact={"k2w_ranges": n_part})
+    if not np.array_equal(got_c, counts):
+        raise AssertionError("the query-parallel engine's wide counts differ from narrow")
+    log(f"[7e] the same over the forced-wide view: {len(kmers)} counts equal to narrow, "
+        f"K2w once a part, {stats['dist_wide_count_s']:.3f}s")
+    del wpar, wide_view
+    return stats
 
 
 def main(argv=None) -> int:
@@ -1679,16 +2005,12 @@ def main(argv=None) -> int:
     mark("phase 3b")
 
     kernels.reset_launch_counts()
-    main_stats, engine, kmers, seq_arr, mh_kmers = phase_main(args.bases, device)
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    log(f"[4] launches on the main path: {launches}")
-    missing = [name for name in MAIN_PATH_KERNELS if launches[name] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    main_stats, engine, kmers, seq_arr, mh_kmers, answers = phase_main(args.bases, device)
+    launches = expect_launches("4", MAIN_PATH_KERNELS)
     main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
     mark("phase 4")
 
-    phase_roundtrip(small_index, small_text, device)
+    small_path = phase_roundtrip(small_index, small_text, device)
     bench_stats = phase_bench(rec, engine, kmers, seq_arr, device)
     for name in BENCH_KERNELS:
         launches[name] = bench_stats["launches"][name]
@@ -1701,17 +2023,24 @@ def main(argv=None) -> int:
     mark("phase 4s")
 
     wide_stats = phase_wide_main(
-        rec, engine.host_index, engine.dev, bench_stats["dense"], kmers, mh_kmers, seq_arr, device
+        rec, engine.host_index, engine.dev, bench_stats["dense"], kmers, mh_kmers, seq_arr,
+        answers, device,
     )
     wide_launches = wide_stats.pop("launches")
     for name in WIDE_PATH_KERNELS:
         launches[name] = wide_launches[name]
     main_stats["wide"] = wide_stats
-    del engine, kmers, mh_kmers, bench_stats["dense"]
+    del mh_kmers, bench_stats["dense"]
     torch.cuda.empty_cache()
     mark("phase 4w")
     phase_straddle(rec, device)
     mark("phase 4x")
+    main_stats["public_api"] = phase_public_api(
+        engine, kmers, seq_arr, answers, small_index, small_text, small_path, main_stats, device,
+    )
+    del engine, kmers, answers
+    torch.cuda.empty_cache()
+    mark("phase 7")
     torch.cuda.synchronize()
 
     # logged, not in the kernels line: each index kernel's row visits over

@@ -473,6 +473,31 @@ def test_bench_end_to_end_on_cpu(capsys):
     assert "multihit spot check: 64/64 sound" in captured.err
 
 
+def test_bench_cache_warm_start_on_cpu(tmp_path, capsys):
+    """--cache DIR: the first run builds and writes the .awfmx artifact and
+    the n-gram rows under bench.py's AWFM_BENCH_CACHE names; the second
+    loads both and every stage finds the same hits."""
+    argv = ["--device", "cpu", "--bases", "100000", "--queries", "2048", "--runs", "1",
+            "--seed-k", "5", "--multihit-queries", "256", "--calib-batch", "256",
+            "--chunk-q", "1024", "--cache", str(tmp_path)]
+    metas = []
+    for _ in range(2):
+        assert pbench.main(argv) == 0
+        captured = capsys.readouterr()
+        metas.append((json.loads(captured.out.splitlines()[0])["meta"], captured.err))
+    assert sorted(os.listdir(tmp_path)) == ["b100000_k5_r8_d4.awfmx", "b100000_ng2_pb1.npz"]
+    (first, err1), (second, err2) = metas
+    assert "index built in" in err1 and "index cached in" in err1
+    assert "index loaded from cache in" in err2 and "index built in" not in err2
+    for key in ("num_queries", "seed_k", "device_sa_ratio", "total_hits", "multihit_kmer_len",
+                "multihit_total_hits", "multihit_hits_per_query"):
+        assert second[key] == first[key], key
+    for err in (err1, err2):
+        assert "cross-engine parity: single-step == n-gram" in err
+        assert "count spot check: 32/32 exact" in err
+        assert "multihit spot check: 64/64 sound" in err
+
+
 def test_gather_probe_cli_on_cpu(capsys):
     assert pprobe_cli.main(["--device", "cpu", "--table-bytes", "65536", "--batch", "1024",
                             "--iters", "1", "--reps", "1"]) == 0

@@ -180,12 +180,10 @@ def test_create_initial_query_range(both):
 
 
 def test_top_level_exports_match_the_jax_package():
-    """Everything the JAX package exports, the port exports too, apart from
-    the wrappers and the artifact serde that are still to be ported."""
-    later = {"parallel_search_count", "parallel_search_locate", "save_artifact",
-             "load_artifact", "chunked_corpus_index"}
-    assert set(jx.__all__) - set(pt.__all__) == later
-    for name in set(jx.__all__) - later:
+    """Everything the JAX package exports, the port exports too (the batch
+    API, the artifact serde and the chunked corpus included)."""
+    assert set(jx.__all__) - set(pt.__all__) == set()
+    for name in jx.__all__:
         assert hasattr(pt, name), name
     for name in ("CURRENT_VERSION_NUMBER", "NUCLEOTIDE_CARDINALITY", "AMINO_CARDINALITY",
                  "POSITIONS_PER_BLOCK"):

@@ -113,6 +113,8 @@ def test_import_leaves_jax_out():
         "import sys, avxwindowfmindex_tpu_torch\n"
         "from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table\n"
         "from avxwindowfmindex_tpu_torch.models import convert\n"
+        "from avxwindowfmindex_tpu_torch.io import artifact\n"
+        "from avxwindowfmindex_tpu_torch.parallel import api, chunked, dist, reliability\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('avxwindowfmindex_tpu.') or m == 'avxwindowfmindex_tpu'"
         " for m in sys.modules), 'JAX package imported'\n"
@@ -123,6 +125,15 @@ def test_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_public_surface_covers_the_jax_package():
+    """Every name of the JAX package's __all__ is in the port's, bound to
+    something, and the two packages carry one version."""
+    missing = sorted(set(jx.__all__) - set(pt.__all__))
+    assert not missing, missing
+    assert all(hasattr(pt, name) for name in pt.__all__)
+    assert pt.__version__ == jx.__version__
 
 
 def test_chip_smoke_refuses_without_cuda():
