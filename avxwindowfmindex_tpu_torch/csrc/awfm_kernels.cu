@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Seven kernels, each a chain of dependent random row loads from device
+// Nine kernels, each a chain of dependent random row loads from device
 // memory (a 128 B block row or a 256 B pair row for nucleotides, 256 B /
 // 512 B for amino, a 384 B / 768 B n-gram pair row for n = 2 / 3) followed
 // by a few dozen integer operations and __popc. The card moves memory in
@@ -14,7 +14,39 @@
 //       block row itself. occ(l, p) = milestone[l] + popcount(match(code(l))
 //       & inclusive_mask(p % 256)); the LF mode returns the letter at p and
 //       LF = C[l] + occ(l, p) - 1, sentinel -> 0, through the same LF step
-//       as K3 (BlockRow). One thread per item.
+//       as K3 (BlockRow). One thread per item. It serves the single-query
+//       API and the comparisons; the seed-table BFS takes K1X.
+//   K1X awfm_k1_extend
+//       K1's level-extend form: one depth of the seed-table BFS
+//       (ops/seed_table.py; the JAX package runs rank_pallas.py's kernel
+//       under ops/seed_table.py:_extend_all_letters). Every parent range
+//       (start, end) of the level is stepped by every letter without a
+//       validity check: child l * n + i = (C[l] + occ(l, start - 1),
+//       C[l] + occ(l, end) - 1), mod 2^32.
+//       What bounds it on this card: at k = 14 and 64M bases the BFS holds
+//       89M parents and writes 358M children (2.86 GB): 1.11 ms of bytes.
+//       A level is in lexicographic order, so its ranges are the BWT cut
+//       into consecutive pieces: neighbouring parents share their block
+//       rows, and the rows cost little. What is left is integer work, a
+//       match and a count a letter and a position. K1's occ mode in a
+//       per-letter loop took one launch a letter and a chunk (124 at
+//       k = 14) and some fifteen int64 torch passes around each: 90-98 ms
+//       for the BFS, of which its launches 7.7 ms at the deepest depth.
+//       What the design does about it: one launch a depth; a warp takes
+//       31 consecutive parents and each lane counts every letter at ONE
+//       position, the end of the parent before its own (lane 0: its
+//       parent's start - 1), so each lane's end counts arrive from the next
+//       lane by shuffle and its start counts are its own; a parent whose
+//       start - 1 is not that end (the first of a letter's block, or a
+//       table that is no BFS level) counts it itself. A count reads the
+//       row's plane words and milestones once, forms the masks of its
+//       local position once, and matches each letter with a compile-time
+//       code (one LOP3 a word over three planes). Parents are read
+//       evict-first and children stored streaming, a warp's 31 children
+//       of a letter one run. 2.15 ms for the k = 14 BFS (depth 13: 1.19 ms
+//       for 67M parents, 0.80 ms of bytes), from 4.19 ms for a first form
+//       of one thread a parent that counted both ends (H100 80GB HBM3,
+//       700 W); the compile-time codes alone gave 7% of that.
 //   K2 awfm_k2_ranges
 //       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
 //       backward_step and backward_step_pair, and the flag-and-rerun protocol
@@ -113,8 +145,8 @@
 //       addresses, and there is no matrix product for wgmma.
 //
 //   K1w awfm_k1w_occ / awfm_k1w_letter_lf, K2w awfm_k2w_ranges,
-//   K3w awfm_k3w_backtrace_resolve
-//       The 64-bit instantiations of K1, K2 and K3, for indexes of 2^32
+//   K3w awfm_k3w_backtrace_resolve, K1WX awfm_k1w_extend
+//       The 64-bit instantiations of K1, K2, K3 and K1X, for indexes of 2^32
 //       positions and more. They replace the second engine the JAX package
 //       keeps for that case (ops/rank64.py: occurrence64, letter_and_lf_at64,
 //       backward_step64, backward_step64_pair; search64.py: ranges64 with its
@@ -127,7 +159,9 @@
 //       nucleotide, 512 B amino): a step reads it by window class, as the
 //       narrow step reads the pair row, and a single rank reads its
 //       first-block half (the first 32 B of each 64 B plane, then the
-//       milestone). Bound like K1-K3 by dependent random row loads, from a
+//       milestone; K1WX counts over that half of a row, as K1X over a
+//       block row, and replaces search64.py:_extend_level_chunked's
+//       backward_step64). Bound like K1-K3 by dependent random row loads, from a
 //       table twice as large as the narrow block rows: it outgrows the L2,
 //       and the walk is bound by the 64 B pieces device memory moves. K2w
 //       takes K2's design whole. K3w keeps one thread per hit and the LF
@@ -703,6 +737,180 @@ __global__ void k1_letter_lf_kernel(AwfmTables t,
   letters_out[i] = static_cast<int32_t>(lett);
 }
 
+// K1X / K1WX: one depth of the seed-table BFS (module note). The letter
+// count of an alphabet by its plane count: 4 nucleotides over 3 planes,
+// 20 amino acids over 5.
+template <int NP>
+struct Card {
+  static constexpr int value = NP == 3 ? 4 : 20;
+};
+
+// The plane code of letter l < card, as the two alphabets fix it
+// (models/alphabet.py: NT_INDEX_TO_VECTOR, AA_INDEX_TO_VECTOR; the .awfmi
+// layout). A constant once the letter loop is unrolled, so that a letter's
+// match word is one LOP3 over three planes (two over five);
+// launch_k1_extend refuses a table whose codes differ.
+template <int NP>
+__host__ __device__ constexpr uint32_t letter_code_of(int l) {
+  if constexpr (NP == 3) {
+    return l == 0 ? 6u : (l == 1 ? 5u : (l == 2 ? 3u : 1u));
+  } else {
+    switch (l) {
+      case 0: return 0x0Cu;  case 1: return 0x17u;  case 2: return 0x03u;
+      case 3: return 0x06u;  case 4: return 0x1Eu;  case 5: return 0x1Au;
+      case 6: return 0x1Bu;  case 7: return 0x19u;  case 8: return 0x15u;
+      case 9: return 0x1Cu;  case 10: return 0x1Du; case 11: return 0x08u;
+      case 12: return 0x09u; case 13: return 0x04u; case 14: return 0x13u;
+      case 15: return 0x0Au; case 16: return 0x05u; case 17: return 0x16u;
+      case 18: return 0x01u; default: return 0x02u;
+    }
+  }
+}
+
+// The milestones of the card letters of one row. A nucleotide row's four
+// are loaded up front as one or two 16 B vectors, beside the planes; an
+// amino row's twenty (80 B or 160 B) would hold as many registers as its
+// planes, so they are loaded one letter at a time, as they are used.
+template <class P, int NP>
+struct RowMilestones {
+  static constexpr bool kUpFront = NP == 3;
+  static constexpr int kVec = kUpFront ? Card<NP>::value * static_cast<int>(sizeof(P)) / 16 : 1;
+  uint4 v[kVec];
+  const P* ms;
+
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    ms = reinterpret_cast<const P*>(p);
+    if constexpr (kUpFront) {
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) v[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    }
+  }
+
+  // the milestone of letter l (a constant once the letter loop is unrolled)
+  __device__ __forceinline__ P operator[](int l) const {
+    if constexpr (!kUpFront) {
+      return ms[l];
+    } else if constexpr (sizeof(P) == 4) {
+      const uint4 q = v[l / 4];
+      return l % 4 == 0 ? q.x : (l % 4 == 1 ? q.y : (l % 4 == 2 ? q.z : q.w));
+    } else {
+      const uint4 q = v[l / 2];
+      return l % 2 == 0 ? (static_cast<uint64_t>(q.y) << 32) | q.x
+                        : (static_cast<uint64_t>(q.w) << 32) | q.z;
+    }
+  }
+};
+
+// occ(l, pos) of every letter l < card, inclusive, from pos's block row
+// under G's block-index rule (occ_at's counts, exactly): the row's plane
+// words and milestones are loaded once, the inclusive masks of pos's local
+// position formed once, and each letter costs one match (a LOP3 a word)
+// and one masked count.
+template <class G, int NP>
+__device__ __forceinline__ void counts_at(const AwfmTables& t, typename G::pos_t pos,
+                                          typename G::pos_t (&occ)[Card<NP>::value]) {
+  using pos_t = typename G::pos_t;
+  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
+  uint32_t x[NP][8];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) load_words<8>(row + i * G::kStride, x[i]);
+  RowMilestones<pos_t, NP> ms;
+  ms.load(row + NP * G::kStride);
+  const uint32_t local = static_cast<uint32_t>(pos) & 255u;
+  const uint32_t lw = local >> 5;
+  const uint32_t low = (2u << (local & 31u)) - 1u;  // 2u << 31 wraps to 0
+  uint32_t mask[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint32_t uw = static_cast<uint32_t>(w);
+    mask[w] = uw < lw ? 0xFFFFFFFFu : (uw == lw ? low : 0u);
+  }
+#pragma unroll
+  for (int l = 0; l < Card<NP>::value; ++l) {
+    const uint32_t code = letter_code_of<NP>(l);
+    uint32_t c = 0u;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      uint32_t d = 0u;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) d |= x[i][w] ^ (((code >> i) & 1u) ? 0xFFFFFFFFu : 0u);
+      c += __popc(~d & mask[w]);
+    }
+    occ[l] = ms[l] + c;
+  }
+}
+
+// A (start, end) pair of the seed table at index j, read once (evict-first)
+// or written once (streaming).
+template <class P>
+__device__ __forceinline__ void load_pair(const P* table, int64_t j, P& start, P& end) {
+  if constexpr (sizeof(P) == 4) {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(table) + j);
+    start = v.x;
+    end = v.y;
+  } else {
+    const ulonglong2 v = __ldcs(reinterpret_cast<const ulonglong2*>(table) + j);
+    start = v.x;
+    end = v.y;
+  }
+}
+
+template <class P>
+__device__ __forceinline__ void store_pair(P* table, int64_t j, P start, P end) {
+  if constexpr (sizeof(P) == 4) {
+    __stcs(reinterpret_cast<uint2*>(table) + j, make_uint2(start, end));
+  } else {
+    __stcs(reinterpret_cast<ulonglong2*>(table) + j,
+           make_ulonglong2(static_cast<unsigned long long>(start),
+                           static_cast<unsigned long long>(end)));
+  }
+}
+
+constexpr int kExtendParents = 31;  // parents a warp of K1X: lane 31 only counts
+
+// A warp steps kExtendParents consecutive parents of the n in `table` by
+// every letter, without a validity check (absent k-mers keep their
+// stepped-through start > end): child l * n + i = (C[l] + occ(l, start_i -
+// 1), C[l] + occ(l, end_i) - 1). A BFS level is in lexicographic order, so
+// within a letter's block of it the ranges tile the BWT, start_i - 1 ==
+// end_{i-1}: lane j counts every letter at one position q_j, the start - 1
+// of the warp's first parent for lane 0 and end_{j-1} for the others,
+// takes its end counts from lane j + 1 (q_{j+1} = end_j) and its start
+// counts from its own, and counts start - 1 itself only when it differs
+// from q_j (a parent that does not follow its neighbour: the first of a
+// letter's block, or any table that is no BFS level). So a parent costs one
+// row visit and one count per letter, where stepping its two ends costs
+// two.
+template <class G, int NP>
+__global__ void __launch_bounds__(kThreads)
+k1_extend_kernel(AwfmTables t, const typename G::pos_t* __restrict__ table,
+                 int64_t n, typename G::pos_t* __restrict__ nxt) {
+  using pos_t = typename G::pos_t;
+  constexpr int kCard = Card<NP>::value;
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int64_t warp = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  if (warp * kExtendParents >= n) return;  // the same in every lane of the warp
+  const uint32_t lane = threadIdx.x & 31u;
+  const int64_t i = warp * kExtendParents + lane;
+  const bool live = lane < static_cast<uint32_t>(kExtendParents) && i < n;
+  pos_t start = 0, end = 0;
+  if (live) load_pair(table, i, start, end);
+  const pos_t prev_end = __shfl_up_sync(kAll, end, 1);
+  const pos_t q = lane == 0u ? start - 1u : prev_end;
+  pos_t occ_q[kCard];
+  counts_at<G, NP>(t, q, occ_q);
+  pos_t occ_e[kCard];
+#pragma unroll
+  for (int l = 0; l < kCard; ++l) occ_e[l] = __shfl_down_sync(kAll, occ_q[l], 1);
+  if (!live) return;
+  if (start - 1u != q) counts_at<G, NP>(t, start - 1u, occ_q);
+  const pos_t* c = static_cast<const pos_t*>(t.prefix_sums);
+#pragma unroll
+  for (int l = 0; l < kCard; ++l) {
+    store_pair<pos_t>(nxt, l * n + i, c[l] + occ_q[l], c[l] + occ_e[l] - 1u);
+  }
+}
+
 constexpr int kK2Group = 2;  // lanes per query in K2 and K2w
 
 // GL neighbouring lanes walk one query right to left; LW as in QueryRow.
@@ -971,6 +1179,33 @@ int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether the table's letter codes are the ones K1X is compiled for.
+template <int NP>
+bool letter_codes_match(const AwfmTables* t) {
+  for (int l = 0; l < Card<NP>::value; ++l) {
+    const uint32_t byte = static_cast<uint32_t>(t->letter_code[l / 8] >> (8 * (l % 8))) & 255u;
+    if (byte != letter_code_of<NP>(l)) return false;
+  }
+  return true;
+}
+
+template <class G>
+int launch_k1_extend(int device, const AwfmTables* t,
+                     const typename G::pos_t* table, int64_t n,
+                     typename G::pos_t* nxt, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned int grid = grid_for((n + kExtendParents - 1) / kExtendParents * 32);
+  if (t->n_planes == 3 && t->card == Card<3>::value && letter_codes_match<3>(t)) {
+    k1_extend_kernel<G, 3><<<grid, kThreads, 0, stream>>>(*t, table, n, nxt);
+  } else if (t->n_planes == 5 && t->card == Card<5>::value && letter_codes_match<5>(t)) {
+    k1_extend_kernel<G, 5><<<grid, kThreads, 0, stream>>>(*t, table, n, nxt);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class G, int NP, int LW>
 void launch_k2_form(const AwfmTables* t, const typename G::pos_t* seed_table,
                     int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
@@ -1127,6 +1362,16 @@ int awfm_k1w_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                        cudaStream_t stream) {
   return launch_k1_letter_lf<Wide>(device, t, pos, n, letters_out, lf_out,
                                    stream);
+}
+
+int awfm_k1_extend(int device, const AwfmTables* t, const uint32_t* table,
+                   int64_t n, uint32_t* nxt, cudaStream_t stream) {
+  return launch_k1_extend<Narrow>(device, t, table, n, nxt, stream);
+}
+
+int awfm_k1w_extend(int device, const AwfmTables* t, const uint64_t* table,
+                    int64_t n, uint64_t* nxt, cudaStream_t stream) {
+  return launch_k1_extend<Wide>(device, t, table, n, nxt, stream);
 }
 
 int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,

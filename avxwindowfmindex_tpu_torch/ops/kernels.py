@@ -94,7 +94,17 @@ K3W = Kernel(
     "k3w_backtrace_resolve", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/search64.py:473",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W)
+# K1's level-extend form, one launch a depth of the seed-table BFS, with
+# launch counts of its own (the BFS's rows apart from the occ mode's)
+K1X = Kernel(
+    "k1_extend", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/ops/seed_table.py:49",
+)
+K1WX = Kernel(
+    "k1w_extend", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/search64.py:564",
+)
+KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX)
 
 
 def reset_launch_counts() -> None:
@@ -200,6 +210,7 @@ def build() -> float:
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.awfm_k1_occ.argtypes = [i32, tables_p, vp, vp, i64, vp, vp]
         lib.awfm_k1_letter_lf.argtypes = [i32, tables_p, vp, i64, vp, vp, vp]
+        lib.awfm_k1_extend.argtypes = [i32, tables_p, vp, i64, vp, vp]
         lib.awfm_k2_ranges.argtypes = [
             i32, tables_p, vp, i64, i32, vp, i64, i64, vp, vp, vp, vp, vp,
         ]
@@ -210,6 +221,7 @@ def build() -> float:
         u64 = ctypes.c_uint64
         lib.awfm_k1w_occ.argtypes = lib.awfm_k1_occ.argtypes
         lib.awfm_k1w_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
+        lib.awfm_k1w_extend.argtypes = lib.awfm_k1_extend.argtypes
         lib.awfm_k2w_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k3w_backtrace_resolve.argtypes = [
             i32, tables_p, vp, i64, u64, u64, vp, vp, vp, vp, vp,
@@ -225,9 +237,9 @@ def build() -> float:
         lib.awfm_k6_slab_gather.argtypes = [i32, vp, i64, vp, i64, vp, vp]
         lib.awfm_k6_slab_chain.argtypes = [i32, vp, i64, vp, i64, i32, vp, vp]
         for fn in (
-            lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k2_ranges,
+            lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k1_extend, lib.awfm_k2_ranges,
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
-            lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k2w_ranges,
+            lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
             lib.awfm_k3w_backtrace_resolve,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
             lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
@@ -317,10 +329,10 @@ def _stream(device) -> int:
 
 
 def _entry(dev, kernel: Kernel, suffix: str):
-    """(C entry point, its name, its Kernel) of K1, K2 or K3 for the
+    """(C entry point, its name, its Kernel) of K1, K2, K3 or K1X for the
     view's width: ``awfm_k1_occ`` and K1, or ``awfm_k1w_occ`` and K1W."""
     if dev.wide:
-        kernel = {K1: K1W, K2: K2W, K3: K3W}[kernel]
+        kernel = {K1: K1W, K2: K2W, K3: K3W, K1X: K1WX}[kernel]
     name = f"awfm_{kernel.name.split('_')[0]}_{suffix}"
     return getattr(_library(), name), name, kernel
 
@@ -369,6 +381,34 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     _check(rc, name)
     kernel.launches += 1
     return letters, lf
+
+
+def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
+    """K1X (K1WX for a wide view): one depth of the seed-table BFS. The
+    (card * n, 2) children of the (n, 2) parent ranges ``table``, in the
+    view's storage type (u32 in int32, u64 in int64): child ``l * n + i``
+    is parent i stepped by letter l, unconditionally."""
+    tables = _tables(dev)
+    device = dev.packed.device
+    _require(table, "table", _pos_dtype(dev), device)
+    if table.dim() != 2 or table.shape[1] != 2:
+        raise ValueError(f"table must be (n, 2), got {tuple(table.shape)}")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    card = dev.cardinality
+    if card != {3: 4, 5: 20}.get(dev.n_planes):
+        raise ValueError(f"K1X takes 4 letters over 3 planes or 20 over 5, "
+                         f"not {card} over {dev.n_planes}")
+    n = table.shape[0]
+    nxt = torch.empty((card * n, 2), dtype=table.dtype, device=device)
+    if n == 0:
+        return nxt
+    fn, name, kernel = _entry(dev, K1X, "extend")
+    rc = fn(device.index, ctypes.byref(tables), table.data_ptr(), n, nxt.data_ptr(),
+            _stream(device))
+    _check(rc, name)
+    kernel.launches += 1
+    return nxt
 
 
 def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tensor):

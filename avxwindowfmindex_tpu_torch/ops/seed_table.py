@@ -10,10 +10,16 @@ unconditional (``backward_step(check_valid=False)``), so absent k-mers
 keep the stepped-through ``start > end`` values the reference stores
 and the ``.awfmi`` bytes depend on.
 
-Each depth is stepped in chunks of ``chunk`` ranges per letter, written
-straight into the next level's (n, 2) table, so the temporaries stay a
-few hundred MB even at k = 14 (4^14 ranges, a 2.1 GiB table; 4.3 GiB
-of int64 pairs for a wide view).
+One depth is :func:`extend_level`: on the card one launch of K1X (K1WX
+for a wide view, ``ops/kernels.py:k1_extend``), which reads each parent
+range once, counts every letter at one position a parent (a level's
+ranges are consecutive pieces of the BWT, so a parent's ``start - 1`` is
+its neighbour's ``end``) and writes the children in place; for a CPU
+table its plain version, :func:`extend_level_plain`. That one steps the
+level in chunks of ``chunk`` ranges per letter, written straight into
+the next level's (n, 2) table, so the temporaries stay a few hundred MB
+even at k = 14 (4^14 ranges, a 2.1 GiB table; 4.3 GiB of int64 pairs
+for a wide view).
 """
 
 from __future__ import annotations
@@ -27,14 +33,50 @@ from . import rank as rank_ops
 CHUNK = 1 << 22
 
 
+def extend_level_plain(dev, table: torch.Tensor, occurrence_fn=rank_ops.occurrence_plain,
+                       chunk: int = CHUNK) -> torch.Tensor:
+    """One BFS depth in plain torch: the (card * n, 2) children of the
+    (n, 2) parent ranges ``table`` (the view's storage type), child
+    ``letter * n + i`` = ``backward_step(check_valid=False)`` of parent
+    i by the letter. ``occurrence_fn`` is passed to ``backward_step``
+    (``rank_ops.occurrence`` takes K1's occ mode on the card)."""
+    card = dev.cardinality
+    n = table.shape[0]
+    nxt = torch.empty((card * n, 2), dtype=table.dtype, device=table.device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        start = dev.widen(table[lo:hi, 0])
+        end = dev.widen(table[lo:hi, 1])
+        for lett in range(card):
+            letters = torch.full((hi - lo,), lett, dtype=torch.int64, device=table.device)
+            s, e = rank_ops.backward_step(
+                dev, start, end, letters, check_valid=False, occurrence_fn=occurrence_fn,
+            )
+            nxt[lett * n + lo : lett * n + hi, 0] = dev.store(s)
+            nxt[lett * n + lo : lett * n + hi, 1] = dev.store(e)
+    return nxt
+
+
+def extend_level(dev, table: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """One BFS depth: K1X (K1WX for a wide view) for a CUDA table, the
+    plain version, in chunks of ``chunk``, for a CPU one."""
+    if rank_ops.device_kind(table) == "cuda":
+        from . import kernels
+
+        return kernels.k1_extend(dev, table)
+    return extend_level_plain(dev, table, chunk=chunk)
+
+
 def build_seed_table(dev, cardinality: int, k: int, prefix_sums_host,
                      occurrence_fn=None, chunk: int = CHUNK) -> torch.Tensor:
     """The (|A|^k, 2) seed table on dev's device, in the view's storage
     type: u32 in an int32 tensor, or u64 in an int64 tensor (wide).
 
     Depth-1 ranges come from the prefix sums (AwFmCreate.c:410-413):
-    table1[i] = [C[i], C[i+1]-1]. ``occurrence_fn`` is passed to
-    ``backward_step`` (default: the K1 / K1w dispatch wrapper).
+    table1[i] = [C[i], C[i+1]-1]. Each further depth is one
+    :func:`extend_level`; an ``occurrence_fn`` takes the plain loop with
+    that function instead (``rank_ops.occurrence_plain``: the plain BFS
+    on any device, the yardstick of the kernel).
     """
     total = cardinality**k
     if total >= 2**31:
@@ -48,19 +90,8 @@ def build_seed_table(dev, cardinality: int, k: int, prefix_sums_host,
         dev.device,
     )
     for _depth in range(1, k):
-        n = table.shape[0]
-        nxt = torch.empty((cardinality * n, 2), dtype=table.dtype, device=dev.device)
-        for lo in range(0, n, chunk):
-            hi = min(lo + chunk, n)
-            start = dev.widen(table[lo:hi, 0])
-            end = dev.widen(table[lo:hi, 1])
-            for lett in range(cardinality):
-                letters = torch.full((hi - lo,), lett, dtype=torch.int64, device=dev.device)
-                s, e = rank_ops.backward_step(
-                    dev, start, end, letters, check_valid=False,
-                    occurrence_fn=occurrence_fn,
-                )
-                nxt[lett * n + lo : lett * n + hi, 0] = dev.store(s)
-                nxt[lett * n + lo : lett * n + hi, 1] = dev.store(e)
-        table = nxt
+        if occurrence_fn is None:
+            table = extend_level(dev, table, chunk)
+        else:
+            table = extend_level_plain(dev, table, occurrence_fn, chunk)
     return table

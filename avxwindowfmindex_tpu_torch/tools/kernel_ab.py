@@ -2,6 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
+        [--cases all|bfs]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -25,6 +26,14 @@ bench protocol launches them (four chunks of fresh queries in turn, all
 four in one launch, their hits, and the whole ``locate_all`` pass at
 both SA ratios), K4 (the 25-mers, n = 2), K1w / K2w / K3w (the
 same index as a wide view), and K2 and K3 on a 2M-residue amino index.
+The seed-table BFS comes first (``--cases bfs``: it alone): the whole
+k = 14 table through each checkout's ``build_seed_table``, then each
+depth through the checkout's ``extend_level`` (a checkout that has none
+steps a depth as its ``build_seed_table`` did, through this checkout's
+``extend_level_plain`` over the checkout's K1 occ mode), and the same
+over the wide view at k = 13; at each depth, the K1 launches of the
+per-letter route are also timed alone, apart from the torch work around
+them (``"k1_launches_ms"``).
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per case: ``{"case", "shape", "ms": {name: [first, second]}}`` with
@@ -98,6 +107,74 @@ def run_case(case: str, shape: str, call, libs: dict, reps: int) -> None:
     print(json.dumps({"case": case, "shape": shape, "ms": ms}), flush=True)
 
 
+def _sibling(kernels_module, name: str):
+    """The module ``ops.<name>`` of the checkout whose ``ops.kernels`` is
+    ``kernels_module``."""
+    return importlib.import_module(kernels_module.__name__.rsplit(".", 1)[0] + "." + name)
+
+
+def _depth_step(kernels_module):
+    """The checkout's one BFS depth: its ``extend_level``, or the chunked
+    per-letter loop over its K1 occ mode."""
+    seed = _sibling(kernels_module, "seed_table")
+    if hasattr(seed, "extend_level"):
+        return seed.extend_level
+    from ..ops.seed_table import extend_level_plain
+
+    occ = _sibling(kernels_module, "rank").occurrence
+    return lambda dev, table: extend_level_plain(dev, table, occurrence_fn=occ)
+
+
+def k1_launch_ms(dev, table) -> tuple:
+    """(ms, launches) of the K1 occ launches alone inside one per-letter
+    step of ``table`` (``extend_level_plain`` over K1): CUDA events
+    around each launch, summed."""
+    import torch
+    from ..ops import rank
+    from ..ops.seed_table import extend_level_plain
+
+    events = []
+
+    def occ(view, pos, lett):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = rank.occurrence(view, pos, lett)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    extend_level_plain(dev, table, occurrence_fn=occ)  # warm-up
+    events.clear()
+    extend_level_plain(dev, table, occurrence_fn=occ)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events), len(events)
+
+
+def bfs_cases(index, views, libs: dict, reps: int) -> None:
+    """The seed-table BFS of ``index`` through every checkout: ``views``
+    maps a case tag to (device view, k)."""
+    import torch
+    from ..ops import seed_table
+
+    ps = index.prefix_sums
+    for tag, (dev, k) in views.items():
+        card = dev.cardinality
+        run_case(f"bfs{tag} k={k}", f"{card}^{k} ranges",
+                 lambda km: _sibling(km, "seed_table").build_seed_table(dev, card, k, ps),
+                 libs, max(1, reps // 5))
+        table = seed_table.build_seed_table(dev, card, 1, ps)
+        for depth in range(1, k):
+            parents = table
+            run_case(f"bfs{tag} depth {depth}", f"{parents.shape[0]} parents",
+                     lambda km: _depth_step(km)(dev, parents), libs, reps)
+            ms, launches = k1_launch_ms(dev, parents)
+            print(json.dumps({"case": f"bfs{tag} depth {depth}", "k1_launches_ms": ms,
+                              "k1_launches": launches}), flush=True)
+            table = seed_table.extend_level(dev, parents)
+        del table, parents
+        torch.cuda.empty_cache()
+
+
 def lengthwise_batch(mat_d, full_len: int, length: int):
     """The last ``length`` letters of every ``full_len``-mer of the
     letter matrix ``mat_d`` as a K2 / K4 batch (matrix padded to a
@@ -124,6 +201,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=1 << 20)
     ap.add_argument("--seed-k", type=int, default=14)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--cases", choices=("all", "bfs"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -234,8 +312,13 @@ def main(argv=None) -> int:
                      lambda k: locate_all(k, dense), libs, reps)
             del four, whole, s4, e4, hits4
 
-    index_cases(dev, "", k4=True)
+    bfs_cases(index, {"": (dev, args.seed_k)}, libs, reps)
+    if args.cases == "all":
+        index_cases(dev, "", k4=True)
     wide = index.to_device(device, wide=True)
+    bfs_cases(index, {"w": (wide, args.seed_k - 1)}, libs, reps)
+    if args.cases == "bfs":
+        return 0
     index_cases(wide, "w", k4=False)
     del dev, wide, ng
     torch.cuda.empty_cache()

@@ -19,11 +19,14 @@ Phases (any failure raises and the script exits nonzero):
      columns; for K3, whose grid hands a lane its next hit, every position
      of the index (more hits than the grid holds at once, the sentinel's
      row among them), walks of 0 steps, 19 hits and 1 hit, and an index
-     of SA ratio 3, each with the SA resident and on disk), with kernel
-     and plain times side by side;
-  3w. the same for K1w, K2w and K3w on the forced-wide views of such
-     indexes (u64 positions over 256 B / 512 B rows), with positions no
-     search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
+     of SA ratio 3, each with the SA resident and on disk; for K1X, the
+     seed-table BFS's level extend, every depth of the DNA k = 10 and
+     amino k = 5 BFS and crafted parent tables: start == 0, absent
+     ranges, both ends in one block, in two, on the last row, past the
+     table, a ragged count), with kernel and plain times side by side;
+  3w. the same for K1w, K2w, K3w and K1WX on the forced-wide views of
+     such indexes (u64 positions over 256 B / 512 B rows), with positions
+     no search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
   4. the main path at full size: create_index on 64M random bases
      (seed k = 14, SA ratio 8, native SA-IS) -> DigramSearchEngine
      (n = 2, Cn-biased table, as bench.py runs it) -> count and locate
@@ -32,10 +35,14 @@ Phases (any failure raises and the script exits nonzero):
      over every query, and locate of 4,096 multi-hit 11-mers (shorter
      than k, so they fall back to the single-step kernel), all checked
      against host scans; the kernels' launch counts are reset just
-     before and read just after; then a stage breakdown of one digram
-     locate, and each kernel against its plain version at the shapes the
-     main path gave it, timed in turns; the share of K4's and K2's
-     steps in each window class, and their bounds charged by class;
+     before and read just after (the build's seed table: K1X, 13
+     launches; K1: none); then a stage breakdown of one digram locate,
+     and each kernel against its plain version at the shapes the main
+     path gave it, timed in turns: the k = 14 seed-table BFS by three
+     routes, each depth timed (K1X; the per-letter loop over K1's occ
+     mode, the parent's route, with its K1 launches timed apart from the
+     torch work around them; the plain version); the share of K4's and
+     K2's steps in each window class, and their bounds charged by class;
   3b. the gather-rate probes against their plain versions: K5 at each
      experiment's own shapes (P2/P4: 2^19 indices over 1 GiB tables of
      128 B and 512 B rows, ring depths 8 and 16; P3: (2^20, 8, 128) 1 KB
@@ -71,28 +78,32 @@ Phases (any failure raises and the script exits nonzero):
 
   4w. the 64-bit path at full width: the phase-4 index as a wide view
      (to_device(device, wide=True)): the k = 14 seed table widened from
-     the narrow one and, at k = 10, built by the BFS through K1w, the two
-     routes equal; count and locate of the same 1,048,576 25-mers and of
+     the narrow one and, at k = 13, built by the BFS through K1WX, equal
+     to the narrow BFS widened; count and locate of the same 1,048,576
+     25-mers and of
      the 11-mer multi-hit set through the wide SearchEngine, equal to the
      narrow engine's answers exactly and checked against host scans; the
      wide densify_device_sa(4) equal to the narrow one; the launch counts
-     of K1w, K2w and K3w reset just before and read just after; then each
-     against its plain version at this path's shapes (8,388,608 rank
-     pairs, 1,048,576 25-mers, their hits), timed in turns, with the
-     narrow kernels' times beside them;
+     of K1WX, K2w and K3w reset just before and read just after; then each
+     against its plain version at this path's shapes (the k = 13 BFS by
+     the three routes of phase 4, 8,388,608 rank pairs, 1,048,576
+     25-mers, their hits), timed in turns, with the narrow kernels' times
+     beside them;
   4x. a table that really is above 2^32 positions: a 4,096-block pattern
      tiled to 2^32 + 2^28 positions (4.6 GB of 256 B rows, packed on the
      card), K1w's occ within 5,000 of 2^32 and at random positions
-     against a closed-form oracle and the plain version, and K2w's steps
-     on ranges that straddle 2^32 against the plain version. (No text of
+     against a closed-form oracle and the plain version, K2w's steps
+     on ranges that straddle 2^32 and one K1WX extend of parents around
+     2^32 against the plain version. (No text of
      4.3G bases is indexed: its suffix array on the host alone would
      outlast the script's time limit.)
   7. the public API at full size, on the phase-4 index, each part's
      launch counts reset before it and read after it: 7a, the index
      saved as an .awfmx artifact without its seed table and loaded on the
-     card (K1 rebuilds the table, torch.equal to phase 4's; a
-     DigramSearchEngine over it gives phase 4's counts and hits), and
-     the 1M-base index saved with its table, whose load launches no K1;
+     card (K1X rebuilds the table in 13 launches, torch.equal to phase
+     4's; a DigramSearchEngine over it gives phase 4's counts and hits),
+     and the 1M-base index saved with its table, whose load launches no
+     K1 and no K1X;
      7b, parallel_search_count / _locate of 65,536 25-mers and a
      KmerSearchList round equal to SearchEngine's; 7c, the retrying
      engine on phase 5's .awfmi with a RuntimeError injected on the
@@ -104,7 +115,11 @@ Phases (any failure raises and the script exits nonzero):
      engine over two parts on the card (or every card), count, locate
      and count_replicated equal to phase 4's with K2 once a part and no
      range copied to the host before K3, and its count over the
-     forced-wide view (K2w once a part).
+     forced-wide view (K2w once a part); 7f, the single-query API over
+     the wide and the narrow view: 16 25-mers walked letter by letter by
+     iterative_step_backward_search (K1's, K1w's occ mode) equal to the
+     engine's ranges, and backtrace_return_previous_letter_index (their
+     LF mode) equal to the plain LF.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
@@ -151,11 +166,18 @@ MULTIHIT_LEN = 11
 MULTIHIT_QUERIES = 4096
 BENCH_MULTIHIT_QUERIES = 1 << 19  # bench.py's multi-hit stage below 1G bases
 EXACT = 0  # every quantity compared is an integer: tolerance 0
-# the kernels each path launches: phase 4 (the main path), phase 6 (the
-# bench's calibration), whose counts the kernels line reports
-MAIN_PATH_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
+# the kernels each path launches: phase 4 (the main path, its build's
+# seed-table BFS through K1X), phase 6 (the bench's calibration), phase 4w
+# (the wide path, its BFS through K1WX) and phase 7f (the single-query
+# API, K1's and K1w's occ and LF modes), whose counts the kernels line
+# reports
+MAIN_PATH_KERNELS = ("k1_extend", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
 BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
-WIDE_PATH_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
+WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
+SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
+# the rank, range and backtrace kernels of each width
+INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
+WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
 OPS_PER_S = 67e12  # published float32 rate outside the tensor cores (no integer rate is published)
 T_START = time.time()
@@ -391,6 +413,34 @@ def random_text(rng, n: int, alphabet) -> bytes:
     return rng.choice(np.frombuffer(pool, np.uint8), size=n).tobytes()
 
 
+def crafted_parents(rng, dev):
+    """(m, 2) parent ranges in the view's storage type on its device: what
+    a BFS level holds and the edges of the block-index rule. Random
+    narrow ranges, start == 0 (start - 1 wraps to the last row), absent
+    start > end ranges, ranges whose start - 1 and end straddle a block
+    boundary (valid and absent), both ends in one block, both on the last
+    row, positions past the table; for a wide view also u64 positions no
+    search produces (bit 39 set, 2^63, 2^64 - 1)."""
+    import numpy as np
+    from avxwindowfmindex_tpu_torch.models.index import u32_tensor, u64_tensor
+
+    n, nb = dev.bwt_length, dev.num_blocks
+    s = rng.integers(0, n + 1, size=4000).astype(np.uint64)
+    ranges = [np.stack([s, s + rng.integers(0, 4, size=4000).astype(np.uint64)], axis=1)]
+    fixed = [[0, 0], [0, 5], [0, n - 1], [1, 0], [n, n - 1], [256, 255], [255, 256],
+             [257, 256], [n - 1, n - 1], [n, n], [nb * 256 - 1, nb * 256 + 7],
+             [(nb - 1) * 256, n - 1], [7, 3], [300, 2], [2**31, 5], [2**32 - 1, 0],
+             [1, 2**32 - 1]]
+    if dev.wide:
+        fixed += [[2**64 - 1, 0], [0, 2**64 - 1], [2**39 + 77, 2**40 + 5], [2**40 + 5, 3],
+                  [2**63, 2**63 + 255], [2**32 + 1, 2**32 + 200]]
+    ranges.append(np.array(fixed, dtype=np.uint64))
+    b = rng.integers(1, nb, size=500).astype(np.uint64) * np.uint64(256)
+    ranges.append(np.stack([b - np.uint64(3), b + np.uint64(2)], axis=1))
+    ranges.append(np.stack([b + np.uint64(10), b - np.uint64(40)], axis=1))
+    return (u64_tensor if dev.wide else u32_tensor)(np.concatenate(ranges), dev.device)
+
+
 def phase_kernels(rec: Record, device: str, wide: bool = False):
     """Phase 3 (3w with ``wide``): each kernel against its plain torch
     version on the card; K1w, K2w and K3w on forced-wide views, K4 on the
@@ -406,7 +456,8 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
     rng = np.random.default_rng(7)
     kept = None
     tag = "3w" if wide else "3"
-    k1, k2, k3 = WIDE_PATH_KERNELS if wide else MAIN_PATH_KERNELS[:3]
+    k1, k2, k3 = WIDE_INDEX_KERNELS if wide else INDEX_KERNELS
+    kx = "k1w_extend" if wide else "k1_extend"
     for alphabet, k, klen in ((AlphabetType.DNA, 10, 25), (AlphabetType.AMINO, 5, 12)):
         name = alphabet.name + (" wide" if wide else "")
         text = random_text(rng, 1_000_000, alphabet)
@@ -420,16 +471,29 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
         n = dev.bwt_length
         card = dev.cardinality
 
-        # K1: seed table through the kernel vs through the plain occurrence
-        plain_table = seed_table.build_seed_table(
-            dev, card, k, index.prefix_sums, occurrence_fn=rank.occurrence_plain
-        )
-        rec.compare(k1, f"{name} seed table k={k}", dev.seed_table, plain_table)
+        # K1X (K1WX): every depth of the BFS and crafted parent tables
+        # against the plain extend; the build's table (through K1X) against
+        # the plain BFS
+        table = seed_table.build_seed_table(dev, card, 1, index.prefix_sums)
+        for depth in range(1, k):
+            got = kernels.k1_extend(dev, table)
+            table = seed_table.extend_level_plain(dev, table)
+            rec.compare(kx, f"{name} BFS depth {depth} x{table.shape[0]}", got, table)
+        if not torch.equal(table, dev.seed_table):
+            raise AssertionError(f"{name}: the plain BFS differs from the build's seed table")
+        del got, table
+        parents = crafted_parents(rng, dev)
+        rec.compare(kx, f"{name} crafted parents x{parents.shape[0]}",
+                    kernels.k1_extend(dev, parents), seed_table.extend_level_plain(dev, parents))
+        ragged = parents[:37].contiguous()
+        rec.compare(kx, f"{name} crafted parents x37", kernels.k1_extend(dev, ragged),
+                    seed_table.extend_level_plain(dev, ragged))
         if wide:
             # the view's table was widened from the narrow one; the BFS
-            # through K1w must give the same
+            # through K1WX must give the same
             bfs = seed_table.build_seed_table(dev, card, k, index.prefix_sums)
-            rec.compare(k1, f"{name} seed table k={k}: BFS through K1w == widened", bfs, dev.seed_table)
+            rec.compare(kx, f"{name} seed table k={k}: BFS through K1WX == widened", bfs,
+                        dev.seed_table)
             del bfs
 
         # K1 occ mode: 1M random pairs, edge positions, a ragged batch
@@ -892,23 +956,10 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
     if not (torch.equal(k2_s, start) and torch.equal(k2_e, end)):
         raise AssertionError("K4 and K2 ranges differ at the main shape")
     k = dev.kmer_length_in_seed_table
-    prefix_sums = engine.host_index.prefix_sums
-    for label, occ_fn in (("kernel", None), ("plain", rank.occurrence_plain)):
-        t = time.time()
-        table = seed_table.build_seed_table(
-            dev, dev.cardinality, k, prefix_sums, occurrence_fn=occ_fn
-        )
-        torch.cuda.synchronize()
-        out[f"seed_table_{label}_s"] = time.time() - t
-        if occ_fn is not None:
-            rec.compare("k1_rank", f"main seed table k={k}", dev.seed_table, table)
-        del table
-    log(
-        f"[4] seed table k={k}: through K1 {out['seed_table_kernel_s']:.4f}s, "
-        f"plain {out['seed_table_plain_s']:.4f}s"
-    )
+    out["bfs"] = bfs_routes(rec, dev, k, engine.host_index.prefix_sums, "4", "k1_extend")
 
-    # one K1 launch of the BFS's deepest levels: 2 * CHUNK (pos, letter) pairs
+    # K1's occ mode at the size of one launch of the per-letter BFS's
+    # deepest depths: 2 * CHUNK random (pos, letter) pairs
     rng = np.random.default_rng(99)
     b = 2 * seed_table.CHUNK
     occ_pos = torch.from_numpy(rng.integers(0, dev.bwt_length, size=b)).to(engine.device)
@@ -956,7 +1007,7 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
         lambda: kernels.k3_backtrace_resolve(dev, positions),
         lambda: search.backtrace_resolve_plain(dev, positions), 10, 1,
     )
-    set_index_bounds(rec, MAIN_PATH_KERNELS[:3], dev, b, args[0], positions, k2_classes)
+    set_index_bounds(rec, INDEX_KERNELS, dev, b, args[0], positions, k2_classes)
     # K4: floor(m / n) n-gram steps per query, then m mod n single steps,
     # each charged by its window class
     m = KMER_LEN - k
@@ -973,6 +1024,112 @@ def phase_main_shapes(rec: Record, engine, kmers) -> dict:
     log(f"  k4_ngram_ranges row traffic: {(traffic - n * (mat_d.shape[1] + 24)) / n:.1f} B of row "
         f"sectors per query (whole windows: {(m // ng.n) * 12 * 32 + (m % ng.n) * 7 * 32} B)")
     return out
+
+
+def bfs_by_depth(dev, k: int, prefix_sums, step):
+    """(the k-mer table, ms of each depth): the BFS from the depth-1
+    ranges, one ``step(dev, parents)`` a depth, CUDA events around each."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import seed_table
+
+    table = seed_table.build_seed_table(dev, dev.cardinality, 1, prefix_sums)
+    events = []
+    for _ in range(1, k):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        table = step(dev, table)
+        pair[1].record()
+        events.append(pair)
+    torch.cuda.synchronize()
+    return table, [a.elapsed_time(b) for a, b in events]
+
+
+def bfs_routes(rec: Record, dev, k: int, prefix_sums, tag: str, name: str) -> dict:
+    """The k-mer seed table of ``dev`` by three routes, each depth timed:
+    ``name`` (K1X or K1WX, one launch a depth); the per-letter loop over
+    K1's (K1w's) occ mode, which is the parent's route, kernel and torch
+    work alike (``extend_level_plain`` over ``rank.occurrence``); and the
+    plain version. In turns: plain, kernel, per-letter, per-letter,
+    kernel, plain; each route's best run. The kernel's and the per-letter
+    tables must equal the plain one (and the view's own, at its k). Then
+    the per-letter route's K1 launches alone at the deepest depth, and
+    the kernel's bound from this run's levels."""
+    from avxwindowfmindex_tpu_torch.ops import rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import k1_launch_ms
+
+    routes = {
+        "plain": seed_table.extend_level_plain,
+        "kernel": seed_table.extend_level,
+        "per_letter": lambda d, t: seed_table.extend_level_plain(d, t, rank.occurrence),
+    }
+    best, tables = {}, {}
+    for route in ("plain", "kernel", "per_letter", "per_letter", "kernel", "plain"):
+        table, ms = bfs_by_depth(dev, k, prefix_sums, routes[route])
+        if route not in best or sum(ms) < sum(best[route]):
+            best[route] = ms
+        if route == "per_letter":
+            rec.compare(name, f"k={k} table through the per-letter route == through {name}",
+                        table, tables["kernel"])
+        else:
+            tables.setdefault(route, table)
+        del table
+    rec.compare(name, f"k={k} BFS through {name} == plain x{tables['plain'].shape[0]}",
+                tables["kernel"], tables["plain"])
+    if k == dev.kmer_length_in_seed_table:
+        rec.compare(name, f"k={k} BFS through {name} == the view's seed table",
+                    tables["kernel"], dev.seed_table)
+    del tables
+    totals = {route: sum(ms) for route, ms in best.items()}
+    for route, ms in best.items():
+        log(f"[{tag}] BFS k={k} {route}: {totals[route]:.4f} ms; by depth "
+            f"{[round(m, 4) for m in ms]}")
+    log(f"[{tag}] BFS k={k}: {name} {totals['kernel']:.4f} ms, the per-letter route "
+        f"{totals['per_letter']:.4f} ms ({totals['per_letter'] / totals['kernel']:.1f}x), plain "
+        f"{totals['plain']:.4f} ms")
+    deepest = seed_table.build_seed_table(dev, dev.cardinality, k - 1, prefix_sums)
+    k1_ms, k1_launches = k1_launch_ms(dev, deepest)
+    del deepest
+    log(f"[{tag}] the per-letter route's depth {k - 1}: {best['per_letter'][-1]:.4f} ms, of which "
+        f"its {k1_launches} K1 launches {k1_ms:.4f} ms and the torch work around them the rest")
+    rec.ms[name] = (totals["kernel"], totals["plain"])
+    set_bfs_bound(rec, name, dev, k, prefix_sums, tag)
+    return {"ms": totals, "depth_ms": best, "per_letter_k1_ms": k1_ms,
+            "per_letter_k1_launches": k1_launches}
+
+
+def set_bfs_bound(rec: Record, name: str, dev, k: int, prefix_sums, tag: str) -> None:
+    """The bound of the BFS through K1X (K1WX), from this run's levels: per
+    depth, its parents read and children written once, and the distinct
+    rows of its visits at the bytes a visit reads (the planes' first block
+    and every letter's milestone). A warp of K1X takes 31 parents and
+    counts at 32 positions, one row visit each, plus one for each parent
+    whose start - 1 is not the previous parent's end; every visit is one
+    match and one count per letter."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import seed_table
+
+    card, np_, nb = dev.cardinality, dev.n_planes, dev.num_blocks
+    width = dev.seed_table.element_size()
+    table = seed_table.build_seed_table(dev, card, 1, prefix_sums)
+    tables, stream, parents, apart = [], 0, 0, 0
+    for _ in range(1, k):
+        n = table.shape[0]
+        start, end = dev.widen(table[:, 0]), dev.widen(table[:, 1])
+        follows = ((start[1:] - 1) & dev.pos_mask) == end[:-1]
+        first_of_warp = torch.arange(1, n, device=table.device) % 31 == 0
+        extra = int((~follows & ~first_of_warp).sum())
+        del start, end, follows, first_of_warp
+        tables.append((nb, np_ * 32 + card * dev.milestone_bytes, -(-n // 31) * 32 + extra))
+        stream += n * 2 * width * (1 + card)
+        parents += n
+        apart += extra
+        table = seed_table.extend_level(dev, table)
+    del table
+    visits = sum(v for _, _, v in tables)
+    log(f"[{tag}] BFS k={k}: {parents} parents, {apart} of them not following their "
+        f"neighbour ({apart / parents:.2e}); {visits} row visits")
+    rec.set_bound(name, tables, stream, visits * card * (match_ops(np_, 8) + count_ops(8)),
+                  row_visits=[visits])
 
 
 def set_index_bounds(rec: Record, names, dev, occ_pairs: int, mat_d, positions,
@@ -1091,7 +1248,7 @@ def phase_step_costs(rec: Record, engine, kmers, dense, rates: dict) -> dict:
     t = time.time()
     table12 = seed_table.build_seed_table(dev, dev.cardinality, 12, engine.host_index.prefix_sums)
     torch.cuda.synchronize()
-    log(f"[4s] a k=12 seed table of the same index through K1: {time.time() - t:.3f}s")
+    log(f"[4s] a k=12 seed table of the same index through K1X: {time.time() - t:.3f}s")
     dev12 = dataclasses.replace(dev, seed_table=table12, kmer_length_in_seed_table=12)
     s12, e12 = kernels.k2_ranges(dev12, *lengthwise_batch(mat_d, KMER_LEN, KMER_LEN))
     s14, e14 = kernels.k2_ranges(dev, *lengthwise_batch(mat_d, KMER_LEN, KMER_LEN))
@@ -1413,19 +1570,21 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
         raise AssertionError("phase 4w needs the wide view at the config ratio")
     if not torch.equal(dev.seed_table, widen_u32(narrow_dev.seed_table)):
         raise AssertionError("the widened k=14 seed table differs from the narrow one")
-    k_small = 10
+    # the wide view's own BFS, as attach_seed_table runs it on a wide index,
+    # at k = 13 (the k = 14 table of 4.3 GB is widened, not rebuilt)
+    k_wide = MAIN_SEED_K - 1
     t = time.time()
-    bfs_wide = seed_table.build_seed_table(dev, dev.cardinality, k_small, index.prefix_sums)
+    bfs_wide = seed_table.build_seed_table(dev, dev.cardinality, k_wide, index.prefix_sums)
     torch.cuda.synchronize()
-    stats["seed_table_k10_wide_s"] = time.time() - t
+    stats["seed_table_k13_wide_s"] = time.time() - t
     t = time.time()
-    bfs_narrow = seed_table.build_seed_table(narrow_dev, dev.cardinality, k_small, index.prefix_sums)
+    bfs_narrow = seed_table.build_seed_table(narrow_dev, dev.cardinality, k_wide, index.prefix_sums)
     torch.cuda.synchronize()
-    stats["seed_table_k10_narrow_s"] = time.time() - t
-    rec.compare("k1w_rank", f"seed table k={k_small}: BFS through K1w == the narrow BFS, widened",
+    stats["seed_table_k13_narrow_s"] = time.time() - t
+    rec.compare("k1w_extend", f"seed table k={k_wide}: BFS through K1WX == the narrow BFS, widened",
                 bfs_wide, widen_u32(bfs_narrow))
-    log(f"[4w] seed table k={k_small}: through K1w {stats['seed_table_k10_wide_s']:.4f}s, "
-        f"through K1 {stats['seed_table_k10_narrow_s']:.4f}s")
+    log(f"[4w] seed table k={k_wide}: through K1WX {stats['seed_table_k13_wide_s']:.4f}s, "
+        f"through K1X {stats['seed_table_k13_narrow_s']:.4f}s (host clock)")
     del bfs_wide, bfs_narrow
 
     rng = np.random.default_rng(4321)
@@ -1500,8 +1659,9 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
                 f"wide densify_device_sa(4) == the narrow one x{dense.sampled_sa.numel()}",
                 dense.sampled_sa, widen_u32(dense_narrow.sampled_sa))
     log(f"[4w] wide densify_device_sa(4): {stats['wide_densify_s']:.4f}s")
-    stats["launches"] = expect_launches("4w", WIDE_PATH_KERNELS)
+    stats["launches"] = expect_launches("4w", WIDE_PATH_KERNELS, exact={"k1w_extend": k_wide - 1})
     del dense
+    stats["bfs"] = bfs_routes(rec, dev, k_wide, index.prefix_sums, "4w", "k1w_extend")
 
     # each wide kernel against its plain version at this path's shapes
     b = 2 * seed_table.CHUNK
@@ -1536,8 +1696,8 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
         f"k3w_backtrace_resolve main x{positions.numel()}",
         lambda: kernels.k3_backtrace_resolve(dev, positions),
         lambda: search.backtrace_resolve_plain(dev, positions), 10, 1)
-    set_index_bounds(rec, WIDE_PATH_KERNELS, dev, b, args[0], positions, k2w_classes.tolist())
-    for narrow_name, wide_name in zip(MAIN_PATH_KERNELS[:3], WIDE_PATH_KERNELS):
+    set_index_bounds(rec, WIDE_INDEX_KERNELS, dev, b, args[0], positions, k2w_classes.tolist())
+    for narrow_name, wide_name in zip(INDEX_KERNELS, WIDE_INDEX_KERNELS):
         log(f"[4w] {wide_name} {rec.ms[wide_name][0]:.4f} ms against {narrow_name} "
             f"{rec.ms[narrow_name][0]:.4f} ms at the same shape "
             f"({rec.ms[wide_name][0] / rec.ms[narrow_name][0]:.3f}x)")
@@ -1557,7 +1717,7 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
     from avxwindowfmindex_tpu_torch import AlphabetType, DeviceIndex, search
     from avxwindowfmindex_tpu_torch.models import alphabet as alpha
     from avxwindowfmindex_tpu_torch.models import index as index_mod
-    from avxwindowfmindex_tpu_torch.ops import kernels, rank
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
 
     rng = np.random.default_rng(4096)
     pat_blocks, card = 4096, 4
@@ -1651,7 +1811,21 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
         raise AssertionError(f"K2w's final ranges never passed {boundary} ({above} above, {across} across)")
     log(f"[4x] K1w and K2w exact on the table above {boundary}: {across} final ranges straddle it, "
         f"{above} lie above it, {int(valid.sum())} of {qn} valid")
-    del table, t64, dev
+
+    # K1WX: one BFS depth over parents around the boundary, ranges up to 600
+    # positions wide (one row or two) and as many absent ones (start > end)
+    m = 1 << 18
+    starts = rng.integers(boundary - 5000, boundary + 5000, m).astype(np.uint64)
+    widths = rng.integers(0, 600, m).astype(np.uint64)
+    ends = np.where(np.arange(m) % 2 == 0, starts + widths, starts - widths - np.uint64(1))
+    parents = torch.from_numpy(np.stack([starts, ends], axis=1).view(np.int64)).to(device)
+    got = kernels.k1_extend(dev, parents)
+    rec.compare("k1w_extend", f"straddle extend x{m} parents", got,
+                seed_table.extend_level_plain(dev, parents))
+    if not (int(got[:, 0].max()) > boundary and int(got[:, 0].min()) < boundary):
+        raise AssertionError(f"the extend's children did not straddle {boundary}")
+    log(f"[4x] K1WX exact on {m} parents around {boundary}: {4 * m} children")
+    del table, t64, dev, parents, got
     torch.cuda.empty_cache()
 
 
@@ -1748,7 +1922,7 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     stats = {}
     out_dir = os.path.dirname(small_path)
 
-    # 7a. artifacts: the 64M index without its seed table, rebuilt by K1
+    # 7a. artifacts: the 64M index without its seed table, rebuilt by K1X
     path = os.path.join(out_dir, "main.awfmx")
     t = time.time()
     artifact.save_artifact(index, path, compress=False)
@@ -1770,7 +1944,8 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
                                              path)
     finally:
         build_mod.attach_seed_table = real_attach
-    expect_launches("7a", ("k1_rank",))
+    stats["launches_7a"] = expect_launches("7a", ("k1_extend",), exact={
+        "k1_extend": MAIN_SEED_K - 1, "k1_rank": 0})
     stats["rebuild_s"] = rebuild[0]
     with np.load(path) as z:
         if "kmer_seed_table" in z:
@@ -1779,7 +1954,7 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
         raise AssertionError("the seed table rebuilt by load_artifact differs from phase 4's")
     log(f"[7a] save_artifact(compress=False) {stats['save_s']:.3f}s, {stats['file_mb']:.1f} MB "
         f"without the seed table; load_artifact {stats['load_s']:.3f}s, of which the view and "
-        f"K1's BFS {stats['rebuild_s']:.3f}s; seed table torch.equal to phase 4's")
+        f"K1X's BFS {stats['rebuild_s']:.3f}s; seed table torch.equal to phase 4's")
     kernels.reset_launch_counts()
     t = time.time()
     dg = pt.DigramSearchEngine(loaded, device=device)
@@ -1797,11 +1972,12 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     artifact.save_artifact(small_index, small, pull_device_seed_table=True)
     kernels.reset_launch_counts()
     small_loaded = artifact.load_artifact(small, device=device)
-    if kernels.K1.launches:
-        raise AssertionError("a file that carries its seed table launched K1")
+    if kernels.K1.launches or kernels.K1X.launches:
+        raise AssertionError("a file that carries its seed table launched K1 or K1X")
     if not np.array_equal(small_loaded.kmer_seed_table, small_index.seed_table_host()):
         raise AssertionError("the pulled seed table did not round-trip")
-    log("[7a] the 1M-base index saved with pull_device_seed_table=True loads with 0 K1 launches")
+    log("[7a] the 1M-base index saved with pull_device_seed_table=True loads with 0 K1 and 0 K1X "
+        "launches")
     os.remove(small)
     del small_loaded
 
@@ -1904,7 +2080,9 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     if not (np.array_equal(got_c, want_c) and all(
             np.array_equal(a, np.sort(b)) for a, b in zip(got_l, want_l))):
         raise AssertionError("chunked answers across the boundaries differ from the monolithic engine's")
-    expect_launches("7d", ("k1_rank", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges"))
+    stats["launches_7d"] = expect_launches(
+        "7d", ("k1_extend", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges"),
+        exact={"k1_rank": 0})
     log(f"[7d] chunked corpus: {chunks.num_chunks} chunks of {CHUNK_BASES} + 255 bases, digram "
         f"engines, built in {stats['chunked_build_s']:.3f}s (phase 4's monolithic index and n-gram "
         f"table: {main['build_s'] + main['ngram_build_s']:.3f}s); {len(kmers)} counts and locates "
@@ -1969,7 +2147,58 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
         raise AssertionError("the query-parallel engine's wide counts differ from narrow")
     log(f"[7e] the same over the forced-wide view: {len(kmers)} counts equal to narrow, "
         f"K2w once a part, {stats['dist_wide_count_s']:.3f}s")
-    del wpar, wide_view
+    del wpar
+    return stats
+
+
+def phase_single_query(engine, kmers, device: str) -> dict:
+    """Phase 7f: the single-query API over the forced-wide and the narrow
+    view of the phase-4 index: 16 25-mers walked letter by letter by
+    ``iterative_step_backward_search`` (K1's occ mode, K1w's on the wide
+    view, one launch a step) equal to the engine's ranges, and
+    ``backtrace_return_previous_letter_index`` (their LF mode) equal to
+    the plain LF. Returns each kernel's launches, read after each view's
+    calls (counts reset before them)."""
+    import numpy as np
+    import torch
+    import avxwindowfmindex_tpu_torch as pt
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank
+
+    index = engine.host_index
+    rng = np.random.default_rng(73)
+    walks = [kmers[i] for i in rng.integers(0, len(kmers), 16)]
+    lf_pos = [int(p) for p in rng.integers(0, index.bwt_length, 64)]
+    want_ranges = engine.find_ranges(walks)
+    ps = [int(c) for c in index.prefix_sums]
+    stats = {}
+    for wide, name in ((True, "k1w_rank"), (False, "k1_rank")):
+        view = index.to_device(device, wide=wide)
+        lett_want, lf_want = rank.letter_and_lf_plain(
+            view, torch.tensor(lf_pos, dtype=torch.int64, device=device))
+        kernels.reset_launch_counts()
+        t = time.time()
+        for q, (want_s, want_e) in zip(walks, want_ranges):
+            letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), index.alphabet).tolist()
+            s, e = ps[letters[-1]], ps[letters[-1] + 1] - 1
+            for lett in reversed(letters[:-1]):
+                s, e = pt.iterative_step_backward_search(index, s, e, lett, device=device,
+                                                         wide=wide)
+            if (s, e) != (int(want_s), int(want_e)):
+                raise AssertionError(f"7f: {q} walked to {(s, e)}, the engine's range is "
+                                     f"{(want_s, want_e)}")
+        for p, lw, fw in zip(lf_pos, lett_want.tolist(), lf_want.tolist()):
+            got = pt.backtrace_return_previous_letter_index(index, p, device=device, wide=wide)
+            want = (0, p) if lw == view.sentinel else (lw, fw)
+            if got != want:
+                raise AssertionError(f"7f: LF of {p} gave {got}, the plain version {want}")
+        steps = len(walks) * (KMER_LEN - 1)
+        launches = expect_launches("7f", (name,), exact={name: steps + len(lf_pos)})
+        stats[name] = launches[name]
+        log(f"[7f] single-query API, {'wide' if wide else 'narrow'} view: {len(walks)} 25-mers "
+            f"walked by iterative_step_backward_search ({steps} steps) equal to the engine's "
+            f"ranges, {len(lf_pos)} backtrace_return_previous_letter_index calls equal to the "
+            f"plain LF; {launches[name]} {name} launches, {time.time() - t:.3f}s")
     return stats
 
 
@@ -2006,7 +2235,9 @@ def main(argv=None) -> int:
 
     kernels.reset_launch_counts()
     main_stats, engine, kmers, seq_arr, mh_kmers, answers = phase_main(args.bases, device)
-    launches = expect_launches("4", MAIN_PATH_KERNELS)
+    # the build's BFS is K1X's 13 launches, and nothing of the path takes K1
+    launches = expect_launches("4", MAIN_PATH_KERNELS,
+                               exact={"k1_extend": MAIN_SEED_K - 1, "k1_rank": 0})
     main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
     mark("phase 4")
 
@@ -2038,6 +2269,8 @@ def main(argv=None) -> int:
     main_stats["public_api"] = phase_public_api(
         engine, kmers, seq_arr, answers, small_index, small_text, small_path, main_stats, device,
     )
+    main_stats["single_query"] = phase_single_query(engine, kmers, device)
+    launches.update(main_stats["single_query"])
     del engine, kmers, answers
     torch.cuda.empty_cache()
     mark("phase 7")
@@ -2055,6 +2288,7 @@ def main(argv=None) -> int:
     rate_of = {
         "k1_rank": ("single",), "k2_ranges": ("pair",), "k3_backtrace_resolve": ("single",),
         "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
+        "k1_extend": ("single",), "k1w_extend": ("wide",),
         "k2w_ranges": ("wide",), "k3w_backtrace_resolve": ("wide",),
     }
     main_stats["models"] = {}
