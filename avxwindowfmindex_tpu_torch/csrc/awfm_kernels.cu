@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the FM-index main path.
 //
-// Nine kernels, each a chain of dependent random row loads from device
+// Eleven kernels, each a chain of dependent random row loads from device
 // memory (a 128 B block row or a 256 B pair row for nucleotides, 256 B /
 // 512 B for amino, a 384 B / 768 B n-gram pair row for n = 2 / 3) followed
 // by a few dozen integer operations and __popc. The card moves memory in
@@ -167,6 +167,24 @@
 //       takes K2's design whole. K3w keeps one thread per hit and the LF
 //       step of three dependent reads (lf_bytes): the persistent grid and
 //       the row in registers both measured level or behind there.
+//   K1R awfm_k1r_occ / awfm_k1r_letter_occ, K1Rw awfm_k1rw_occ /
+//   awfm_k1rw_letter_occ
+//       K1 over one shard of the range-sharded engine
+//       (parallel/range_sharded.py), whose block rows are split by
+//       contiguous block range over a list of devices. They replace the
+//       masked rank the JAX package computes in XLA under shard_map
+//       (parallel/range_sharded.py:_local_occurrence and the backtrace
+//       segment's letter and occ; P1's arithmetic): every lane gets every
+//       position of the batch, and a lane whose position's block the shard
+//       does not own writes 0 and reads nothing, so that over the shards
+//       the row traffic is one K1 launch's and the sum of the shards'
+//       outputs is the rank. K1R reads the narrow block rows (Narrow),
+//       K1Rw the compact wide rows (WideCompact: u64 milestones, planes 32 B
+//       apart) that the engine shards in place of the pair-fused ones. The
+//       occ mode is k1_occ_kernel's and the letter mode BlockRow's, behind
+//       the ownership test; the row pointer handed to them is moved back by
+//       the shard's first block. Bound like K1 by dependent random row
+//       loads; a simple kernel, not yet measured against a redesign.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -253,6 +271,13 @@ struct Wide {
     if (blk < 0) blk += nb;
     return blk < 0 ? 0 : (blk < nb - 1 ? blk : nb - 1);
   }
+};
+
+// The compact wide rows a range-sharded engine shards
+// (models/index.py:pack_device_blocks64(pair=False)): Wide's positions,
+// milestones and block-index rule over single-block rows, planes 32 B apart.
+struct WideCompact : Wide {
+  static constexpr int kStride = 32;
 };
 
 // What a step needs to know of a letter: its C[] term and, packed in
@@ -493,13 +518,10 @@ struct BlockRow {
     }
   }
 
-  // LF(pos) from the loaded row, and the letter at pos
-  __device__ __forceinline__ pos_t lf(const BlockConsts<pos_t>& s, pos_t pos,
-                                      uint32_t* letter) const {
-    const uint32_t local = static_cast<uint32_t>(pos) & 255u;
-    const LetterEntry<pos_t> e = s.by_code[code_at(local)];
-    *letter = e.letter();
-    if (!e.flag()) return 0;  // sentinel
+  // occ at block-local position `local`, inclusive, of the letter whose
+  // match code and milestone column entry e gives
+  __device__ __forceinline__ pos_t occ(const LetterEntry<pos_t>& e,
+                                       uint32_t local) const {
     const uint32_t code = e.code();
     uint32_t m[8];
 #pragma unroll
@@ -512,7 +534,17 @@ struct BlockRow {
     }
 #pragma unroll
     for (int w = 0; w < 8; ++w) m[w] = ~m[w];
-    return e.c + milestone_of(e.column()) + count_inclusive<8>(m, local) - 1u;
+    return milestone_of(e.column()) + count_inclusive<8>(m, local);
+  }
+
+  // LF(pos) from the loaded row, and the letter at pos
+  __device__ __forceinline__ pos_t lf(const BlockConsts<pos_t>& s, pos_t pos,
+                                      uint32_t* letter) const {
+    const uint32_t local = static_cast<uint32_t>(pos) & 255u;
+    const LetterEntry<pos_t> e = s.by_code[code_at(local)];
+    *letter = e.letter();
+    if (!e.flag()) return 0;  // sentinel
+    return e.c + occ(e, local) - 1u;
   }
 };
 
@@ -735,6 +767,71 @@ __global__ void k1_letter_lf_kernel(AwfmTables t,
   uint32_t lett;
   lf_out[i] = static_cast<int64_t>(r.lf(s, p, &lett));
   letters_out[i] = static_cast<int32_t>(lett);
+}
+
+// K1R / K1Rw: K1 over one shard of a range-sharded engine (module note).
+// Whether the shard that starts at block first_block and holds num_blocks
+// rows owns pos: its global block, bits 8..39 of pos read as int32, less
+// first_block in int32 arithmetic (parallel/range_sharded.py:
+// _local_occurrence, _local_rows64), lies in [0, num_blocks). A narrow
+// position is a u32 value, so its block is below 2^24.
+template <class G>
+__device__ __forceinline__ bool owns(typename G::pos_t pos, int32_t first_block,
+                                     int64_t num_blocks) {
+  const uint32_t blk = static_cast<uint32_t>(pos >> 8);
+  const int32_t local = static_cast<int32_t>(blk - static_cast<uint32_t>(first_block));
+  return local >= 0 && local < num_blocks;
+}
+
+// occ(letter, pos) where the shard owns pos, else 0. The table's row
+// pointer is moved back by first_block rows (launch_k1r), so occ_at,
+// which indexes rows by the global block, reads the shard's own row. An
+// unowned lane writes 0 and reads no row.
+template <class G, int NP>
+__global__ void k1r_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
+                               const int32_t* __restrict__ letters, int64_t n,
+                               int32_t first_block, int64_t num_blocks,
+                               int64_t* __restrict__ out) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const typename G::pos_t p = static_cast<typename G::pos_t>(pos[i]);
+  if (!owns<G>(p, first_block, num_blocks)) {
+    out[i] = 0;
+    return;
+  }
+  const uint32_t l = static_cast<uint32_t>(letters[i]);
+  out[i] = static_cast<int64_t>(occ_at<G, NP>(
+      t, p, code_of_letter(t, NP, l), l <= static_cast<uint32_t>(t.card), l));
+}
+
+// The letter at pos and occ(min(letter, ambiguity letter), pos) where the
+// shard owns pos, else (0, 0): the owned half of a sharded LF step, whose
+// LF the caller forms after summing the shards (prefix select, - 1,
+// sentinel -> 0), as the JAX engine does after its psum.
+template <class G, int NP>
+__global__ void k1r_letter_occ_kernel(AwfmTables t,
+                                      const int64_t* __restrict__ pos,
+                                      int64_t n, int32_t first_block,
+                                      int64_t num_blocks,
+                                      int32_t* __restrict__ letters_out,
+                                      int64_t* __restrict__ occ_out) {
+  using pos_t = typename G::pos_t;
+  __shared__ BlockConsts<pos_t> s;
+  stage_consts<G>(t, s);
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const pos_t p = static_cast<pos_t>(pos[i]);
+  if (!owns<G>(p, first_block, num_blocks)) {
+    letters_out[i] = 0;
+    occ_out[i] = 0;
+    return;
+  }
+  BlockRow<G, NP> r;
+  r.load(t, p);
+  const uint32_t local = static_cast<uint32_t>(p) & 255u;
+  const LetterEntry<pos_t> e = s.by_code[r.code_at(local)];
+  letters_out[i] = static_cast<int32_t>(e.letter());
+  occ_out[i] = static_cast<int64_t>(r.occ(e, local));
 }
 
 // K1X / K1WX: one depth of the seed-table BFS (module note). The letter
@@ -1179,6 +1276,61 @@ int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1R's tables: the shard's rows stand at packed, global block b at row
+// b - first_block, so the row pointer is moved back by first_block rows
+// (the arithmetic is modulo 2^64, and only owned blocks are read) and the
+// table is taken to end at first_block + the shard's rows.
+int k1r_tables(int device, const AwfmTables* t, int32_t first_block,
+               AwfmTables* shifted) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (first_block < 0 || t->nb < 1 || first_block + t->nb > INT32_MAX ||
+      (t->n_planes != 3 && t->n_planes != 5)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *shifted = *t;
+  shifted->packed = reinterpret_cast<const uint8_t*>(
+      reinterpret_cast<uintptr_t>(t->packed) -
+      static_cast<uintptr_t>(first_block) * static_cast<uintptr_t>(t->row_bytes));
+  shifted->packed_pair = shifted->packed;
+  shifted->nb = first_block + t->nb;
+  return 0;
+}
+
+template <class G>
+int launch_k1r_occ(int device, const AwfmTables* t, const int64_t* pos,
+                   const int32_t* letters, int64_t n, int32_t first_block,
+                   int64_t* out, cudaStream_t stream) {
+  AwfmTables s;
+  const int rc = k1r_tables(device, t, first_block, &s);
+  if (rc != 0) return rc;
+  if (t->n_planes == 3) {
+    k1r_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
+        s, pos, letters, n, first_block, t->nb, out);
+  } else {
+    k1r_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
+        s, pos, letters, n, first_block, t->nb, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G>
+int launch_k1r_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
+                          int64_t n, int32_t first_block, int32_t* letters_out,
+                          int64_t* occ_out, cudaStream_t stream) {
+  AwfmTables s;
+  const int rc = k1r_tables(device, t, first_block, &s);
+  if (rc != 0) return rc;
+  if (t->n_planes == 3) {
+    k1r_letter_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
+        s, pos, n, first_block, t->nb, letters_out, occ_out);
+  } else {
+    k1r_letter_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
+        s, pos, n, first_block, t->nb, letters_out, occ_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Whether the table's letter codes are the ones K1X is compiled for.
 template <int NP>
 bool letter_codes_match(const AwfmTables* t) {
@@ -1362,6 +1514,34 @@ int awfm_k1w_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                        cudaStream_t stream) {
   return launch_k1_letter_lf<Wide>(device, t, pos, n, letters_out, lf_out,
                                    stream);
+}
+
+int awfm_k1r_occ(int device, const AwfmTables* t, const int64_t* pos,
+                 const int32_t* letters, int64_t n, int32_t first_block,
+                 int64_t* out, cudaStream_t stream) {
+  return launch_k1r_occ<Narrow>(device, t, pos, letters, n, first_block, out,
+                                stream);
+}
+
+int awfm_k1rw_occ(int device, const AwfmTables* t, const int64_t* pos,
+                  const int32_t* letters, int64_t n, int32_t first_block,
+                  int64_t* out, cudaStream_t stream) {
+  return launch_k1r_occ<WideCompact>(device, t, pos, letters, n, first_block,
+                                     out, stream);
+}
+
+int awfm_k1r_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
+                        int64_t n, int32_t first_block, int32_t* letters_out,
+                        int64_t* occ_out, cudaStream_t stream) {
+  return launch_k1r_letter_occ<Narrow>(device, t, pos, n, first_block,
+                                       letters_out, occ_out, stream);
+}
+
+int awfm_k1rw_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
+                         int64_t n, int32_t first_block, int32_t* letters_out,
+                         int64_t* occ_out, cudaStream_t stream) {
+  return launch_k1r_letter_occ<WideCompact>(device, t, pos, n, first_block,
+                                            letters_out, occ_out, stream);
 }
 
 int awfm_k1_extend(int device, const AwfmTables* t, const uint32_t* table,

@@ -83,13 +83,15 @@ def wide_device_index_from_numpy(
     pairs become u64 values in int64 tensors of the same bytes; the one
     row table serves as ``packed`` and ``packed_pair``. The compact
     single-block layout (``pair_fused=False``, the JAX package's
-    ``AWFM_PAIR_ROWS=0`` for amino) is not ported.
+    ``AWFM_PAIR_ROWS=0`` for amino) serves only the range-sharded
+    engine's shards; the single-device wide engines refuse it.
     """
     alphabet = AlphabetType(int(alphabet))
     if not pair_fused:
         raise NotImplementedError(
             "the compact wide layout (pair_fused=False, AWFM_PAIR_ROWS=0) is "
-            "not ported (ROADMAP item 'the compact amino wide layout')"
+            "not ported for the single-device engines (ROADMAP item 'the "
+            "compact amino wide layout'); the range-sharded engine shards it"
         )
     packed = np.array(arrays["packed"], dtype=np.uint8, order="C")
     if packed.ndim != 2 or packed.shape[1] != device_row_bytes64(alphabet):

@@ -89,11 +89,12 @@ def device_pair_row_bytes(alphabet: AlphabetType) -> int:
     return ((need + 127) // 128) * 128
 
 
-def device_row_bytes64(alphabet: AlphabetType) -> int:
+def device_row_bytes64(alphabet: AlphabetType, pair: bool = True) -> int:
     """Bytes per wide row: planes*64 + milestones*8, padded to 128
-    (256 B nucleotide, 512 B amino)."""
+    (256 B nucleotide, 512 B amino); ``pair=False``, the compact rows:
+    planes*32 + milestones*8 (256 B nucleotide, 384 B amino)."""
     n_planes = alpha.num_bit_planes(alphabet)
-    need = n_planes * 64 + (alpha.cardinality(alphabet) + 1) * 8
+    need = n_planes * (64 if pair else 32) + (alpha.cardinality(alphabet) + 1) * 8
     return ((need + 127) // 128) * 128
 
 
@@ -212,10 +213,15 @@ class DeviceIndex:
     bytes: ``packed`` and ``packed_pair`` are the one table of wide rows
     (the same tensor), and ``prefix_sums``, ``seed_table`` and
     ``sampled_sa`` are u64 values in int64 tensors.
+
+    A shard of the range-sharded engine (parallel/range_sharded.py) is a
+    view too: ``packed`` and ``sampled_sa`` hold its block range and its
+    sample range only, ``packed_pair`` is None, and a wide shard's rows
+    are the compact ones (``pair_fused=False``).
     """
 
     packed: torch.Tensor  # (num_blocks, row_bytes) uint8 fused blocks
-    packed_pair: torch.Tensor  # (num_blocks, pair_row_bytes) uint8
+    packed_pair: Optional[torch.Tensor]  # (num_blocks, pair_row_bytes) uint8; None in a shard
     prefix_sums: torch.Tensor  # (A+2,) u32 as int32 / u64 as int64
     seed_table: torch.Tensor  # (A**k, 2) u32 as int32 / u64 as int64
     sampled_sa: Optional[torch.Tensor]  # (num_samples,) u32 as int32 / u64 as int64; None = on disk
@@ -226,6 +232,9 @@ class DeviceIndex:
     kmer_length_in_seed_table: int
     alphabet: AlphabetType
     wide: bool = False  # u64 positions over the wide row layout
+    # wide rows pair-fused (plane stride 64); False: the compact rows
+    # (stride 32) of the range-sharded engine's shards
+    pair_fused: bool = True
 
     @property
     def device(self) -> torch.device:
@@ -250,7 +259,7 @@ class DeviceIndex:
     @property
     def plane_stride(self) -> int:
         """Bytes from one plane to the next within a row of ``packed``."""
-        return 64 if self.wide else 32
+        return 64 if self.wide and self.pair_fused else 32
 
     @property
     def milestone_offset(self) -> int:
@@ -337,31 +346,37 @@ def pack_pair_rows_from_blocks(
 
 
 def pack_device_blocks64(
-    bwt_letters: np.ndarray, milestones: np.ndarray, alphabet: AlphabetType
+    bwt_letters: np.ndarray, milestones: np.ndarray, alphabet: AlphabetType,
+    pair: bool = True,
 ) -> np.ndarray:
     """Bit-planes + u64 milestones -> (num_blocks, row_bytes64) uint8.
 
-    Row b holds the plane bytes of blocks b and b+1 (64 B per plane)
-    plus block b's milestones. The last row's missing partner keeps zero
-    plane bytes: those pair-local positions lie beyond every valid rank
-    position and the inclusive mask zeroes them.
+    With ``pair`` (the default), row b holds the plane bytes of blocks b
+    and b+1 (64 B per plane) plus block b's milestones. The last row's
+    missing partner keeps zero plane bytes: those pair-local positions
+    lie beyond every valid rank position and the inclusive mask zeroes
+    them. ``pair=False`` packs the compact single-block rows (plane
+    stride 32, milestones at ``n_planes * 32``) that the range-sharded
+    engine shards.
     """
     n_planes = alpha.num_bit_planes(alphabet)
     card = alpha.cardinality(alphabet)
+    stride = 64 if pair else 32
     bwt_length = len(bwt_letters)
     nb = num_blocks_from_bwt_length(bwt_length)
 
     codes = np.zeros(nb * POSITIONS_PER_BLOCK, dtype=np.uint8)
     codes[:bwt_length] = alpha.index_to_vector_lut(alphabet)[bwt_letters]
 
-    out = np.zeros((nb, device_row_bytes64(alphabet)), dtype=np.uint8)
+    out = np.zeros((nb, device_row_bytes64(alphabet, pair)), dtype=np.uint8)
     for b in range(n_planes):
         bits = ((codes >> b) & 1).reshape(nb, POSITIONS_PER_BLOCK)
         plane = np.packbits(bits, axis=1, bitorder="little")
-        out[:, b * 64 : b * 64 + 32] = plane
-        out[:-1, b * 64 + 32 : (b + 1) * 64] = plane[1:]
+        out[:, b * stride : b * stride + 32] = plane
+        if pair:
+            out[:-1, b * 64 + 32 : (b + 1) * 64] = plane[1:]
     ms = milestones[:, : card + 1].astype("<u8")
-    off = n_planes * 64
+    off = n_planes * stride
     out[:, off : off + (card + 1) * 8] = ms.view(np.uint8).reshape(nb, (card + 1) * 8)
     return out
 
@@ -506,6 +521,24 @@ class FmIndex:
             self.kmer_seed_table = dev.numpy_u64(dev.seed_table)
         return self.kmer_seed_table
 
+    def seed_table_tensor(self, device, wide: bool) -> Optional[torch.Tensor]:
+        """The seed table on ``device`` in a view's storage (u32 in int32,
+        or u64 in int64 when ``wide``): from the host table, else from the
+        cached device view without a round trip through the host; None
+        while the index has none."""
+        k = int(self.config.kmer_length_in_seed_table)
+        if self.kmer_seed_table is not None:
+            return (u64_tensor if wide else u32_tensor)(self.kmer_seed_table, device)
+        cache = self._device_cache
+        if cache is None or cache.seed_table.shape[0] != self.cardinality**k:
+            return None
+        # a table built on the device: values < 2^32 whenever the widths
+        # differ, so widening adds zero high words and narrowing drops them
+        seed = cache.seed_table.to(device)
+        if cache.wide != wide:
+            seed = widen_u32(seed) if wide else narrow_u32(seed)
+        return seed
+
     def letters_as_blocks(self) -> np.ndarray:
         """(num_blocks, 256) uint8, tail padded with the sentinel index."""
         n_blocks = self.num_blocks
@@ -582,16 +615,8 @@ class FmIndex:
             packed = torch.from_numpy(rows).to(device)
             pair = torch.from_numpy(pack_pair_rows_from_blocks(rows, self.alphabet)).to(device)
         k = int(self.config.kmer_length_in_seed_table)
-        if self.kmer_seed_table is not None:
-            seed = as_table(self.kmer_seed_table, device)
-        elif cache is not None and cache.seed_table.shape[0] == self.cardinality**k:
-            # a table built on the device: values < 2^32 whenever the
-            # widths differ, so widening adds zero high words and
-            # narrowing drops them
-            seed = cache.seed_table.to(device)
-            if cache.wide != wide:
-                seed = widen_u32(seed) if wide else narrow_u32(seed)
-        else:
+        seed = self.seed_table_tensor(device, wide)
+        if seed is None:
             seed = torch.zeros(
                 (1, 2), dtype=torch.int64 if wide else torch.int32, device=device
             )

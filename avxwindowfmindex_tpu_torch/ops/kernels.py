@@ -36,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from ..models.index import device_row_bytes, device_row_bytes64, kernel_letter_tables
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build", "kernels")
@@ -104,7 +106,18 @@ K1WX = Kernel(
     "k1w_extend", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/search64.py:564",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX)
+# K1 over one shard of the range-sharded engine (parallel/range_sharded.py),
+# narrow block rows and compact wide rows: the masked rank the JAX package
+# computes in XLA with P1's arithmetic
+K1R = Kernel(
+    "k1r_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/parallel/range_sharded.py:54",
+)
+K1RW = Kernel(
+    "k1rw_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/parallel/range_sharded.py:54",
+)
+KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW)
 
 
 def reset_launch_counts() -> None:
@@ -211,6 +224,10 @@ def build() -> float:
         lib.awfm_k1_occ.argtypes = [i32, tables_p, vp, vp, i64, vp, vp]
         lib.awfm_k1_letter_lf.argtypes = [i32, tables_p, vp, i64, vp, vp, vp]
         lib.awfm_k1_extend.argtypes = [i32, tables_p, vp, i64, vp, vp]
+        lib.awfm_k1r_occ.argtypes = [i32, tables_p, vp, vp, i64, i32, vp, vp]
+        lib.awfm_k1r_letter_occ.argtypes = [i32, tables_p, vp, i64, i32, vp, vp, vp]
+        lib.awfm_k1rw_occ.argtypes = lib.awfm_k1r_occ.argtypes
+        lib.awfm_k1rw_letter_occ.argtypes = lib.awfm_k1r_letter_occ.argtypes
         lib.awfm_k2_ranges.argtypes = [
             i32, tables_p, vp, i64, i32, vp, i64, i64, vp, vp, vp, vp, vp,
         ]
@@ -241,6 +258,8 @@ def build() -> float:
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
             lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
             lib.awfm_k3w_backtrace_resolve,
+            lib.awfm_k1r_occ, lib.awfm_k1r_letter_occ, lib.awfm_k1rw_occ,
+            lib.awfm_k1rw_letter_occ,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
             lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
         ):
@@ -277,37 +296,44 @@ def _pos_dtype(dev):
     return torch.int64 if dev.wide else torch.int32
 
 
-def _tables(dev) -> _Tables:
+def _tables(dev, shard: bool = False) -> _Tables:
+    """The tables of a view; ``shard``: of one shard of the range-sharded
+    engine (no pair rows; compact rows when wide), for K1R and K1Rw only."""
     device = dev.packed.device
-    for name, dtype in (
-        ("packed", torch.uint8), ("packed_pair", torch.uint8),
-        ("prefix_sums", _pos_dtype(dev)), ("code_masks", torch.uint8),
+    if shard != (dev.packed_pair is None) or (dev.wide and dev.pair_fused == shard):
+        raise ValueError(
+            "K1R and K1Rw take the shards of a range-sharded engine (no pair "
+            "rows, compact wide rows); the other kernels take whole views"
+        )
+    pair = dev.packed if shard else dev.packed_pair
+    for name, t, dtype in (
+        ("packed", dev.packed, torch.uint8), ("packed_pair", pair, torch.uint8),
+        ("prefix_sums", dev.prefix_sums, _pos_dtype(dev)),
+        ("code_masks", dev.code_masks, torch.uint8),
     ):
-        _require(getattr(dev, name), name, dtype, device)
+        _require(t, name, dtype, device)
     if dev.wide:
-        from ..models.index import device_row_bytes64
-
         # one table serves both roles; its 16 B loads need aligned rows
-        if dev.packed_pair.data_ptr() != dev.packed.data_ptr():
+        if pair.data_ptr() != dev.packed.data_ptr():
             raise ValueError("a wide view has one row table (packed is packed_pair)")
-        if dev.packed.shape[1] != device_row_bytes64(dev.alphabet):
-            raise ValueError(
-                f"wide rows must be {device_row_bytes64(dev.alphabet)} B, "
-                f"got {dev.packed.shape[1]}"
-            )
-    if dev.packed.data_ptr() % 16 or dev.packed_pair.data_ptr() % 16:
+        want = device_row_bytes64(dev.alphabet, dev.pair_fused)
+    else:
+        want = device_row_bytes(dev.alphabet)
+    if dev.packed.shape[1] != want:
+        raise ValueError(f"rows must be {want} B, got {dev.packed.shape[1]}")
+    if dev.packed.data_ptr() % 16 or pair.data_ptr() % 16:
         raise ValueError("row tables must be 16-byte aligned")
     if dev.prefix_sums.shape != (dev.cardinality + 2,):
         raise ValueError("prefix_sums must hold cardinality + 2 entries")
     letter_code, code_letter = _letter_tables(dev.alphabet)
     return _Tables(
         packed=dev.packed.data_ptr(),
-        packed_pair=dev.packed_pair.data_ptr(),
+        packed_pair=pair.data_ptr(),
         prefix_sums=dev.prefix_sums.data_ptr(),
         code_masks=dev.code_masks.data_ptr(),
         nb=int(dev.packed.shape[0]),
         row_bytes=int(dev.packed.shape[1]),
-        pair_row_bytes=int(dev.packed_pair.shape[1]),
+        pair_row_bytes=int(pair.shape[1]),
         card=int(dev.cardinality),
         n_planes=int(dev.n_planes),
         letter_code=letter_code, code_letter=code_letter,
@@ -318,8 +344,6 @@ def _tables(dev) -> _Tables:
 def _letter_tables(alphabet):
     """``kernel_letter_tables`` of an alphabet as the ctypes arrays of
     ``_Tables``."""
-    from ..models.index import kernel_letter_tables
-
     return tuple((ctypes.c_uint64 * 4)(*t.view("<u8").tolist())
                  for t in kernel_letter_tables(alphabet))
 
@@ -329,10 +353,10 @@ def _stream(device) -> int:
 
 
 def _entry(dev, kernel: Kernel, suffix: str):
-    """(C entry point, its name, its Kernel) of K1, K2, K3 or K1X for the
-    view's width: ``awfm_k1_occ`` and K1, or ``awfm_k1w_occ`` and K1W."""
+    """(C entry point, its name, its Kernel) of K1, K2, K3, K1X or K1R for
+    the view's width: ``awfm_k1_occ`` and K1, or ``awfm_k1w_occ`` and K1W."""
     if dev.wide:
-        kernel = {K1: K1W, K2: K2W, K3: K3W, K1X: K1WX}[kernel]
+        kernel = {K1: K1W, K2: K2W, K3: K3W, K1X: K1WX, K1R: K1RW}[kernel]
     name = f"awfm_{kernel.name.split('_')[0]}_{suffix}"
     return getattr(_library(), name), name, kernel
 
@@ -381,6 +405,59 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     _check(rc, name)
     kernel.launches += 1
     return letters, lf
+
+
+def _first_block(dev, first_block: int) -> int:
+    if not (0 <= first_block and first_block + dev.packed.shape[0] < 2**31):
+        raise ValueError("need 0 <= first_block and first_block + the shard's rows < 2^31")
+    return int(first_block)
+
+
+def k1r_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor,
+                   first_block: int) -> torch.Tensor:
+    """K1R (K1Rw for a wide shard), occ mode: (n,) int64 occ(letter,
+    position) where the shard, whose rows are global blocks
+    ``first_block ..``, owns the position's block, else 0."""
+    tables = _tables(dev, shard=True)
+    device = dev.packed.device
+    _require(positions, "positions", torch.int64, device)
+    _require(letters, "letters", torch.int32, device)
+    if positions.shape != letters.shape or positions.dim() != 1:
+        raise ValueError("positions and letters must be 1-D of one length")
+    first_block = _first_block(dev, first_block)
+    n = positions.shape[0]
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    fn, name, kernel = _entry(dev, K1R, "occ")
+    rc = fn(device.index, ctypes.byref(tables), positions.data_ptr(), letters.data_ptr(), n,
+            first_block, out.data_ptr(), _stream(device))
+    _check(rc, name)
+    kernel.launches += 1
+    return out
+
+
+def k1r_letter_occ(dev, positions: torch.Tensor, first_block: int):
+    """K1R (K1Rw for a wide shard), letter mode: ((n,) int32 letters, (n,)
+    int64 occ(min(letter, ambiguity letter), position)) where the shard
+    owns the position's block, else (0, 0)."""
+    tables = _tables(dev, shard=True)
+    device = dev.packed.device
+    _require(positions, "positions", torch.int64, device)
+    if positions.dim() != 1:
+        raise ValueError("positions must be 1-D")
+    first_block = _first_block(dev, first_block)
+    n = positions.shape[0]
+    letters = torch.empty(n, dtype=torch.int32, device=device)
+    occ = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return letters, occ
+    fn, name, kernel = _entry(dev, K1R, "letter_occ")
+    rc = fn(device.index, ctypes.byref(tables), positions.data_ptr(), n, first_block,
+            letters.data_ptr(), occ.data_ptr(), _stream(device))
+    _check(rc, name)
+    kernel.launches += 1
+    return letters, occ
 
 
 def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:

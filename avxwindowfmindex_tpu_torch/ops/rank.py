@@ -181,15 +181,22 @@ def letter_at_rows(dev, rows: torch.Tensor, local: torch.Tensor) -> torch.Tensor
     return dev.vec_to_index.to(torch.int64)[code]
 
 
+def lf_from_letter_occ(dev, lett: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """LF = C[l] + occ - 1 of letters ``lett`` and ``occ`` = occ(min(l,
+    ambiguity letter), p), wrapped to the view's width; the sentinel maps
+    to 0 (AwFmSearch.c:369-427)."""
+    lclip = torch.clamp(lett, max=dev.cardinality)
+    lf = (_prefix_sum_select(dev, lclip) + occ - 1) & dev.pos_mask
+    return torch.where(lett == dev.sentinel, 0, lf)
+
+
 def letter_and_lf_plain(dev, positions: torch.Tensor):
     """(letters, LF): LF(p) = C[l] + occ(l, p) - 1 with l the letter at
     p; the sentinel maps to 0 (AwFmSearch.c:369-427)."""
     rows, local = _gather_rows(dev.packed, positions, dev.wide)
     lett = letter_at_rows(dev, rows, local)
-    lclip = torch.clamp(lett, max=dev.cardinality)
-    occ = _count_rows(dev, rows, local, lclip)
-    lf = (_prefix_sum_select(dev, lclip) + occ - 1) & dev.pos_mask
-    return lett, torch.where(lett == dev.sentinel, 0, lf)
+    occ = _count_rows(dev, rows, local, torch.clamp(lett, max=dev.cardinality))
+    return lett, lf_from_letter_occ(dev, lett, occ)
 
 
 def letter_and_lf_at(dev, positions: torch.Tensor):

@@ -1,2 +1,2 @@
-"""Batch search API, shard retry, the chunked corpus and the
-query-parallel engine over a list of devices."""
+"""Batch search API, shard retry, the chunked corpus, the query-parallel
+engine and the range-sharded engine over a list of devices."""

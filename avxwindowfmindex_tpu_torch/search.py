@@ -122,8 +122,19 @@ def ranges_plain(dev, mat, lengths, seeded, classes=None):
     mat = mat.to(torch.int64)
     lengths = lengths.to(torch.int64)
     seeded = seeded.to(torch.bool)
-    b, l_pad = mat.shape
-    k = dev.kmer_length_in_seed_table
+    start, end, nxt = initial_ranges(dev, mat, lengths, seeded)
+    for t in range(int(nxt.max()) + 1 if mat.shape[0] else 0):
+        p = nxt - t
+        start, end = _step_exact(dev, start, end, step_letters(mat, p), p >= 0, classes)
+    return start, end
+
+
+def initial_ranges(dev, mat, lengths, seeded):
+    """(start, end, nxt) before the backward steps of an int64 letter
+    matrix: the seed-table range of the last k letters where ``seeded``
+    (``_seed_lookup``), else the last letter's prefix-sum range
+    (``_initial_range``); ``nxt``: the column of each query's first step
+    (negative: none)."""
     card = dev.cardinality
     seed = _seed_lookup(dev, mat, lengths)
     ps = dev.widen(dev.prefix_sums)
@@ -132,13 +143,13 @@ def ranges_plain(dev, mat, lengths, seeded, classes=None):
     init_e = (ps[(last + 1).clamp(max=card + 1)] - 1) & dev.pos_mask
     start = torch.where(seeded, seed[:, 0], init_s)
     end = torch.where(seeded, seed[:, 1], init_e)
-    nxt = torch.where(seeded, lengths - k - 1, lengths - 2)
-    n_steps = int(nxt.max()) + 1 if b else 0
-    for t in range(n_steps):
-        p = nxt - t
-        lett = mat.gather(1, p.clamp(0, l_pad - 1)[:, None])[:, 0]
-        start, end = _step_exact(dev, start, end, lett, p >= 0, classes)
-    return start, end
+    nxt = torch.where(seeded, lengths - dev.kmer_length_in_seed_table - 1, lengths - 2)
+    return start, end, nxt
+
+
+def step_letters(mat, p):
+    """The letter of each row of ``mat`` at column ``p``, clamped to the matrix."""
+    return mat.gather(1, p.clamp(0, mat.shape[1] - 1)[:, None])[:, 0]
 
 
 def search_ranges(dev, mat, lengths, seeded):

@@ -1,7 +1,7 @@
 """Device-memory capacity planner: size an index configuration to the card.
 
-Counterpart of ``avxwindowfmindex_tpu/utils/capacity.py``, replicated
-only. The reference documents this sizing guidance for its
+Counterpart of ``avxwindowfmindex_tpu/utils/capacity.py``. The reference
+documents this sizing guidance for its
 users (seed-table memory against k, the suffix-array compression-ratio
 trade, the in-memory SA); on a card the budget is its device memory and
 the knobs are richer (digram table, dense device-side SA), so the
@@ -9,7 +9,7 @@ guidance becomes a planner:
 
     plan = plan_capacity(num_bases, AlphabetType.DNA, device="cuda:0")
     cfg  = plan.index_configuration()          # -> IndexConfiguration
-    plan.seed_k, plan.device_sa_ratio, plan.ngram
+    plan.seed_k, plan.device_sa_ratio, plan.ngram, plan.engine
 
 Sizing model (byte counts exact: each equals the ``nbytes`` of the
 port's tensor, and the JAX package's figure):
@@ -17,7 +17,9 @@ port's tensor, and the JAX package's figure):
     packed       num_blocks x device_row_bytes        (backtrace rows)
     packed_pair  num_blocks x device_pair_row_bytes   (one-row steps)
                  wide: the one table of device_row_bytes64 rows stands
-                 for both and is counted as ``packed``
+                 for both and is counted as ``packed``; without pair
+                 rows, the compact wide rows (device_row_bytes64(pair=
+                 False))
     ngram        num_blocks x pair-row bytes of the n-gram table
                  (nucleotide and narrow only — ops/ngram.py geometry)
     seed_table   |A|^k x 8 B narrow / 16 B wide
@@ -31,9 +33,30 @@ Degradation ladder when the rich configuration does not fit (the JAX
 package's order): lower seed_k toward MIN_SEED_K, then drop the dense
 device SA, then the digram table, then the pair rows.
 
-A corpus of 2^32 positions and more gets a wide plan (no n-gram
-candidate). The range-sharded plan waits for its ROADMAP item ("the
-multi-GPU engines"); the planner raises NotImplementedError for it.
+Engine modes, in preference order (the JAX planner's):
+    replicated     the index fits one card (``SearchEngine``, or the
+                   query-parallel engine over several); a corpus of 2^32
+                   positions and more gets a wide plan, which keeps its
+                   pair-fused rows and has no n-gram candidate;
+    range_sharded  ``n_devices > 1`` and the index exceeds one card but
+                   fits the devices together: per-device bytes are the
+                   sharded components split n ways plus the replicated
+                   seed table (parallel/range_sharded.py); no n-gram
+                   candidate.
+
+The range-sharded candidates are the JAX planner's: pair rows first,
+then the compact rows. The engine itself holds only the block rows
+(narrow) or the compact wide rows, so a plan with ``pair_rows`` on
+counts more than the engine allocates; the figures follow the JAX
+planner's so that both packages pick the same plan.
+
+Not ported: a replicated wide plan on the compact rows, the JAX
+planner's last resort for a wide corpus. The single-device wide engines
+take pair-fused rows only (ROADMAP item "the compact amino wide
+layout"), so the port's replicated wide candidates stop before it; the
+rows cost the same for nucleotides, and only an amino corpus that one
+card holds on compact rows alone plans differently (range-sharded, or
+no fit).
 """
 
 from __future__ import annotations
@@ -56,9 +79,6 @@ MIN_SEED_K = {AlphabetType.DNA: 10, AlphabetType.RNA: 10, AlphabetType.AMINO: 2}
 #: 700 W). It already holds the query buffers that the batch term counts
 #: again, so the estimate errs large.
 _WORKSPACE_SLACK_BYTES = 731_770_478
-
-_SHARDED_ITEM = "ROADMAP item 'the multi-GPU engines'"
-
 
 def detect_hbm_bytes(device) -> Tuple[int, str]:
     """Device memory of ``device``, (bytes, source-note).
@@ -102,12 +122,7 @@ def component_bytes(
     nb = index_mod.num_blocks_from_bwt_length(bwt_length)
     comp: Dict[str, int] = {}
     if wide:
-        if not pair_rows:
-            raise NotImplementedError(
-                "the compact wide layout (no pair rows) is not ported "
-                "(ROADMAP item 'the compact amino wide layout')"
-            )
-        comp["packed"] = nb * index_mod.device_row_bytes64(alphabet)
+        comp["packed"] = nb * index_mod.device_row_bytes64(alphabet, pair=pair_rows)
     else:
         comp["packed"] = nb * index_mod.device_row_bytes(alphabet)
         if pair_rows:
@@ -136,6 +151,8 @@ class CapacityPlan:
     num_bases: int
     alphabet: AlphabetType
     hbm_bytes: int
+    n_devices: int
+    engine: str  # "replicated" | "range_sharded"
     wide: bool
     seed_k: int
     sa_ratio: int
@@ -145,6 +162,7 @@ class CapacityPlan:
     pair_rows: bool
     components: Dict[str, int]
     index_bytes: int
+    per_chip_bytes: int  # the index's share resident on one device
     workspace: int
     budget: int  # fit_fraction * hbm - workspace
     fit_fraction: float
@@ -165,26 +183,28 @@ class CapacityPlan:
             f"{k}={v / gb:.2f}GB" for k, v in sorted(self.components.items())
         )
         return (
-            f"replicated engine (1 device, {'wide' if self.wide else 'narrow'}): "
-            f"seed_k={self.seed_k}, "
+            f"{self.engine} engine ({self.n_devices} device"
+            f"{'s' if self.n_devices != 1 else ''}, "
+            f"{'wide' if self.wide else 'narrow'}): seed_k={self.seed_k}, "
             f"device_sa_ratio={self.device_sa_ratio}, "
             f"ngram={'on' if self.ngram else 'off'}, "
             f"pair_rows={'on' if self.pair_rows else 'off'}; "
-            f"{self.index_bytes / gb:.2f}GB of "
+            f"{self.per_chip_bytes / gb:.2f}GB/chip of "
             f"{self.budget / gb:.2f}GB budget ({parts})"
         )
 
 
-def _candidates(alphabet, wide, max_k, min_k, dense_ratio):
+def _candidates(alphabet, wide, max_k, min_k, dense_ratio, compact_wide=False):
     """Configs richest-first along the degradation ladder; a wide plan
-    has no n-gram candidate and keeps its pair-fused rows."""
+    has no n-gram candidate, and its compact rows only where the engine
+    takes them (``compact_wide``: the range-sharded engine)."""
     ngram_ok = alphabet != AlphabetType.AMINO and not wide
     for ngram in ([True, False] if ngram_ok else [False]):
         for dense in ([dense_ratio, None] if dense_ratio else [None]):
             for k in range(max_k, min_k - 1, -1):
                 yield dict(seed_k=k, device_sa_ratio=dense, ngram=ngram,
                            pair_rows=True)
-    if wide:
+    if wide and not compact_wide:
         return
     for k in range(max_k, min_k - 1, -1):
         yield dict(seed_k=k, device_sa_ratio=None, ngram=False,
@@ -207,17 +227,15 @@ def plan_capacity(
     min_seed_k: Optional[int] = None,
     ngram_n: int = 2,
 ) -> CapacityPlan:
-    """Pick seed_k / dense SA / digram for the corpus on one card.
+    """Pick seed_k / dense SA / digram / engine mode for the corpus.
 
     ``hbm_bytes`` defaults to the memory of ``device``
     (:func:`detect_hbm_bytes`). ``device_sa_ratio=None`` disables the
     dense-SA option; ``fit_fraction`` is the share of device memory the
     resident index may use after the workspace estimate is reserved.
+    With ``n_devices > 1``, a corpus that no replicated plan fits gets a
+    range-sharded plan, sized per device.
     """
-    if n_devices != 1:
-        raise NotImplementedError(
-            f"plans over {n_devices} devices (range-sharded) wait for {_SHARDED_ITEM}"
-        )
     notes = []
     if hbm_bytes is None:
         if device is None:
@@ -243,27 +261,50 @@ def plan_capacity(
             f"workspace estimate {ws} exceeds {fit_fraction:.0%} of device "
             f"memory ({hbm_bytes}); shrink the batch"
         )
-    for cand in _candidates(alphabet, wide, max_k, min_k, device_sa_ratio):
+
+    def build(cand, engine, chips):
         comp = component_bytes(
             num_bases, alphabet, sa_ratio=sa_ratio, ngram_n=ngram_n, wide=wide, **cand
         )
         total = sum(comp.values())
-        if total <= budget:
-            if wide:
-                notes.append("bwt >= 2^32: wide layout (u64 positions)")
-            return CapacityPlan(
-                num_bases=num_bases, alphabet=alphabet, hbm_bytes=hbm_bytes,
-                wide=wide, sa_ratio=sa_ratio, components=comp, index_bytes=total,
-                workspace=ws, budget=budget, fit_fraction=fit_fraction,
-                notes=tuple(notes), ngram_n=ngram_n, **cand,
-            )
-    comp = component_bytes(
-        num_bases, alphabet, seed_k=min_k, sa_ratio=sa_ratio, pair_rows=wide, wide=wide
+        if engine == "replicated":
+            return comp, total, total
+        # rows and SA split over the devices, the seed table on each
+        sharded_bytes = total - comp["seed_table"]
+        return comp, total, -(-sharded_bytes // chips) + comp["seed_table"]
+
+    for engine in ("replicated", "range_sharded"):
+        if engine == "range_sharded" and n_devices < 2:
+            continue
+        for cand in _candidates(alphabet, wide, max_k, min_k, device_sa_ratio,
+                                compact_wide=engine == "range_sharded"):
+            if engine == "range_sharded" and cand["ngram"]:
+                continue  # the range-sharded rank steps one letter at a time
+            comp, total, per_chip = build(cand, engine, n_devices)
+            if per_chip <= budget:
+                if engine == "range_sharded":
+                    notes.append(
+                        "index exceeds one chip's HBM; blocks+SA "
+                        f"partitioned over {n_devices} devices"
+                    )
+                if wide:
+                    notes.append("bwt >= 2^32: wide layout (u64 positions)")
+                return CapacityPlan(
+                    num_bases=num_bases, alphabet=alphabet, hbm_bytes=hbm_bytes,
+                    n_devices=n_devices, engine=engine, wide=wide, sa_ratio=sa_ratio,
+                    components=comp, index_bytes=total, per_chip_bytes=per_chip,
+                    workspace=ws, budget=budget, fit_fraction=fit_fraction,
+                    notes=tuple(notes), ngram_n=ngram_n, **cand,
+                )
+    # nothing fits: report the smallest configuration's shortfall
+    comp, total, per_chip = build(
+        dict(seed_k=min_k, device_sa_ratio=None, ngram=False, pair_rows=False),
+        "range_sharded" if n_devices > 1 else "replicated", n_devices,
     )
-    total = sum(comp.values())
     need = math.ceil((total - comp["seed_table"]) / max(budget - comp["seed_table"], 1))
     raise ValueError(
-        f"no configuration fits: minimal index needs {total / 1e9:.2f}GB "
-        f"against a {budget / 1e9:.2f}GB budget; needs a >= {need}-device "
-        f"mesh ({_SHARDED_ITEM}) or a smaller corpus/batch"
+        f"no configuration fits: minimal index needs {per_chip / 1e9:.2f}"
+        f"GB/chip against a {budget / 1e9:.2f}GB budget; "
+        f"needs a >= {need}-device mesh (range-sharded) or a smaller "
+        f"corpus/batch"
     )

@@ -120,6 +120,24 @@ Phases (any failure raises and the script exits nonzero):
      iterative_step_backward_search (K1's, K1w's occ mode) equal to the
      engine's ranges, and backtrace_return_previous_letter_index (their
      LF mode) equal to the plain LF.
+  8. the range-sharded engine on the phase-4 index: 8a, K1R and K1Rw
+     against their plain versions (tolerance 0), both modes, shard by
+     shard, on the index split into 2 and 4 shards of narrow block rows
+     and 2 of compact wide rows, at crafted positions (every shard's
+     first and last block, the zero padding, start - 1 at start == 0,
+     past the table, bit 39 set) and 2,097,152 random ones, the shards'
+     sum equal to K1 over the whole view, each timed on shard 0 of 2;
+     then K1Rw on a compact-row table tiled to 2^32 + 2^28 positions
+     (4.56 GB) whose milestones straddle 2^32, split at a block above
+     2^32, each shard against its plain version and their sum against a
+     closed form; 8b, RangeShardedSearchEngine over 2 and 4 shards on
+     the one card (["cuda:0"] * n): count and locate of the 1,048,576
+     25-mers equal to phase 4's, the launch counts reset just before and
+     read just after each (K1R: 11 steps x n a count; the ranges and
+     the LF loop a locate), q/s beside SearchEngine's in the same
+     process; 8c, the same over 2 shards of compact wide rows (K1Rw);
+     8d, plan_capacity over 4 devices for a corpus this card cannot
+     hold, which must pick the range-sharded engine.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
@@ -175,6 +193,7 @@ MAIN_PATH_KERNELS = ("k1_extend", "k2_ranges", "k3_backtrace_resolve", "k4_ngram
 BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
 WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
 SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
+RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
 WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
@@ -2151,6 +2170,265 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     return stats
 
 
+def rs_edge_positions(eng) -> list:
+    """Phase 8a's crafted positions: every shard's first and last block
+    (their first and last position), the zero padding of the last shard,
+    ``start - 1`` at ``start == 0`` (u32 0xFFFFFFFF; u64 2^64 - 1), past
+    the padded table; wide: above 2^32 and with bit 39 set (its block
+    reads negative as int32)."""
+    bps, n = eng.blocks_per_shard, eng.n_dev
+    out = []
+    for i in range(n):
+        for blk in (i * bps, (i + 1) * bps - 1):
+            out += [blk * 256, blk * 256 + 255]
+    top = bps * n * 256
+    out += [eng.host_index.bwt_length - 1, eng.host_index.bwt_length, top - 1, top, top + 300,
+            2**32 - 1]
+    if eng.wide:
+        out += [2**64 - 1, 2**32 + 5, 2**39, 2**39 + 777, 2**40 + 5, 2**63 + 9]
+    return out
+
+
+def rs_compare(rec: Record, name: str, shards, first_blocks, pos, lett, tag: str) -> list:
+    """Each shard's K1R (K1Rw) against its plain version, occ and letter
+    mode; returns the positions each shard owns."""
+    from avxwindowfmindex_tpu_torch.ops import kernels, sharded
+
+    owned = []
+    for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+        rec.compare(name, f"{tag}, shard {i}, occ x{pos.numel()}",
+                    kernels.k1r_occurrence(shard, pos, lett, fb),
+                    sharded.local_occurrence_plain(shard, pos, lett, fb))
+        kl, ko = kernels.k1r_letter_occ(shard, pos, fb)
+        pl, po = sharded.local_letter_occ_plain(shard, pos, fb)
+        rec.compare(name, f"{tag}, shard {i}, letter", kl, pl)
+        rec.compare(name, f"{tag}, shard {i}, letter mode's occ", ko, po)
+        owned.append(int(sharded.owned_rows(shard, pos, fb)[1].sum()))
+    return owned
+
+
+def phase_rs_kernels(rec: Record, engine, device: str) -> dict:
+    """Phase 8a: K1R and K1Rw against their plain versions (tolerance 0)
+    on the phase-4 index (``engine``: phase 4's, narrow) split into 2 and 4 shards (narrow block rows)
+    and into 2 (compact wide rows), at crafted edge positions and
+    RS_POSITIONS random ones (a backward step's 2B at 1M queries); the
+    shards' sum equal to K1's rank over the whole view; each kernel timed
+    on shard 0 of 2 at that shape. Returns the engines, for 8b and 8c."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels, sharded
+    from avxwindowfmindex_tpu_torch.parallel.range_sharded import RangeShardedSearchEngine
+
+    rng = np.random.default_rng(88)
+    engines = {}
+    for n, wide in ((2, False), (4, False), (2, True)):
+        t = time.time()
+        eng = RangeShardedSearchEngine(engine.host_index, [device] * n, wide=wide)
+        torch.cuda.synchronize()
+        engines[n, wide] = eng
+        name = "k1rw_rank" if wide else "k1r_rank"
+        shard0 = eng.shards[0]
+        log(f"[8a] {n} shards, {'compact wide' if wide else 'narrow'} rows: {eng.blocks_per_shard} "
+            f"blocks x {shard0.packed.shape[1]} B and {eng.samples_per_shard} samples a shard, "
+            f"cut on the host and uploaded in {time.time() - t:.3f}s")
+        rnd = rng.integers(0, eng.host_index.bwt_length, RS_POSITIONS).astype(np.uint64)
+        pos_np = np.concatenate([np.array(rs_edge_positions(eng), dtype=np.uint64), rnd])
+        pos = torch.from_numpy(pos_np.view(np.int64)).to(device)
+        lett = torch.from_numpy(
+            rng.integers(0, eng.dev.cardinality + 1, len(pos_np)).astype(np.int32)).to(device)
+        owned = rs_compare(rec, name, eng.shards, eng.first_blocks, pos, lett, f"[8a] {n} shards")
+        p_rnd, l_rnd = pos[-RS_POSITIONS:], lett[-RS_POSITIONS:]
+        rec.compare(name, f"{n} shards summed vs K1 over the whole view x{RS_POSITIONS}",
+                    eng.occurrence(p_rnd, l_rnd), kernels.k1_occurrence(engine.dev, p_rnd, l_rnd))
+        log(f"[8a] {name}, {n} shards: exact on {pos.numel()} positions (owned a shard: {owned})")
+        if n != 2:
+            continue
+        fb = eng.first_blocks[0]
+        ms, plain = time_in_turns(
+            f"[8a] {name} occ, shard 0 of 2, x{RS_POSITIONS}",
+            lambda: kernels.k1r_occurrence(shard0, p_rnd, l_rnd, fb),
+            lambda: sharded.local_occurrence_plain(shard0, p_rnd, l_rnd, fb), 50, 3)
+        rec.ms[name] = (ms, plain)
+        lms, lplain = time_in_turns(
+            f"[8a] {name} letter mode, shard 0 of 2, x{RS_POSITIONS}",
+            lambda: kernels.k1r_letter_occ(shard0, p_rnd, fb),
+            lambda: sharded.local_letter_occ_plain(shard0, p_rnd, fb), 50, 3)
+        own0 = int(sharded.owned_rows(shard0, p_rnd, fb)[1].sum())
+        np_, ms_b = shard0.n_planes, shard0.milestone_bytes
+        rec.set_bound(name, [(shard0.packed.shape[0], np_ * 32 + ms_b, own0)],
+                      RS_POSITIONS * (8 + 4 + 8), own0 * rank_ops(np_))
+        log(f"[8a] {name}: occ {ms:.4f} ms ({own0} of {RS_POSITIONS} owned), "
+            f"bound {rec.bound[name]['bound_ms']:.4f} ms, ms / bound "
+            f"{ms / rec.bound[name]['bound_ms']:.2f}; letter mode {lms:.4f} ms, plain {lplain:.4f}")
+    return engines
+
+
+def phase_rs_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
+    """Phase 8a above 2^32: K1Rw on a compact-row table tiled as phase 4x
+    tiles its own (boundary + boundary / 16 positions, 4.56 GB), with
+    milestones that straddle 2^32 and split into two shards whose edge
+    lies above ``boundary``: each shard against its plain version, and
+    their sum against a closed form."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import AlphabetType, DeviceIndex
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.models import index as index_mod
+
+    rng = np.random.default_rng(4097)
+    pat_blocks, card, n_planes = 4096, 4, 3
+    pattern = rng.choice(np.arange(5, dtype=np.uint8), size=(pat_blocks, 256),
+                         p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    reps = boundary // (pat_blocks * 256) + boundary // (16 * pat_blocks * 256)
+    nb = pat_blocks * reps
+    n = nb * 256
+    counts = np.stack([(pattern == j).sum(axis=1) for j in range(card + 2)], axis=1).astype(np.uint64)
+    pat_total = counts.sum(axis=0)
+    cum = np.cumsum(counts, axis=0)
+    pat_ms = np.zeros_like(cum)
+    pat_ms[1:] = cum[:-1]
+    offset = 2**32 - (boundary >> 4)  # milestones from below 2^32 to past it
+    rows = index_mod.pack_device_blocks64(pattern.reshape(-1), pat_ms, AlphabetType.DNA, pair=False)
+    t = time.time()
+    table = torch.from_numpy(rows).to(device).repeat(reps, 1)
+    t64 = table.view(torch.int64)
+    tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
+    total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
+    ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
+    col = n_planes * 32 // 8
+    t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :] + offset
+    del tile
+    edge = (boundary >> 8) + pat_blocks // 2  # shard 1's first block: above the boundary
+    z = torch.zeros(card + 2, dtype=torch.int64, device=device)
+    shards = [
+        DeviceIndex(
+            packed=part, packed_pair=None, prefix_sums=z, seed_table=z[:2].view(1, 2),
+            sampled_sa=None,
+            code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
+            vec_to_index=torch.from_numpy(
+                alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
+            bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA,
+            wide=True, pair_fused=False,
+        )
+        for part in (table[:edge], table[edge:])
+    ]
+    torch.cuda.synchronize()
+    log(f"[8a] compact table of {n} positions: {nb} rows x 256 B = {table.numel() / 1e9:.2f} GB, "
+        f"milestones {offset} .. {offset + int(pat_total.max()) * reps}, shard edge at block "
+        f"{edge} (position {edge * 256}), tiled in {time.time() - t:.2f}s")
+    m = 1 << 20
+    pos = np.concatenate([
+        rng.integers(boundary - 5000, boundary + 5000, m), rng.integers(0, n, m),
+        rng.integers(edge * 256 - 5000, edge * 256 + 5000, m // 4),
+        [boundary - 1, boundary, edge * 256 - 1, edge * 256, n - 1],
+    ]).astype(np.int64)
+    lett = rng.integers(0, card + 1, size=len(pos)).astype(np.int32)
+    flat = pattern.reshape(-1)
+    pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
+    full, rem = np.divmod(pos + 1, len(flat))
+    want = offset + full * pat_cum[lett, -1] + pat_cum[lett, rem]
+    # bit 39 set: no shard owns them; 2^40 + 5 and 2^63 + 9 alias block 0
+    crafted = np.array([2**64 - 1, 2**39, 2**39 + 777, 2**40 + 5, 2**63 + 9], dtype=np.uint64)
+    pos_t = torch.from_numpy(np.concatenate([pos, crafted.view(np.int64)])).to(device)
+    lett_t = torch.from_numpy(np.concatenate([lett, np.arange(len(crafted), dtype=np.int32) % 5])).to(device)
+    owned = rs_compare(rec, "k1rw_rank", shards, [0, edge], pos_t, lett_t, "[8a] above 2^32")
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    got = sum(kernels.k1r_occurrence(s, pos_t, lett_t, fb) for s, fb in zip(shards, (0, edge)))
+    rec.compare("k1rw_rank", f"above 2^32, the shards' sum vs the closed form x{len(pos)}",
+                got[: len(pos)], torch.from_numpy(want).to(device))
+    if int(got[len(pos) : len(pos) + 3].abs().sum()) != 0:
+        raise AssertionError("a position no shard owns counted")
+    if not (int(got.max()) > 2**32 and min(owned) > 0):
+        raise AssertionError("the straddle counts did not pass 2^32")
+    log(f"[8a] K1Rw exact above 2^32: owned {owned}, counts up to {int(got.max())}")
+    del table, t64, shards, got
+    torch.cuda.empty_cache()
+
+
+def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dict:
+    """Phase 8: the range-sharded engine on the phase-4 index (8a the
+    kernels; 8b narrow, 2 and 4 shards on the one card; 8c compact wide
+    rows, 2 shards; 8d the planner over 4 devices). Returns the stats,
+    with each kernel's launches from its checked calls."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import SearchEngine
+    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.utils import capacity
+
+    engines = phase_rs_kernels(rec, engine, device)
+    phase_rs_straddle(rec, device)
+    counts_want, lens_want, flat_want = answers
+    steps = KMER_LEN - MAIN_SEED_K
+    stats = {"launches": {"k1r_rank": 0, "k1rw_rank": 0}}
+
+    def median_qps(fn, runs=3):
+        fn(kmers[:4096])  # warm-up
+        times = []
+        for _ in range(runs):
+            t = time.time()
+            fn(kmers)
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+        return len(kmers) / float(np.median(times)), times
+
+    single = SearchEngine(engine.host_index, device=device)
+    for (n, wide), eng in engines.items():
+        tag = "8c" if wide else "8b"
+        name = "k1rw_rank" if wide else "k1r_rank"
+        kernels.reset_launch_counts()
+        counts = eng.count(kmers)
+        launches = expect_launches(tag, (name,), exact={name: steps * n})
+        if not np.array_equal(counts, counts_want):
+            raise AssertionError(f"[{tag}] {n} shards: counts differ from phase 4's")
+        kernels.reset_launch_counts()
+        if (n, wide) == (2, False):  # the public locate once, its split included
+            hits = eng.locate(kmers)
+            lens = np.array([len(h) for h in hits])
+            flat = np.concatenate(hits)
+            del hits
+        else:
+            flat, lens = eng._locate_flat(kmers)
+        bt = dict(eng.last_backtrace)
+        launches_l = expect_launches(tag, (name,), exact={name: steps * n + bt["launches"]})
+        if not (np.array_equal(lens, lens_want) and np.array_equal(flat, flat_want)):
+            raise AssertionError(f"[{tag}] {n} shards: locate differs from phase 4's")
+        stats["launches"][name] += launches[name] + launches_l[name]
+        log(f"[{tag}] {n} shards{' (compact wide rows)' if wide else ''}: count and locate of "
+            f"{len(kmers)} {KMER_LEN}-mers equal to phase 4's; {name} {launches[name]} launches a "
+            f"count ({steps} steps x {n}), {launches_l[name]} a locate (its ranges, then the LF "
+            f"loop: {bt['segments']} segments, {bt['lf_steps']} steps, {bt['lane_steps']} lane "
+            f"steps for {len(flat)} hits, {bt['launches']} launches)")
+        cq, ct = median_qps(eng.count)
+        lq, lt = median_qps(eng._locate_flat)
+        stats[f"{n}{'w' if wide else ''}"] = {"count_qps": cq, "locate_qps": lq, "lf": bt}
+        log(f"[{tag}] {n} shards: count median {cq:.1f} q/s of {ct}, locate (flat hits) median "
+            f"{lq:.1f} q/s of {lt}")
+    cq, ct = median_qps(single.count)
+    lq, lt = median_qps(single._locate_flat)
+    stats["single"] = {"count_qps": cq, "locate_qps": lq}
+    log(f"[8b] SearchEngine in the same process: count median {cq:.1f} q/s of {ct}, locate "
+        f"(flat hits) median {lq:.1f} q/s of {lt}")
+    del engines, single
+    torch.cuda.empty_cache()
+
+    hbm, src = capacity.detect_hbm_bytes(device)
+    corpus = 100_000_000_000
+    try:
+        capacity.plan_capacity(corpus, device=device)
+    except ValueError as e:
+        log(f"[8d] {corpus} bases on one card ({src}, {hbm} B): {e}")
+    else:
+        raise AssertionError("[8d] the corpus was meant not to fit one card")
+    plan = capacity.plan_capacity(corpus, device=device, n_devices=4)
+    if plan.engine != "range_sharded" or plan.per_chip_bytes > plan.budget:
+        raise AssertionError(f"[8d] plan over 4 devices: {plan.summary()}")
+    log(f"[8d] plan_capacity({corpus}, n_devices=4): {plan.summary()}; notes {plan.notes}")
+    stats["plan"] = plan.summary()
+    return stats
+
+
 def phase_single_query(engine, kmers, device: str) -> dict:
     """Phase 7f: the single-query API over the forced-wide and the narrow
     view of the phase-4 index: 16 25-mers walked letter by letter by
@@ -2271,9 +2549,12 @@ def main(argv=None) -> int:
     )
     main_stats["single_query"] = phase_single_query(engine, kmers, device)
     launches.update(main_stats["single_query"])
+    mark("phase 7")
+    main_stats["range_sharded"] = phase_range_sharded(rec, engine, kmers, answers, device)
+    launches.update(main_stats["range_sharded"]["launches"])
     del engine, kmers, answers
     torch.cuda.empty_cache()
-    mark("phase 7")
+    mark("phase 8")
     torch.cuda.synchronize()
 
     # logged, not in the kernels line: each index kernel's row visits over

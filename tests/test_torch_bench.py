@@ -119,8 +119,13 @@ def test_planner_assumes_no_device_memory():
         pcap.plan_capacity(64_000_000, device="cpu")
     with pytest.raises(ValueError, match="device or hbm_bytes"):
         pcap.plan_capacity(64_000_000)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pcap.plan_capacity(64_000_000, hbm_bytes=V5E, n_devices=8)
+    # a plan over several devices needs a budget as much as one does; a
+    # corpus one device holds stays replicated
+    with pytest.raises(ValueError, match="device or hbm_bytes"):
+        pcap.plan_capacity(64_000_000, n_devices=8)
+    plan = pcap.plan_capacity(64_000_000, hbm_bytes=V5E, n_devices=8)
+    assert (plan.engine, plan.n_devices, plan.per_chip_bytes) == (
+        "replicated", 8, plan.index_bytes)
 
 
 @pytest.mark.parametrize("case", [
@@ -164,8 +169,9 @@ def test_wide_component_bytes_equal_jax_and_port_tensors():
     }
     with pytest.raises(ValueError, match="narrow-only"):
         pcap.component_bytes(5_000_000_000, seed_k=12, ngram=True)
-    with pytest.raises(NotImplementedError, match="compact amino wide layout"):
-        pcap.component_bytes(5_000_000_000, seed_k=12, pair_rows=False)
+    # the compact wide rows (the range-sharded engine's) equal the JAX figure
+    assert pcap.component_bytes(5_000_000_000, seed_k=12, pair_rows=False) == (
+        jcap.component_bytes(5_000_000_000, seed_k=12, pair_rows=False))
 
 
 # ---------------------------------------------------------------------------
