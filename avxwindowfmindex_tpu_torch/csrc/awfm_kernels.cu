@@ -167,24 +167,54 @@
 //       takes K2's design whole. K3w keeps one thread per hit and the LF
 //       step of three dependent reads (lf_bytes): the persistent grid and
 //       the row in registers both measured level or behind there.
-//   K1R awfm_k1r_occ / awfm_k1r_letter_occ, K1Rw awfm_k1rw_occ /
-//   awfm_k1rw_letter_occ
+//   K1R awfm_k1r_occ / awfm_k1r_lf, K1Rw awfm_k1rw_occ / awfm_k1rw_lf,
+//   and their route awfm_k1r_route
 //       K1 over one shard of the range-sharded engine
 //       (parallel/range_sharded.py), whose block rows are split by
 //       contiguous block range over a list of devices. They replace the
 //       masked rank the JAX package computes in XLA under shard_map
 //       (parallel/range_sharded.py:_local_occurrence and the backtrace
-//       segment's letter and occ; P1's arithmetic): every lane gets every
-//       position of the batch, and a lane whose position's block the shard
-//       does not own writes 0 and reads nothing, so that over the shards
-//       the row traffic is one K1 launch's and the sum of the shards'
-//       outputs is the rank. K1R reads the narrow block rows (Narrow),
-//       K1Rw the compact wide rows (WideCompact: u64 milestones, planes 32 B
-//       apart) that the engine shards in place of the pair-fused ones. The
-//       occ mode is k1_occ_kernel's and the letter mode BlockRow's, behind
-//       the ownership test; the row pointer handed to them is moved back by
-//       the shard's first block. Bound like K1 by dependent random row
-//       loads; a simple kernel, not yet measured against a redesign.
+//       segment's letter and occ; P1's arithmetic) and the psum that
+//       assembles it: there every shard gets every lane of a step, answers
+//       for the lanes it owns, gives 0 elsewhere, and the sum over the
+//       shards is the value. Here the route (k1r_route_kernel, one
+//       cooperative launch on the home device) hands each lane of a step
+//       once to the shard that owns it, which follows from the position
+//       alone (bits 8..39 as int32, divided by the blocks a shard): it
+//       writes each routed lane's position and lane index into its shard's
+//       slice of one buffer, and the totals stay on the device. A shard's
+//       launch then runs its slice only and computes the step's whole
+//       value there: occ(letter, pos) in occ mode; in LF mode the letter,
+//       occ(min(letter, ambiguity letter), pos) and LF = C[l] + occ - 1
+//       from one row visit (C[] staged per block), the lane's done rule
+//       (p % ratio == 0) already taken by the route. It stores the value
+//       at the lane's place in the step's output, so no sum and no unroute
+//       pass follow: each lane has one writer. K1R reads the narrow block
+//       rows (Narrow), K1Rw the compact wide rows (WideCompact: u64
+//       milestones, planes 32 B apart) that the engine shards in place of
+//       the pair-fused ones.
+//       What bounds it on this card: dependent random row loads, as K1,
+//       and on a shard that outgrows the L2 every visit goes to device
+//       memory. The every-lane form (each shard on every lane) ran n x B
+//       lanes a step for B values, and its sum, LF and done rule took some
+//       2n + 10 whole-batch torch passes on the home device; its idle
+//       lanes cost little (12 B read, 8 B written), the passes much. What
+//       the design does about it: a step is one route pass over its B
+//       lanes (8 B read, 12 B written a routed lane) and n launches that
+//       run B lanes between them, on grids sized to the card that stride
+//       over their slices, with no readback of the counts for a shard on
+//       the home device. Two lanes share a routed position, each loading
+//       half of every plane's sector and summing by shuffle, as K2's lanes
+//       do: a random row visit costs by the rows a warp's load instruction
+//       touches (with half of each warp idle, a launch over 2.28 GB shards
+//       took 0.079 ms against 0.101 with full warps); the pair took 14% off
+//       an occ step and 7-12% off an LF step. Against the every-lane form
+//       in one process (H100 80GB HBM3, 700 W): an LF step over 1,048,576
+//       lanes 0.081 ms against 0.198 at 2 shards, 0.116 against 0.225 on
+//       two 2.28 GB shards; an occ step over 2,097,152 positions 0.120
+//       against 0.100 at 2 shards and 0.147 against 0.162 at 4, the route
+//       (0.028 ms) costing more than the idle lanes it saves until the
+//       shards are many.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -451,6 +481,27 @@ __device__ __forceinline__ typename G::pos_t occ_at(
   return ms + count_inclusive<8>(m, static_cast<uint32_t>(pos) & 255u);
 }
 
+// Milestone column col of the kMs milestones held in uint4 words, by
+// selects (a dynamic index would put the words in local memory).
+template <class P, int kMs, int kVec>
+__device__ __forceinline__ P select_milestone(const uint4 (&ms)[kVec], uint32_t col) {
+  P v = 0;
+#pragma unroll
+  for (int e = 0; e < kMs; ++e) {
+    P cand;
+    if constexpr (sizeof(P) == 4) {
+      const uint4 q = ms[e / 4];
+      cand = e % 4 == 0 ? q.x : (e % 4 == 1 ? q.y : (e % 4 == 2 ? q.z : q.w));
+    } else {
+      const uint4 q = ms[e / 2];
+      cand = e % 2 == 0 ? (static_cast<uint64_t>(q.y) << 32) | q.x
+                        : (static_cast<uint64_t>(q.w) << 32) | q.z;
+    }
+    v = col == static_cast<uint32_t>(e) ? cand : v;
+  }
+  return v;
+}
+
 // A block row as an LF step needs it, in registers: the 8 words of each
 // plane and the milestones, asked for together before the letter at the
 // position is known, so a step is one round trip to memory. That holds
@@ -500,21 +551,7 @@ struct BlockRow {
     if constexpr (!kUpFront) {
       return reinterpret_cast<const pos_t*>(row + NP * G::kStride)[col];
     } else {
-      pos_t v = 0;
-#pragma unroll
-      for (int e = 0; e < kMs; ++e) {
-        pos_t cand;
-        if constexpr (sizeof(pos_t) == 4) {
-          const uint4 q = ms[e / 4];
-          cand = e % 4 == 0 ? q.x : (e % 4 == 1 ? q.y : (e % 4 == 2 ? q.z : q.w));
-        } else {
-          const uint4 q = ms[e / 2];
-          cand = e % 2 == 0 ? (static_cast<uint64_t>(q.y) << 32) | q.x
-                            : (static_cast<uint64_t>(q.w) << 32) | q.z;
-        }
-        v = col == static_cast<uint32_t>(e) ? cand : v;
-      }
-      return v;
+      return select_milestone<pos_t, kMs>(ms, col);
     }
   }
 
@@ -769,69 +806,295 @@ __global__ void k1_letter_lf_kernel(AwfmTables t,
   letters_out[i] = static_cast<int32_t>(lett);
 }
 
-// K1R / K1Rw: K1 over one shard of a range-sharded engine (module note).
-// Whether the shard that starts at block first_block and holds num_blocks
-// rows owns pos: its global block, bits 8..39 of pos read as int32, less
-// first_block in int32 arithmetic (parallel/range_sharded.py:
-// _local_occurrence, _local_rows64), lies in [0, num_blocks). A narrow
-// position is a u32 value, so its block is below 2^24.
-template <class G>
-__device__ __forceinline__ bool owns(typename G::pos_t pos, int32_t first_block,
-                                     int64_t num_blocks) {
-  const uint32_t blk = static_cast<uint32_t>(pos >> 8);
-  const int32_t local = static_cast<int32_t>(blk - static_cast<uint32_t>(first_block));
-  return local >= 0 && local < num_blocks;
+// K1R / K1Rw over one shard of a range-sharded engine, and the route that
+// hands each position of a step to the shard that owns it (module note).
+constexpr int kRouteMaxShards = 128;
+// Lanes that share one routed position in K1R's launches: each loads half
+// of every plane's 32 B sector, so a warp's load instruction touches 16
+// rows and not 32 (as K2's group; a random row visit costs by the rows an
+// instruction touches, not only by the sectors it asks for).
+constexpr int kK1RGroup = 2;
+
+// occ_at for a group of GL lanes that share pos: lane sub loads words
+// [W sub, W (sub + 1)) of each plane (W = 8 / GL) and the milestone, and
+// every lane of the group returns the occ.
+template <class G, int NP, int GL>
+__device__ __forceinline__ typename G::pos_t occ_at_group(
+    const AwfmTables& t, typename G::pos_t pos, uint32_t code, bool has_ms,
+    uint32_t col, const Group<GL>& grp) {
+  using pos_t = typename G::pos_t;
+  constexpr int W = 8 / GL;
+  const uint8_t* row = t.packed + G::block(t.nb, pos) * t.row_bytes;
+  uint32_t m[W];
+  match_words<NP, W, G::kStride>(row + grp.sub * (4 * W), code, m);
+  const pos_t ms =
+      has_ms ? reinterpret_cast<const pos_t*>(row + NP * G::kStride)[col] : 0;
+  return ms + grp.sum(count_inclusive<W>(m, static_cast<uint32_t>(pos) & 255u,
+                                         grp.sub * W));
 }
 
-// occ(letter, pos) where the shard owns pos, else 0. The table's row
-// pointer is moved back by first_block rows (launch_k1r), so occ_at,
-// which indexes rows by the global block, reads the shard's own row. An
-// unowned lane writes 0 and reads no row.
-template <class G, int NP>
-__global__ void k1r_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
-                               const int32_t* __restrict__ letters, int64_t n,
-                               int32_t first_block, int64_t num_blocks,
-                               int64_t* __restrict__ out) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const typename G::pos_t p = static_cast<typename G::pos_t>(pos[i]);
-  if (!owns<G>(p, first_block, num_blocks)) {
-    out[i] = 0;
+// BlockRow for a group of GL lanes that share one position: lane sub holds
+// words [W sub, W (sub + 1)) of each plane (W = 8 / GL) and, where BlockRow
+// asks for them up front, all the milestones; the letter's plane code and
+// the count are summed over the group, so every lane returns the LF.
+template <class G, int NP, int GL>
+struct GroupRow {
+  using pos_t = typename G::pos_t;
+  using Full = BlockRow<G, NP>;
+  static constexpr int W = 8 / GL;
+  uint32_t x[NP][W];
+  uint4 ms[Full::kMsVec];
+  const uint8_t* row;
+
+  __device__ __forceinline__ void load(const AwfmTables& t, pos_t pos, const Group<GL>& grp) {
+    row = t.packed + G::block(t.nb, pos) * t.row_bytes;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) load_words<W>(row + i * G::kStride + grp.sub * (4 * W), x[i]);
+    if constexpr (Full::kUpFront) {
+#pragma unroll
+      for (int q = 0; q < Full::kMsVec; ++q) {
+        ms[q] = __ldg(reinterpret_cast<const uint4*>(row + NP * G::kStride) + q);
+      }
+    }
+  }
+
+  // the plane code of the letter at block-local position `local`, from the
+  // lane that holds its word
+  __device__ __forceinline__ uint32_t code_at(uint32_t local, const Group<GL>& grp) const {
+    const uint32_t mine = (local >> 5) - static_cast<uint32_t>(grp.sub * W);
+    const uint32_t bit = local & 31u;
+    uint32_t code = 0u;
+    if (mine < static_cast<uint32_t>(W)) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        uint32_t word = x[i][0];
+#pragma unroll
+        for (int j = 1; j < W; ++j) word = mine == static_cast<uint32_t>(j) ? x[i][j] : word;
+        code |= ((word >> bit) & 1u) << i;
+      }
+    }
+    return grp.sum(code);
+  }
+
+  __device__ __forceinline__ pos_t milestone_of(uint32_t col) const {
+    if constexpr (!Full::kUpFront) {
+      return reinterpret_cast<const pos_t*>(row + NP * G::kStride)[col];
+    } else {
+      return select_milestone<pos_t, Full::kMs>(ms, col);
+    }
+  }
+
+  // LF(pos) from the loaded row, and the letter at pos
+  __device__ __forceinline__ pos_t lf(const BlockConsts<pos_t>& s, pos_t pos, uint32_t* letter,
+                                      const Group<GL>& grp) const {
+    const uint32_t local = static_cast<uint32_t>(pos) & 255u;
+    const LetterEntry<pos_t> e = s.by_code[code_at(local, grp)];
+    *letter = e.letter();
+    if (!e.flag()) return 0;  // sentinel: the same branch in every lane of the group
+    const uint32_t cm_code = e.code();
+    uint32_t m[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) m[w] = 0u;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const uint32_t cm = ((cm_code >> i) & 1u) ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+      for (int w = 0; w < W; ++w) m[w] |= x[i][w] ^ cm;
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) m[w] = ~m[w];
+    const uint32_t c = grp.sum(count_inclusive<W>(m, local, grp.sub * W));
+    return e.c + milestone_of(e.column()) + c - 1u;
+  }
+};
+
+// The shard that owns pos, as the route decides it: its global block, bits
+// 8..39 of pos read as int32 (parallel/range_sharded.py: _local_occurrence,
+// _local_rows64), lies in [0, n_shards * bps), and the owner is block / bps.
+// This is the union of the per-shard tests int32(block - first_block) in
+// [0, bps): a block that reads negative, or lies past the padded table,
+// belongs to no shard. A narrow position is taken as a u32 value first, so
+// its block is below 2^24. Returns the shard, -1 for no shard, and in LF
+// mode (ratio > 0) -2 for a lane already at a sample (pos % ratio == 0).
+template <class G>
+__device__ __forceinline__ int32_t route_of(typename G::pos_t pos, int64_t owned_blocks,
+                                            int32_t bps, uint64_t ratio) {
+  using pos_t = typename G::pos_t;
+  if (ratio != 0u) {
+    const pos_t r = static_cast<pos_t>(ratio);
+    const bool done = (r & (r - 1u)) == 0u ? (pos & (r - 1u)) == 0u : pos % r == 0u;
+    if (done) return -2;
+  }
+  const int32_t blk = static_cast<int32_t>(static_cast<uint32_t>(pos >> 8));
+  return blk >= 0 && blk < owned_blocks ? blk / bps : -1;
+}
+
+// One barrier across the grid of a cooperative launch, which guarantees
+// that every block is resident; `arrived` is zeroed before the launch.
+__device__ __forceinline__ void grid_barrier(uint32_t* arrived) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(arrived, 1u);
+    while (*reinterpret_cast<volatile uint32_t*>(arrived) < gridDim.x) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The route: one pass over a step's n positions on the home device. Block b
+// takes lanes [b * chunk, (b + 1) * chunk). Phase 1 counts its lanes a shard
+// in shared memory and reserves its place in each shard's slice with one
+// atomicAdd a shard; after the barrier the slices' starts are the prefix of
+// the totals, and phase 2 writes each routed lane's position and lane index
+// into its shard's slice (warp-aggregated atomics in shared memory give the
+// places, so the order inside a slice varies from run to run; the lane index
+// carries each entry home). A lane no shard owns gets `unowned` in out[]
+// (occ mode: 0; LF mode: lf_from_letter_occ(0, 0)) and letter 0; in LF mode
+// (out is the step's positions, updated in place) every lane not at a sample
+// gets off + 1, and a lane at a sample keeps its position and offset.
+template <class G>
+__global__ void __launch_bounds__(kThreads) k1r_route_kernel(
+    const int64_t* pos, int64_t n, int64_t chunk, int32_t n_shards, int32_t bps,
+    uint64_t ratio, int64_t unowned, int64_t* out, int64_t* off,
+    int32_t* letters_out, int64_t* __restrict__ slot_pos,
+    int32_t* __restrict__ slot_lane, uint32_t* counts) {
+  using pos_t = typename G::pos_t;
+  __shared__ uint32_t cursor[kRouteMaxShards];
+  const int64_t owned_blocks = static_cast<int64_t>(n_shards) * bps;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * chunk;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  const int lane = threadIdx.x & 31;
+  for (int s = threadIdx.x; s < n_shards; s += blockDim.x) cursor[s] = 0u;
+  __syncthreads();
+  for (int64_t b = lo; b < hi; b += blockDim.x) {
+    const int64_t i = b + threadIdx.x;
+    const int32_t s = i < hi ? route_of<G>(static_cast<pos_t>(pos[i]), owned_blocks, bps, ratio)
+                             : -3;
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, s);
+    if (s >= 0 && lane == __ffs(peers) - 1) {
+      atomicAdd(&cursor[s], static_cast<uint32_t>(__popc(peers)));
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < n_shards; s += blockDim.x) {
+    cursor[s] = atomicAdd(&counts[s], cursor[s]);  // this block's place in the slice
+  }
+  grid_barrier(&counts[n_shards]);
+  for (int s = threadIdx.x; s < n_shards; s += blockDim.x) {
+    uint32_t start = 0u;
+    for (int u = 0; u < s; ++u) start += *reinterpret_cast<volatile uint32_t*>(&counts[u]);
+    cursor[s] += start;
+  }
+  __syncthreads();
+  for (int64_t b = lo; b < hi; b += blockDim.x) {
+    const int64_t i = b + threadIdx.x;
+    pos_t p = 0;
+    int32_t s = -3;
+    if (i < hi) {
+      p = static_cast<pos_t>(pos[i]);
+      s = route_of<G>(p, owned_blocks, bps, ratio);
+    }
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, s);
+    const int leader = __ffs(peers) - 1;
+    uint32_t base = 0u;
+    if (s >= 0 && lane == leader) {
+      base = atomicAdd(&cursor[s], static_cast<uint32_t>(__popc(peers)));
+    }
+    base = __shfl_sync(0xFFFFFFFFu, base, leader);
+    if (s >= 0) {
+      const uint32_t slot = base + __popc(peers & ((1u << lane) - 1u));
+      slot_pos[slot] = static_cast<int64_t>(p);
+      slot_lane[slot] = static_cast<int32_t>(i);
+    } else if (s == -1) {
+      out[i] = unowned;
+      if (letters_out != nullptr) letters_out[i] = 0;
+    }
+    if (off != nullptr && s >= -1) off[i] += 1;
+  }
+}
+
+// [begin, end) of a shard's slice: from the route's totals on the device
+// (the prefix of the counts before it), or, for a slice copied to another
+// device, [0, count).
+__device__ __forceinline__ void slice_of(const uint32_t* counts, int32_t shard,
+                                         int64_t count, int64_t* begin, int64_t* end) {
+  if (counts == nullptr) {
+    *begin = 0;
+    *end = count;
     return;
   }
-  const uint32_t l = static_cast<uint32_t>(letters[i]);
-  out[i] = static_cast<int64_t>(occ_at<G, NP>(
-      t, p, code_of_letter(t, NP, l), l <= static_cast<uint32_t>(t.card), l));
+  int64_t start = 0;
+  for (int u = 0; u < shard; ++u) start += counts[u];
+  *begin = start;
+  *end = start + counts[shard];
 }
 
-// The letter at pos and occ(min(letter, ambiguity letter), pos) where the
-// shard owns pos, else (0, 0): the owned half of a sharded LF step, whose
-// LF the caller forms after summing the shards (prefix select, - 1,
-// sentinel -> 0), as the JAX engine does after its psum.
+// K1R / K1Rw, occ mode over a shard's slice: occ(letter, pos) of every
+// routed lane, stored at its lane (out[lane], the letter letters[lane]). A
+// slice copied to another device has no lane indices (slot_lane null): its
+// j-th entry takes letters[j] and goes to out[j]. The route has made the
+// ownership test, so every position read here lies in the shard: the table's
+// row pointer is moved back by first_block rows (launch_k1r), and the row
+// code, which indexes rows by the global block, reads the shard's own row. A
+// grid sized to the card strides over the slice, two lanes a routed position
+// (kK1RGroup).
 template <class G, int NP>
-__global__ void k1r_letter_occ_kernel(AwfmTables t,
-                                      const int64_t* __restrict__ pos,
-                                      int64_t n, int32_t first_block,
-                                      int64_t num_blocks,
-                                      int32_t* __restrict__ letters_out,
-                                      int64_t* __restrict__ occ_out) {
+__global__ void __launch_bounds__(kThreads) k1r_occ_kernel(
+    AwfmTables t, const int64_t* __restrict__ slot_pos,
+    const int32_t* __restrict__ slot_lane, const uint32_t* __restrict__ counts,
+    int32_t shard, int64_t count, const int32_t* __restrict__ letters,
+    int64_t* __restrict__ out) {
+  const Group<kK1RGroup> grp;
+  int64_t begin, end;
+  slice_of(counts, shard, count, &begin, &end);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (blockDim.x / kK1RGroup);
+  for (int64_t j = begin + (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) /
+                               kK1RGroup;
+       j < end; j += stride) {
+    const int64_t at = slot_lane != nullptr ? static_cast<int64_t>(slot_lane[j]) : j;
+    const uint32_t l = static_cast<uint32_t>(letters[at]);
+    const auto v = occ_at_group<G, NP, kK1RGroup>(
+        t, static_cast<typename G::pos_t>(slot_pos[j]), code_of_letter(t, NP, l),
+        l <= static_cast<uint32_t>(t.card), l, grp);
+    if (grp.sub == 0) out[at] = static_cast<int64_t>(v);
+  }
+}
+
+// K1R / K1Rw, LF mode over a shard's slice: the owner reads the row once
+// (GroupRow, two lanes a routed position) and forms the whole step, the
+// letter at pos and LF = C[l] + occ(min(l, ambiguity letter), pos) - 1
+// wrapped to the width, the sentinel -> 0, with C[] staged in shared memory
+// (BlockConsts), and stores the LF at the lane's position (p_out[lane], in
+// place over the step's positions) and the letter at letters_out[lane]
+// when asked. Lane indices as in occ mode.
+template <class G, int NP>
+__global__ void __launch_bounds__(kThreads) k1r_lf_kernel(
+    AwfmTables t, const int64_t* __restrict__ slot_pos,
+    const int32_t* __restrict__ slot_lane, const uint32_t* __restrict__ counts,
+    int32_t shard, int64_t count, int64_t* __restrict__ p_out,
+    int32_t* __restrict__ letters_out) {
   using pos_t = typename G::pos_t;
   __shared__ BlockConsts<pos_t> s;
   stage_consts<G>(t, s);
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const pos_t p = static_cast<pos_t>(pos[i]);
-  if (!owns<G>(p, first_block, num_blocks)) {
-    letters_out[i] = 0;
-    occ_out[i] = 0;
-    return;
+  const Group<kK1RGroup> grp;
+  int64_t begin, end;
+  slice_of(counts, shard, count, &begin, &end);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (blockDim.x / kK1RGroup);
+  for (int64_t j = begin + (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) /
+                               kK1RGroup;
+       j < end; j += stride) {
+    const pos_t p = static_cast<pos_t>(slot_pos[j]);
+    const int64_t at = slot_lane != nullptr ? static_cast<int64_t>(slot_lane[j]) : j;
+    GroupRow<G, NP, kK1RGroup> r;
+    r.load(t, p, grp);
+    uint32_t lett;
+    const pos_t lf = r.lf(s, p, &lett, grp);
+    if (grp.sub == 0) {
+      p_out[at] = static_cast<int64_t>(lf);
+      if (letters_out != nullptr) letters_out[at] = static_cast<int32_t>(lett);
+    }
   }
-  BlockRow<G, NP> r;
-  r.load(t, p);
-  const uint32_t local = static_cast<uint32_t>(p) & 255u;
-  const LetterEntry<pos_t> e = s.by_code[r.code_at(local)];
-  letters_out[i] = static_cast<int32_t>(e.letter());
-  occ_out[i] = static_cast<int64_t>(r.occ(e, local));
 }
 
 // K1X / K1WX: one depth of the seed-table BFS (module note). The letter
@@ -1297,38 +1560,121 @@ int k1r_tables(int device, const AwfmTables* t, int32_t first_block,
   return 0;
 }
 
-template <class G>
-int launch_k1r_occ(int device, const AwfmTables* t, const int64_t* pos,
-                   const int32_t* letters, int64_t n, int32_t first_block,
-                   int64_t* out, cudaStream_t stream) {
-  AwfmTables s;
-  const int rc = k1r_tables(device, t, first_block, &s);
-  if (rc != 0) return rc;
-  if (t->n_planes == 3) {
-    k1r_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
-        s, pos, letters, n, first_block, t->nb, out);
-  } else {
-    k1r_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
-        s, pos, letters, n, first_block, t->nb, out);
+// Blocks of kThreads that the card holds at once for `kernel`, at most
+// enough for n items (at least 1). The occupancy and the SM count are
+// looked up once a kernel and a device.
+template <auto kernel>
+int resident_grid(int device, int64_t n, unsigned int* grid) {
+  static int per_sm = 0;
+  static int sms[64] = {0};
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int count = device >= 0 && device < 64 ? sms[device] : 0;
+  if (count == 0) {
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device >= 0 && device < 64) sms[device] = count;
+  }
+  int64_t blocks = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * count;
+  const int64_t fit = (n + kThreads - 1) / kThreads;
+  if (blocks > fit) blocks = fit;
+  *grid = static_cast<unsigned int>(blocks > 0 ? blocks : 1);
+  return 0;
+}
+
+// The route: the counts (n_shards totals and the barrier's counter) are
+// zeroed on the stream, then one cooperative launch on a grid the card holds
+// at once, each block a contiguous chunk of the lanes.
+template <class G>
+int launch_k1r_route(int device, const int64_t* pos, int64_t n, int32_t n_shards,
+                     int32_t bps, uint64_t ratio, int64_t unowned, int64_t* out,
+                     int64_t* off, int32_t* letters_out, int64_t* slot_pos,
+                     int32_t* slot_lane, uint32_t* counts, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 0 || n > INT32_MAX || n_shards < 1 || n_shards > kRouteMaxShards || bps < 1 ||
+      static_cast<int64_t>(n_shards) * bps > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaMemsetAsync(counts, 0, (n_shards + 1) * sizeof(uint32_t), stream);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  unsigned int grid = 0;
+  const int rc = resident_grid<k1r_route_kernel<G>>(device, n, &grid);
+  if (rc != 0) return rc;
+  int64_t chunk = (n + grid - 1) / grid;
+  void* args[] = {&pos, &n, &chunk, &n_shards, &bps, &ratio, &unowned, &out,
+                  &off, &letters_out, &slot_pos, &slot_lane, &counts};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k1r_route_kernel<G>),
+                                    dim3(grid), dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A shard's launch over its slice, on a grid the card holds at once, at
+// most enough for `capacity` lanes (the route's batch, which bounds a slice).
+template <class G, int NP>
+int launch_k1r_occ_planes(int device, const AwfmTables& s, const int64_t* slot_pos,
+                          const int32_t* slot_lane, const uint32_t* counts, int32_t shard,
+                          int64_t count, int64_t capacity, const int32_t* letters,
+                          int64_t* out, cudaStream_t stream) {
+  unsigned int grid = 0;
+  const int rc = resident_grid<k1r_occ_kernel<G, NP>>(device, capacity * kK1RGroup, &grid);
+  if (rc != 0) return rc;
+  k1r_occ_kernel<G, NP><<<grid, kThreads, 0, stream>>>(s, slot_pos, slot_lane, counts, shard,
+                                                       count, letters, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class G, int NP>
+int launch_k1r_lf_planes(int device, const AwfmTables& s, const int64_t* slot_pos,
+                         const int32_t* slot_lane, const uint32_t* counts, int32_t shard,
+                         int64_t count, int64_t capacity, int64_t* p_out,
+                         int32_t* letters_out, cudaStream_t stream) {
+  unsigned int grid = 0;
+  const int rc = resident_grid<k1r_lf_kernel<G, NP>>(device, capacity * kK1RGroup, &grid);
+  if (rc != 0) return rc;
+  k1r_lf_kernel<G, NP><<<grid, kThreads, 0, stream>>>(s, slot_pos, slot_lane, counts, shard,
+                                                      count, p_out, letters_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class G>
-int launch_k1r_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
-                          int64_t n, int32_t first_block, int32_t* letters_out,
-                          int64_t* occ_out, cudaStream_t stream) {
+int launch_k1r_occ(int device, const AwfmTables* t, int32_t first_block,
+                   const int64_t* slot_pos, const int32_t* slot_lane,
+                   const uint32_t* counts, int32_t shard, int64_t count,
+                   int64_t capacity, const int32_t* letters, int64_t* out,
+                   cudaStream_t stream) {
   AwfmTables s;
   const int rc = k1r_tables(device, t, first_block, &s);
   if (rc != 0) return rc;
+  if (capacity <= 0) return 0;
   if (t->n_planes == 3) {
-    k1r_letter_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
-        s, pos, n, first_block, t->nb, letters_out, occ_out);
-  } else {
-    k1r_letter_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(
-        s, pos, n, first_block, t->nb, letters_out, occ_out);
+    return launch_k1r_occ_planes<G, 3>(device, s, slot_pos, slot_lane, counts, shard, count,
+                                       capacity, letters, out, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_k1r_occ_planes<G, 5>(device, s, slot_pos, slot_lane, counts, shard, count,
+                                     capacity, letters, out, stream);
+}
+
+template <class G>
+int launch_k1r_lf(int device, const AwfmTables* t, int32_t first_block,
+                  const int64_t* slot_pos, const int32_t* slot_lane,
+                  const uint32_t* counts, int32_t shard, int64_t count,
+                  int64_t capacity, int64_t* p_out, int32_t* letters_out,
+                  cudaStream_t stream) {
+  AwfmTables s;
+  const int rc = k1r_tables(device, t, first_block, &s);
+  if (rc != 0) return rc;
+  if (capacity <= 0) return 0;
+  if (t->n_planes == 3) {
+    return launch_k1r_lf_planes<G, 3>(device, s, slot_pos, slot_lane, counts, shard, count,
+                                      capacity, p_out, letters_out, stream);
+  }
+  return launch_k1r_lf_planes<G, 5>(device, s, slot_pos, slot_lane, counts, shard, count,
+                                    capacity, p_out, letters_out, stream);
 }
 
 // Whether the table's letter codes are the ones K1X is compiled for.
@@ -1516,32 +1862,53 @@ int awfm_k1w_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                                    stream);
 }
 
-int awfm_k1r_occ(int device, const AwfmTables* t, const int64_t* pos,
-                 const int32_t* letters, int64_t n, int32_t first_block,
-                 int64_t* out, cudaStream_t stream) {
-  return launch_k1r_occ<Narrow>(device, t, pos, letters, n, first_block, out,
-                                stream);
+int awfm_k1r_route(int device, int wide, const int64_t* pos, int64_t n,
+                   int32_t n_shards, int32_t bps, uint64_t ratio, int64_t unowned,
+                   int64_t* out, int64_t* off, int32_t* letters_out,
+                   int64_t* slot_pos, int32_t* slot_lane, uint32_t* counts,
+                   cudaStream_t stream) {
+  if (wide) {
+    return launch_k1r_route<Wide>(device, pos, n, n_shards, bps, ratio, unowned, out, off,
+                                  letters_out, slot_pos, slot_lane, counts, stream);
+  }
+  return launch_k1r_route<Narrow>(device, pos, n, n_shards, bps, ratio, unowned, out, off,
+                                  letters_out, slot_pos, slot_lane, counts, stream);
 }
 
-int awfm_k1rw_occ(int device, const AwfmTables* t, const int64_t* pos,
-                  const int32_t* letters, int64_t n, int32_t first_block,
-                  int64_t* out, cudaStream_t stream) {
-  return launch_k1r_occ<WideCompact>(device, t, pos, letters, n, first_block,
-                                     out, stream);
+int awfm_k1r_occ(int device, const AwfmTables* t, int32_t first_block,
+                 const int64_t* slot_pos, const int32_t* slot_lane,
+                 const uint32_t* counts, int32_t shard, int64_t count,
+                 int64_t capacity, const int32_t* letters, int64_t* out,
+                 cudaStream_t stream) {
+  return launch_k1r_occ<Narrow>(device, t, first_block, slot_pos, slot_lane, counts, shard,
+                                count, capacity, letters, out, stream);
 }
 
-int awfm_k1r_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
-                        int64_t n, int32_t first_block, int32_t* letters_out,
-                        int64_t* occ_out, cudaStream_t stream) {
-  return launch_k1r_letter_occ<Narrow>(device, t, pos, n, first_block,
-                                       letters_out, occ_out, stream);
+int awfm_k1rw_occ(int device, const AwfmTables* t, int32_t first_block,
+                  const int64_t* slot_pos, const int32_t* slot_lane,
+                  const uint32_t* counts, int32_t shard, int64_t count,
+                  int64_t capacity, const int32_t* letters, int64_t* out,
+                  cudaStream_t stream) {
+  return launch_k1r_occ<WideCompact>(device, t, first_block, slot_pos, slot_lane, counts,
+                                     shard, count, capacity, letters, out, stream);
 }
 
-int awfm_k1rw_letter_occ(int device, const AwfmTables* t, const int64_t* pos,
-                         int64_t n, int32_t first_block, int32_t* letters_out,
-                         int64_t* occ_out, cudaStream_t stream) {
-  return launch_k1r_letter_occ<WideCompact>(device, t, pos, n, first_block,
-                                            letters_out, occ_out, stream);
+int awfm_k1r_lf(int device, const AwfmTables* t, int32_t first_block,
+                const int64_t* slot_pos, const int32_t* slot_lane,
+                const uint32_t* counts, int32_t shard, int64_t count,
+                int64_t capacity, int64_t* p_out, int32_t* letters_out,
+                cudaStream_t stream) {
+  return launch_k1r_lf<Narrow>(device, t, first_block, slot_pos, slot_lane, counts, shard,
+                               count, capacity, p_out, letters_out, stream);
+}
+
+int awfm_k1rw_lf(int device, const AwfmTables* t, int32_t first_block,
+                 const int64_t* slot_pos, const int32_t* slot_lane,
+                 const uint32_t* counts, int32_t shard, int64_t count,
+                 int64_t capacity, int64_t* p_out, int32_t* letters_out,
+                 cudaStream_t stream) {
+  return launch_k1r_lf<WideCompact>(device, t, first_block, slot_pos, slot_lane, counts,
+                                    shard, count, capacity, p_out, letters_out, stream);
 }
 
 int awfm_k1_extend(int device, const AwfmTables* t, const uint32_t* table,

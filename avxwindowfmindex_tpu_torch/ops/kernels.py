@@ -32,6 +32,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -108,7 +109,12 @@ K1WX = Kernel(
 )
 # K1 over one shard of the range-sharded engine (parallel/range_sharded.py),
 # narrow block rows and compact wide rows: the masked rank the JAX package
-# computes in XLA with P1's arithmetic
+# computes in XLA with P1's arithmetic, run on the lanes the route hands the
+# shard; the route stands for the psum that assembles it there
+K1R_ROUTE = Kernel(
+    "k1r_route", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
+    "avxwindowfmindex_tpu/parallel/range_sharded.py:78",
+)
 K1R = Kernel(
     "k1r_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/parallel/range_sharded.py:54",
@@ -117,7 +123,7 @@ K1RW = Kernel(
     "k1rw_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/parallel/range_sharded.py:54",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW)
+KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW, K1R_ROUTE)
 
 
 def reset_launch_counts() -> None:
@@ -224,10 +230,13 @@ def build() -> float:
         lib.awfm_k1_occ.argtypes = [i32, tables_p, vp, vp, i64, vp, vp]
         lib.awfm_k1_letter_lf.argtypes = [i32, tables_p, vp, i64, vp, vp, vp]
         lib.awfm_k1_extend.argtypes = [i32, tables_p, vp, i64, vp, vp]
-        lib.awfm_k1r_occ.argtypes = [i32, tables_p, vp, vp, i64, i32, vp, vp]
-        lib.awfm_k1r_letter_occ.argtypes = [i32, tables_p, vp, i64, i32, vp, vp, vp]
+        lib.awfm_k1r_route.argtypes = [
+            i32, i32, vp, i64, i32, i32, ctypes.c_uint64, i64, vp, vp, vp, vp, vp, vp, vp,
+        ]
+        lib.awfm_k1r_occ.argtypes = [i32, tables_p, i32, vp, vp, vp, i32, i64, i64, vp, vp, vp]
+        lib.awfm_k1r_lf.argtypes = lib.awfm_k1r_occ.argtypes
         lib.awfm_k1rw_occ.argtypes = lib.awfm_k1r_occ.argtypes
-        lib.awfm_k1rw_letter_occ.argtypes = lib.awfm_k1r_letter_occ.argtypes
+        lib.awfm_k1rw_lf.argtypes = lib.awfm_k1r_occ.argtypes
         lib.awfm_k2_ranges.argtypes = [
             i32, tables_p, vp, i64, i32, vp, i64, i64, vp, vp, vp, vp, vp,
         ]
@@ -258,8 +267,8 @@ def build() -> float:
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
             lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
             lib.awfm_k3w_backtrace_resolve,
-            lib.awfm_k1r_occ, lib.awfm_k1r_letter_occ, lib.awfm_k1rw_occ,
-            lib.awfm_k1rw_letter_occ,
+            lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
+            lib.awfm_k1rw_lf,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
             lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
         ):
@@ -340,6 +349,22 @@ def _tables(dev, shard: bool = False) -> _Tables:
     )
 
 
+_SHARD_TABLES = {}  # id(shard view) -> (weakref to it, its checked _Tables)
+
+
+def _shard_tables(dev) -> _Tables:
+    """``_tables(dev, shard=True)``, checked once a shard view: a
+    range-sharded step launches on every shard, and the engine never
+    changes a shard's fields after making it."""
+    key = id(dev)
+    hit = _SHARD_TABLES.get(key)
+    if hit is not None and hit[0]() is dev:
+        return hit[1]
+    tables = _tables(dev, shard=True)
+    _SHARD_TABLES[key] = (weakref.ref(dev, lambda _: _SHARD_TABLES.pop(key, None)), tables)
+    return tables
+
+
 @functools.lru_cache(maxsize=None)
 def _letter_tables(alphabet):
     """``kernel_letter_tables`` of an alphabet as the ctypes arrays of
@@ -413,51 +438,137 @@ def _first_block(dev, first_block: int) -> int:
     return int(first_block)
 
 
-def k1r_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor,
-                   first_block: int) -> torch.Tensor:
-    """K1R (K1Rw for a wide shard), occ mode: (n,) int64 occ(letter,
-    position) where the shard, whose rows are global blocks
-    ``first_block ..``, owns the position's block, else 0."""
-    tables = _tables(dev, shard=True)
-    device = dev.packed.device
-    _require(positions, "positions", torch.int64, device)
-    _require(letters, "letters", torch.int32, device)
-    if positions.shape != letters.shape or positions.dim() != 1:
-        raise ValueError("positions and letters must be 1-D of one length")
-    first_block = _first_block(dev, first_block)
-    n = positions.shape[0]
-    out = torch.empty(n, dtype=torch.int64, device=device)
-    if n == 0:
-        return out
-    fn, name, kernel = _entry(dev, K1R, "occ")
-    rc = fn(device.index, ctypes.byref(tables), positions.data_ptr(), letters.data_ptr(), n,
-            first_block, out.data_ptr(), _stream(device))
-    _check(rc, name)
-    kernel.launches += 1
-    return out
+MAX_SHARDS = 128  # shards the route counts a block (kRouteMaxShards)
 
 
-def k1r_letter_occ(dev, positions: torch.Tensor, first_block: int):
-    """K1R (K1Rw for a wide shard), letter mode: ((n,) int32 letters, (n,)
-    int64 occ(min(letter, ambiguity letter), position)) where the shard
-    owns the position's block, else (0, 0)."""
-    tables = _tables(dev, shard=True)
-    device = dev.packed.device
+def _optional(t: Optional[torch.Tensor], name: str, dtype, device, n: int):
+    """The data pointer of an optional (n,) tensor, or None."""
+    if t is None:
+        return None
+    _require(t, name, dtype, device)
+    if t.shape != (n,):
+        raise ValueError(f"{name} must be ({n},), got {tuple(t.shape)}")
+    return t.data_ptr()
+
+
+def k1r_route(positions: torch.Tensor, out: torch.Tensor, n_shards: int,
+              blocks_per_shard: int, wide: bool, unowned: int, counts: torch.Tensor,
+              ratio: int = 0, off: Optional[torch.Tensor] = None,
+              letters: Optional[torch.Tensor] = None):
+    """The route of a range-sharded step (K1R's and K1Rw's): each of the n
+    ``positions`` goes to the shard that owns its block, or to none.
+    Returns ``(slot_pos, slot_lane)``, (n,) int64 and int32: shard s's
+    slice is ``[sum(counts[:s]), sum(counts[:s + 1]))`` of both, each
+    entry a routed lane's position (as u32 when narrow) and its lane
+    index, in an order that varies from run to run. ``counts`` ((n_shards
+    + 1,) int32) receives the totals; its last entry is the route's
+    barrier. A lane no shard owns gets ``unowned`` in ``out`` and, when
+    ``letters`` is given, 0 there. ``ratio`` > 0 is the LF mode's done
+    rule: a lane with ``position % ratio == 0`` is not routed and keeps
+    its ``out`` and ``off``; every other lane gets ``off + 1``. ``out``
+    may be ``positions`` (the LF step in place). Lane indices are int32,
+    so a batch holds fewer than 2^31 lanes."""
+    device = positions.device
     _require(positions, "positions", torch.int64, device)
     if positions.dim() != 1:
         raise ValueError("positions must be 1-D")
-    first_block = _first_block(dev, first_block)
     n = positions.shape[0]
-    letters = torch.empty(n, dtype=torch.int32, device=device)
-    occ = torch.empty(n, dtype=torch.int64, device=device)
+    if n >= 2**31:
+        raise ValueError(f"the route takes fewer than 2^31 lanes, got {n}")
+    if not (1 <= n_shards <= MAX_SHARDS and blocks_per_shard >= 1
+            and n_shards * blocks_per_shard < 2**31):
+        raise ValueError(f"need 1 <= n_shards <= {MAX_SHARDS} and n_shards * "
+                         f"blocks_per_shard < 2^31")
+    if not 0 <= ratio < (2**64 if wide else 2**32):
+        raise ValueError("ratio must be a position value >= 0")
+    out_p = _optional(out, "out", torch.int64, device, n)
+    _require(counts, "counts", torch.int32, device)
+    if counts.shape != (n_shards + 1,):
+        raise ValueError(f"counts must be ({n_shards + 1},)")
+    off_p = _optional(off, "off", torch.int64, device, n)
+    letters_p = _optional(letters, "letters", torch.int32, device, n)
+    slot_pos = torch.empty(n, dtype=torch.int64, device=device)
+    slot_lane = torch.empty(n, dtype=torch.int32, device=device)
+    rc = _library().awfm_k1r_route(
+        device.index, int(bool(wide)), positions.data_ptr(), n, int(n_shards),
+        int(blocks_per_shard), int(ratio), int(unowned), out_p, off_p, letters_p,
+        slot_pos.data_ptr(), slot_lane.data_ptr(), counts.data_ptr(), _stream(device))
+    _check(rc, "awfm_k1r_route")
+    if n:
+        K1R_ROUTE.launches += 1
+    return slot_pos, slot_lane
+
+
+def _slice(dev, slot_pos, slot_lane, counts, shard: int, count: int):
+    """Checks a shard's slice: the route's buffers and totals (``slot_lane``
+    and ``counts`` given; ``shard`` names the slice), or a slice copied to
+    the shard's device (both None; its ``count`` entries)."""
+    device = dev.packed.device
+    _require(slot_pos, "slot_pos", torch.int64, device)
+    if slot_pos.dim() != 1:
+        raise ValueError("slot_pos must be 1-D")
+    n = slot_pos.shape[0]
+    if (slot_lane is None) != (counts is None):
+        raise ValueError("slot_lane and counts go together (None: a copied slice)")
+    if slot_lane is None:
+        if count != n:
+            raise ValueError(f"a copied slice holds count = {n} entries, got {count}")
+        return None, None, 0, n
+    _optional(slot_lane, "slot_lane", torch.int32, device, n)
+    _require(counts, "counts", torch.int32, device)
+    if counts.dim() != 1 or not 0 <= shard < counts.shape[0] - 1:
+        raise ValueError("counts must be the route's (n_shards + 1,) totals and shard one of them")
+    return slot_lane.data_ptr(), counts.data_ptr(), int(shard), 0
+
+
+def k1r_occurrence(dev, first_block: int, slot_pos: torch.Tensor,
+                   slot_lane: Optional[torch.Tensor], counts: Optional[torch.Tensor],
+                   shard: int, letters: torch.Tensor, out: torch.Tensor,
+                   count: int = 0) -> None:
+    """K1R (K1Rw for a wide shard), occ mode over shard ``shard``'s slice of
+    the route's buffers: ``out[lane] = occ(letters[lane], position)`` for
+    each of its lanes, the shard's rows being global blocks ``first_block
+    ..``. For a slice copied to the shard's device (``slot_lane`` and
+    ``counts`` None), entry j takes ``letters[j]`` and goes to ``out[j]``.
+    ``letters`` and ``out`` have ``slot_pos``'s shape."""
+    tables = _shard_tables(dev)
+    device = dev.packed.device
+    first_block = _first_block(dev, first_block)
+    lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)
+    n = slot_pos.shape[0]
+    _optional(letters, "letters", torch.int32, device, n)
+    _optional(out, "out", torch.int64, device, n)
     if n == 0:
-        return letters, occ
-    fn, name, kernel = _entry(dev, K1R, "letter_occ")
-    rc = fn(device.index, ctypes.byref(tables), positions.data_ptr(), n, first_block,
-            letters.data_ptr(), occ.data_ptr(), _stream(device))
+        return
+    fn, name, kernel = _entry(dev, K1R, "occ")
+    rc = fn(device.index, ctypes.byref(tables), first_block, slot_pos.data_ptr(), lane_p,
+            counts_p, shard, count, n, letters.data_ptr(), out.data_ptr(), _stream(device))
     _check(rc, name)
     kernel.launches += 1
-    return letters, occ
+
+
+def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[torch.Tensor],
+           counts: Optional[torch.Tensor], shard: int, p: torch.Tensor,
+           letters: Optional[torch.Tensor] = None, count: int = 0) -> None:
+    """K1R (K1Rw for a wide shard), LF mode over shard ``shard``'s slice:
+    ``p[lane]`` = LF of the lane's position (C[l] + occ(min(l, ambiguity
+    letter), pos) - 1 wrapped to the width, the sentinel -> 0) and
+    ``letters[lane]`` = l when given. Lanes and copied slices as
+    ``k1r_occurrence``."""
+    tables = _shard_tables(dev)
+    device = dev.packed.device
+    first_block = _first_block(dev, first_block)
+    lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)
+    n = slot_pos.shape[0]
+    _optional(p, "p", torch.int64, device, n)
+    letters_p = _optional(letters, "letters", torch.int32, device, n)
+    if n == 0:
+        return
+    fn, name, kernel = _entry(dev, K1R, "lf")
+    rc = fn(device.index, ctypes.byref(tables), first_block, slot_pos.data_ptr(), lane_p,
+            counts_p, shard, count, n, p.data_ptr(), letters_p, _stream(device))
+    _check(rc, name)
+    kernel.launches += 1
 
 
 def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:

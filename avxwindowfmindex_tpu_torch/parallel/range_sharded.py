@@ -11,36 +11,44 @@ The prefix sums, seed table, code masks and letter tables are small and
 are replicated, once per distinct device: a list that names a device
 twice holds one seed table.
 
-Every rank is then the sum of per-shard masked ranks: each shard gets
-the whole position batch, answers for the positions whose block it owns
-and gives 0 elsewhere (ops/sharded.py; K1R over narrow block rows, K1Rw
-over the compact wide rows, on the card), and exactly one shard owns a
-real position. Where the JAX engine runs the shards under ``shard_map``
-and sums with ``psum``, here each shard launches on its own device and
-its own ``torch.cuda.Stream``, and the partial results are copied to
-``devices[0]`` (the home device: queries, ranges and hits live there)
-and summed. A backward step launches K1R once a shard over the 2B
-positions ``start - 1 || end``; a locate walks LF with one masked
-(letter, occ) launch a shard and a step until every lane is at a
-sample, then gathers the samples the same way. Answers equal
-``SearchEngine``'s bit for bit.
+Every step is then routed, not summed: a route on ``devices[0]`` (the
+home device: queries, ranges and hits live there) hands each position of
+the step once to the shard that owns its block, which follows from the
+position alone, and that shard computes the step's whole value for it
+and stores it at the lane's place in the step's output (ops/sharded.py;
+on the card the route and K1R over narrow block rows, K1Rw over the
+compact wide rows). A backward step routes the 2B positions ``start - 1
+|| end`` and each shard counts its own; a locate walks LF, the route
+taking the done rule (a lane at a sample is not routed) and each owner
+forming the LF itself, until every lane is at a sample, then gathers
+each sample from the shard that holds it. Each shard launches on its
+own device after the route: a shard on the home device on its current
+stream, where it reads its slice as the route wrote it, the route's
+counts staying on the card; a shard on another device on a
+``torch.cuda.Stream`` of its own, with its slice copied to it and its
+results copied back and scattered by lane, so only for such a shard are
+the counts read back, once a step. Answers equal ``SearchEngine``'s bit
+for bit.
 
-What does not carry over: ``shard_map`` and ``psum`` (per-shard launches
-and a sum on the home device), the fixed trip count of the JAX
-backtrace segment and its compaction helpers (``_gather_undone_rs``,
-``_undone_count64_rs``, ``_gather_undone64_rs``, ``_scatter_back64_rs``),
-``_dev_specs`` and the hi/lo u32 splits: wide positions are int64 here.
-The backtrace compacts its lanes with torch ops every ``segment`` steps,
-reading back one count.
+What does not carry over: ``shard_map`` and ``psum`` (the route and
+per-shard launches that each store their lanes' values), the fixed trip
+count of the JAX backtrace segment and its compaction helpers
+(``_gather_undone_rs``, ``_undone_count64_rs``, ``_gather_undone64_rs``,
+``_scatter_back64_rs``), ``_dev_specs`` and the hi/lo u32 splits: wide
+positions are int64 here. The backtrace compacts its lanes with torch
+ops every ``segment`` steps, reading back one count. A step's lanes are
+indexed in int32, so a batch holds fewer than 2^31 positions (a count of
+at most 2^30 - 1 queries).
 
-This trades throughput for capacity (every step is a launch a shard and
-a sum); use ``SearchEngine`` or the query-parallel engine when the index
-fits one card.
+This trades throughput for capacity (every step is a route and a launch
+a shard); use ``SearchEngine`` or the query-parallel engine when the
+index fits one card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -83,8 +91,10 @@ class RangeShardedSearchEngine(SearchEngine):
     ``shards``: one view a shard (its block rows and samples, the
     replicated tables of its device); ``dev``: the home shard's view,
     whose replicated tables the ranges use; ``first_blocks`` and
-    ``first_samples``: each shard's global offsets; ``last_backtrace``:
-    the LF loop's segments, steps and K1R launches of the last locate.
+    ``first_samples``: each shard's global offsets; ``copied_shards``:
+    the shards on another device than the home one, whose slices are
+    copied; ``last_backtrace``: the LF loop's segments, steps, lanes,
+    routed lanes and K1R launches of the last locate.
     """
 
     def __init__(self, index: FmIndex, devices=None, wide: Optional[bool] = None):
@@ -176,65 +186,124 @@ class RangeShardedSearchEngine(SearchEngine):
             for i, d in enumerate(self.devices)
         ]
         self.dev = self.shards[0]
+        self.copied_shards = frozenset(
+            i for i, d in enumerate(self.devices) if d != self.device)
+        # a stream for each shard on another card, so that the cards run at
+        # once; the shards on the home device launch on its current stream,
+        # after the route (a stream each measured host-bound: PERF.md §6)
         self.streams = [
-            torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in self.devices
+            torch.cuda.Stream(device=d) if d.type == "cuda" and d != self.device else None
+            for d in self.devices
         ]
+        # what an LF step gives a lane no shard owns: letter 0 and
+        # lf_from_letter_occ(0, 0), as the JAX engine's psum of zeros
+        zero = torch.zeros(1, dtype=torch.int64)
+        home = dataclasses.replace(self.dev, prefix_sums=self.dev.prefix_sums.cpu())
+        self.lf_unowned = int(rank_ops.lf_from_letter_occ(home, zero, zero)[0])
         # LF steps a segment of the backtrace between two compactions
         self.segment = min(64, max(4, ratio))
         self.last_backtrace = {}
 
     # -- the shards ---------------------------------------------------------
 
-    def _on_shards(self, fn, *tensors: torch.Tensor) -> list:
-        """The sum over the shards of ``fn(i, shard, *tensors)`` (a tuple of
-        int64 tensors), on the home device. Each shard runs on its own
-        stream, after the current stream of its device (which wrote the
-        inputs); its outputs are ordered after that stream before the sum."""
-        outs = []
-        for i, (shard, stream) in enumerate(zip(self.shards, self.streams)):
-            args = [t.to(shard.device) for t in tensors]
-            ctx = contextlib.nullcontext()
+    @contextlib.contextmanager
+    def _on_stream(self, i: int, *tensors):
+        """Copied shard i's work on its own stream, after the current stream
+        of its device (which wrote the inputs); ``tensors`` are recorded on
+        it."""
+        stream = self.streams[i]
+        if stream is None:
+            yield
+            return
+        stream.wait_stream(torch.cuda.current_stream(self.devices[i]))
+        for t in tensors:
+            if t is not None:
+                t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            yield
+
+    def _step(self, pos: torch.Tensor, out: torch.Tensor, *, occ_letters=None,
+              ratio: int = 0, off=None, letters=None, counts=None) -> int:
+        """One routed step over the positions ``pos`` (int64, on the home
+        device): occ mode with ``occ_letters`` (out[i] = occ(occ_letters[i],
+        pos[i])), else LF mode (out[i] = LF(pos[i]), ``out`` may be ``pos``;
+        ``letters`` gets the letter; ``ratio`` > 0: the done rule, with
+        ``off`` + 1 for every lane stepped). ``counts`` ((n + 1,) int32)
+        receives the route's totals. Returns the shard launches made."""
+        n = self.n_dev
+        if counts is None:
+            counts = torch.empty(n + 1, dtype=torch.int32, device=self.device)
+        lf_mode = occ_letters is None
+        slot_pos, slot_lane = sharded.route(
+            pos, out, n, self.blocks_per_shard, self.wide, self.lf_unowned if lf_mode else 0,
+            counts, ratio, off, letters)
+        # one readback a step, and only when a shard is on another device
+        sizes = counts.tolist() if self.copied_shards else None
+        launched, copied = 0, []
+        for i, shard in enumerate(self.shards):
+            fb = self.first_blocks[i]
+            if i not in self.copied_shards:
+                if lf_mode:
+                    sharded.shard_lf(shard, fb, slot_pos, slot_lane, counts, i, out, letters)
+                else:
+                    sharded.shard_occurrence(shard, fb, slot_pos, slot_lane, counts, i,
+                                             occ_letters, out)
+                launched += 1
+                continue
+            c = sizes[i]
+            if c == 0:
+                continue
+            begin = sum(sizes[:i])
+            lanes = slot_lane[begin : begin + c].to(torch.int64)
+            part = slot_pos[begin : begin + c].to(shard.device)
+            part_letters = None if lf_mode else occ_letters[lanes].to(shard.device)
+            with self._on_stream(i, part, part_letters):
+                res = torch.empty(c, dtype=torch.int64, device=shard.device)
+                res_letters = None
+                if lf_mode:
+                    if letters is not None:
+                        res_letters = torch.empty(c, dtype=torch.int32, device=shard.device)
+                    sharded.shard_lf(shard, fb, part, None, None, i, res, res_letters, count=c)
+                else:
+                    sharded.shard_occurrence(shard, fb, part, None, None, i, part_letters, res,
+                                             count=c)
+            launched += 1
+            copied.append((i, lanes, res, res_letters))
+        for i, stream in enumerate(self.streams):
             if stream is not None:
-                stream.wait_stream(torch.cuda.current_stream(shard.device))
-                for a in args:
-                    a.record_stream(stream)
-                ctx = torch.cuda.stream(stream)
-            with ctx:
-                outs.append(fn(i, shard, *args))
-        total = None
-        for out, shard, stream in zip(outs, self.shards, self.streams):
-            if stream is not None:
-                current = torch.cuda.current_stream(shard.device)
-                current.wait_stream(stream)
-                for t in out:
-                    t.record_stream(current)
-            out = [t.to(self.device) for t in out]
-            total = out if total is None else [a + b for a, b in zip(total, out)]
-        return total
+                torch.cuda.current_stream(self.devices[i]).wait_stream(stream)
+        for i, lanes, res, res_letters in copied:
+            for t in (res, res_letters):
+                if t is not None and self.streams[i] is not None:
+                    t.record_stream(torch.cuda.current_stream(self.devices[i]))
+            out.index_copy_(0, lanes, res.to(self.device))
+            if res_letters is not None:
+                letters.index_copy_(0, lanes, res_letters.to(self.device))
+        return launched
 
     def occurrence(self, positions: torch.Tensor, letters: torch.Tensor) -> torch.Tensor:
-        """occ(letter, position), summed over the shards' masked ranks
-        (positions wrapped to the position width, as the JAX engine's u32
-        lanes wrap)."""
-        return self._on_shards(
-            lambda i, shard, p, l: (sharded.occurrence(shard, p, l, self.first_blocks[i]),),
-            positions.to(torch.int64) & self.dev.pos_mask, letters.to(torch.int64),
-        )[0]
+        """occ(letter, position), each position counted by the shard that
+        owns it and 0 where none does (positions wrapped to the position
+        width, as the JAX engine's u32 lanes wrap)."""
+        pos = (positions.to(torch.int64) & self.dev.pos_mask).contiguous()
+        out = torch.empty_like(pos)
+        self._step(pos, out, occ_letters=letters.to(torch.int32).contiguous())
+        return out
 
     def letter_and_lf(self, positions: torch.Tensor):
-        """(letter, LF) of each position: the shards' masked (letter, occ)
-        summed, then the LF formed from the sum."""
-        lett, occ = self._on_shards(
-            lambda i, shard, p: sharded.letter_occ(shard, p, self.first_blocks[i]),
-            positions,
-        )
-        return lett, rank_ops.lf_from_letter_occ(self.dev, lett, occ)
+        """(letter, LF) of each position, formed by the shard that owns it;
+        (0, ``lf_unowned``) where none does."""
+        lf = (positions.to(torch.int64) & self.dev.pos_mask).contiguous()
+        lett = torch.empty(lf.shape, dtype=torch.int32, device=lf.device)
+        self._step(lf, lf, letters=lett)
+        return lett.to(torch.int64), lf
 
     # -- ranges -------------------------------------------------------------
 
     def _backward_step(self, start, end, letters, active):
-        """One backward step with the rank summed over the shards; only
-        rows that are ``active`` and valid (start <= end) are updated."""
+        """One backward step, each rank counted by the shard that owns its
+        position; only rows that are ``active`` and valid (start <= end)
+        are updated."""
         dev = self.dev
         mask = dev.pos_mask
         b = start.shape[0]
@@ -281,17 +350,21 @@ class RangeShardedSearchEngine(SearchEngine):
 
         Runs ``segment`` LF steps on the lanes still walking, then reads
         back their count and keeps only those (a chain is longest at the
-        tail, so the batch shrinks as it goes); every step is one masked
-        (letter, occ) launch a shard and one sum. A valid index ends every
-        walk within bwtLength steps; past that the index is malformed and
-        this raises."""
+        tail, so the batch shrinks as it goes); every step is one route,
+        which leaves a lane at a sample where it is, and one launch a
+        shard over the lanes it owns. The route's totals of a segment are
+        read once, at the end. A valid index ends every walk within
+        bwtLength steps; past that the index is malformed and this
+        raises."""
         dev = self.dev
         ratio = dev.ratio
-        p_all = positions.to(torch.int64) & dev.pos_mask
+        p_all = (positions.to(torch.int64) & dev.pos_mask).contiguous()
         off_all = torch.zeros_like(p_all)
         idx = torch.arange(p_all.shape[0], device=p_all.device)
         p, off = p_all, off_all
-        stats = {"segments": 0, "lf_steps": 0, "lane_steps": 0, "launches": 0}
+        stats = {"segments": 0, "lf_steps": 0, "lane_steps": 0, "routed_lanes": 0,
+                 "launches": 0}
+        routed = []
         while True:
             todo = torch.nonzero(p % ratio != 0)[:, 0]
             if stats["segments"]:
@@ -301,25 +374,41 @@ class RangeShardedSearchEngine(SearchEngine):
                 break
             if stats["lf_steps"] >= dev.bwt_length:
                 raise RuntimeError("an LF walk outlasted bwtLength steps: malformed index")
-            idx, p, off = idx[todo], p[todo], off[todo]
-            for _ in range(self.segment):
-                done = p % ratio == 0
-                _, lf = self.letter_and_lf(p)
-                p = torch.where(done, p, lf)
-                off = torch.where(done, off, off + 1)
+            idx, p, off = idx[todo], p[todo].contiguous(), off[todo].contiguous()
+            counts = torch.empty((self.segment, self.n_dev + 1), dtype=torch.int32,
+                                 device=p.device)
+            for k in range(self.segment):
+                stats["launches"] += self._step(p, p, ratio=ratio, off=off, counts=counts[k])
+            routed.append(counts[:, : self.n_dev])
             stats["segments"] += 1
             stats["lf_steps"] += self.segment
             stats["lane_steps"] += self.segment * int(todo.numel())
-            stats["launches"] += self.segment * self.n_dev
+        per_step = torch.cat(routed).sum(dim=1).tolist() if routed else []
+        stats["routed_lanes"] = int(sum(per_step))
+        stats["routed_per_step"] = per_step
         self.last_backtrace = stats
         return p_all, off_all
 
+    def _samples(self, p: torch.Tensor) -> torch.Tensor:
+        """SA[p // ratio] of each position, gathered by the shard whose
+        sample range holds it (0 where none does): torch ops, once a
+        locate."""
+        q = sharded._int32((p & self.dev.pos_mask) // self.dev.ratio)
+        sps = self.samples_per_shard
+        owner = torch.where((q >= 0) & (q < sps * self.n_dev), q // sps, -1)
+        sa = torch.zeros_like(p)
+        for i, shard in enumerate(self.shards):
+            lanes = torch.nonzero(owner == i)[:, 0]
+            if lanes.numel():
+                got = sharded.local_samples(shard, p[lanes].to(shard.device),
+                                            self.first_samples[i])
+                sa[lanes] = got.to(self.device)
+        return sa
+
     def _resolve(self, positions: torch.Tensor) -> np.ndarray:
         """Hits of BWT positions on the home device: the backtrace, then
-        the samples gathered from the shard that holds each one, summed,
-        and the wrap-aware mod."""
+        the samples, each from the shard that holds it, and the wrap-aware
+        mod."""
         p, off = self.backtrace(positions)
-        sa = self._on_shards(
-            lambda i, shard, q: (sharded.local_samples(shard, q, self.first_samples[i]),), p
-        )[0]
+        sa = self._samples(p)
         return sharded.resolve_hits(self.dev, sa, off).cpu().numpy().astype(np.uint64)

@@ -2,7 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
-        [--cases all|bfs]
+        [--cases all|bfs|rs]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -34,6 +34,23 @@ steps a depth as its ``build_seed_table`` did, through this checkout's
 over the wide view at k = 13; at each depth, the K1 launches of the
 per-letter route are also timed alone, apart from the torch work around
 them (``"k1_launches_ms"``).
+
+``--cases rs``: the range-sharded step alone, each checkout's on the
+same shards and positions: the 64M index split into 2 and 4 shards of
+narrow block rows and 2 of compact wide rows, and a compact wide table
+tiled to 2^32 + 2^28 positions (4.56 GB, ``straddle_compact_table``) split
+into two 2.28 GB shards, beyond the L2. An occ step over 2,097,152 random
+positions (a backward step of 1M queries) and an LF step, with the done
+rule, over 1,048,576 lanes. A checkout with the route (``k1r_route``)
+runs route + one launch a shard over its slice, each value stored at its
+lane; one without it runs its every-lane ``k1r_occurrence`` /
+``k1r_letter_occ`` on every shard, then this checkout's torch ops: the
+sum over the shards and, in LF mode, ``lf_from_letter_occ`` and the done
+rule's two ``where``s. All on the current stream. The LF step is in
+place in the routed form, so both forms start from copies of the lanes.
+Each is timed by the wall clock (``ms``: the host's work included, what
+a caller waits) and as device time with the queue kept full
+(``device_ms``).
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per case: ``{"case", "shape", "ms": {name: [first, second]}}`` with
@@ -85,6 +102,25 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int, cycles_per_call: int = 1_000_000) -> float:
+    """Mean device milliseconds per call: the card is kept busy by
+    ``torch.cuda._sleep`` while the host enqueues the calls, so no host
+    time lies between two of them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * cycles_per_call)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def _same(a, b) -> bool:
     import torch
 
@@ -93,18 +129,25 @@ def _same(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def run_case(case: str, shape: str, call, libs: dict, reps: int) -> None:
+def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = False) -> None:
     """``call(kernels_module)`` through every checkout: equal results, then
-    times in turns."""
+    times in turns (``device``: the device time of a primed queue too,
+    ``"device_ms"``, beside the wall time ``"ms"``)."""
     names = list(libs)
     want = call(libs[names[0]])
     for name in names[1:]:
         if not _same(call(libs[name]), want):
             raise AssertionError(f"{case}: {name} differs from {names[0]}")
     ms = {name: [] for name in names}
+    dev_ms = {name: [] for name in names}
     for name in names + names[::-1]:
         ms[name].append(cuda_ms(lambda: call(libs[name]), reps))
-    print(json.dumps({"case": case, "shape": shape, "ms": ms}), flush=True)
+        if device:
+            dev_ms[name].append(device_ms(lambda: call(libs[name]), reps))
+    line = {"case": case, "shape": shape, "ms": ms}
+    if device:
+        line["device_ms"] = dev_ms
+    print(json.dumps(line), flush=True)
 
 
 def _sibling(kernels_module, name: str):
@@ -175,6 +218,154 @@ def bfs_cases(index, views, libs: dict, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
+def straddle_compact_table(device, boundary: int = 2**32, seed: int = 4097,
+                           pat_blocks: int = 4096) -> dict:
+    """A compact wide-row DNA table (``pack_device_blocks64(pair=False)``,
+    256 B rows) of ``boundary + boundary / 16`` positions, 4.56 GB at
+    2^32: a random pattern of ``pat_blocks`` blocks tiled on the card, its
+    u64 milestones shifted so that they start 2^28 below 2^32 and pass it.
+    Returns ``table`` ((nb, 256) uint8 on ``device``), ``n`` (positions),
+    ``nb``, ``rng`` (for more draws), and what the closed form
+    ``closed_form_occ`` needs."""
+    import torch
+    from .. import AlphabetType
+    from ..models import index as index_mod
+
+    rng = np.random.default_rng(seed)
+    card, n_planes = 4, 3
+    pattern = rng.choice(np.arange(5, dtype=np.uint8), size=(pat_blocks, 256),
+                         p=[0.24, 0.24, 0.24, 0.24, 0.04])
+    reps = boundary // (pat_blocks * 256) + boundary // (16 * pat_blocks * 256)
+    nb = pat_blocks * reps
+    counts = np.stack([(pattern == j).sum(axis=1) for j in range(card + 2)],
+                      axis=1).astype(np.uint64)
+    pat_total = counts.sum(axis=0)
+    cum = np.cumsum(counts, axis=0)
+    pat_ms = np.zeros_like(cum)
+    pat_ms[1:] = cum[:-1]
+    offset = 2**32 - (boundary >> 4)  # milestones from below 2^32 to past it
+    rows = index_mod.pack_device_blocks64(pattern.reshape(-1), pat_ms, AlphabetType.DNA,
+                                          pair=False)
+    table = torch.from_numpy(rows).to(device).repeat(reps, 1)
+    t64 = table.view(torch.int64)
+    tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
+    total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
+    ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
+    col = n_planes * 32 // 8
+    t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :] + offset
+    del tile, t64
+    flat = pattern.reshape(-1)
+    pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
+    return {"table": table, "n": nb * 256, "nb": nb, "rng": rng, "offset": offset,
+            "pat_cum": pat_cum, "pat_len": len(flat), "ms_max": offset + int(pat_total.max()) * reps}
+
+
+def closed_form_occ(info: dict, pos: np.ndarray, lett: np.ndarray) -> np.ndarray:
+    """occ(lett, pos) of ``straddle_compact_table``'s text, from its pattern."""
+    full, rem = np.divmod(pos + 1, info["pat_len"])
+    return info["offset"] + full * info["pat_cum"][lett, -1] + info["pat_cum"][lett, rem]
+
+
+def straddle_shard(part, n: int, device):
+    """A range-sharded shard view over ``part``, rows of the straddle table
+    (its C[] all 0)."""
+    import torch
+    from .. import AlphabetType, DeviceIndex
+    from ..models import alphabet as alpha
+    from ..models import index as index_mod
+
+    z = torch.zeros(6, dtype=torch.int64, device=device)
+    return DeviceIndex(
+        packed=part, packed_pair=None, prefix_sums=z, seed_table=z[:2].view(1, 2),
+        sampled_sa=None,
+        code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
+        vec_to_index=torch.from_numpy(
+            alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
+        bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA,
+        wide=True, pair_fused=False,
+    )
+
+
+def rs_occ_step(km, shards, first_blocks, bps: int, wide: bool, pos, lett):
+    """One occ step of a range-sharded engine through the kernels of the
+    checkout whose ``ops.kernels`` is ``km`` (module note)."""
+    import torch
+
+    n = len(shards)
+    if hasattr(km, "k1r_route"):
+        out = torch.empty_like(pos)
+        counts = torch.empty(n + 1, dtype=torch.int32, device=pos.device)
+        slot_pos, slot_lane = km.k1r_route(pos, out, n, bps, wide, 0, counts)
+        for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+            km.k1r_occurrence(shard, fb, slot_pos, slot_lane, counts, i, lett, out)
+        return out
+    total = None
+    for shard, fb in zip(shards, first_blocks):
+        got = km.k1r_occurrence(shard, pos, lett, fb)
+        total = got if total is None else total + got
+    return total
+
+
+def rs_lf_step(km, shards, first_blocks, bps: int, wide: bool, p, off, unowned: int):
+    """One LF step of the backtrace, with the done rule, through ``km``'s
+    kernels (module note): the new (p, off)."""
+    import torch
+    from ..ops import rank
+
+    n, ratio = len(shards), shards[0].ratio
+    if hasattr(km, "k1r_route"):
+        p, off = p.clone(), off.clone()
+        counts = torch.empty(n + 1, dtype=torch.int32, device=p.device)
+        slot_pos, slot_lane = km.k1r_route(p, p, n, bps, wide, unowned, counts, ratio, off)
+        for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+            km.k1r_lf(shard, fb, slot_pos, slot_lane, counts, i, p)
+        return p, off
+    lett = occ = None
+    for shard, fb in zip(shards, first_blocks):
+        got_l, got_o = km.k1r_letter_occ(shard, p, fb)
+        lett = got_l.to(torch.int64) if lett is None else lett + got_l.to(torch.int64)
+        occ = got_o if occ is None else occ + got_o
+    lf = rank.lf_from_letter_occ(shards[0], lett, occ)
+    done = p % ratio == 0
+    return torch.where(done, p, lf), torch.where(done, off, off + 1)
+
+
+def rs_cases(index, libs: dict, reps: int, device) -> None:
+    """The range-sharded step through every checkout (module note)."""
+    import torch
+    from ..ops import rank
+    from ..parallel.range_sharded import RangeShardedSearchEngine
+
+    rng = np.random.default_rng(10)
+    setups = []
+    for n, wide in ((2, False), (4, False), (2, True)):
+        eng = RangeShardedSearchEngine(index, [device] * n, wide=wide)
+        setups.append((f"rs{'w' if wide else ''} n={n} at {index.bwt_length} positions",
+                       eng.shards, eng.first_blocks, eng.blocks_per_shard, wide,
+                       index.bwt_length, eng.lf_unowned))
+    info = straddle_compact_table(device)
+    half = info["nb"] // 2
+    shards = [straddle_shard(info["table"][i * half : (i + 1) * half], info["n"], device)
+              for i in range(2)]
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    setups.append((f"rsw n=2 at {info['n']} positions (2 x {half * 256 / 1e9:.2f} GB shards)",
+                   shards, [0, half], half, True, info["n"],
+                   int(rank.lf_from_letter_occ(shards[0], zero, zero)[0])))
+    for tag, shards, fbs, bps, wide, n_pos, unowned in setups:
+        pos = torch.from_numpy(rng.integers(0, n_pos, 1 << 21)).to(device)
+        lett = torch.from_numpy(rng.integers(0, 5, 1 << 21).astype(np.int32)).to(device)
+        run_case(f"{tag}: occ step", f"{pos.numel()} positions",
+                 lambda km: rs_occ_step(km, shards, fbs, bps, wide, pos, lett), libs, reps,
+                 device=True)
+        p = pos[: 1 << 20].contiguous()
+        off = torch.from_numpy(rng.integers(0, 8, p.numel())).to(device)
+        run_case(f"{tag}: LF step", f"{p.numel()} lanes, ratio {shards[0].ratio}",
+                 lambda km: rs_lf_step(km, shards, fbs, bps, wide, p, off, unowned), libs, reps,
+                 device=True)
+    del setups, shards, info
+    torch.cuda.empty_cache()
+
+
 def lengthwise_batch(mat_d, full_len: int, length: int):
     """The last ``length`` letters of every ``full_len``-mer of the
     letter matrix ``mat_d`` as a K2 / K4 batch (matrix padded to a
@@ -201,7 +392,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=1 << 20)
     ap.add_argument("--seed-k", type=int, default=14)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--cases", choices=("all", "bfs"), default="all")
+    ap.add_argument("--cases", choices=("all", "bfs", "rs"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -226,6 +417,9 @@ def main(argv=None) -> int:
     seq_arr = rng.choice(np.frombuffer(b"acgt", np.uint8), size=args.bases)
     index = create_index(seq_arr.tobytes(), IndexConfiguration(8, args.seed_k, AlphabetType.DNA),
                          sa_backend="native", device=device)
+    if args.cases == "rs":
+        rs_cases(index, libs, args.reps, device)
+        return 0
     dev = index.to_device(device)
     eng = SearchEngine(index, device=device)
     ng = ngram.build_ngram_device(index, 2, device=device)

@@ -120,24 +120,33 @@ Phases (any failure raises and the script exits nonzero):
      iterative_step_backward_search (K1's, K1w's occ mode) equal to the
      engine's ranges, and backtrace_return_previous_letter_index (their
      LF mode) equal to the plain LF.
-  8. the range-sharded engine on the phase-4 index: 8a, K1R and K1Rw
-     against their plain versions (tolerance 0), both modes, shard by
-     shard, on the index split into 2 and 4 shards of narrow block rows
-     and 2 of compact wide rows, at crafted positions (every shard's
-     first and last block, the zero padding, start - 1 at start == 0,
-     past the table, bit 39 set) and 2,097,152 random ones, the shards'
-     sum equal to K1 over the whole view, each timed on shard 0 of 2;
-     then K1Rw on a compact-row table tiled to 2^32 + 2^28 positions
-     (4.56 GB) whose milestones straddle 2^32, split at a block above
-     2^32, each shard against its plain version and their sum against a
-     closed form; 8b, RangeShardedSearchEngine over 2 and 4 shards on
-     the one card (["cuda:0"] * n): count and locate of the 1,048,576
-     25-mers equal to phase 4's, the launch counts reset just before and
-     read just after each (K1R: 11 steps x n a count; the ranges and
-     the LF loop a locate), q/s beside SearchEngine's in the same
-     process; 8c, the same over 2 shards of compact wide rows (K1Rw);
-     8d, plan_capacity over 4 devices for a corpus this card cannot
-     hold, which must pick the range-sharded engine.
+  8. the range-sharded engine on the phase-4 index: 8a, the route and
+     K1R / K1Rw (occ mode, LF mode with the done rule, letter mode)
+     against their plain versions (tolerance 0: the route's totals and
+     its slices compared lane by lane, whatever order its atomics wrote
+     them in), and each routed step against the JAX-literal masked sum
+     (every shard on every lane, summed, the LF formed after the sum), on
+     the index split into 2 and 4 shards of narrow block rows and 2 of
+     compact wide rows, at crafted positions (every shard's first and last
+     block, the zero padding, start - 1 at start == 0, past the table, bit
+     39 set) and 2,097,152 random ones, the routed occ equal to K1 over
+     the whole view; every part of a step timed (the route, each shard's
+     launch, the whole step on one stream and through the engine's
+     streams; occ over the 2,097,152 positions, LF over 1,048,576 lanes;
+     the host time of a wrapper call); then a compact-row table tiled to
+     2^32 + 2^28 positions (4.56 GB) whose milestones straddle 2^32:
+     split at a block above 2^32, each shard's K1Rw against its plain
+     version and the sum against a closed form, and split into two
+     2.28 GB shards, beyond the L2, through the route, held and timed as
+     above; 8b, RangeShardedSearchEngine over 2 and 4 shards on the one
+     card (["cuda:0"] * n): count and locate of the 1,048,576 25-mers
+     equal to phase 4's, the launch counts reset just before and read
+     just after each (a count: 11 routes and 11 x n K1R launches; a
+     locate adds the LF loop's, one route and n launches a step, and its
+     routed lanes, each launched once), q/s beside SearchEngine's in the
+     same process; 8c, the same over 2 shards of compact wide rows
+     (K1Rw); 8d, plan_capacity over 4 devices for a corpus this card
+     cannot hold, which must pick the range-sharded engine.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
@@ -194,6 +203,7 @@ BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
 WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
 SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
 RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
+RS_LF_LANES = 1 << 20  # phase 8a: LF lanes, the backtrace's first step at 1M hits
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
 WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
@@ -248,6 +258,32 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int, cycles_per_call: int = 1_000_000) -> float:
+    """Mean device milliseconds per call of fn (one warm-up): the card is
+    kept busy by ``torch.cuda._sleep`` while the host enqueues the calls,
+    so no host time lies between two of them (a wrapper's host work can
+    exceed its kernel's time, and ``cuda_ms`` then measures the host).
+    Warns when the host outlasted the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s0, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(reps * cycles_per_call)
+    t0.record()
+    host = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - host) * 1e3
+    t1.record()
+    torch.cuda.synchronize()
+    if host > s0.elapsed_time(t0):
+        log(f"  device_ms: the host took {host:.3f} ms to enqueue, the sleep "
+            f"{s0.elapsed_time(t0):.3f}: host time may be in this number")
+    return t0.elapsed_time(t1) / reps
+
+
 def graph_ms(fn, launches: int = 20, replays: int = 20) -> float:
     """Device milliseconds per call of fn: ``launches`` calls captured in
     one CUDA graph on a side stream and replayed, so that no host work
@@ -266,12 +302,13 @@ def graph_ms(fn, launches: int = 20, replays: int = 20) -> float:
     return cuda_ms(graph.replay, replays) / launches
 
 
-def time_in_turns(label: str, kernel_fn, plain_fn, kernel_reps: int, plain_reps: int):
+def time_in_turns(label: str, kernel_fn, plain_fn, kernel_reps: int, plain_reps: int,
+                  kernel_timer=cuda_ms):
     """(kernel ms, plain ms), each the best of two runs taken in turns:
-    plain, kernel, kernel, plain."""
+    plain, kernel, kernel, plain; the kernel's by ``kernel_timer``."""
     p1 = cuda_ms(plain_fn, plain_reps)
-    k1 = cuda_ms(kernel_fn, kernel_reps)
-    k2 = cuda_ms(kernel_fn, kernel_reps)
+    k1 = kernel_timer(kernel_fn, kernel_reps)
+    k2 = kernel_timer(kernel_fn, kernel_reps)
     p2 = cuda_ms(plain_fn, plain_reps)
     log(f"  {label} time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     return min(k1, k2), min(p1, p2)
@@ -2189,38 +2226,246 @@ def rs_edge_positions(eng) -> list:
     return out
 
 
-def rs_compare(rec: Record, name: str, shards, first_blocks, pos, lett, tag: str) -> list:
-    """Each shard's K1R (K1Rw) against its plain version, occ and letter
-    mode; returns the positions each shard owns."""
+def routed_step(shards, first_blocks, bps: int, wide: bool, pos, out, *, letters_in=None,
+                ratio: int = 0, off=None, letters=None, unowned: int = 0, plain: bool = False):
+    """One routed step over ``shards`` on the current stream: the route, then
+    each shard over its slice, through the kernels (``plain``: their plain
+    versions); occ mode with ``letters_in``, else LF mode. Returns the
+    route's (slot_pos, slot_lane, counts)."""
+    import torch
     from avxwindowfmindex_tpu_torch.ops import kernels, sharded
 
-    owned = []
+    n = len(shards)
+    counts = torch.empty(n + 1, dtype=torch.int32, device=pos.device)
+    route = sharded.route_plain if plain else kernels.k1r_route
+    slot_pos, slot_lane = route(pos, out, n, bps, wide, unowned, counts, ratio, off, letters)
     for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
-        rec.compare(name, f"{tag}, shard {i}, occ x{pos.numel()}",
-                    kernels.k1r_occurrence(shard, pos, lett, fb),
-                    sharded.local_occurrence_plain(shard, pos, lett, fb))
-        kl, ko = kernels.k1r_letter_occ(shard, pos, fb)
-        pl, po = sharded.local_letter_occ_plain(shard, pos, fb)
-        rec.compare(name, f"{tag}, shard {i}, letter", kl, pl)
-        rec.compare(name, f"{tag}, shard {i}, letter mode's occ", ko, po)
-        owned.append(int(sharded.owned_rows(shard, pos, fb)[1].sum()))
+        if letters_in is not None:
+            fn = sharded.shard_occurrence_plain if plain else kernels.k1r_occurrence
+            fn(shard, fb, slot_pos, slot_lane, counts, i, letters_in, out)
+        else:
+            fn = sharded.shard_lf_plain if plain else kernels.k1r_lf
+            fn(shard, fb, slot_pos, slot_lane, counts, i, out, letters)
+    return slot_pos, slot_lane, counts
+
+
+def slices_by_lane(slot_pos, slot_lane, counts, n: int):
+    """The route's slices, each sorted by lane: (totals, lanes, positions),
+    comparable whatever order the route wrote them in."""
+    import torch
+
+    sizes = [int(c) for c in counts[:n].tolist()]
+    lanes, pos, begin = [], [], 0
+    for c in sizes:
+        lane = slot_lane[begin : begin + c].to(torch.int64)
+        order = torch.argsort(lane)
+        lanes.append(lane[order])
+        pos.append(slot_pos[begin : begin + c][order])
+        begin += c
+    return sizes, torch.cat(lanes), torch.cat(pos)
+
+
+def compare_routes(rec: Record, what: str, got, want, n: int) -> list:
+    """The route kernel's (slot_pos, slot_lane, counts) against the plain
+    route's, slice by slice; returns the totals."""
+    import torch
+
+    g_sizes, g_lanes, g_pos = slices_by_lane(*got, n)
+    w_sizes, w_lanes, w_pos = slices_by_lane(*want, n)
+    rec.compare("k1r_route", f"{what}: lanes a shard", torch.tensor(g_sizes), torch.tensor(w_sizes))
+    rec.compare("k1r_route", f"{what}: slices' lanes", g_lanes, w_lanes)
+    rec.compare("k1r_route", f"{what}: slices' positions", g_pos, w_pos)
+    return g_sizes
+
+
+def masked_sum(shards, first_blocks, fn):
+    """The every-lane step, JAX-literal: ``fn(shard, first_block)`` (a tuple
+    of tensors) on every shard, summed."""
+    total = None
+    for shard, fb in zip(shards, first_blocks):
+        got = fn(shard, fb)
+        total = got if total is None else tuple(a + b for a, b in zip(total, got))
+    return total
+
+
+def rs_compare(rec: Record, name: str, shards, first_blocks, bps: int, wide: bool, pos, lett,
+               unowned: int, tag: str) -> list:
+    """The route and each shard's K1R (K1Rw) against their plain versions
+    (tolerance 0) in occ mode, LF mode with the done rule, and letter mode
+    (letter and LF, no done rule); then each routed step against the
+    JAX-literal masked sum (every shard on every lane, summed, the LF
+    formed after the sum). Returns the routed lanes a shard of the occ
+    step."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, sharded
+
+    n, ratio, mask = len(shards), shards[0].ratio, shards[0].pos_mask
+
+    # occ mode: the route alone, then the shards over the kernel route's slices
+    out_k, out_p = torch.full_like(pos, -7), torch.full_like(pos, -7)
+    ck, cp = (torch.empty(n + 1, dtype=torch.int32, device=pos.device) for _ in range(2))
+    rk = kernels.k1r_route(pos, out_k, n, bps, wide, 0, ck)
+    rp = sharded.route_plain(pos, out_p, n, bps, wide, 0, cp)
+    owned = compare_routes(rec, f"{tag}, occ route", rk + (ck,), rp + (cp,), n)
+    rec.compare("k1r_route", f"{tag}, occ route's lanes no shard owns", out_k, out_p)
+    out_p = out_k.clone()
+    for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+        kernels.k1r_occurrence(shard, fb, rk[0], rk[1], ck, i, lett, out_k)
+        sharded.shard_occurrence_plain(shard, fb, rk[0], rk[1], ck, i, lett, out_p)
+    rec.compare(name, f"{tag}, occ over the slices x{pos.numel()}", out_k, out_p)
+    want, = masked_sum(shards, first_blocks,
+                       lambda s, fb: (sharded.local_occurrence_plain(s, pos, lett, fb),))
+    rec.compare(name, f"{tag}, the routed occ step vs the masked sum", out_k, want)
+
+    # LF mode with the done rule, in place, as the backtrace steps
+    p0 = pos & mask
+    off0 = pos & 7
+    pk, offk, pp, offp = p0.clone(), off0.clone(), p0.clone(), off0.clone()
+    rk = kernels.k1r_route(pk, pk, n, bps, wide, unowned, ck, ratio, offk)
+    rp = sharded.route_plain(pp, pp, n, bps, wide, unowned, cp, ratio, offp)
+    compare_routes(rec, f"{tag}, LF route (ratio {ratio})", rk + (ck,), rp + (cp,), n)
+    rec.compare("k1r_route", f"{tag}, LF route's positions", pk, pp)
+    rec.compare("k1r_route", f"{tag}, LF route's offsets", offk, offp)
+    pp = pk.clone()
+    for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+        kernels.k1r_lf(shard, fb, rk[0], rk[1], ck, i, pk)
+        sharded.shard_lf_plain(shard, fb, rk[0], rk[1], ck, i, pp)
+    rec.compare(name, f"{tag}, LF over the slices", pk, pp)
+    lett_s, occ_s = masked_sum(shards, first_blocks,
+                               lambda s, fb: sharded.local_letter_occ_plain(s, p0, fb))
+    lf = rank.lf_from_letter_occ(shards[0], lett_s, occ_s)
+    done = (sharded._u64_mod(p0, ratio) if wide else p0 % ratio) == 0
+    rec.compare(name, f"{tag}, the routed LF step vs the masked sum", pk, torch.where(done, p0, lf))
+    rec.compare("k1r_route", f"{tag}, the routed LF step's offsets vs the masked sum", offk,
+                torch.where(done, off0, off0 + 1))
+
+    # letter mode: the letter and the LF of every lane
+    lk, lp = (torch.empty(pos.shape, dtype=torch.int32, device=pos.device) for _ in range(2))
+    fk, fp = p0.clone(), p0.clone()
+    routed_step(shards, first_blocks, bps, wide, fk, fk, letters=lk, unowned=unowned)
+    routed_step(shards, first_blocks, bps, wide, fp, fp, letters=lp, unowned=unowned, plain=True)
+    rec.compare(name, f"{tag}, letter mode's letters", lk, lp)
+    rec.compare(name, f"{tag}, letter mode's LF", fk, fp)
+    rec.compare(name, f"{tag}, letter mode vs the masked sum", fk, lf)
+    rec.compare(name, f"{tag}, letter mode's letters vs the masked sum", lk, lett_s)
     return owned
 
 
-def phase_rs_kernels(rec: Record, engine, device: str) -> dict:
-    """Phase 8a: K1R and K1Rw against their plain versions (tolerance 0)
-    on the phase-4 index (``engine``: phase 4's, narrow) split into 2 and 4 shards (narrow block rows)
-    and into 2 (compact wide rows), at crafted edge positions and
-    RS_POSITIONS random ones (a backward step's 2B at 1M queries); the
-    shards' sum equal to K1's rank over the whole view; each kernel timed
-    on shard 0 of 2 at that shape. Returns the engines, for 8b and 8c."""
-    import numpy as np
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of fn takes to enqueue (no synchronize
+    inside the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def rs_time(rec: Record, name: str, shards, first_blocks, bps: int, wide: bool, pos, lett,
+            unowned: int, tag: str, eng=None, record: bool = False) -> dict:
+    """Each part of a routed step on the card, 50 calls after a warm-up:
+    the route, each shard's launch and the whole step (route + n launches
+    on one stream), occ over ``pos`` and LF (no done rule, so every lane is
+    routed) over its first RS_LF_LANES, as device time (``device_ms``);
+    the whole step through ``eng`` as the wall time a caller waits
+    (``cuda_ms``: the host's work included) beside its device time; the
+    host time of a wrapper call. With ``record``, the route's and shard
+    0's occ launch against their plain versions in turns, with bounds, for
+    the kernels line."""
     import torch
     from avxwindowfmindex_tpu_torch.ops import kernels, sharded
+
+    n = len(shards)
+    counts = torch.empty(n + 1, dtype=torch.int32, device=pos.device)
+    out = torch.empty_like(pos)
+    t = {"lanes_occ": pos.numel()}
+    t["route_occ_ms"] = device_ms(lambda: kernels.k1r_route(pos, out, n, bps, wide, 0, counts), 50)
+    sp, sl = kernels.k1r_route(pos, out, n, bps, wide, 0, counts)
+    t["routed_occ"] = [int(c) for c in counts[:n].tolist()]
+    t["shard_occ_ms"] = [
+        device_ms(lambda: kernels.k1r_occurrence(s, fb, sp, sl, counts, i, lett, out), 50)
+        for i, (s, fb) in enumerate(zip(shards, first_blocks))]
+    t["step_occ_ms"] = device_ms(
+        lambda: routed_step(shards, first_blocks, bps, wide, pos, out, letters_in=lett), 50)
+    if eng is not None:
+        t["engine_occ_wall_ms"] = cuda_ms(lambda: eng.occurrence(pos, lett), 50)
+        t["engine_occ_ms"] = device_ms(lambda: eng.occurrence(pos, lett), 50)
+    p = (pos[:RS_LF_LANES] & shards[0].pos_mask).contiguous()
+    buf = torch.empty_like(p)
+    t["lanes_lf"] = p.numel()
+    lcounts = torch.empty_like(counts)  # the occ slices' totals stay in counts
+    t["route_lf_ms"] = device_ms(
+        lambda: kernels.k1r_route(p, buf, n, bps, wide, unowned, lcounts), 50)
+    lsp, lsl = kernels.k1r_route(p, buf, n, bps, wide, unowned, lcounts)
+    t["routed_lf"] = [int(c) for c in lcounts[:n].tolist()]
+    t["shard_lf_ms"] = [
+        device_ms(lambda: kernels.k1r_lf(s, fb, lsp, lsl, lcounts, i, buf), 50)
+        for i, (s, fb) in enumerate(zip(shards, first_blocks))]
+    t["step_lf_ms"] = device_ms(
+        lambda: routed_step(shards, first_blocks, bps, wide, p, buf, unowned=unowned), 50)
+    if eng is not None:
+        t["engine_lf_wall_ms"] = cuda_ms(lambda: eng._step(p, buf), 50)
+        t["engine_lf_ms"] = device_ms(lambda: eng._step(p, buf), 50)
+    t["host_us"] = {
+        "route": host_us(lambda: kernels.k1r_route(p, buf, n, bps, wide, unowned, lcounts)),
+        "shard_lf": host_us(lambda: kernels.k1r_lf(shards[0], first_blocks[0], lsp, lsl, lcounts,
+                                                   0, buf)),
+    }
+    log(f"[8a] {tag} times: {json.dumps(t)}")
+    if not record:
+        return t
+    fb0, own0 = first_blocks[0], t["routed_occ"][0]
+    ms, plain = time_in_turns(
+        f"[8a] {name} occ, shard 0 of {n}, {own0} routed of {pos.numel()}",
+        lambda: kernels.k1r_occurrence(shards[0], fb0, sp, sl, counts, 0, lett, out),
+        lambda: sharded.shard_occurrence_plain(shards[0], fb0, sp, sl, counts, 0, lett, out),
+        50, 3, kernel_timer=device_ms)
+    rec.ms[name] = (ms, plain)
+    np_, ms_b = shards[0].n_planes, shards[0].milestone_bytes
+    # per routed lane: its position (8 B) and lane index (4 B), its letter (4 B) and
+    # its count (8 B); the distinct rows the slice visits
+    rec.set_bound(name, [(shards[0].packed.shape[0], np_ * 32 + ms_b, own0)],
+                  own0 * (8 + 4 + 4 + 8), own0 * rank_ops(np_))
+    log(f"[8a] {name}: shard 0's occ launch {ms:.4f} ms over {own0} routed lanes, bound "
+        f"{rec.bound[name]['bound_ms']:.4f} ms, ms / bound {ms / rec.bound[name]['bound_ms']:.2f}")
+    if "k1r_route" not in rec.ms:
+        routed = sum(t["routed_occ"])
+        pc = torch.empty_like(counts)
+        rms, rplain = time_in_turns(
+            f"[8a] k1r_route, occ, {n} shards, {pos.numel()} positions",
+            lambda: kernels.k1r_route(pos, out, n, bps, wide, 0, counts),
+            lambda: sharded.route_plain(pos, out, n, bps, wide, 0, pc), 50, 3,
+            kernel_timer=device_ms)
+        rec.ms["k1r_route"] = (rms, rplain)
+        # each position read once (8 B); a routed lane's position and lane index
+        # written (12 B), an unowned lane's 0 (8 B); about ten integer operations a lane
+        rec.set_bound("k1r_route", [], pos.numel() * 8 + routed * 12
+                      + (pos.numel() - routed) * 8 + 4 * (n + 1), 10 * pos.numel())
+        log(f"[8a] k1r_route: {rms:.4f} ms, bound {rec.bound['k1r_route']['bound_ms']:.4f} ms")
+    return t
+
+
+def phase_rs_kernels(rec: Record, engine, device: str) -> dict:
+    """Phase 8a: the route and K1R / K1Rw (occ, LF with the done rule,
+    letter mode) against their plain versions and the routed steps
+    against the JAX-literal masked sum (tolerance 0), on the phase-4 index
+    (``engine``: phase 4's, narrow) split into 2 and 4 shards (narrow block
+    rows) and into 2 (compact wide rows), at crafted edge positions and
+    RS_POSITIONS random ones (a backward step's 2B at 1M queries); the
+    routed occ equal to K1's rank over the whole view; every part of a
+    step timed. Returns the engines, for 8b and 8c, and the times."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels
     from avxwindowfmindex_tpu_torch.parallel.range_sharded import RangeShardedSearchEngine
 
     rng = np.random.default_rng(88)
-    engines = {}
+    engines, times = {}, {}
     for n, wide in ((2, False), (4, False), (2, True)):
         t = time.time()
         eng = RangeShardedSearchEngine(engine.host_index, [device] * n, wide=wide)
@@ -2236,114 +2481,115 @@ def phase_rs_kernels(rec: Record, engine, device: str) -> dict:
         pos = torch.from_numpy(pos_np.view(np.int64)).to(device)
         lett = torch.from_numpy(
             rng.integers(0, eng.dev.cardinality + 1, len(pos_np)).astype(np.int32)).to(device)
-        owned = rs_compare(rec, name, eng.shards, eng.first_blocks, pos, lett, f"[8a] {n} shards")
+        args = (eng.shards, eng.first_blocks, eng.blocks_per_shard, wide)
+        owned = rs_compare(rec, name, *args, pos, lett, eng.lf_unowned, f"[8a] {n} shards")
         p_rnd, l_rnd = pos[-RS_POSITIONS:], lett[-RS_POSITIONS:]
-        rec.compare(name, f"{n} shards summed vs K1 over the whole view x{RS_POSITIONS}",
+        rec.compare(name, f"{n} shards routed vs K1 over the whole view x{RS_POSITIONS}",
                     eng.occurrence(p_rnd, l_rnd), kernels.k1_occurrence(engine.dev, p_rnd, l_rnd))
-        log(f"[8a] {name}, {n} shards: exact on {pos.numel()} positions (owned a shard: {owned})")
-        if n != 2:
-            continue
-        fb = eng.first_blocks[0]
-        ms, plain = time_in_turns(
-            f"[8a] {name} occ, shard 0 of 2, x{RS_POSITIONS}",
-            lambda: kernels.k1r_occurrence(shard0, p_rnd, l_rnd, fb),
-            lambda: sharded.local_occurrence_plain(shard0, p_rnd, l_rnd, fb), 50, 3)
-        rec.ms[name] = (ms, plain)
-        lms, lplain = time_in_turns(
-            f"[8a] {name} letter mode, shard 0 of 2, x{RS_POSITIONS}",
-            lambda: kernels.k1r_letter_occ(shard0, p_rnd, fb),
-            lambda: sharded.local_letter_occ_plain(shard0, p_rnd, fb), 50, 3)
-        own0 = int(sharded.owned_rows(shard0, p_rnd, fb)[1].sum())
-        np_, ms_b = shard0.n_planes, shard0.milestone_bytes
-        rec.set_bound(name, [(shard0.packed.shape[0], np_ * 32 + ms_b, own0)],
-                      RS_POSITIONS * (8 + 4 + 8), own0 * rank_ops(np_))
-        log(f"[8a] {name}: occ {ms:.4f} ms ({own0} of {RS_POSITIONS} owned), "
-            f"bound {rec.bound[name]['bound_ms']:.4f} ms, ms / bound "
-            f"{ms / rec.bound[name]['bound_ms']:.2f}; letter mode {lms:.4f} ms, plain {lplain:.4f}")
-    return engines
+        log(f"[8a] {name}, {n} shards: exact on {pos.numel()} positions (routed a shard: {owned}, "
+            f"{sum(owned)} of {pos.numel()})")
+        times[f"{n}{'w' if wide else ''}"] = rs_time(
+            rec, name, *args, p_rnd, l_rnd, eng.lf_unowned, f"{n} shards{' wide' if wide else ''}",
+            eng=eng, record=n == 2)
+    return engines, times
 
 
-def phase_rs_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
-    """Phase 8a above 2^32: K1Rw on a compact-row table tiled as phase 4x
-    tiles its own (boundary + boundary / 16 positions, 4.56 GB), with
-    milestones that straddle 2^32 and split into two shards whose edge
-    lies above ``boundary``: each shard against its plain version, and
-    their sum against a closed form."""
+def slices_from_owners(shards, first_blocks, pos):
+    """Slices of ``pos`` for shards of unequal sizes, which the route does
+    not take: each shard's lanes by its own ownership test."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import sharded
+
+    lanes = [torch.nonzero(sharded.owned_rows(s, pos, fb)[1])[:, 0]
+             for s, fb in zip(shards, first_blocks)]
+    slot_lane = torch.cat(lanes)
+    n = pos.numel()
+    slot_pos = torch.empty(n, dtype=torch.int64, device=pos.device)
+    lane_buf = torch.empty(n, dtype=torch.int32, device=pos.device)
+    slot_pos[: slot_lane.numel()] = pos[slot_lane]
+    lane_buf[: slot_lane.numel()] = slot_lane.to(torch.int32)
+    counts = torch.tensor([x.numel() for x in lanes] + [0], dtype=torch.int32, device=pos.device)
+    return slot_pos, lane_buf, counts
+
+
+def phase_rs_straddle(rec: Record, device: str, boundary: int = 2**32) -> dict:
+    """Phase 8a above 2^32, on a compact-row table tiled to boundary +
+    boundary / 16 positions (4.56 GB) with milestones that straddle 2^32:
+    split unevenly at a block above ``boundary`` (shard slices by each
+    shard's own ownership test), each shard's K1Rw (occ and LF) against
+    its plain version and the occ against a closed form; then split into
+    two 2.28 GB shards, beyond the L2, through the route: everything
+    ``rs_compare`` holds, the closed form, and every part of a step
+    timed. Returns the times."""
     import numpy as np
     import torch
-    from avxwindowfmindex_tpu_torch import AlphabetType, DeviceIndex
-    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
-    from avxwindowfmindex_tpu_torch.models import index as index_mod
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, sharded
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import (
+        closed_form_occ, straddle_compact_table, straddle_shard)
 
-    rng = np.random.default_rng(4097)
-    pat_blocks, card, n_planes = 4096, 4, 3
-    pattern = rng.choice(np.arange(5, dtype=np.uint8), size=(pat_blocks, 256),
-                         p=[0.24, 0.24, 0.24, 0.24, 0.04])
-    reps = boundary // (pat_blocks * 256) + boundary // (16 * pat_blocks * 256)
-    nb = pat_blocks * reps
-    n = nb * 256
-    counts = np.stack([(pattern == j).sum(axis=1) for j in range(card + 2)], axis=1).astype(np.uint64)
-    pat_total = counts.sum(axis=0)
-    cum = np.cumsum(counts, axis=0)
-    pat_ms = np.zeros_like(cum)
-    pat_ms[1:] = cum[:-1]
-    offset = 2**32 - (boundary >> 4)  # milestones from below 2^32 to past it
-    rows = index_mod.pack_device_blocks64(pattern.reshape(-1), pat_ms, AlphabetType.DNA, pair=False)
     t = time.time()
-    table = torch.from_numpy(rows).to(device).repeat(reps, 1)
-    t64 = table.view(torch.int64)
-    tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
-    total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
-    ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
-    col = n_planes * 32 // 8
-    t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :] + offset
-    del tile
-    edge = (boundary >> 8) + pat_blocks // 2  # shard 1's first block: above the boundary
-    z = torch.zeros(card + 2, dtype=torch.int64, device=device)
-    shards = [
-        DeviceIndex(
-            packed=part, packed_pair=None, prefix_sums=z, seed_table=z[:2].view(1, 2),
-            sampled_sa=None,
-            code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
-            vec_to_index=torch.from_numpy(
-                alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
-            bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA,
-            wide=True, pair_fused=False,
-        )
-        for part in (table[:edge], table[edge:])
-    ]
+    info = straddle_compact_table(device, boundary)
+    table, nb, n, rng = info["table"], info["nb"], info["n"], info["rng"]
+    edge = (boundary >> 8) + 2048  # shard 1's first block: above the boundary
     torch.cuda.synchronize()
     log(f"[8a] compact table of {n} positions: {nb} rows x 256 B = {table.numel() / 1e9:.2f} GB, "
-        f"milestones {offset} .. {offset + int(pat_total.max()) * reps}, shard edge at block "
+        f"milestones {info['offset']} .. {info['ms_max']}, uneven shard edge at block "
         f"{edge} (position {edge * 256}), tiled in {time.time() - t:.2f}s")
-    m = 1 << 20
+    m = RS_POSITIONS // 2
     pos = np.concatenate([
         rng.integers(boundary - 5000, boundary + 5000, m), rng.integers(0, n, m),
         rng.integers(edge * 256 - 5000, edge * 256 + 5000, m // 4),
         [boundary - 1, boundary, edge * 256 - 1, edge * 256, n - 1],
     ]).astype(np.int64)
-    lett = rng.integers(0, card + 1, size=len(pos)).astype(np.int32)
-    flat = pattern.reshape(-1)
-    pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
-    full, rem = np.divmod(pos + 1, len(flat))
-    want = offset + full * pat_cum[lett, -1] + pat_cum[lett, rem]
+    lett = rng.integers(0, 5, size=len(pos)).astype(np.int32)
+    want = torch.from_numpy(closed_form_occ(info, pos, lett)).to(device)
     # bit 39 set: no shard owns them; 2^40 + 5 and 2^63 + 9 alias block 0
     crafted = np.array([2**64 - 1, 2**39, 2**39 + 777, 2**40 + 5, 2**63 + 9], dtype=np.uint64)
     pos_t = torch.from_numpy(np.concatenate([pos, crafted.view(np.int64)])).to(device)
     lett_t = torch.from_numpy(np.concatenate([lett, np.arange(len(crafted), dtype=np.int32) % 5])).to(device)
-    owned = rs_compare(rec, "k1rw_rank", shards, [0, edge], pos_t, lett_t, "[8a] above 2^32")
-    from avxwindowfmindex_tpu_torch.ops import kernels
 
-    got = sum(kernels.k1r_occurrence(s, pos_t, lett_t, fb) for s, fb in zip(shards, (0, edge)))
-    rec.compare("k1rw_rank", f"above 2^32, the shards' sum vs the closed form x{len(pos)}",
-                got[: len(pos)], torch.from_numpy(want).to(device))
-    if int(got[len(pos) : len(pos) + 3].abs().sum()) != 0:
+    uneven = [straddle_shard(table[:edge], n, device), straddle_shard(table[edge:], n, device)]
+    slot_pos, slot_lane, counts = slices_from_owners(uneven, [0, edge], pos_t)
+    out_k, out_p = torch.zeros_like(pos_t), torch.zeros_like(pos_t)
+    lf_k, lf_p = pos_t.clone(), pos_t.clone()
+    for i, (s, fb) in enumerate(zip(uneven, (0, edge))):
+        kernels.k1r_occurrence(s, fb, slot_pos, slot_lane, counts, i, lett_t, out_k)
+        sharded.shard_occurrence_plain(s, fb, slot_pos, slot_lane, counts, i, lett_t, out_p)
+        kernels.k1r_lf(s, fb, slot_pos, slot_lane, counts, i, lf_k)
+        sharded.shard_lf_plain(s, fb, slot_pos, slot_lane, counts, i, lf_p)
+    owned = [int(c) for c in counts[:2].tolist()]
+    rec.compare("k1rw_rank", "above 2^32, uneven split, occ over the slices", out_k, out_p)
+    rec.compare("k1rw_rank", "above 2^32, uneven split, LF over the slices", lf_k, lf_p)
+    rec.compare("k1rw_rank", f"above 2^32, uneven split vs the closed form x{len(pos)}",
+                out_k[: len(pos)], want)
+    if int(out_k[len(pos) : len(pos) + 3].abs().sum()) != 0:
         raise AssertionError("a position no shard owns counted")
-    if not (int(got.max()) > 2**32 and min(owned) > 0):
+    if not (int(out_k.max()) > 2**32 and min(owned) > 0):
         raise AssertionError("the straddle counts did not pass 2^32")
-    log(f"[8a] K1Rw exact above 2^32: owned {owned}, counts up to {int(got.max())}")
-    del table, t64, shards, got
+    log(f"[8a] K1Rw exact above 2^32 on the uneven split: owned {owned}, counts up to "
+        f"{int(out_k.max())}")
+    del uneven, slot_pos, slot_lane, out_k, out_p, lf_k, lf_p
+
+    half = nb // 2
+    even = [straddle_shard(table[i * half : (i + 1) * half], n, device) for i in range(2)]
+    zero = torch.zeros(1, dtype=torch.int64, device=device)
+    unowned = int(rank.lf_from_letter_occ(even[0], zero, zero)[0])
+    rnd = torch.from_numpy(rng.integers(0, n, RS_POSITIONS)).to(device)
+    lett_r = torch.from_numpy(rng.integers(0, 5, RS_POSITIONS).astype(np.int32)).to(device)
+    p_all, l_all = torch.cat([pos_t, rnd]), torch.cat([lett_t, lett_r])
+    owned = rs_compare(rec, "k1rw_rank", even, [0, half], half, True, p_all, l_all, unowned,
+                       f"[8a] 2 x {half * 256 / 1e9:.2f} GB shards")
+    got = torch.empty_like(pos_t)
+    routed_step(even, [0, half], half, True, pos_t, got, letters_in=lett_t)
+    rec.compare("k1rw_rank", f"above 2^32, 2 even shards routed vs the closed form x{len(pos)}",
+                got[: len(pos)], want)
+    log(f"[8a] K1Rw exact on two shards of {half} rows ({half * 256 / 1e9:.2f} GB each): routed "
+        f"{owned}")
+    times = rs_time(rec, "k1rw_rank", even, [0, half], half, True, rnd, lett_r, unowned,
+                    f"2 x {half * 256 / 1e9:.2f} GB shards")
+    del table, info, even, got, p_all, l_all
     torch.cuda.empty_cache()
+    return times
 
 
 def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dict:
@@ -2357,11 +2603,11 @@ def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dic
     from avxwindowfmindex_tpu_torch.ops import kernels
     from avxwindowfmindex_tpu_torch.utils import capacity
 
-    engines = phase_rs_kernels(rec, engine, device)
-    phase_rs_straddle(rec, device)
+    engines, times = phase_rs_kernels(rec, engine, device)
+    times["straddle"] = phase_rs_straddle(rec, device)
     counts_want, lens_want, flat_want = answers
     steps = KMER_LEN - MAIN_SEED_K
-    stats = {"launches": {"k1r_rank": 0, "k1rw_rank": 0}}
+    stats = {"launches": {"k1r_rank": 0, "k1rw_rank": 0, "k1r_route": 0}, "step_times": times}
 
     def median_qps(fn, runs=3):
         fn(kmers[:4096])  # warm-up
@@ -2379,7 +2625,9 @@ def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dic
         name = "k1rw_rank" if wide else "k1r_rank"
         kernels.reset_launch_counts()
         counts = eng.count(kmers)
-        launches = expect_launches(tag, (name,), exact={name: steps * n})
+        # a step: one route and one launch a shard over the lanes it owns
+        launches = expect_launches(tag, (name, "k1r_route"),
+                                   exact={name: steps * n, "k1r_route": steps})
         if not np.array_equal(counts, counts_want):
             raise AssertionError(f"[{tag}] {n} shards: counts differ from phase 4's")
         kernels.reset_launch_counts()
@@ -2391,15 +2639,22 @@ def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dic
         else:
             flat, lens = eng._locate_flat(kmers)
         bt = dict(eng.last_backtrace)
-        launches_l = expect_launches(tag, (name,), exact={name: steps * n + bt["launches"]})
+        per_step = bt.pop("routed_per_step")
+        launches_l = expect_launches(tag, (name, "k1r_route"), exact={
+            name: steps * n + bt["launches"], "k1r_route": steps + bt["lf_steps"]})
         if not (np.array_equal(lens, lens_want) and np.array_equal(flat, flat_want)):
             raise AssertionError(f"[{tag}] {n} shards: locate differs from phase 4's")
-        stats["launches"][name] += launches[name] + launches_l[name]
+        if max(per_step) > len(flat) or bt["routed_lanes"] > bt["lane_steps"]:
+            raise AssertionError(f"[{tag}] a step routed more lanes than it had: {bt}")
+        for k in (name, "k1r_route"):
+            stats["launches"][k] += launches[k] + launches_l[k]
         log(f"[{tag}] {n} shards{' (compact wide rows)' if wide else ''}: count and locate of "
             f"{len(kmers)} {KMER_LEN}-mers equal to phase 4's; {name} {launches[name]} launches a "
-            f"count ({steps} steps x {n}), {launches_l[name]} a locate (its ranges, then the LF "
-            f"loop: {bt['segments']} segments, {bt['lf_steps']} steps, {bt['lane_steps']} lane "
-            f"steps for {len(flat)} hits, {bt['launches']} launches)")
+            f"count ({steps} steps x {n}, {steps} routes), {launches_l[name]} a locate (its "
+            f"ranges, then the LF loop: {bt['segments']} segments, {bt['lf_steps']} steps, "
+            f"{bt['lane_steps']} lane steps for {len(flat)} hits, {bt['routed_lanes']} routed "
+            f"lanes launched once each where the every-lane form launched {n} x "
+            f"{bt['lane_steps']}; the most in a step {max(per_step)}; {bt['launches']} launches)")
         cq, ct = median_qps(eng.count)
         lq, lt = median_qps(eng._locate_flat)
         stats[f"{n}{'w' if wide else ''}"] = {"count_qps": cq, "locate_qps": lq, "lf": bt}

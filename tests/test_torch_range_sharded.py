@@ -337,9 +337,14 @@ def test_masked_plain_versions_equal_jax(built, rng, n_dev, wide):
         np.testing.assert_array_equal(gl.numpy(), np.where(owned, np.asarray(lett), 0))
         np.testing.assert_array_equal(go.numpy().view(np.uint64),
                                       np.where(owned, occ_l, 0).astype(np.uint64))
-        # the dispatch wrappers take the plain versions for CPU tensors
-        torch.testing.assert_close(sharded.occurrence(shard, pos_t, torch.from_numpy(letts), fb),
-                                   got, rtol=0, atol=0)
+        # the dispatch wrappers take the plain versions for CPU tensors: the
+        # route and this shard's occ give its masked occ where it owns
+        out = torch.full((len(pos),), -7, dtype=torch.int64)
+        counts = torch.empty(eng.n_dev + 1, dtype=torch.int32)
+        slot_pos, slot_lane = sharded.route(pos_t, out, eng.n_dev, bps, wide, 0, counts)
+        sharded.shard_occurrence(shard, fb, slot_pos, slot_lane, counts, i,
+                                 torch.from_numpy(letts), out)
+        np.testing.assert_array_equal(out.numpy()[owned], got.numpy()[owned])
 
 
 def test_wrapped_start_is_owned_by_no_shard(built):
@@ -387,13 +392,17 @@ def test_devices_default_to_the_card_and_kernels_refuse_cpu(built):
             dataclasses.replace(built.p, bwt_length=2**32), ["cpu"], wide=False)
     kernels.reset_launch_counts()
     pos = torch.zeros(4, dtype=torch.int64)
+    lanes, counts = torch.zeros(4, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.k1r_occurrence(eng.dev, pos, torch.zeros(4, dtype=torch.int32), 0)
+        kernels.k1r_occurrence(eng.dev, 0, pos, lanes, counts, 0,
+                               torch.zeros(4, dtype=torch.int32), pos.clone())
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.k1r_letter_occ(eng.dev, pos, 0)
+        kernels.k1r_lf(eng.dev, 0, pos, lanes, counts, 0, pos.clone())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.k1r_route(pos, pos.clone(), 2, eng.blocks_per_shard, False, 0, counts)
     # K1R takes shards only, and the other kernels whole views only
     with pytest.raises(ValueError, match="shards"):
-        kernels.k1r_letter_occ(built.p.to_device("cpu"), pos, 0)
+        kernels.k1r_lf(built.p.to_device("cpu"), 0, pos, lanes, counts, 0, pos.clone())
     with pytest.raises(ValueError, match="shards"):
         kernels.k1_occurrence(eng.dev, pos, torch.zeros(4, dtype=torch.int32))
     assert all(k.launches == 0 for k in kernels.KERNELS)
