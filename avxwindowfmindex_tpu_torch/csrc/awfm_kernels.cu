@@ -165,8 +165,18 @@
 //       table twice as large as the narrow block rows: it outgrows the L2,
 //       and the walk is bound by the 64 B pieces device memory moves. K2w
 //       takes K2's design whole. K3w keeps one thread per hit and the LF
-//       step of three dependent reads (lf_bytes): the persistent grid and
-//       the row in registers both measured level or behind there.
+//       step of three dependent reads (lf_bytes): the persistent grid, the
+//       row in registers, two lanes a hit and an L2 prefetch of the
+//       milestone piece all measured level or behind there (below). A
+//       nucleotide visit touches all four 64 B pieces of its pair-fused
+//       row, so the walk runs near visits x 4 pieces over the memory rate
+//       (0.56 ms for 7.3M steps): 0.52 ms on the 64M index forced wide
+//       (64 MB, mostly in the L2), 0.74 ms on a 268 MB wide view, 0.50 ms
+//       for 4.7M steps over a 4.56 GB table above 2^32 (H100 80GB HBM3,
+//       700 W). Over compact rows (planes 32 B apart: two pieces a visit)
+//       the same kernel takes 24-41% less (awfm_k3w_compact_backtrace_resolve,
+//       timed by tools.kernel_ab; the layout is the JAX package's, so no
+//       path reads it).
 //   K1R awfm_k1r_occ / awfm_k1r_lf, K1Rw awfm_k1rw_occ / awfm_k1rw_lf,
 //   and their route awfm_k1r_route
 //       K1 over one shard of the range-sharded engine
@@ -1323,7 +1333,13 @@ constexpr int kK3Threads = 256;
 // tables of the kernel's parameters give letter and code). K3w keeps it:
 // on wide rows, where the walk is bound by the 64 B pieces device memory
 // moves and not by round trips, the block row in registers measured level
-// on random hits and 5% behind on hits in range order.
+// on random hits and 5% behind on hits in range order; two lanes a hit,
+// each loading half of every plane's first-block sector (the letter from
+// their words by shuffle, one lane loading the milestone), 14% behind on
+// the 64M index forced wide and 1-2% behind beyond the L2 and on amino
+// rows; a prefetch of the milestone piece into the L2 before the byte
+// loads, 4-8% ahead on a 268 MB table but 2-3% behind on a 4.56 GB one
+// (H100 80GB HBM3, 700 W, each against this form in one process).
 template <class G, int NP>
 __device__ __forceinline__ typename G::pos_t lf_bytes(const AwfmTables& t,
                                                       typename G::pos_t pos) {
@@ -1349,7 +1365,8 @@ __device__ __forceinline__ typename G::pos_t lf_bytes(const AwfmTables& t,
 // K3w: one thread walks one hit, in launch order. A warp ends with its
 // longest walk, which on wide rows costs nothing the card could use: the
 // grid that hands out hits (below) measured 4% behind this on random hits
-// and 16% behind in the on-disk form.
+// and 16% behind in the on-disk form, and two lanes a hit (lf_bytes) 1-14%
+// behind. G is Wide, or WideCompact for the measurement entry.
 template <class G, int NP>
 __global__ void __launch_bounds__(kK3Threads)
 k3_per_hit_kernel(AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
@@ -1958,6 +1975,20 @@ int awfm_k3w_backtrace_resolve(int device, const AwfmTables* t,
   return launch_k3_backtrace_resolve<Wide>(device, t, pos, n, ratio,
                                            bwt_length, sa, hits_out, p_out,
                                            off_out, stream);
+}
+
+// K3w's kernel over compact wide rows (WideCompact: planes 32 B apart, so a
+// nucleotide visit touches two 64 B pieces, not four). tools.kernel_ab
+// times it to size what the pair-fused layout costs the walk; no search
+// path calls it.
+int awfm_k3w_compact_backtrace_resolve(int device, const AwfmTables* t,
+                                       const int64_t* pos, int64_t n, uint64_t ratio,
+                                       uint64_t bwt_length, const uint64_t* sa,
+                                       int64_t* hits_out, int64_t* p_out,
+                                       int64_t* off_out, cudaStream_t stream) {
+  return launch_k3_backtrace_resolve<WideCompact>(device, t, pos, n, ratio,
+                                                  bwt_length, sa, hits_out,
+                                                  p_out, off_out, stream);
 }
 
 int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,

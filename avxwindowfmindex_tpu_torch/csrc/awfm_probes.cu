@@ -4,22 +4,36 @@
 //       Replaces the Pallas row-gather probes experiments/
 //       pallas_gather_bench.py:kernel (P2), pallas_aligned_bench.py:kernel
 //       (P3) and gather_pair_bench.py:kernel (P4). Each index's row of a
-//       uint8 table of R-byte rows is read whole, and the int32 sum of its
-//       first sum_bytes bytes is added into one partial per CHUNK of
-//       indices (P4's output; P2's and P3's scalar is the wrapping sum of
-//       the partials). P2's ring of K row DMAs in flight becomes a ring of
-//       K shared-memory slots per warp filled by cp.async: a warp keeps K
-//       rows in flight, each lane copying and later summing the same 16 B
-//       pieces, so no lane reads another's copy. A block of up to 8 warps
-//       owns one chunk, warp w taking rows w, w + W, w + 2W, ... of it (W
-//       warps), so the card holds thousands of warps' rings at once. The
-//       walk entry runs
+//       uint8 table of R-byte rows is read, and the int32 sum of its first
+//       sum_bytes bytes is added into one partial per CHUNK of indices
+//       (P4's output; P2's and P3's scalar is the wrapping sum of the
+//       partials). P2's ring of K row DMAs in flight becomes K 16 B pieces
+//       in flight in each lane's registers. What bounds it on this card:
+//       the bytes of random rows (P2: 524,288 x 128 B of a 1 GiB table,
+//       0.020 ms at 3.35 TB/s). A first form copied every row whole into a
+//       ring of shared-memory slots by cp.async (a warp instruction moved
+//       one 128 B row, 8 of its 32 lanes busy) and read it back to sum it:
+//       0.072 ms at P2's shape on the 1 GiB table and on a 64 MiB one
+//       alike, so the per-row work and not device memory held it. What the
+//       design does about it: L lanes take a row (the pieces summed,
+//       rounded up to a power of two from 8 to 32), so one warp load
+//       instruction moves 32 / L rows; only the pieces within sum_bytes
+//       are loaded, non-allocating in L1 (ld.global.nc.L1::no_allocate),
+//       straight into registers, K of them in flight a lane before the
+//       first is summed; the grid is what the card holds at once, each
+//       block owning whole chunks, so each partial has one writer and no
+//       atomics. Against the first form in one process (H100 80GB HBM3,
+//       700 W): P2's shape 0.029 ms at K = 16 (0.072), 0.026 at K = 8;
+//       512 B rows 0.092 (0.113); P3's 1 KB rows, 128 B summed, 0.028
+//       (0.226). The walk entry runs
 //       bench.py's calibration walk, idx <- (idx * 1103515245 + sum of the
 //       row's bytes + 12345) mod nb in u32, for seg steps in one launch,
 //       one thread per lane, its vector loads of a row all in flight
 //       together. A sector mask (bit s: the row's 32 B sector s) limits the
 //       loads and the sum to the sectors a search step reads, so the walk
-//       can measure the rate of visits that touch only those.
+//       can measure the rate of visits that touch only those. Every
+//       fraction of a ceiling divides by the walk's rates, so the walk
+//       keeps its form.
 //   K6 awfm_k6_slab_gather / awfm_k6_slab_chain
 //       Replaces experiments/ab_r5_pallas_gather.py:_k1_kernel (P5):
 //       out[i, :] = slab[idx[i], :] over a (S, 128) u32 slab of 1-4 MiB.
@@ -58,7 +72,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxWarps = 8;          // warps per K5 reduce block
-constexpr int kRingBytesPerBlock = 32768;  // stays under the 48 KB default
 
 __device__ __forceinline__ uint32_t byte_sum(uint32_t x) {
   x = (x & 0x00FF00FFu) + ((x >> 8) & 0x00FF00FFu);
@@ -74,82 +87,77 @@ __device__ __forceinline__ int64_t clamp_row(int32_t i, int64_t nb) {
   return r < 0 ? 0 : (r >= nb ? nb - 1 : r);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
   return v;
 }
 
-// Copy row i (P pieces of 16 B) into a ring slot; lane l copies pieces
-// l, l + 32, ...
-template <int P>
-__device__ __forceinline__ void issue_row(const uint8_t* table, int64_t nb,
-                                          int32_t i, uint4* slot, int lane) {
-  const uint4* src = reinterpret_cast<const uint4*>(table + clamp_row(i, nb) * (P * 16));
-  for (int p = lane; p < P; p += 32) cp_async16(slot + p, src + p);
+// 16 B read once: no L1 line is allocated for it.
+__device__ __forceinline__ uint4 ld_once(const uint8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-template <int R, int K>
+// K5's reduce. L lanes take a row (a power of two, 8 to 32), lane l its
+// 16 B pieces l, l + L, ... below sum_pieces (PPL of them at most), so one
+// warp load instruction moves 32 / L rows' pieces. Each lane asks for K
+// pieces (K / PPL rows) before it sums the first, holding them in
+// registers. Block b owns chunks b, b + gridDim.x, ...; a batch of its
+// warps takes a chunk's rows in order (warp w's slot j: rows (j W + w)
+// 32 / L ... of the batch, W warps), and the chunk's partial is summed
+// over the block in a fixed order and written by one thread.
+template <int L, int PPL, int K>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-k5_gather_reduce_kernel(const uint8_t* __restrict__ table, int64_t nb,
+k5_gather_reduce_kernel(const uint8_t* __restrict__ table, int64_t nb, int row_bytes,
                         const int32_t* __restrict__ idx, int64_t n, int chunk,
                         int sum_pieces, int32_t* __restrict__ out) {
-  constexpr int P = R / 16;
-  constexpr int PPL = (P + 31) / 32;
-  extern __shared__ uint4 ring_all[];
+  constexpr int kRowsPerLoad = 32 / L;
+  constexpr int kSlots = K / PPL;  // rows a lane has in flight
   __shared__ uint32_t warp_sums[kMaxWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  uint4* ring = ring_all + static_cast<size_t>(warp) * K * P;
-  const int64_t lo = static_cast<int64_t>(blockIdx.x) * chunk;
-  const int64_t rem = n - lo;
-  const int rows = static_cast<int>(rem < chunk ? rem : chunk);
-  // this warp's rows: lo + warp + j * n_warps for j = 0 .. m - 1
-  const int m = rows > warp ? (rows - warp + n_warps - 1) / n_warps : 0;
-  const int32_t* my_idx = idx + lo + warp;
-  uint32_t acc = 0u;
+  const int sub = lane % L;      // the row's first piece this lane takes
+  const int r_in = lane / L;     // the lane's row among a load's
+  const int batch = n_warps * kSlots * kRowsPerLoad;
+  const int64_t n_chunks = (n + chunk - 1) / chunk;
+  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int64_t lo = c * chunk;
+    const int rows = static_cast<int>(n - lo < chunk ? n - lo : chunk);
+    uint32_t acc = 0u;
+    for (int base = 0; base < rows; base += batch) {
+      uint4 v[kSlots][PPL];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    if (j < m) issue_row<P>(table, nb, my_idx[static_cast<int64_t>(j) * n_warps], ring + j * P, lane);
-    cp_async_commit();  // one group per ring slot, empty past the last row
-  }
-  for (int j = 0; j < m; ++j) {
-    cp_async_wait<K - 1>();  // row j's group has landed
-    uint4* slot = ring + (j % K) * P;
+      for (int j = 0; j < kSlots; ++j) {
+        const int r = base + (j * n_warps + warp) * kRowsPerLoad + r_in;
+        const bool live = r < rows;
+        const uint8_t* src = table + (live ? clamp_row(idx[lo + r], nb) : 0) * row_bytes;
 #pragma unroll
-    for (int q = 0; q < PPL; ++q) {
-      const int p = lane + 32 * q;
-      if (p < sum_pieces) acc += byte_sum(slot[p]);
+        for (int q = 0; q < PPL; ++q) {
+          const int piece = sub + q * L;
+          v[j][q] = make_uint4(0u, 0u, 0u, 0u);
+          if (live && piece < sum_pieces) v[j][q] = ld_once(src + piece * 16);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+#pragma unroll
+        for (int q = 0; q < PPL; ++q) acc += byte_sum(v[j][q]);
+      }
     }
-    __syncwarp();  // the slot's reads are done before its refill is issued
-    if (j + K < m) {
-      issue_row<P>(table, nb, my_idx[static_cast<int64_t>(j + K) * n_warps], slot, lane);
+    acc = warp_sum(acc);
+    if (lane == 0) warp_sums[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t t = 0u;
+      for (int w = 0; w < n_warps; ++w) t += warp_sums[w];  // wraps as int32 does
+      out[c] = static_cast<int32_t>(t);
     }
-    cp_async_commit();
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t t = 0u;
-    for (int w = 0; w < n_warps; ++w) t += warp_sums[w];  // wraps as int32 does
-    out[blockIdx.x] = static_cast<int32_t>(t);
+    __syncthreads();  // warp_sums is read before the next chunk writes it
   }
 }
 
@@ -285,29 +293,38 @@ cudaError_t launch_walk(const uint8_t* table, int64_t nb, const int32_t* idx,
   return cudaGetLastError();
 }
 
-template <int R, int K>
-cudaError_t launch_reduce(const uint8_t* table, int64_t nb, const int32_t* idx,
-                          int64_t n, int chunk, int sum_pieces, int32_t* out,
-                          cudaStream_t stream) {
-  int warps = kRingBytesPerBlock / (K * R);
-  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
-  const size_t smem = static_cast<size_t>(warps) * K * R;
+// A grid the card holds at once (at most one block a chunk), of blocks of
+// enough warps to take a chunk in one batch, at most kMaxWarps.
+template <int L, int PPL, int K>
+cudaError_t launch_reduce(int device, const uint8_t* table, int64_t nb, int row_bytes,
+                          const int32_t* idx, int64_t n, int chunk, int sum_pieces,
+                          int32_t* out, cudaStream_t stream) {
+  constexpr int kPerWarp = (K / PPL) * (32 / L);  // rows a warp has in flight
+  const int64_t want = (static_cast<int64_t>(chunk) + kPerWarp - 1) / kPerWarp;
+  const int warps = static_cast<int>(want < kMaxWarps ? want : kMaxWarps);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k5_gather_reduce_kernel<L, PPL, K>, warps * 32, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
   const int64_t n_chunks = (n + chunk - 1) / chunk;
-  k5_gather_reduce_kernel<R, K><<<static_cast<unsigned int>(n_chunks), warps * 32, smem, stream>>>(
-      table, nb, idx, n, chunk, sum_pieces, out);
+  const int64_t cap = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  k5_gather_reduce_kernel<L, PPL, K>
+      <<<static_cast<unsigned int>(n_chunks < cap ? n_chunks : cap), warps * 32, 0, stream>>>(
+          table, nb, row_bytes, idx, n, chunk, sum_pieces, out);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_reduce_ring(int ring, const uint8_t* table, int64_t nb,
-                               const int32_t* idx, int64_t n, int chunk,
+template <int L, int PPL>
+cudaError_t launch_reduce_ring(int ring, int device, const uint8_t* table, int64_t nb,
+                               int row_bytes, const int32_t* idx, int64_t n, int chunk,
                                int sum_pieces, int32_t* out, cudaStream_t stream) {
   switch (ring) {
-    case 2: return launch_reduce<R, 2>(table, nb, idx, n, chunk, sum_pieces, out, stream);
-    case 4: return launch_reduce<R, 4>(table, nb, idx, n, chunk, sum_pieces, out, stream);
-    case 8: return launch_reduce<R, 8>(table, nb, idx, n, chunk, sum_pieces, out, stream);
-    case 16: return launch_reduce<R, 16>(table, nb, idx, n, chunk, sum_pieces, out, stream);
-    case 32: return launch_reduce<R, 32>(table, nb, idx, n, chunk, sum_pieces, out, stream);
+    case 2: return launch_reduce<L, PPL, 2>(device, table, nb, row_bytes, idx, n, chunk, sum_pieces, out, stream);
+    case 4: return launch_reduce<L, PPL, 4>(device, table, nb, row_bytes, idx, n, chunk, sum_pieces, out, stream);
+    case 8: return launch_reduce<L, PPL, 8>(device, table, nb, row_bytes, idx, n, chunk, sum_pieces, out, stream);
+    case 16: return launch_reduce<L, PPL, 16>(device, table, nb, row_bytes, idx, n, chunk, sum_pieces, out, stream);
+    case 32: return launch_reduce<L, PPL, 32>(device, table, nb, row_bytes, idx, n, chunk, sum_pieces, out, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -322,17 +339,21 @@ int awfm_k5_gather_reduce(int device, const uint8_t* table, int64_t nb,
                           cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (chunk < 1 || sum_bytes < 16 || sum_bytes > row_bytes || sum_bytes % 16) {
+  const bool width_ok = row_bytes == 128 || row_bytes == 256 || row_bytes == 384 ||
+                        row_bytes == 512 || row_bytes == 1024;
+  if (!width_ok || chunk < 1 || sum_bytes < 16 || sum_bytes > row_bytes || sum_bytes % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // lanes a row: the pieces summed, rounded up to a power of two in [8, 32]
   const int sp = sum_bytes / 16;
-  switch (row_bytes) {
-    case 128: err = launch_reduce_ring<128>(ring, table, nb, idx, n, chunk, sp, out, stream); break;
-    case 256: err = launch_reduce_ring<256>(ring, table, nb, idx, n, chunk, sp, out, stream); break;
-    case 384: err = launch_reduce_ring<384>(ring, table, nb, idx, n, chunk, sp, out, stream); break;
-    case 512: err = launch_reduce_ring<512>(ring, table, nb, idx, n, chunk, sp, out, stream); break;
-    case 1024: err = launch_reduce_ring<1024>(ring, table, nb, idx, n, chunk, sp, out, stream); break;
-    default: err = cudaErrorInvalidValue;
+  if (sp <= 8) {
+    err = launch_reduce_ring<8, 1>(ring, device, table, nb, row_bytes, idx, n, chunk, sp, out, stream);
+  } else if (sp <= 16) {
+    err = launch_reduce_ring<16, 1>(ring, device, table, nb, row_bytes, idx, n, chunk, sp, out, stream);
+  } else if (sp <= 32) {
+    err = launch_reduce_ring<32, 1>(ring, device, table, nb, row_bytes, idx, n, chunk, sp, out, stream);
+  } else {
+    err = launch_reduce_ring<32, 2>(ring, device, table, nb, row_bytes, idx, n, chunk, sp, out, stream);
   }
   return static_cast<int>(err);
 }

@@ -252,6 +252,7 @@ def build() -> float:
         lib.awfm_k3w_backtrace_resolve.argtypes = [
             i32, tables_p, vp, i64, u64, u64, vp, vp, vp, vp, vp,
         ]
+        lib.awfm_k3w_compact_backtrace_resolve.argtypes = lib.awfm_k3w_backtrace_resolve.argtypes
         lib.awfm_k4_ngram_ranges.argtypes = [
             i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
             i64, i64, i32, vp, vp, vp,
@@ -266,7 +267,7 @@ def build() -> float:
             lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k1_extend, lib.awfm_k2_ranges,
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
             lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
-            lib.awfm_k3w_backtrace_resolve,
+            lib.awfm_k3w_backtrace_resolve, lib.awfm_k3w_compact_backtrace_resolve,
             lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
             lib.awfm_k1rw_lf,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
@@ -633,7 +634,26 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
     """K3 (K3w for a wide view): hits (n,) int64 when the sampled SA is
     resident, else the sampled positions and walk offsets ((n,) int64
     each), each at its hit's own index whatever lane walked it."""
-    tables = _tables(dev)
+    return _backtrace(dev, positions, _tables(dev), lambda: _entry(dev, K3, "backtrace_resolve"))
+
+
+def k3w_compact_backtrace_resolve(dev, positions: torch.Tensor):
+    """K3w's kernel over a wide view of compact rows
+    (``pack_device_blocks64(pair=False)`` of every block, no pair rows:
+    one range-sharded shard that holds the whole index), with K3w's
+    outputs. ``tools.kernel_ab --cases k3w`` times it against K3w to size
+    what the pair-fused layout costs the walk; no search path calls it."""
+    if not dev.wide:
+        raise ValueError("the compact rows are a wide view's")
+    name = "awfm_k3w_compact_backtrace_resolve"
+    return _backtrace(dev, positions, _tables(dev, shard=True),
+                      lambda: (getattr(_library(), name), name, K3W))
+
+
+def _backtrace(dev, positions: torch.Tensor, tables, entry):
+    """K3's launch; ``entry()`` gives (C entry point, its name, its
+    Kernel), asked for only after the tensors are checked, so a CPU
+    tensor is refused before any build."""
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
     if positions.dim() != 1:
@@ -653,7 +673,7 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
         return (p, off) if on_disk else hits
     if dev.ratio < 1 or (not dev.wide and dev.bwt_length >= 2**32):
         raise ValueError("need ratio >= 1, and a wide view for bwtLength >= 2^32")
-    fn, name, kernel = _entry(dev, K3, "backtrace_resolve")
+    fn, name, kernel = entry()
     rc = fn(
         device.index, ctypes.byref(tables), positions.data_ptr(), n,
         int(dev.ratio), int(dev.bwt_length),
@@ -735,7 +755,8 @@ def _probe_idx(idx: torch.Tensor, device) -> int:
 def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
                      chunk: int, ring: int) -> torch.Tensor:
     """K5: (ceil(n / chunk),) int32 partial sums of the first ``sum_bytes``
-    bytes of each index's row, ``ring`` row loads in flight per warp."""
+    bytes of each index's row, ``ring`` 16 B pieces in flight per lane
+    (``probes.gather_reduce``)."""
     from .probes import K5_RING_DEPTHS, K5_ROW_BYTES
 
     device = _probe_table(table, "table", torch.uint8, K5_ROW_BYTES)

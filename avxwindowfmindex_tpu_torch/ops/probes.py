@@ -45,7 +45,7 @@ from .rank import device_kind
 #: Row widths K5 is instantiated for: the experiments' 128, 512 and
 #: 1024 B rows and the index's 128, 256 and 384 B tables.
 K5_ROW_BYTES = (128, 256, 384, 512, 1024)
-#: Ring depths (row loads in flight per warp) K5 is instantiated for.
+#: Ring depths (16 B pieces in flight per lane) K5 is instantiated for.
 K5_RING_DEPTHS = (2, 4, 8, 16, 32)
 SLAB_LANES = 128  # K6 rows: 128 u32 words = 512 B
 ALL_SECTORS = 0xFFFFFFFF
@@ -74,8 +74,11 @@ def gather_reduce_plain(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
 
 def gather_reduce(table: torch.Tensor, idx: torch.Tensor, *, sum_bytes: int,
                   chunk: int, ring: int = 8) -> torch.Tensor:
-    """K5 for CUDA tensors, the plain version for CPU ones. ``ring`` is
-    the number of row loads a warp keeps in flight (P2's K); the sums do
+    """K5 for CUDA tensors, the plain version for CPU ones. ``ring`` (P2's
+    K) is the number of 16 B row pieces each lane of the kernel asks for,
+    into its registers, before it sums the first: K rows a lane when a
+    lane takes one piece of a row (``sum_bytes`` up to 512, 8 to 32 lanes
+    a row), K / 2 for a 1 KB sum (32 lanes, two pieces each). The sums do
     not depend on it."""
     if device_kind(table) == "cuda":
         from . import kernels

@@ -2,7 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
-        [--cases all|bfs|rs]
+        [--cases all|bfs|rs|k3w|k5] [--cache DIR]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -38,7 +38,7 @@ them (``"k1_launches_ms"``).
 ``--cases rs``: the range-sharded step alone, each checkout's on the
 same shards and positions: the 64M index split into 2 and 4 shards of
 narrow block rows and 2 of compact wide rows, and a compact wide table
-tiled to 2^32 + 2^28 positions (4.56 GB, ``straddle_compact_table``) split
+tiled to 2^32 + 2^28 positions (4.56 GB, ``straddle_table``) split
 into two 2.28 GB shards, beyond the L2. An occ step over 2,097,152 random
 positions (a backward step of 1M queries) and an LF step, with the done
 rule, over 1,048,576 lanes. A checkout with the route (``k1r_route``)
@@ -52,6 +52,33 @@ Each is timed by the wall clock (``ms``: the host's work included, what
 a caller waits) and as device time with the queue kept full
 (``device_ms``).
 
+``--cases k3w``: the wide backtrace (K3w) alone, in both outputs (hits
+resolved through the sampled SA, and the on-disk form's (position,
+offset) pairs), over three wide tables: the 64M index forced wide (the
+hits of the ``--queries`` sampled 25-mers, as phase 4w walks them, and
+as many random positions), an amino index of ``AMINO_RESIDUES`` random
+residues forced wide (512 B rows, 128 MB), and the wide view of a DNA
+text of ``BIG_BASES`` = 2^28 random bases (1,048,576 rows x 256 B =
+268 MB, five times the L2). The last is built once by the host
+SA-IS and cached as an ``.awfmx`` under ``--cache`` (default
+``avxwindowfmindex_tpu_torch/build/kernel_ab/``, ignored by git), so a
+second run in the same checkout loads it; then phase 4x's table above
+2^32 (pair-fused rows tiled to 2^32 + 2^28 positions, 4.56 GB, no
+sampled SA: the on-disk form only), from ``--queries`` random starts
+whose walks end within 16 steps (``short_walks``). Each case also prints its
+models (``"model"``): the LF steps the hits walk, the bound (distinct
+rows x the bytes a visit needs, plus inputs and outputs, over 3.35 TB/s)
+and the piece model (steps x the 64 B pieces a visit touches: the
+first-block sector of each plane and the milestone's, over 3.35 TB/s).
+On every table but the 64M random positions, this checkout's K3w is also
+timed against its kernel over the same text in compact rows
+(``compact_view``: planes 32 B apart), the layout's ceiling.
+
+``--cases k5``: K5's reduce alone at phase 3b's shapes (``gather_probe``'s
+P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
+whole, of 1 KB rows their first 128 B), over a 1 GiB table (device
+memory) and a 64 MiB one (mostly the L2).
+
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per case: ``{"case", "shape", "ms": {name: [first, second]}}`` with
 ``this`` for this checkout.
@@ -64,10 +91,19 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import math
 import os
 import sys
 
 import numpy as np
+
+CASES = ("all", "bfs", "rs", "k3w", "k5")
+BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
+AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
+HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
+OPS_PER_S = 67e12  # published float32 rate outside the tensor cores
+DEFAULT_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernel_ab")
 
 
 def _log(msg: str) -> None:
@@ -218,14 +254,18 @@ def bfs_cases(index, views, libs: dict, reps: int) -> None:
         torch.cuda.empty_cache()
 
 
-def straddle_compact_table(device, boundary: int = 2**32, seed: int = 4097,
-                           pat_blocks: int = 4096) -> dict:
-    """A compact wide-row DNA table (``pack_device_blocks64(pair=False)``,
-    256 B rows) of ``boundary + boundary / 16`` positions, 4.56 GB at
-    2^32: a random pattern of ``pat_blocks`` blocks tiled on the card, its
-    u64 milestones shifted so that they start 2^28 below 2^32 and pass it.
-    Returns ``table`` ((nb, 256) uint8 on ``device``), ``n`` (positions),
-    ``nb``, ``rng`` (for more draws), and what the closed form
+def straddle_table(device, boundary: int = 2**32, seed: int = 4097, pat_blocks: int = 4096,
+                   pair: bool = False, offset=None) -> dict:
+    """A wide-row DNA table of ``boundary + boundary / 16`` positions,
+    4.56 GB at 2^32: a random pattern of ``pat_blocks`` blocks tiled on
+    the card. ``pair``: the pair-fused rows of a single-device wide view
+    (each tile's last block paired with the next tile's first, the table's
+    last row with none); else the compact rows a range-sharded engine
+    shards (``pack_device_blocks64(pair=False)``). The u64 milestones are
+    shifted by ``offset``; by default compact ones start 2^28 below 2^32
+    and pass it. Returns ``table`` ((nb, 256) uint8 on ``device``), ``n``
+    (positions), ``nb``, ``rng`` (for more draws), ``reps`` (tiles),
+    ``pat_total`` (letter counts of a tile), and what the closed form
     ``closed_form_occ`` needs."""
     import torch
     from .. import AlphabetType
@@ -243,25 +283,77 @@ def straddle_compact_table(device, boundary: int = 2**32, seed: int = 4097,
     cum = np.cumsum(counts, axis=0)
     pat_ms = np.zeros_like(cum)
     pat_ms[1:] = cum[:-1]
-    offset = 2**32 - (boundary >> 4)  # milestones from below 2^32 to past it
-    rows = index_mod.pack_device_blocks64(pattern.reshape(-1), pat_ms, AlphabetType.DNA,
-                                          pair=False)
+    if offset is None:
+        offset = 0 if pair else 2**32 - (boundary >> 4)  # from below 2^32 to past it
+    if pair:
+        # rows of one tile: the partner of its last block is the next tile's first
+        letters = np.concatenate([pattern, pattern[:1]]).reshape(-1)
+        rows = index_mod.pack_device_blocks64(
+            letters, np.concatenate([pat_ms, np.zeros((1, card + 2), np.uint64)]),
+            AlphabetType.DNA)[:pat_blocks]
+    else:
+        rows = index_mod.pack_device_blocks64(pattern.reshape(-1), pat_ms, AlphabetType.DNA,
+                                              pair=False)
     table = torch.from_numpy(rows).to(device).repeat(reps, 1)
+    stride = 64 if pair else 32
+    if pair:
+        for i in range(n_planes):  # the table's last row has no partner
+            table[-1, i * 64 + 32 : (i + 1) * 64] = 0
     t64 = table.view(torch.int64)
     tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
     total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
     ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
-    col = n_planes * 32 // 8
+    col = n_planes * stride // 8
     t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :] + offset
     del tile, t64
     flat = pattern.reshape(-1)
     pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
     return {"table": table, "n": nb * 256, "nb": nb, "rng": rng, "offset": offset,
-            "pat_cum": pat_cum, "pat_len": len(flat), "ms_max": offset + int(pat_total.max()) * reps}
+            "reps": reps, "pat_total": pat_total, "pat_cum": pat_cum, "pat_len": len(flat),
+            "ms_max": offset + int(pat_total.max()) * reps}
+
+
+def straddle_view(info: dict, device):
+    """The single-device wide view over ``straddle_table(pair=True)``'s
+    table: the tiled text's C[], SA ratio 8, no sampled SA (K3w's on-disk
+    form)."""
+    import torch
+    from .. import AlphabetType, DeviceIndex
+    from ..models import alphabet as alpha
+    from ..models import index as index_mod
+
+    card = 4
+    ps = np.concatenate([[1], 1 + np.cumsum(info["pat_total"][: card + 1] * np.uint64(info["reps"]))])
+    return DeviceIndex(
+        packed=info["table"], packed_pair=info["table"],
+        prefix_sums=index_mod.u64_tensor(ps.astype(np.uint64), device),
+        seed_table=torch.zeros((1, 2), dtype=torch.int64, device=device), sampled_sa=None,
+        code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
+        vec_to_index=torch.from_numpy(
+            alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
+        bwt_length=info["n"], ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA,
+        wide=True,
+    )
+
+
+def short_walks(dev, pos, steps: int = 16):
+    """The positions of ``pos`` whose LF walk reaches a sampled position
+    within ``steps`` steps, by the plain LF on ``pos``'s device: a tiled
+    table's LF can cycle without reaching one."""
+    import torch
+    from ..ops import rank
+
+    p = pos.clone()
+    done = p % dev.ratio == 0
+    for _ in range(steps):
+        _, lf = rank.letter_and_lf_plain(dev, p)
+        p = torch.where(done, p, lf)
+        done |= p % dev.ratio == 0
+    return pos[done]
 
 
 def closed_form_occ(info: dict, pos: np.ndarray, lett: np.ndarray) -> np.ndarray:
-    """occ(lett, pos) of ``straddle_compact_table``'s text, from its pattern."""
+    """occ(lett, pos) of ``straddle_table``'s text, from its pattern."""
     full, rem = np.divmod(pos + 1, info["pat_len"])
     return info["offset"] + full * info["pat_cum"][lett, -1] + info["pat_cum"][lett, rem]
 
@@ -343,7 +435,7 @@ def rs_cases(index, libs: dict, reps: int, device) -> None:
         setups.append((f"rs{'w' if wide else ''} n={n} at {index.bwt_length} positions",
                        eng.shards, eng.first_blocks, eng.blocks_per_shard, wide,
                        index.bwt_length, eng.lf_unowned))
-    info = straddle_compact_table(device)
+    info = straddle_table(device)
     half = info["nb"] // 2
     shards = [straddle_shard(info["table"][i * half : (i + 1) * half], info["n"], device)
               for i in range(2)]
@@ -366,6 +458,185 @@ def rs_cases(index, libs: dict, reps: int, device) -> None:
     torch.cuda.empty_cache()
 
 
+def k3w_model(view, positions) -> dict:
+    """The LF steps K3w walks from ``positions`` over the wide ``view``,
+    its bound and its piece model (module note)."""
+    import dataclasses as dc
+
+    from .. import search
+
+    _, off = search.backtrace_resolve(dc.replace(view, sampled_sa=None), positions)
+    steps, hits = int(off.sum()), positions.numel()
+    nb, n_planes = view.packed.shape[0], view.n_planes
+    need = n_planes * 32 + view.milestone_bytes  # a visit: each plane's first sector, milestones
+    once = nb * (1.0 - math.exp(-steps / nb)) * need + hits * (8 + 8 + 8)
+    ops = steps * (8 * (2 * n_planes + 1) + 4 * 8)  # a match and a count over 8 words
+    pieces = n_planes + 1  # each plane's first-block sector and the milestone lie in 64 B pieces of their own
+    return {"hits": hits, "lf_steps": steps, "table_bytes": nb * view.packed.shape[1],
+            "bound_ms": max(once / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3,
+            "pieces_per_visit": pieces,
+            "piece_model_ms": steps * pieces * 64 / HBM_BYTES_PER_S * 1e3}
+
+
+def compact_view(index, view):
+    """``view`` over the compact wide rows of ``index`` (planes 32 B apart,
+    ``pack_device_blocks64(pair=False)``) in place of its pair-fused ones."""
+    import dataclasses as dc
+
+    import torch
+
+    from ..models.index import pack_device_blocks64
+
+    rows = pack_device_blocks64(index.bwt_letters, index.milestones(), index.alphabet, pair=False)
+    return dc.replace(view, packed=torch.from_numpy(rows).to(view.packed.device),
+                      packed_pair=None, pair_fused=False)
+
+
+def compact_pieces(n_planes: int, card: int) -> float:
+    """64 B pieces a visit to a compact row touches: its planes' pieces and
+    the milestone's, which shares the last plane piece for some letters
+    (letters taken as equally likely)."""
+    plane_pieces = -(-n_planes * 32 // 64)
+    shared = sum(n_planes * 32 + 8 * l < plane_pieces * 64 for l in range(card)) / card
+    return plane_pieces + 1 - shared
+
+
+def k3w_runs(tag: str, view, positions, libs: dict, reps: int, compact=None) -> None:
+    """K3w through every checkout on ``positions``: both outputs, then the
+    models of the walk; with ``compact`` (``compact_view``), also this
+    checkout's K3w against its kernel over the compact rows, in turns."""
+    import dataclasses as dc
+
+    from ..ops import kernels
+
+    disk = dc.replace(view, sampled_sa=None)
+    shape = f"{positions.numel()} hits, ratio {view.ratio}, {view.packed.shape[1]} B rows"
+    if view.sampled_sa is not None:
+        run_case(f"k3w {tag}", shape, lambda k: k.k3_backtrace_resolve(view, positions), libs, reps)
+    run_case(f"k3w {tag}, on-disk form", shape,
+             lambda k: k.k3_backtrace_resolve(disk, positions), libs, reps)
+    model = k3w_model(view, positions)
+    if compact is not None:
+        run_case(f"k3w {tag}, pair-fused rows against compact rows", shape,
+                 lambda fv: fv[0](fv[1], positions),
+                 {"pair-fused": (kernels.k3_backtrace_resolve, view),
+                  "compact": (kernels.k3w_compact_backtrace_resolve, compact)}, reps)
+        pieces = compact_pieces(view.n_planes, view.cardinality)
+        model.update(compact_pieces_per_visit=pieces,
+                     compact_piece_model_ms=model["lf_steps"] * pieces * 64 / HBM_BYTES_PER_S * 1e3)
+    print(json.dumps({"case": f"k3w {tag}", "model": model}), flush=True)
+
+
+def big_wide_index(bases: int, cache: str, device):
+    """The DNA index of ``bases`` random bases (``default_rng(bases)``, as
+    the main text is drawn), seed k = 12, SA ratio 8: loaded from
+    ``cache`` when a run has saved it there, else built by the host SA-IS
+    and saved."""
+    import time
+
+    from .. import AlphabetType, IndexConfiguration, create_index
+    from ..io.artifact import load_artifact, save_artifact
+
+    path = os.path.join(cache, f"dna_b{bases}_k12_r8.awfmx")
+    t0 = time.perf_counter()
+    if os.path.exists(path):
+        index = load_artifact(path, device=device)
+        _log(f"{bases}-base index loaded from {path} in {time.perf_counter() - t0:.1f}s")
+        return index
+    rng = np.random.default_rng(bases)
+    text = rng.choice(np.frombuffer(b"acgt", np.uint8), size=bases).tobytes()
+    index = create_index(text, IndexConfiguration(8, 12, AlphabetType.DNA), sa_backend="native",
+                         device=device)
+    _log(f"{bases}-base index built in {time.perf_counter() - t0:.1f}s")
+    os.makedirs(cache, exist_ok=True)
+    save_artifact(index, path, compress=False)
+    return index
+
+
+def k3w_cases(index, seq_arr, args, libs: dict, device) -> None:
+    """K3w through every checkout (module note): the index of ``seq_arr``
+    forced wide, an amino index forced wide, the wide view beyond the L2,
+    and phase 4x's table above 2^32."""
+    import dataclasses as dc
+
+    import torch
+
+    from .. import AlphabetType, IndexConfiguration, SearchEngine, create_index, search
+
+    rng = np.random.default_rng(11)
+    reps = args.reps
+    wide = index.to_device(device, wide=True)
+    eng = SearchEngine(index, device=device)
+    rows = _sampled(rng, seq_arr, 25, args.queries)
+    mat, lengths, _ = eng.encode_kmers([r.tobytes() for r in rows])
+    seeded = eng._seed_eligibility(mat, lengths)
+    s, e = search.search_ranges(wide, torch.from_numpy(mat).to(device),
+                                torch.from_numpy(lengths).to(device),
+                                torch.from_numpy(seeded.astype(np.uint8)).to(device))
+    s, e = s[: len(rows)], e[: len(rows)]
+    hits = search.enumerate_range_positions(s, search.range_counts(s, e, wide=True))
+    compact = compact_view(index, wide)
+    k3w_runs(f"{args.bases // 1_000_000}M forced wide, hits of {args.queries} 25-mers", wide, hits,
+             libs, reps, compact)
+    rand = torch.from_numpy(rng.integers(0, wide.bwt_length, size=args.queries)).to(device)
+    k3w_runs(f"{args.bases // 1_000_000}M forced wide, random positions", wide, rand, libs, reps)
+    del wide, eng, hits, rand, s, e, compact
+    torch.cuda.empty_cache()
+
+    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=AMINO_RESIDUES)
+    aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
+                            sa_backend="native", device=device)
+    aa_wide = aa_index.to_device(device, wide=True)
+    rand = torch.from_numpy(rng.integers(0, aa_wide.bwt_length, size=args.queries)).to(device)
+    k3w_runs(f"amino {AMINO_RESIDUES // 1_000_000}M forced wide, random positions", aa_wide,
+             rand, libs, reps, compact_view(aa_index, aa_wide))
+    del aa_index, aa_wide, rand
+    torch.cuda.empty_cache()
+
+    big = big_wide_index(BIG_BASES, args.cache, device)
+    big_wide = big.to_device(device, wide=True)
+    rand = torch.from_numpy(rng.integers(0, big_wide.bwt_length, size=args.queries)).to(device)
+    k3w_runs(f"{BIG_BASES}-base wide view, random positions", big_wide, rand, libs, reps,
+             compact_view(big, big_wide))
+    del big, big_wide, rand
+    torch.cuda.empty_cache()
+
+    # above 2^32: phase 4x's tiled table (pair-fused rows), and the same
+    # text in compact rows
+    info = straddle_table(device, seed=4096, pair=True)
+    view = straddle_view(info, device)
+    compact = dc.replace(view, packed=straddle_table(device, seed=4096, pair=False, offset=0)["table"],
+                         packed_pair=None, pair_fused=False)
+    starts = short_walks(view, torch.from_numpy(info["rng"].integers(0, info["n"], args.queries)).to(device))
+    k3w_runs(f"{info['n']}-position tiled table, starts whose walks end within 16 steps", view,
+             starts, libs, reps, compact)
+    del info, view, compact, starts
+    torch.cuda.empty_cache()
+
+
+def k5_cases(libs: dict, reps: int, device) -> None:
+    """K5's reduce through every checkout at phase 3b's shapes, over a
+    1 GiB table and a 64 MiB one (module note)."""
+    import torch
+
+    from . import gather_probe as gp
+
+    batch = 1 << 19
+    configs = [(r, r, ring, chunk) for r, ring, chunk in gp.P2_CONFIGS]
+    configs += [(1024, 128, ring, chunk) for ring, chunk in gp.P3_CONFIGS]
+    for table_bytes in (1 << 30, 1 << 26):
+        for r in sorted({c[0] for c in configs}):
+            table = gp._random_table(table_bytes // r, r, device, 7)
+            idx = gp._random_idx(batch, table.shape[0], device, 8)
+            for _, sum_bytes, ring, chunk in (c for c in configs if c[0] == r):
+                run_case(f"k5 u8x{r} sum {sum_bytes} K={ring} CHUNK={chunk}",
+                         f"{batch} rows of a {table_bytes >> 20} MiB table",
+                         lambda k: k.k5_gather_reduce(table, idx, sum_bytes, chunk, ring),
+                         libs, reps, device=True)
+            del table, idx
+            torch.cuda.empty_cache()
+
+
 def lengthwise_batch(mat_d, full_len: int, length: int):
     """The last ``length`` letters of every ``full_len``-mer of the
     letter matrix ``mat_d`` as a K2 / K4 batch (matrix padded to a
@@ -385,15 +656,25 @@ def _sampled(rng, seq_arr, length: int, count: int):
     return np.lib.stride_tricks.sliding_window_view(seq_arr, length)[starts]
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR")
     ap.add_argument("--bases", type=int, default=64_000_000)
     ap.add_argument("--queries", type=int, default=1 << 20)
     ap.add_argument("--seed-k", type=int, default=14)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--cases", choices=("all", "bfs", "rs"), default="all")
+    ap.add_argument("--cases", choices=CASES, default="all")
+    ap.add_argument("--cache", default=DEFAULT_CACHE,
+                    help="k3w: where the big index is saved after its first build")
     args = ap.parse_args(argv)
+    for item in args.other:
+        if "=" not in item:
+            ap.error(f"--other takes NAME=DIR, got {item!r}")
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
 
@@ -413,12 +694,18 @@ def main(argv=None) -> int:
     for name, lib in libs.items():
         _log(f"{name}: built in {lib.build():.1f}s -> {lib.library_path()}")
 
+    if args.cases == "k5":
+        k5_cases(libs, args.reps, device)
+        return 0
     rng = np.random.default_rng(1234)
     seq_arr = rng.choice(np.frombuffer(b"acgt", np.uint8), size=args.bases)
     index = create_index(seq_arr.tobytes(), IndexConfiguration(8, args.seed_k, AlphabetType.DNA),
                          sa_backend="native", device=device)
     if args.cases == "rs":
         rs_cases(index, libs, args.reps, device)
+        return 0
+    if args.cases == "k3w":
+        k3w_cases(index, seq_arr, args, libs, device)
         return 0
     dev = index.to_device(device)
     eng = SearchEngine(index, device=device)

@@ -47,6 +47,9 @@ Phases (any failure raises and the script exits nonzero):
      experiment's own shapes (P2/P4: 2^19 indices over 1 GiB tables of
      128 B and 512 B rows, ring depths 8 and 16; P3: (2^20, 8, 128) 1 KB
      rows, the first 128 B summed; an all-0xFF table for the int32 wrap)
+     (the reduce timed as device time with the queue kept full), and
+     every lane layout and ring depth of the reduce on a small table,
+     with ragged chunks and indices past it on both sides,
      and K6 at P5's (S = 2048 and 8192, single and chained, a ragged
      count with indices out of range), timed in
      turns; K6's single gather and torch.index_select both per call and
@@ -94,7 +97,11 @@ Phases (any failure raises and the script exits nonzero):
      card), K1w's occ within 5,000 of 2^32 and at random positions
      against a closed-form oracle and the plain version, K2w's steps
      on ranges that straddle 2^32 and one K1WX extend of parents around
-     2^32 against the plain version. (No text of
+     2^32 against the plain version; K3w's (position, offset) output,
+     its first LF steps at positions >= 2^32, on starts within 2^20 of
+     2^32 on both sides whose walks end within 16 steps (the plain LF
+     on the card picks them: a tiled table's LF can cycle), exactly, and
+     timed over such starts across the whole table. (No text of
      4.3G bases is indexed: its suffix array on the host alone would
      outlast the script's time limit.)
   7. the public API at full size, on the phase-4 index, each part's
@@ -161,7 +168,8 @@ outputs), over the published 3.35 TB/s, and its integer operations over
 67 TOP/s (the published float32 rate outside the tensor cores stands in:
 the data sheet gives no integer rate). K5's and K6's row describes the
 entry one PyTorch call computes too (the ring reduce, the single slab
-gather; K6's ms and library_ms are the graph-replay pair); their walk
+gather; K5's ms is device time with the queue kept full, K6's ms and
+library_ms are the graph-replay pair); their walk
 and chain at the calibration shapes are compared and timed in phase 6
 and logged there. Two looser models of each index kernel are logged and
 kept out of that line: every visit's row sectors over the same 3.35 TB/s
@@ -1375,10 +1383,13 @@ def phase_probes(rec: Record, device: str) -> None:
                 "k5_gather_reduce", f"{what} total",
                 torch.tensor([probes.wrapped_total(got)]), torch.tensor([probes.wrapped_total(want)]),
             )
+            # device time with the queue kept full: the wrapper's host work
+            # (some 30 us) outlasts the launch
             times = time_in_turns(
                 f"k5_gather_reduce {what} x{batch}",
                 lambda: probes.gather_reduce(table, idx, sum_bytes=sum_bytes, chunk=chunk, ring=ring),
                 lambda: probes.gather_reduce_plain(table, idx, sum_bytes, chunk), 20, 3,
+                kernel_timer=device_ms,
             )
             if (r, ring) == (128, 16):
                 # the launch the kernels line reports (P2's shape): its time,
@@ -1413,7 +1424,22 @@ def phase_probes(rec: Record, device: str) -> None:
                         torch.tensor([total]), torch.tensor([want]))
         del table, idx
         torch.cuda.empty_cache()
-    log("[3b] K5 equals its plain version at every P2/P3/P4 shape")
+    # every lane layout of the reduce (8, 16 or 32 lanes a row, two pieces
+    # a lane for a 1 KB sum), every ring depth, chunks of 1, 100 and 512
+    # rows over 10,000 indices (a ragged last chunk), indices past the
+    # table on both sides (clamped)
+    for r, sum_bytes in ((128, 16), (384, 48), (256, 256), (384, 384), (512, 512),
+                         (1024, 128), (1024, 1024)):
+        table = gp._random_table(4096, r, device, r)
+        idx = torch.cat([gp._random_idx(9996, 4096, device, 5), torch.tensor(
+            [-1, -(2**31), 4096, 2**31 - 1], dtype=torch.int32, device=device)])
+        for ring in probes.K5_RING_DEPTHS:
+            for chunk in (1, 100, 512):
+                rec.compare("k5_gather_reduce", f"u8x{r} sum {sum_bytes} K={ring} CHUNK={chunk} x10000",
+                            probes.gather_reduce(table, idx, sum_bytes=sum_bytes, chunk=chunk, ring=ring),
+                            probes.gather_reduce_plain(table, idx, sum_bytes, chunk))
+    log("[3b] K5 equals its plain version at every P2/P3/P4 shape, every lane layout and ring depth, "
+        "ragged chunks and clamped indices")
     for s_rows in (2048, 8192):
         gen = torch.Generator(device=device).manual_seed(s_rows)
         slab = torch.randint(-(2**31), 2**31, (s_rows, probes.SLAB_LANES), dtype=torch.int32,
@@ -1764,58 +1790,27 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
     return stats
 
 
-def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
-    """Phase 4x: K1w and K2w on a table of more than 2^32 positions
-    (``boundary``, smaller only for trials: the table holds boundary +
-    boundary / 16 positions and the checks look across ``boundary``)."""
+def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> dict:
+    """Phase 4x: K1w, K2w, K1WX and K3w on a table of more than 2^32
+    positions (``boundary``, smaller only for trials: the table holds
+    boundary + boundary / 16 positions and the checks look across
+    ``boundary``)."""
     import numpy as np
     import torch
-    from avxwindowfmindex_tpu_torch import AlphabetType, DeviceIndex, search
-    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
-    from avxwindowfmindex_tpu_torch.models import index as index_mod
+    from avxwindowfmindex_tpu_torch import search
     from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import (
+        closed_form_occ, straddle_table, straddle_view)
 
-    rng = np.random.default_rng(4096)
-    pat_blocks, card = 4096, 4
     # mostly ACGT, so that T's whole-letter range [C[3], C[4]) straddles
     # the boundary, with a few ambiguity letters
-    pattern = rng.choice(np.arange(5, dtype=np.uint8), size=(pat_blocks, 256),
-                         p=[0.24, 0.24, 0.24, 0.24, 0.04])
-    reps = boundary // (pat_blocks * 256) + boundary // (16 * pat_blocks * 256)
-    nb = pat_blocks * reps
-    n = nb * 256  # 2^32 + 2^28 positions at the default boundary
-    counts = np.stack([(pattern == j).sum(axis=1) for j in range(card + 2)], axis=1).astype(np.uint64)
-    pat_total = counts.sum(axis=0)
-    cum = np.cumsum(counts, axis=0)
-    pat_ms = np.zeros_like(cum)
-    pat_ms[1:] = cum[:-1]
-    # rows of one tile: the partner of its last block is the next tile's first
-    letters = np.concatenate([pattern, pattern[:1]]).reshape(-1)
-    rows = index_mod.pack_device_blocks64(
-        letters, np.concatenate([pat_ms, np.zeros((1, card + 2), np.uint64)]), AlphabetType.DNA
-    )[:pat_blocks]
     t = time.time()
-    table = torch.from_numpy(rows).to(device).repeat(reps, 1)
-    n_planes = 3
-    for i in range(n_planes):  # the table's last row has no partner
-        table[-1, i * 64 + 32 : (i + 1) * 64] = 0
-    t64 = table.view(torch.int64)
-    tile = torch.arange(nb, dtype=torch.int64, device=device) // pat_blocks
-    total_d = torch.from_numpy(pat_total[: card + 1].astype(np.int64)).to(device)
-    ms_d = torch.from_numpy(pat_ms[:, : card + 1].astype(np.int64)).to(device)
-    col = n_planes * 64 // 8
-    t64[:, col : col + card + 1] = ms_d.repeat(reps, 1) + tile[:, None] * total_d[None, :]
-    del tile
+    info = straddle_table(device, boundary, seed=4096, pair=True)
+    table, nb, n, rng = info["table"], info["nb"], info["n"], info["rng"]
+    dev = straddle_view(info, device)
+    card = dev.cardinality
     torch.cuda.synchronize()
-    ps = np.concatenate([[1], 1 + np.cumsum(pat_total[: card + 1] * np.uint64(reps))]).astype(np.uint64)
-    dev = DeviceIndex(
-        packed=table, packed_pair=table, prefix_sums=index_mod.u64_tensor(ps, device),
-        seed_table=torch.zeros((1, 2), dtype=torch.int64, device=device), sampled_sa=None,
-        code_masks=torch.from_numpy(index_mod.device_code_masks(AlphabetType.DNA)).to(device),
-        vec_to_index=torch.from_numpy(
-            alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
-        bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA, wide=True,
-    )
+    ps = dev.prefix_sums.cpu().numpy().view(np.uint64)
     log(f"[4x] table of {n} positions ({boundary} + {n - boundary}): {nb} rows x 256 B = "
         f"{table.numel() / 1e9:.2f} GB, tiled and given its milestones on the card in "
         f"{time.time() - t:.2f}s; C = {ps.tolist()}")
@@ -1827,10 +1822,7 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
     pos = np.concatenate([rng.integers(boundary - 5000, boundary + 5000, m), rng.integers(0, n, m),
                           [boundary - 1, boundary, boundary + 255, n - 1]]).astype(np.int64)
     lett = rng.integers(0, card + 1, size=len(pos)).astype(np.int32)
-    flat = pattern.reshape(-1)
-    pat_cum = np.stack([np.concatenate([[0], np.cumsum(flat == l)]) for l in range(card + 1)])
-    full, rem = np.divmod(pos + 1, len(flat))
-    want = full * pat_cum[lett, -1] + pat_cum[lett, rem]
+    want = closed_form_occ(info, pos, lett)
     pos_t = torch.from_numpy(pos).to(device)
     lett_t = torch.from_numpy(lett).to(device)
     got = kernels.k1_occurrence(dev, pos_t, lett_t)
@@ -1881,8 +1873,48 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> None:
     if not (int(got[:, 0].max()) > boundary and int(got[:, 0].min()) < boundary):
         raise AssertionError(f"the extend's children did not straddle {boundary}")
     log(f"[4x] K1WX exact on {m} parents around {boundary}: {4 * m} children")
-    del table, t64, dev, parents, got
+    del parents, got
+    stats = straddle_backtrace(rec, dev, rng, boundary)
+    del info, table, dev
     torch.cuda.empty_cache()
+    return stats
+
+
+def straddle_backtrace(rec: Record, dev, rng, boundary: int) -> dict:
+    """Phase 4x's K3w: its (position, offset) output (the view has no
+    sampled SA) on starts within 2^20 of ``boundary`` on both sides, held
+    exactly to the plain version, then timed over random starts across
+    the whole table, both picked by ``short_walks``."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import search
+    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import short_walks
+
+    span = min(2**20, boundary // 16)
+    near = np.concatenate([rng.integers(boundary - span, boundary, 4096),
+                           rng.integers(boundary, boundary + span, 4096)])
+    near = short_walks(dev, torch.from_numpy(near).to(dev.packed.device))
+    kp, koff = kernels.k3_backtrace_resolve(dev, near)
+    pp, poff = search.backtrace_resolve_plain(dev, near)
+    rec.compare("k3w_backtrace_resolve", f"straddle sampled positions x{near.numel()}", kp, pp)
+    rec.compare("k3w_backtrace_resolve", f"straddle walk offsets x{near.numel()}", koff, poff)
+    above = int(((near >= boundary) & (koff > 0)).sum())
+    below = int(((near < boundary) & (koff > 0)).sum())
+    if above == 0 or below == 0:
+        raise AssertionError(f"K3w walked from {above} starts above {boundary} and {below} below")
+    spread = short_walks(dev, torch.from_numpy(rng.integers(0, dev.bwt_length, 1 << 20)).to(
+        dev.packed.device))
+    _, off = kernels.k3_backtrace_resolve(dev, spread)
+    steps = int(off.sum())
+    ms = min(cuda_ms(lambda: kernels.k3_backtrace_resolve(dev, spread), 10) for _ in range(2))
+    piece_ms = steps * (dev.n_planes + 1) * 64 / HBM_BYTES_PER_S * 1e3
+    log(f"[4x] K3w exact on {near.numel()} starts within 2^20 of {boundary} ({above} walks from above "
+        f"it, {below} from below, {int(koff.sum())} LF steps); over {spread.numel()} starts across the "
+        f"{dev.packed.numel() / 1e9:.2f} GB table: {ms:.4f} ms for {steps} LF steps "
+        f"({steps / ms / 1e6:.3f}G steps/s), piece model {piece_ms:.4f} ms")
+    return {"k3w_starts": spread.numel(), "k3w_lf_steps": steps, "k3w_ms": ms,
+            "k3w_piece_model_ms": piece_ms}
 
 
 def phase_roundtrip(index, text: bytes, device: str) -> str:
@@ -2525,10 +2557,10 @@ def phase_rs_straddle(rec: Record, device: str, boundary: int = 2**32) -> dict:
     import torch
     from avxwindowfmindex_tpu_torch.ops import kernels, rank, sharded
     from avxwindowfmindex_tpu_torch.tools.kernel_ab import (
-        closed_form_occ, straddle_compact_table, straddle_shard)
+        closed_form_occ, straddle_shard, straddle_table)
 
     t = time.time()
-    info = straddle_compact_table(device, boundary)
+    info = straddle_table(device, boundary)
     table, nb, n, rng = info["table"], info["nb"], info["n"], info["rng"]
     edge = (boundary >> 8) + 2048  # shard 1's first block: above the boundary
     torch.cuda.synchronize()
@@ -2797,7 +2829,7 @@ def main(argv=None) -> int:
     del mh_kmers, bench_stats["dense"]
     torch.cuda.empty_cache()
     mark("phase 4w")
-    phase_straddle(rec, device)
+    main_stats["straddle"] = phase_straddle(rec, device)
     mark("phase 4x")
     main_stats["public_api"] = phase_public_api(
         engine, kmers, seq_arr, answers, small_index, small_text, small_path, main_stats, device,

@@ -223,3 +223,34 @@ def test_backtrace_hits_are_suffix_positions(at_ratio, text):
     hits = sorted(psearch.backtrace_resolve_plain(pdev, rows).tolist())
     want = [i for i in range(len(text) - len(kmer) + 1) if text[i : i + len(kmer)].upper() == kmer.upper()]
     assert hits == want and 777 in hits
+
+
+
+@pytest.fixture(scope="module")
+def wide_view(at_ratio, text):
+    """The port's index at the fixture's ratio, as a wide view (u64
+    positions over 256 B rows)."""
+    ratio = at_ratio[0]
+    p = pt.create_index(text, pt.IndexConfiguration(ratio, 4, pt.AlphabetType.DNA), device="cpu")
+    return p.to_device("cpu", wide=True)
+
+
+@pytest.mark.parametrize("output", ["resolve", "on-disk"])
+@pytest.mark.parametrize("order", ["as-drawn", "shuffled"])
+def test_wide_backtrace_equals_jax(at_ratio, wide_view, order, output):
+    """The wide view's backtrace (K3w's plain version) at every ratio gives
+    the JAX backtrace's answers, in the order drawn and shuffled."""
+    ratio, jdev, _, pos, _ = at_ratio
+    assert wide_view.wide and wide_view.ratio == ratio
+    if order == "shuffled":
+        pos = np.random.default_rng(ratio).permutation(pos)
+    want_p, want_off = jsearch.backtrace_all(jdev, jnp.asarray(pos.astype(np.uint32)))
+    if output == "on-disk":
+        disk = dataclasses.replace(wide_view, sampled_sa=None)
+        got_p, got_off = psearch.backtrace_resolve_plain(disk, torch.from_numpy(pos))
+        np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p).astype(np.int64))
+        np.testing.assert_array_equal(got_off.numpy(), np.asarray(want_off).astype(np.int64))
+    else:
+        want = np.asarray(jsearch._resolve_samples(jdev, want_p, want_off)).astype(np.int64)
+        got = psearch.backtrace_resolve_plain(wide_view, torch.from_numpy(pos))
+        np.testing.assert_array_equal(got.numpy(), want)

@@ -19,6 +19,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from avxwindowfmindex_tpu_torch.ops import kernels, probes
+from avxwindowfmindex_tpu_torch.tools import gather_probe
 
 import torch_helpers  # noqa: F401  (one torch thread per test worker)
 
@@ -279,6 +280,38 @@ def test_k5_ragged_batch_and_clamped_index():
     clamped = [0, 63, 63, 63, 0, 5, 6]
     want = [int(per_row[clamped[i : i + 3]].sum()) for i in range(0, 7, 3)]
     assert got.tolist() == want
+
+
+# (row bytes, sum bytes, K, CHUNK) of phase 3b: gather_probe's P2 and P3
+PHASE_3B_CONFIGS = [(r, r, ring, chunk) for r, ring, chunk in gather_probe.P2_CONFIGS] + [
+    (1024, 128, ring, chunk) for ring, chunk in gather_probe.P3_CONFIGS]
+
+
+@pytest.mark.parametrize("row_bytes,sum_bytes,ring,chunk", PHASE_3B_CONFIGS)
+def test_k5_phase_3b_shapes_equal_pallas(row_bytes, sum_bytes, ring, chunk):
+    """K5's plain version at each of phase 3b's (row bytes, sum bytes, K,
+    CHUNK): two whole chunks against P4's partials (P3's total for the
+    1 KB rows), then a ragged third chunk whose indices include some past
+    the table on both sides (clamped), against a numpy sum."""
+    rng = np.random.default_rng(row_bytes + ring + chunk)
+    nb = 64
+    table = _table(rng, nb, row_bytes)
+    full = rng.integers(0, nb, size=2 * chunk, dtype=np.int32)
+    tail = np.concatenate([rng.integers(0, nb, size=chunk // 3 - 4, dtype=np.int32),
+                           np.array([-1, -(2**31), nb, 2**31 - 1], dtype=np.int32)])
+    got = probes.gather_reduce(torch.from_numpy(table), torch.from_numpy(np.concatenate([full, tail])),
+                               sum_bytes=sum_bytes, chunk=chunk, ring=ring)
+    assert got.shape == (3,) and got.dtype == torch.int32
+    if sum_bytes == row_bytes:
+        want = np.asarray(_ring_call(_p4_kernel(ring, chunk, row_bytes), table, full, chunk, True))[:, 0]
+        np.testing.assert_array_equal(got[:2].numpy(), want)
+    else:
+        tiles = table.reshape(nb, 8, 128)
+        want = int(np.asarray(_ring_call(_p3_kernel(ring, chunk), tiles, full, chunk, False))[0, 0])
+        assert probes.wrapped_total(got[:2]) == want
+    clamped = np.clip(tail.astype(np.int64), 0, nb - 1)
+    tail_sum = int(table[clamped, :sum_bytes].astype(np.int64).sum())
+    assert int(got[2]) == (tail_sum + 2**31) % 2**32 - 2**31
 
 
 @pytest.mark.parametrize("seg", [1, 4, 20])

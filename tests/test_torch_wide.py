@@ -248,6 +248,50 @@ def test_wide_backtrace_equals_jax_and_narrow(both):
     np.testing.assert_array_equal(hits.numpy(), narrow.numpy())
 
 
+# the wide backtrace (K3w's plain version) at SA ratios 1 to 64, nucleotide
+# and amino, on hits in range order (every row of some k-mers' ranges,
+# query by query, as a locate enumerates them) and the same shuffled
+BACKTRACE_CASES = [(a, r) for a in (DNA, AMINO) for r in (1, 3, 8, 64)]
+
+
+@pytest.fixture(scope="module", params=BACKTRACE_CASES, ids=lambda c: f"{c[0].name}-ratio{c[1]}")
+def wide_at_ratio(request):
+    alphabet, ratio = request.param
+    rng = np.random.default_rng(0xB7 + 1000 * int(alphabet) + ratio)
+    n, k, kmer_len = (3000, 3, 4) if alphabet == DNA else (2500, 2, 2)
+    seq = random_sequence(rng, n, alphabet)
+    j, p = build_both(seq, ratio, k, alphabet)
+    jdev = j.to_device(refresh=True, wide=True)
+    j._device_cache = None
+    kmers = [seq[s : s + kmer_len] for s in rng.integers(0, n - kmer_len, 60)]
+    ranges = pt.SearchEngine(p, device="cpu").find_ranges(kmers)
+    rows = np.concatenate([np.arange(s, e + 1) for s, e in ranges if s <= e]).astype(np.uint64)
+    assert len(rows) > len(kmers)
+    return ratio, jdev, p.to_device("cpu", wide=True), rows
+
+
+@pytest.mark.parametrize("output", ["resolve", "on-disk"])
+@pytest.mark.parametrize("order", ["range-order", "shuffled"])
+def test_wide_backtrace_at_ratio_equals_jax(wide_at_ratio, order, output):
+    ratio, jdev, pdev, rows = wide_at_ratio
+    pos = rows if order == "range-order" else np.random.default_rng(ratio).permutation(rows)
+    hi, lo = _split(pos)
+    if output == "on-disk":
+        w_hi, w_lo, w_off = search64.backtrace_all64(jdev, hi, lo)
+        disk = dataclasses.replace(pdev, sampled_sa=None)
+        got_p, got_off = psearch.backtrace_resolve_plain(disk, _i64(pos))
+        np.testing.assert_array_equal(_u64(got_p), _join(w_hi, w_lo))
+        np.testing.assert_array_equal(got_off.numpy(), np.asarray(w_off))
+        assert (_u64(got_p) % np.uint64(ratio) == 0).all()
+        if ratio > 1:
+            assert int(got_off.max()) > 0
+    else:
+        h_hi, h_lo = search64._backtrace_resolve64(jdev, hi, lo)
+        hits = psearch.backtrace_resolve_plain(pdev, _i64(pos))
+        np.testing.assert_array_equal(_u64(hits), _join(h_hi, h_lo))
+        assert int(hits.max()) < pdev.bwt_length
+
+
 def test_wide_letter_and_lf_equal_jax(both):
     j, p, jdev, _ = both
     n = jdev.bwt_length
