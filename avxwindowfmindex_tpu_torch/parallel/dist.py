@@ -18,12 +18,26 @@ process:
 Narrow and wide views (positions >= 2^32, or ``to_device(wide=True)``)
 run through the same body: the JAX file's hi/lo ``*64`` twins fold into
 the port's int64 positions. Results equal ``SearchEngine``'s bit for bit.
+
+Multi-process: the JAX engine runs under ``jax.distributed``, each
+process feeding its process-local slice of the global batch. Here the
+processes form a ``torch.distributed`` world (``init_process_group``:
+gloo for a CPU rank, NCCL for a card unless the caller names gloo), each
+rank runs its contiguous slice ``[r*B//W, (r+1)*B//W)`` through a
+``DistributedSearchEngine`` over its own device list, and
+``count_allgather`` / ``resolve_allgather`` merge the ranks' counts or
+hits with a tiled all-gather (``process_allgather``), so every rank ends
+with the whole batch's answers in global order. ``spawn_ranks`` starts
+the ranks of one world as processes and waits for them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import subprocess
+import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -61,6 +75,78 @@ def make_query_mesh(num_devices: Optional[int] = None, devices=None) -> List[tor
     if not devs:
         raise ValueError("a query mesh needs at least one device")
     return devs
+
+
+def init_process_group(world_size: int, rank: int, init_method: str, device,
+                       backend: Optional[str] = None) -> str:
+    """Join rank ``rank`` of a ``world_size``-process ``torch.distributed``
+    world that meets at ``init_method`` (``"tcp://127.0.0.1:<port>"`` or
+    ``"file://<path>"``); returns the backend. ``backend=None`` follows
+    ``device``: gloo for the CPU, NCCL for a card (made the process's
+    current device). Any other pairing is the caller's to name, e.g. gloo
+    for ranks that share one card, whose collectives then pass through
+    host memory. NCCL where it is not available raises: nothing falls
+    back to gloo."""
+    device = resolve_device(device)
+    if backend is None:
+        backend = "gloo" if device.type == "cpu" else "nccl"
+    if backend == "nccl":
+        if not torch.distributed.is_nccl_available():
+            raise RuntimeError("torch.distributed.is_nccl_available() is False: no nccl backend")
+        if device.type != "cuda":
+            raise ValueError(f"the nccl backend needs a CUDA device, not {device}")
+    elif backend != "gloo":
+        raise ValueError(f"backend must be 'gloo', 'nccl' or None, not {backend!r}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        backend, init_method=init_method, world_size=world_size, rank=rank)
+    return backend
+
+
+def process_allgather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' equal-length tensors ``t`` joined along dim 0 in rank
+    order (``multihost_utils.process_allgather(tiled=True)``). Over gloo a
+    CUDA tensor is staged through host memory, where gloo's collectives
+    run; the result lies on ``t``'s device."""
+    staged = t.cpu() if t.is_cuda and torch.distributed.get_backend(group) == "gloo" else t
+    staged = staged.contiguous()
+    parts = [torch.empty_like(staged) for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, staged, group=group)
+    return torch.cat(parts).to(t.device)
+
+
+def spawn_ranks(cmd: Sequence[str], world_size: int, timeout: float, env=None) -> List[str]:
+    """Run ``cmd + [str(rank)]`` for every rank of a world at once, on
+    this host, and return each rank's output (stdout and stderr). A rank
+    that exits nonzero, or is still running ``timeout`` seconds after the
+    start, raises RuntimeError once every rank still running is killed by
+    its PID."""
+    # the ranks share this host: gloo meets over the loopback interface
+    env = dict(os.environ if env is None else env)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [
+        subprocess.Popen([*cmd, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         env=env, text=True)
+        for r in range(world_size)
+    ]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=max(0.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"rank {r} of {world_size} outlasted {timeout}s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} of {world_size} exited {p.returncode}:\n{out}")
+    return outs
 
 
 def replicate_index(view: DeviceIndex, device: torch.device) -> DeviceIndex:
@@ -233,3 +319,38 @@ class DistributedSearchEngine(SearchEngine):
             d: torch.cat([c.to(d) for c in outs]) for d in dict.fromkeys(self.devices)
         }
         return self.replicated_counts[self.devices[0]][:n].cpu().numpy().astype(np.uint64)
+
+    def _allgather_local(self, outs, n: int) -> np.ndarray:
+        """This rank's parts (its first ``n`` rows) all-gathered with every
+        other rank's, in rank order: the ranks' row counts first, then the
+        rows padded to the longest count, the pad rows dropped after."""
+        local = torch.cat([o.to(self.devices[0]) for o in outs])[:n]
+        sizes = process_allgather(torch.tensor([n], device=local.device)).tolist()
+        width = max(sizes)
+        padded = torch.zeros(width, dtype=local.dtype, device=local.device)
+        padded[:n] = local
+        full = process_allgather(padded)
+        merged = torch.cat([full[r * width : r * width + s] for r, s in enumerate(sizes)])
+        return merged.cpu().numpy().view(np.uint64)
+
+    def count_allgather(self, local_kmers: Sequence[Union[str, bytes]]) -> np.ndarray:
+        """This rank's slice of a global batch counted (K2, K2w on a wide
+        view, one launch a part) and merged with every rank's by
+        all-gather: each rank returns the whole batch's counts in global
+        order (``_sharded_count_allgather_fn`` and its 64-bit twin). Every
+        rank of the world calls it together."""
+        mat, lengths, n = self.encode_kmers(local_kmers)
+        return self._allgather_local(self._count_parts(mat, lengths), n)
+
+    def resolve_allgather(self, local_positions: np.ndarray) -> np.ndarray:
+        """This rank's slice of BWT positions backtraced and resolved (K3,
+        K3w on a wide view) and merged with every rank's hits by
+        all-gather (``_sharded_resolve_fn`` / ``_sharded_resolve64_fn``,
+        then ``process_allgather``). Positions and hits are 64-bit. Needs
+        the suffix array in memory; every rank calls it together."""
+        if self._sa_on_disk():
+            raise ValueError("resolve_allgather needs the suffix array in memory")
+        n = len(local_positions)
+        padded = np.zeros(self._pad_batch(n), dtype=np.int64)
+        padded[:n] = np.asarray(local_positions).astype(np.uint64).view(np.int64)
+        return self._allgather_local(self._launch(backtrace_resolve, padded), n)

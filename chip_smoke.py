@@ -154,12 +154,33 @@ Phases (any failure raises and the script exits nonzero):
      same process; 8c, the same over 2 shards of compact wide rows
      (K1Rw); 8d, plan_capacity over 4 devices for a corpus this card
      cannot hold, which must pick the range-sharded engine.
+  9a. the multi-process front at full size: the 64M index saved as an
+     .awfmx of its own; worlds of rank processes started by
+     parallel/dist.py:spawn_ranks over a tcp:// rendezvous (this script
+     with --rank-of), on a host of two or more cards one NCCL world of a
+     card a rank, on one card two gloo ranks sharing cuda:0 (NCCL refuses
+     two ranks on one card; gloo's collectives pass through host memory)
+     and a one-rank NCCL world. Each rank loads the file on its card (K1X
+     13 launches, read from the rank's launch counts), then over the
+     narrow and the forced-wide view runs count_allgather on its half of
+     phase 4's 1,048,576 25-mers (K2, K2w) and resolve_allgather on its
+     half of their ranges' first positions (K3, K3w), a warm-up and a
+     timed call each (each kernel launched exactly twice); every rank's
+     merged counts and hits must equal phase 4's counts and the parent's
+     SearchEngine.resolve_positions, exactly. Logged: each world's q/s
+     beside phase 7e's, the all-gather of a half batch of int64 alone.
+     A rank that exits nonzero or runs past 300 s fails the script after
+     every rank is killed;
+  9b. tools/scaling_report on the card (--platform cuda --hosts 2, 16M
+     bases, 1,048,576 25-mers, seed k 14, rungs of 1 and 2 devices): every
+     rung, the two-process one included, must have its row.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object describing each kernel (its launches on the
-path that runs it, its largest difference from the plain version, its
-time, the plain version's, its bound and, where one PyTorch call computes
-the same function, that call's), and the result line {"ok": true,
+path that runs it, phase 9a's ranks' launches included and also given
+alone as rank_launches, its largest difference from the plain version,
+its time, the plain version's, its bound and, where one PyTorch call
+computes the same function, that call's), and the result line {"ok": true,
 "device": {...}}. The bound is the larger of the bytes the call must
 move, each read or written once (the table rows it touches, counted as
 the expected number of distinct rows under uniformly random visits, at
@@ -212,6 +233,7 @@ WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
 SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
 RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
 RS_LF_LANES = 1 << 20  # phase 8a: LF lanes, the backtrace's first step at 1M hits
+RANK_TIMEOUT_S = 300  # phase 9a: a rank still running after this fails the script
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
 WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
@@ -2767,15 +2789,218 @@ def phase_single_query(engine, kmers, device: str) -> dict:
     return stats
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(config_path: str, rank: int) -> int:
+    """One rank of a phase-9a world (``chip_smoke.py --rank-of CONFIG RANK``):
+    join the world, load the 64M index's .awfmx on this rank's card (K1X
+    rebuilds the seed table), then over the narrow and the forced-wide
+    view run ``count_allgather`` on this rank's slice of the 25-mers and
+    ``resolve_allgather`` on its slice of the positions, a warm-up call and
+    a timed one each; save the merged arrays and time the all-gather of a
+    slice's worth of int64 alone. Prints one ``RANK {...}`` line."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch.io import artifact
+    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.parallel import dist
+
+    with open(config_path) as fh:
+        cfg = json.load(fh)
+    world, device = cfg["world"], cfg["devices"][rank]
+    backend = dist.init_process_group(world, rank, cfg["init"], device, backend=cfg["backend"])
+    kernels.build()
+    rec = {"rank": rank, "device": device, "backend": backend,
+           "card": torch.cuda.get_device_name(torch.device(device))}
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    index = artifact.load_artifact(cfg["artifact"], device=device)
+    torch.cuda.synchronize()
+    rec["load_s"] = time.perf_counter() - t
+    rec["launches"] = {"load": {k.name: k.launches for k in kernels.KERNELS}}
+
+    def part(arr):
+        return arr[rank * len(arr) // world : (rank + 1) * len(arr) // world]
+
+    local_kmers = [row.tobytes() for row in part(np.load(cfg["kmers"]))]
+    local_pos = part(np.load(cfg["positions"]))
+    for tag, wide in (("narrow", False), ("wide", True)):
+        eng = dist.DistributedSearchEngine(index.to_device(device, wide=wide), [device])
+        kernels.reset_launch_counts()
+        for op, fn, arg in (("count", eng.count_allgather, local_kmers),
+                            ("resolve", eng.resolve_allgather, local_pos)):
+            fn(arg)  # warm-up
+            torch.distributed.barrier()
+            t = time.perf_counter()
+            merged = fn(arg)
+            rec[f"{tag}_{op}_s"] = time.perf_counter() - t
+            np.save(os.path.join(cfg["out"], f"{tag}_{op}_{rank}.npy"), merged)
+        rec["launches"][tag] = {k.name: k.launches for k in kernels.KERNELS}
+        del eng
+    payload = torch.zeros(len(local_pos), dtype=torch.int64, device=device)
+    dist.process_allgather(payload)
+    torch.cuda.synchronize()
+    reps = 10
+    t = time.perf_counter()
+    for _ in range(reps):
+        dist.process_allgather(payload)
+    torch.cuda.synchronize()
+    rec["allgather_ms"] = (time.perf_counter() - t) / reps * 1e3
+    torch.distributed.destroy_process_group()
+    print("RANK " + json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_multiprocess(engine, kmers, answers, main: dict, device: str) -> dict:
+    """Phase 9a: the multi-process front at full size. The 64M index is
+    saved as an .awfmx of its own; each world's ranks (``rank_main``) load
+    it on their cards and merge counts and hits by all-gather; the parent
+    holds every rank's merged arrays to phase 4's counts and to its own
+    ``SearchEngine.resolve_positions`` on the same positions, exactly.
+    Worlds: NCCL, one card a rank, on a host of two or more cards; on one
+    card, two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+    card) and a one-rank NCCL world. Returns each world's numbers and the
+    ranks' launches summed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import avxwindowfmindex_tpu_torch as pt
+    from avxwindowfmindex_tpu_torch.io import artifact
+    from avxwindowfmindex_tpu_torch.parallel import dist
+
+    counts = answers[0]
+    single = pt.SearchEngine(engine.dev, device=device)
+    ranges = single.find_ranges(kmers)
+    positions = np.where(ranges[:, 0] <= ranges[:, 1], ranges[:, 0], 0).astype(np.uint64)
+    want = {"count": counts, "resolve": single.resolve_positions(positions)}
+    n_cards = torch.cuda.device_count()
+    worlds = ([("nccl", [f"cuda:{i}" for i in range(n_cards)])] if n_cards >= 2 else
+              [("gloo", [device, device]), ("nccl", [device])])
+    torch.cuda.empty_cache()
+    stats = {"worlds": [], "rank_launches": {}}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    build_dir = os.path.join(REPO, "avxwindowfmindex_tpu_torch", "build", "chip_smoke")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as td:
+        path = os.path.join(td, "main.awfmx")
+        t = time.time()
+        artifact.save_artifact(engine.host_index, path, compress=False)
+        np.save(os.path.join(td, "kmers.npy"),
+                np.frombuffer(b"".join(kmers), np.uint8).reshape(len(kmers), KMER_LEN))
+        np.save(os.path.join(td, "positions.npy"), positions)
+        log(f"[9a] the 64M index saved as an .awfmx without its seed table, the "
+            f"{len(kmers)} 25-mers and their ranges' first positions: {time.time() - t:.3f}s")
+        for backend, devices in worlds:
+            world = len(devices)
+            cfg = {"world": world, "devices": devices, "backend": backend,
+                   "init": f"tcp://127.0.0.1:{free_port()}", "artifact": path,
+                   "kmers": os.path.join(td, "kmers.npy"),
+                   "positions": os.path.join(td, "positions.npy"), "out": td}
+            cfg_path = os.path.join(td, f"world_{backend}_{world}.json")
+            with open(cfg_path, "w") as fh:
+                json.dump(cfg, fh)
+            t = time.time()
+            outs = dist.spawn_ranks([sys.executable, os.path.abspath(__file__), "--rank-of",
+                                     cfg_path], world, timeout=RANK_TIMEOUT_S, env=env)
+            wall = time.time() - t
+            recs = [json.loads(line[len("RANK "):]) for out in outs
+                    for line in out.splitlines() if line.startswith("RANK ")]
+            if sorted(r["rank"] for r in recs) != list(range(world)):
+                raise AssertionError(f"[9a] {backend} world of {world}: rank lines {recs}")
+            label = (f"{backend}, {world} rank(s) on {sorted(set(devices))}"
+                     + (" (collectives through host memory)" if backend == "gloo" else ""))
+            for r in recs:
+                load, narrow, wide = (r["launches"][k] for k in ("load", "narrow", "wide"))
+                if load["k1_extend"] != MAIN_SEED_K - 1 or load["k1_rank"]:
+                    raise AssertionError(f"[9a] rank {r['rank']}: load launched K1X "
+                                         f"{load['k1_extend']} times and K1 {load['k1_rank']}")
+                for launches, names in ((narrow, ("k2_ranges", "k3_backtrace_resolve")),
+                                        (wide, ("k2w_ranges", "k3w_backtrace_resolve"))):
+                    if any(launches[n] != 2 for n in names):
+                        raise AssertionError(f"[9a] rank {r['rank']}: {names} launched "
+                                             f"{[launches[n] for n in names]} times, not 2 each")
+                for part in (load, narrow, wide):
+                    for name, c in part.items():
+                        stats["rank_launches"][name] = stats["rank_launches"].get(name, 0) + c
+                for tag in ("narrow", "wide"):
+                    for op in ("count", "resolve"):
+                        got = np.load(os.path.join(td, f"{tag}_{op}_{r['rank']}.npy"))
+                        if got.dtype != np.uint64 or not np.array_equal(got, want[op]):
+                            raise AssertionError(f"[9a] {label}: rank {r['rank']}'s merged "
+                                                 f"{tag} {op} differs from the parent's")
+                log(f"[9a] {label}: rank {r['rank']} on {r['card']}: load_artifact "
+                    f"{r['load_s']:.3f}s (K1X {load['k1_extend']} launches); "
+                    + "; ".join(f"{tag} count_allgather {r[f'{tag}_count_s']:.3f}s -> "
+                                f"{len(kmers) / r[f'{tag}_count_s']:.1f} q/s, resolve_allgather "
+                                f"{r[f'{tag}_resolve_s']:.3f}s -> "
+                                f"{len(kmers) / r[f'{tag}_resolve_s']:.1f} q/s"
+                                for tag in ("narrow", "wide"))
+                    + f"; the all-gather of {len(kmers) // world} int64 alone "
+                    f"{r['allgather_ms']:.3f} ms")
+            slowest = {key: max(r[key] for r in recs) for key in
+                       ("narrow_count_s", "narrow_resolve_s", "wide_count_s", "wide_resolve_s",
+                        "allgather_ms")}
+            stats["worlds"].append({"backend": backend, "devices": devices, "wall_s": wall,
+                                    **slowest})
+            log(f"[9a] {label}: every rank's merged counts and hits (narrow and wide) equal to "
+                f"phase 4's and the parent's at tolerance 0; K1X {MAIN_SEED_K - 1} launches a "
+                f"rank; the world took {wall:.1f}s. Slowest rank: count "
+                f"{len(kmers) / slowest['narrow_count_s']:.1f} q/s (phase 7e's "
+                f"DistributedSearchEngine.count in one process "
+                f"{len(kmers) / main['public_api']['dist_count_s']:.1f} q/s), resolve "
+                f"{len(kmers) / slowest['narrow_resolve_s']:.1f} q/s, all-gather "
+                f"{slowest['allgather_ms']:.3f} ms "
+                f"({slowest['allgather_ms'] / 1e3 / slowest['narrow_count_s']:.1%} of the count)")
+    log(f"[9a] worlds run: {[(w['backend'], w['devices']) for w in stats['worlds']]}; the ranks' "
+        f"launches: { {n: c for n, c in stats['rank_launches'].items() if c} }")
+    return stats
+
+
+def phase_scaling_report() -> list:
+    """Phase 9b: ``tools/scaling_report`` on the card at 16M bases and
+    1,048,576 25-mers: rungs of 1 and 2 devices and the two-process rung;
+    every rung must have its row."""
+    import tempfile
+
+    from avxwindowfmindex_tpu_torch.tools import scaling_report
+
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "scaling.json")
+        rc = scaling_report.main([
+            "--platform", "cuda", "--hosts", "2", "--bases", "16777216", "--queries", "1048576",
+            "--kmer-len", "25", "--seed-k", "14", "--devices", "1,2", "--repeats", "1",
+            "--json", out,
+        ])
+        with open(out) as fh:
+            rows = json.load(fh)["rows"]
+    if rc != 0 or [(r["devices"], r["hosts"]) for r in rows] != [(1, 1), (2, 1), (2, 2)]:
+        raise AssertionError(f"[9b] scaling_report returned {rc} with rows {rows}")
+    for r in rows:
+        log(f"[9b] {json.dumps(r)}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bases", type=int, default=64_000_000)
+    ap.add_argument("--rank-of", nargs=2, metavar=("CONFIG", "RANK"),
+                    help="run one rank of a phase-9a world (the script starts them itself)")
     args = ap.parse_args(argv)
 
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this script needs a GPU")
+    if args.rank_of:
+        return rank_main(args.rank_of[0], int(args.rank_of[1]))
     from avxwindowfmindex_tpu_torch.ops import kernels
 
     device = "cuda:0"
@@ -2839,9 +3064,14 @@ def main(argv=None) -> int:
     mark("phase 7")
     main_stats["range_sharded"] = phase_range_sharded(rec, engine, kmers, answers, device)
     launches.update(main_stats["range_sharded"]["launches"])
+    mark("phase 8")
+    main_stats["multiprocess"] = phase_multiprocess(engine, kmers, answers, main_stats, device)
+    rank_launches = main_stats["multiprocess"]["rank_launches"]
     del engine, kmers, answers
     torch.cuda.empty_cache()
-    mark("phase 8")
+    mark("phase 9a")
+    main_stats["scaling_report"] = phase_scaling_report()
+    mark("phase 9b")
     torch.cuda.synchronize()
 
     # logged, not in the kernels line: each index kernel's row visits over
@@ -2878,7 +3108,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches[k.name], "max_abs_err": rec.err[k.name],
+            "launches": launches[k.name] + rank_launches.get(k.name, 0),
+            "rank_launches": rank_launches.get(k.name, 0), "max_abs_err": rec.err[k.name],
             "ms": rec.ms[k.name][0], "plain_ms": rec.ms[k.name][1],
             **rec.bound[k.name], "library_ms": rec.library.get(k.name),
         }

@@ -115,6 +115,7 @@ def test_import_leaves_jax_out():
         "from avxwindowfmindex_tpu_torch.models import convert\n"
         "from avxwindowfmindex_tpu_torch.io import artifact\n"
         "from avxwindowfmindex_tpu_torch.parallel import api, chunked, dist, reliability\n"
+        "from avxwindowfmindex_tpu_torch.tools import golden_parity, scaling_report\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('avxwindowfmindex_tpu.') or m == 'avxwindowfmindex_tpu'"
         " for m in sys.modules), 'JAX package imported'\n"
