@@ -84,12 +84,13 @@ def save_artifact(index, path: str) -> None:
     artifact.save_artifact(index, path)
 
 
-def load_artifact(path: str, *, device=None):
+def load_artifact(path: str, *, device=None, pair_rows: bool = True):
     """Load a native .awfmx NPZ artifact; a seed table the file lacks is
-    rebuilt on ``device`` (``None``: the card)."""
+    rebuilt on ``device`` (``None``: the card), over the view without
+    pair rows when ``pair_rows`` is False."""
     from .io import artifact
 
-    return artifact.load_artifact(path, device=device)
+    return artifact.load_artifact(path, device=device, pair_rows=pair_rows)
 
 
 def read_index_from_file(path: str, keep_suffix_array_in_memory: bool = True):

@@ -67,12 +67,14 @@ def _compute_prefix_sums(bwt_letters: np.ndarray, alphabet: AlphabetType) -> np.
     return ps
 
 
-def attach_seed_table(index: FmIndex, device) -> None:
+def attach_seed_table(index: FmIndex, device, pair_rows: Optional[bool] = None) -> None:
     """Build the seed table on ``device`` and install it in the index's
-    device view (the host copy materializes lazily for serde)."""
+    device view (the host copy materializes lazily for serde); the view
+    is ``to_device``'s with ``pair_rows`` (None: the installed layout),
+    so a view without pair rows never packs them."""
     from .ops import seed_table as seed_mod
 
-    dev = index.to_device(device)
+    dev = index.to_device(device, pair_rows=pair_rows)
     table = seed_mod.build_seed_table(
         dev,
         alpha.cardinality(index.config.alphabet_type),
@@ -91,6 +93,7 @@ def _build_from_sanitized(
     sa_backend: Optional[str],
     device,
     device_sa_ratio: Optional[int] = None,
+    pair_rows: bool = True,
 ) -> FmIndex:
     seq_with_sentinel = np.concatenate(
         [sanitized, np.array([ord("$")], dtype=np.uint8)]
@@ -142,7 +145,7 @@ def _build_from_sanitized(
         device_sa=device_sa,
         device_sa_ratio=device_sa_ratio if device_sa is not None else None,
     )
-    attach_seed_table(index, device)
+    attach_seed_table(index, device, pair_rows)
     if as_device(device).type == "cpu":
         # no transfer cost: keep the host view eagerly available
         index.seed_table_host()
@@ -199,13 +202,16 @@ def create_index(
     device_sa_ratio: Optional[int] = None,
     *,
     device,
+    pair_rows: bool = True,
 ) -> FmIndex:
     """Build an index from a raw sequence (awFmCreateIndex,
     AwFmCreate.c:31-137); the seed table is built on ``device``.
 
     ``device_sa_ratio``: optional device-side SA sampling denser than
     the config ratio (the reference's in-memory-SA locate-speed trade);
-    the .awfmi file keeps the config ratio."""
+    the .awfmi file keeps the config ratio. ``pair_rows=False``: the
+    seed table is built on the view without pair rows
+    (``FmIndex.to_device``), which stays installed."""
     config = config or IndexConfiguration()
     if isinstance(sequence, str):
         sequence = sequence.encode()
@@ -224,7 +230,7 @@ def create_index(
         )
     return _build_from_sanitized(
         sanitized, original, config, None, file_src, sa_backend, device,
-        device_sa_ratio,
+        device_sa_ratio, pair_rows,
     )
 
 
@@ -236,9 +242,11 @@ def create_index_from_fasta(
     device_sa_ratio: Optional[int] = None,
     *,
     device,
+    pair_rows: bool = True,
 ) -> FmIndex:
     """Build an index from every sequence in a FASTA file
-    (awFmCreateIndexFromFasta, AwFmCreate.c:140-279)."""
+    (awFmCreateIndexFromFasta, AwFmCreate.c:140-279); ``pair_rows`` as
+    in :func:`create_index`."""
     from .io import fasta as fasta_mod
 
     config = config or IndexConfiguration()
@@ -250,5 +258,5 @@ def create_index_from_fasta(
     sanitized = alpha.sanitize(seq_arr, config.alphabet_type)
     return _build_from_sanitized(
         sanitized, sequence, config, metadata, index_file_src, sa_backend,
-        device, device_sa_ratio,
+        device, device_sa_ratio, pair_rows,
     )

@@ -175,8 +175,8 @@
 //       for 4.7M steps over a 4.56 GB table above 2^32 (H100 80GB HBM3,
 //       700 W). Over compact rows (planes 32 B apart: two pieces a visit)
 //       the same kernel takes 24-41% less (awfm_k3w_compact_backtrace_resolve,
-//       timed by tools.kernel_ab; the layout is the JAX package's, so no
-//       path reads it).
+//       timed by tools.kernel_ab), the form that a wide view without pair
+//       rows takes (below).
 //   K1R awfm_k1r_occ / awfm_k1r_lf, K1Rw awfm_k1rw_occ / awfm_k1rw_lf,
 //   and their route awfm_k1r_route
 //       K1 over one shard of the range-sharded engine
@@ -225,6 +225,24 @@
 //       against 0.100 at 2 shards and 0.147 against 0.162 at 4, the route
 //       (0.028 ms) costing more than the idle lanes it saves until the
 //       shards are many.
+//
+//   Forms for a view without pair rows (the JAX package's AWFM_PAIR_ROWS=0,
+//   FmIndex.to_device(pair_rows=False) here): K2 awfm_k2_block_ranges and K4
+//   awfm_k4_block_ngram_ranges (its tail steps) over the narrow block rows;
+//   K1w awfm_k1w_compact_occ / _letter_lf, K1WX awfm_k1w_compact_extend, K2w
+//   awfm_k2w_compact_ranges and K3w awfm_k3w_compact_backtrace_resolve over
+//   the compact amino wide rows (384 B in place of 512 B; WideCompact).
+//       The same kernels, instantiated over that layout: a step's
+//       first-block class reads the block row's first-block sectors (planes
+//       32 B apart, the milestones after them), and every wider range two
+//       block rows, the JAX package's classic step there; no pair window.
+//       A 128 B nucleotide block row holds its planes and milestones in two
+//       64 B pieces, where the first-block half of a pair row spreads over
+//       four, and the block rows take half the bytes (32 MB at 64M bases,
+//       which the 50 MB L2 holds, against 64 MB of pair rows). A view
+//       without pair rows passes a null pair table, and each launcher
+//       refuses a table whose layout is not its form's. A narrow view's K1,
+//       K1X and K3 read the block rows in either view.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -598,7 +616,13 @@ struct BlockRow {
 // One backward step of a valid range (start <= end) by letter l, by window
 // class. The lanes of a group hold the same range and share the loads of
 // the first-block class; the rarer classes each lane computes in full.
-template <class G, int NP, int GL = 1>
+// PAIR: the classes over the pair rows (t.packed_pair, planes 64 B apart);
+// else, for a view without pair rows, the first-block class over the block
+// row (t.packed, planes G::kStride apart, the milestones after them) and
+// every wider range over two block rows, the step the JAX package takes
+// there (ops/rank.py:backward_step over P1's rank). t.packed_pair is null
+// in such a view, so no form of it reads a pair row.
+template <class G, int NP, int GL = 1, bool PAIR = true>
 __device__ __forceinline__ void backward_step(
     const AwfmTables& t, const LetterEntry<typename G::pos_t>& e,
     typename G::pos_t& start, typename G::pos_t& end,
@@ -613,16 +637,18 @@ __device__ __forceinline__ void backward_step(
   if (delta < 256u) {
     // both ends in the first block: words 0-7 of each plane, one milestone
     constexpr int W = 8 / GL;
+    constexpr int S = PAIR ? 64 : G::kStride;
     const uint8_t* row =
-        t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
+        PAIR ? t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes
+             : t.packed + G::block(t.nb, pos_s) * t.row_bytes;
     uint32_t m[W];
-    match_words<NP, W, 64>(row + grp.sub * (4 * W), code, m);
-    const pos_t ms = milestone<G>(row, NP * 64, e);
+    match_words<NP, W, S>(row + grp.sub * (4 * W), code, m);
+    const pos_t ms = milestone<G>(row, NP * S, e);
     const uint32_t base = grp.sub * W;
     occ_s = ms + grp.sum(count_inclusive<W>(
                      m, static_cast<uint32_t>(pos_s) & 255u, base));
     occ_e = ms + grp.sum(count_inclusive<W>(m, static_cast<uint32_t>(delta), base));
-  } else if (delta < 512u) {
+  } else if (PAIR && delta < 512u) {
     const uint8_t* row =
         t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes;
     uint32_t m[16];
@@ -1283,8 +1309,9 @@ k1_extend_kernel(AwfmTables t, const typename G::pos_t* __restrict__ table,
 
 constexpr int kK2Group = 2;  // lanes per query in K2 and K2w
 
-// GL neighbouring lanes walk one query right to left; LW as in QueryRow.
-template <class G, int NP, int GL, int LW>
+// GL neighbouring lanes walk one query right to left; LW as in QueryRow;
+// PAIR as in backward_step.
+template <class G, int NP, int GL, int LW, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
 k2_ranges_kernel(AwfmTables t,
                  const typename G::pos_t* __restrict__ seed_table,
@@ -1321,7 +1348,7 @@ k2_ranges_kernel(AwfmTables t,
   }
   const Group<GL> grp;
   for (int64_t p = next; p >= 0 && start <= end; --p) {
-    backward_step<G, NP, GL>(t, letter_entry<G>(t, row[p]), start, end, grp);
+    backward_step<G, NP, GL, PAIR>(t, letter_entry<G>(t, row[p]), start, end, grp);
   }
   if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
 }
@@ -1482,8 +1509,10 @@ constexpr int kK4Group = 2;  // lanes per query
 // Every query has length kmer_len > k and letters < 4 (the n-gram fast
 // path's contract, checked by the host engine). kK4Group lanes walk one
 // query; the seed-table entry is loaded and the ranges are stored with
-// the streaming hints (.cs).
-template <int N, int NP>
+// the streaming hints (.cs). PAIR: the tail steps over the pair rows, else
+// over the block rows (backward_step); the n-gram steps read the n-gram
+// pair rows either way, as the JAX package's do.
+template <int N, int NP, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 2)
 k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
                        const uint32_t* __restrict__ seed_table,
@@ -1511,13 +1540,42 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
     ngram_step<N, GL>(g, start, end, v, grp);
   }
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
-    backward_step<Narrow, NP, GL>(t, letter_entry<Narrow>(t, row[p]), start, end, grp);
+    backward_step<Narrow, NP, GL, PAIR>(t, letter_entry<Narrow>(t, row[p]), start, end, grp);
   }
   if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
 }
 
 unsigned int grid_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+// The row bytes of a layout: n_planes planes `stride` bytes apart, then
+// card + 1 milestones of G's position type, padded to 128 B
+// (models/index.py:device_row_bytes, device_pair_row_bytes,
+// device_row_bytes64).
+template <class G>
+int padded_row_bytes(const AwfmTables* t, int stride) {
+  const int need = t->n_planes * stride +
+                   (t->card + 1) * static_cast<int>(sizeof(typename G::pos_t));
+  return (need + 127) / 128 * 128;
+}
+
+// Whether the tables are in the layout a form reads: G's rows (planes
+// G::kStride apart) and, for a form that steps over pair rows (PAIR), pair
+// rows with planes 64 B apart, or for one that does not, no pair table.
+// Every launcher refuses other tables before it launches; ops/kernels.py
+// checks the view's layout first (_tables). Nucleotide wide rows are
+// 256 B in both wide layouts, so there the view's pair_fused flag, checked
+// in _tables, is what tells them apart.
+template <class G>
+bool rows_fit(const AwfmTables* t) {
+  return t->row_bytes == padded_row_bytes<G>(t, G::kStride);
+}
+
+template <class G, bool PAIR>
+bool pair_rows_fit(const AwfmTables* t) {
+  if (PAIR != (t->packed_pair != nullptr)) return false;
+  return !PAIR || t->pair_row_bytes == padded_row_bytes<G>(t, 64);
 }
 
 // The launchers behind the C entry points: one per kernel, the width a
@@ -1528,6 +1586,7 @@ int launch_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
                   cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
     k1_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
   } else if (t->n_planes == 5) {
@@ -1544,6 +1603,7 @@ int launch_k1_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                         cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
     k1_letter_lf_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(
         *t, pos, n, letters_out, lf_out);
@@ -1664,6 +1724,7 @@ int launch_k1r_occ(int device, const AwfmTables* t, int32_t first_block,
                    const uint32_t* counts, int32_t shard, int64_t count,
                    int64_t capacity, const int32_t* letters, int64_t* out,
                    cudaStream_t stream) {
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   AwfmTables s;
   const int rc = k1r_tables(device, t, first_block, &s);
   if (rc != 0) return rc;
@@ -1682,6 +1743,7 @@ int launch_k1r_lf(int device, const AwfmTables* t, int32_t first_block,
                   const uint32_t* counts, int32_t shard, int64_t count,
                   int64_t capacity, int64_t* p_out, int32_t* letters_out,
                   cudaStream_t stream) {
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   AwfmTables s;
   const int rc = k1r_tables(device, t, first_block, &s);
   if (rc != 0) return rc;
@@ -1710,6 +1772,7 @@ int launch_k1_extend(int device, const AwfmTables* t,
                      typename G::pos_t* nxt, cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = grid_for((n + kExtendParents - 1) / kExtendParents * 32);
   if (t->n_planes == 3 && t->card == Card<3>::value && letter_codes_match<3>(t)) {
     k1_extend_kernel<G, 3><<<grid, kThreads, 0, stream>>>(*t, table, n, nxt);
@@ -1721,19 +1784,19 @@ int launch_k1_extend(int device, const AwfmTables* t,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class G, int NP, int LW>
+template <class G, int NP, int LW, bool PAIR>
 void launch_k2_form(const AwfmTables* t, const typename G::pos_t* seed_table,
                     int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                     int64_t l_pad, const int32_t* lengths,
                     const uint8_t* seeded, int64_t* start_out,
                     int64_t* end_out, cudaStream_t stream) {
-  k2_ranges_kernel<G, NP, kK2Group, LW>
+  k2_ranges_kernel<G, NP, kK2Group, LW, PAIR>
       <<<grid_for(b * kK2Group), kThreads, 0, stream>>>(
           *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
           start_out, end_out);
 }
 
-template <class G, int NP>
+template <class G, int NP, bool PAIR>
 void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
                       int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                       int64_t l_pad, const int32_t* lengths,
@@ -1742,15 +1805,17 @@ void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
   // letters in registers where the rows are whole aligned words of at most
   // 32 letters (the bench protocol's 25-mers); longer ones are not measured
   if (l_pad % 4 == 0 && l_pad <= 32 && reinterpret_cast<uintptr_t>(mat) % 4 == 0) {
-    launch_k2_form<G, NP, 8>(t, seed_table, seed_rows, k, mat, b, l_pad,
-                             lengths, seeded, start_out, end_out, stream);
+    launch_k2_form<G, NP, 8, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                                   lengths, seeded, start_out, end_out, stream);
   } else {
-    launch_k2_form<G, NP, 0>(t, seed_table, seed_rows, k, mat, b, l_pad,
-                             lengths, seeded, start_out, end_out, stream);
+    launch_k2_form<G, NP, 0, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                                   lengths, seeded, start_out, end_out, stream);
   }
 }
 
-template <class G>
+// PAIR: the form over pair rows, which needs the pair table; else the form
+// over the block rows, which needs none.
+template <class G, bool PAIR>
 int launch_k2_ranges(int device, const AwfmTables* t,
                      const typename G::pos_t* seed_table, int64_t seed_rows,
                      int k, const uint8_t* mat, int64_t b, int64_t l_pad,
@@ -1759,12 +1824,13 @@ int launch_k2_ranges(int device, const AwfmTables* t,
                      cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t) || !pair_rows_fit<G, PAIR>(t)) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
-    launch_k2_planes<G, 3>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
-                           seeded, start_out, end_out, stream);
+    launch_k2_planes<G, 3, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                                 seeded, start_out, end_out, stream);
   } else if (t->n_planes == 5) {
-    launch_k2_planes<G, 5>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
-                           seeded, start_out, end_out, stream);
+    launch_k2_planes<G, 5, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                                 seeded, start_out, end_out, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1815,6 +1881,7 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
                                 cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
   if (ratio == 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
     return launch_k3_planes<G, 3>(device, t, pos, n, ratio, bwt_length, sa,
@@ -1827,6 +1894,7 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool PAIR>
 int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               const uint32_t* seed_table, int64_t seed_rows, int k,
               const uint8_t* mat, int64_t b, int64_t l_pad, int kmer_len,
@@ -1834,13 +1902,15 @@ int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int grid = grid_for(b * kK4Group);
-  if (t->n_planes != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (t->n_planes != 3 || !rows_fit<Narrow>(t) || !pair_rows_fit<Narrow, PAIR>(t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (g->n == 2) {
-    k4_ngram_ranges_kernel<2, 3><<<grid, kThreads, 0, stream>>>(
+    k4_ngram_ranges_kernel<2, 3, PAIR><<<grid, kThreads, 0, stream>>>(
         *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
         end_out);
   } else if (g->n == 3) {
-    k4_ngram_ranges_kernel<3, 3><<<grid, kThreads, 0, stream>>>(
+    k4_ngram_ranges_kernel<3, 3, PAIR><<<grid, kThreads, 0, stream>>>(
         *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
         end_out);
   } else {
@@ -1877,6 +1947,19 @@ int awfm_k1w_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
                        cudaStream_t stream) {
   return launch_k1_letter_lf<Wide>(device, t, pos, n, letters_out, lf_out,
                                    stream);
+}
+
+int awfm_k1w_compact_occ(int device, const AwfmTables* t, const int64_t* pos,
+                         const int32_t* letters, int64_t n, int64_t* out,
+                         cudaStream_t stream) {
+  return launch_k1_occ<WideCompact>(device, t, pos, letters, n, out, stream);
+}
+
+int awfm_k1w_compact_letter_lf(int device, const AwfmTables* t, const int64_t* pos,
+                               int64_t n, int32_t* letters_out, int64_t* lf_out,
+                               cudaStream_t stream) {
+  return launch_k1_letter_lf<WideCompact>(device, t, pos, n, letters_out, lf_out,
+                                          stream);
 }
 
 int awfm_k1r_route(int device, int wide, const int64_t* pos, int64_t n,
@@ -1938,13 +2021,27 @@ int awfm_k1w_extend(int device, const AwfmTables* t, const uint64_t* table,
   return launch_k1_extend<Wide>(device, t, table, n, nxt, stream);
 }
 
+int awfm_k1w_compact_extend(int device, const AwfmTables* t, const uint64_t* table,
+                            int64_t n, uint64_t* nxt, cudaStream_t stream) {
+  return launch_k1_extend<WideCompact>(device, t, table, n, nxt, stream);
+}
+
 int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                    int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                    int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
                    int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
-  return launch_k2_ranges<Narrow>(device, t, seed_table, seed_rows, k, mat, b,
-                                  l_pad, lengths, seeded, start_out, end_out,
-                                  stream);
+  return launch_k2_ranges<Narrow, true>(device, t, seed_table, seed_rows, k, mat, b,
+                                        l_pad, lengths, seeded, start_out, end_out,
+                                        stream);
+}
+
+int awfm_k2_block_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
+                         int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                         int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
+                         int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+  return launch_k2_ranges<Narrow, false>(device, t, seed_table, seed_rows, k, mat, b,
+                                         l_pad, lengths, seeded, start_out, end_out,
+                                         stream);
 }
 
 int awfm_k2w_ranges(int device, const AwfmTables* t, const uint64_t* seed_table,
@@ -1952,9 +2049,19 @@ int awfm_k2w_ranges(int device, const AwfmTables* t, const uint64_t* seed_table,
                     int64_t l_pad, const int32_t* lengths,
                     const uint8_t* seeded, int64_t* start_out,
                     int64_t* end_out, cudaStream_t stream) {
-  return launch_k2_ranges<Wide>(device, t, seed_table, seed_rows, k, mat, b,
-                                l_pad, lengths, seeded, start_out, end_out,
-                                stream);
+  return launch_k2_ranges<Wide, true>(device, t, seed_table, seed_rows, k, mat, b,
+                                      l_pad, lengths, seeded, start_out, end_out,
+                                      stream);
+}
+
+int awfm_k2w_compact_ranges(int device, const AwfmTables* t, const uint64_t* seed_table,
+                            int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
+                            int64_t l_pad, const int32_t* lengths,
+                            const uint8_t* seeded, int64_t* start_out,
+                            int64_t* end_out, cudaStream_t stream) {
+  return launch_k2_ranges<WideCompact, false>(device, t, seed_table, seed_rows, k, mat, b,
+                                              l_pad, lengths, seeded, start_out, end_out,
+                                              stream);
 }
 
 int awfm_k3_backtrace_resolve(int device, const AwfmTables* t,
@@ -1977,10 +2084,9 @@ int awfm_k3w_backtrace_resolve(int device, const AwfmTables* t,
                                            off_out, stream);
 }
 
-// K3w's kernel over compact wide rows (WideCompact: planes 32 B apart, so a
-// nucleotide visit touches two 64 B pieces, not four). tools.kernel_ab
-// times it to size what the pair-fused layout costs the walk; no search
-// path calls it.
+// K3w over compact wide rows (WideCompact: planes 32 B apart, so a
+// nucleotide visit touches two 64 B pieces, not four): the backtrace of a
+// wide view without pair rows.
 int awfm_k3w_compact_backtrace_resolve(int device, const AwfmTables* t,
                                        const int64_t* pos, int64_t n, uint64_t ratio,
                                        uint64_t bwt_length, const uint64_t* sa,
@@ -1996,8 +2102,17 @@ int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                          const uint8_t* mat, int64_t b, int64_t l_pad,
                          int kmer_len, int64_t* start_out, int64_t* end_out,
                          cudaStream_t stream) {
-  return launch_k4(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
-                   kmer_len, start_out, end_out, stream);
+  return launch_k4<true>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
+                         kmer_len, start_out, end_out, stream);
+}
+
+int awfm_k4_block_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
+                               const uint32_t* seed_table, int64_t seed_rows, int k,
+                               const uint8_t* mat, int64_t b, int64_t l_pad,
+                               int kmer_len, int64_t* start_out, int64_t* end_out,
+                               cudaStream_t stream) {
+  return launch_k4<false>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
+                          kmer_len, start_out, end_out, stream);
 }
 
 const char* awfm_error_string(int code) {

@@ -93,15 +93,17 @@ def _narrowed(values: np.ndarray, bwt_length: int) -> np.ndarray:
     return values
 
 
-def load_artifact(path: str, *, device=None) -> FmIndex:
+def load_artifact(path: str, *, device=None, pair_rows: bool = True) -> FmIndex:
     """Load a native .awfmx (NPZ) artifact.
 
     A file saved without a seed table gets its table rebuilt on
-    ``device`` by the BFS (``build.attach_seed_table``: K1 on the card,
-    its plain version on the CPU), so a loaded index is always ready to
-    search; on the CPU the host copy is pulled at once, as create_index
-    does. ``device=None`` means the card and raises without one; a file
-    that carries its table touches no device and launches no K1.
+    ``device`` by the BFS (``build.attach_seed_table``: K1X on the card,
+    its plain version on the CPU) over the view ``to_device`` builds
+    with ``pair_rows`` (False: without pair rows, which stays
+    installed), so a loaded index is always ready to search; on the CPU
+    the host copy is pulled at once, as create_index does.
+    ``device=None`` means the card and raises without one; a file that
+    carries its table touches no device and launches no K1X.
     """
     with np.load(path) as z:
         version = int(z["format_version"])
@@ -152,7 +154,7 @@ def load_artifact(path: str, *, device=None) -> FmIndex:
         from ..build import attach_seed_table
 
         device = resolve_device(device)
-        attach_seed_table(idx, device)
+        attach_seed_table(idx, device, pair_rows)
         if device.type == "cpu":
             idx.seed_table_host()
     return idx

@@ -34,14 +34,16 @@ def device_index_from_numpy(
     ``arrays`` maps field names (``packed``, ``packed_pair``,
     ``prefix_sums``, ``seed_table``, ``sampled_sa``, ``code_masks``,
     ``vec_to_index``) to NumPy arrays; ``sampled_sa`` may be None
-    (suffix array on disk). u32 fields become int32 tensors holding the
-    same bytes.
+    (suffix array on disk), and so may ``packed_pair`` (a view without
+    pair rows, the JAX package's ``AWFM_PAIR_ROWS=0``). u32 fields become
+    int32 tensors holding the same bytes.
     """
     sa = arrays.get("sampled_sa")
+    pair = arrays.get("packed_pair")
     return DeviceIndex(
         packed=torch.from_numpy(np.array(arrays["packed"], dtype=np.uint8)).to(device),
-        packed_pair=torch.from_numpy(
-            np.array(arrays["packed_pair"], dtype=np.uint8)
+        packed_pair=None if pair is None else torch.from_numpy(
+            np.array(pair, dtype=np.uint8)
         ).to(device),
         prefix_sums=u32_tensor(arrays["prefix_sums"], device),
         seed_table=u32_tensor(arrays["seed_table"], device),
@@ -81,23 +83,16 @@ def wide_device_index_from_numpy(
     ``sampled_sa`` ((n, 2) u32 ``[lo, hi]``, or None: suffix array on
     disk), ``code_masks`` and ``vec_to_index`` to NumPy arrays. The hi/lo
     pairs become u64 values in int64 tensors of the same bytes; the one
-    row table serves as ``packed`` and ``packed_pair``. The compact
-    single-block layout (``pair_fused=False``, the JAX package's
-    ``AWFM_PAIR_ROWS=0`` for amino) serves only the range-sharded
-    engine's shards; the single-device wide engines refuse it.
+    row table of pair-fused rows serves as ``packed`` and
+    ``packed_pair``. ``pair_fused=False``: the compact single-block rows
+    (the JAX ``DeviceIndex64.pair_fused`` False, its ``AWFM_PAIR_ROWS=0``
+    amino view), a view without pair rows (``packed_pair`` None).
     """
     alphabet = AlphabetType(int(alphabet))
-    if not pair_fused:
-        raise NotImplementedError(
-            "the compact wide layout (pair_fused=False, AWFM_PAIR_ROWS=0) is "
-            "not ported for the single-device engines (ROADMAP item 'the "
-            "compact amino wide layout'); the range-sharded engine shards it"
-        )
     packed = np.array(arrays["packed"], dtype=np.uint8, order="C")
-    if packed.ndim != 2 or packed.shape[1] != device_row_bytes64(alphabet):
-        raise ValueError(
-            f"wide rows must be (nb, {device_row_bytes64(alphabet)}), got {packed.shape}"
-        )
+    want = device_row_bytes64(alphabet, pair_fused)
+    if packed.ndim != 2 or packed.shape[1] != want:
+        raise ValueError(f"wide rows must be (nb, {want}), got {packed.shape}")
     seed = np.asarray(arrays["seed_table"])
     if seed.ndim != 2 or seed.shape[1] != 4:
         raise ValueError(f"wide seed table must be (rows, 4) u32, got {seed.shape}")
@@ -105,7 +100,7 @@ def wide_device_index_from_numpy(
     rows = torch.from_numpy(packed).to(device)
     return DeviceIndex(
         packed=rows,
-        packed_pair=rows,
+        packed_pair=rows if pair_fused else None,
         prefix_sums=u64_tensor(_join_u64(arrays["prefix_lo"], arrays["prefix_hi"]), device),
         seed_table=u64_tensor(
             np.stack([_join_u64(seed[:, 0], seed[:, 1]), _join_u64(seed[:, 2], seed[:, 3])], axis=1),
@@ -125,6 +120,7 @@ def wide_device_index_from_numpy(
         kmer_length_in_seed_table=int(k),
         alphabet=alphabet,
         wide=True,
+        pair_fused=bool(pair_fused),
     )
 
 

@@ -36,6 +36,16 @@ and sampled SA are int64 tensors whose bytes equal the JAX arrays'
 carried in int64 tensors, two's complement standing in for the wrap
 mod 2^64. The same functions serve both widths; a ``DeviceIndex`` says
 which it is (``wide``) and gives the row geometry.
+
+Views without pair rows (``to_device(device, pair_rows=False)``; the
+JAX package's ``AWFM_PAIR_ROWS=0``): a narrow view keeps its block rows
+and no pair table (``packed_pair`` None); a wide amino view keeps the
+compact rows of ``pack_device_blocks64(pair=False)`` (384 B: planes 32 B
+apart, milestones at ``n_planes * 32``; ``pair_fused`` False) in place
+of the 512 B pair-fused ones. A wide nucleotide view keeps its 256 B
+pair-fused rows, which cost nothing beyond the compact ones, as the JAX
+package does. A step over such a view reads its first-block class from
+the block row and every wider range from two block rows.
 """
 
 from __future__ import annotations
@@ -214,14 +224,18 @@ class DeviceIndex:
     (the same tensor), and ``prefix_sums``, ``seed_table`` and
     ``sampled_sa`` are u64 values in int64 tensors.
 
+    A view without pair rows (module docstring) has ``packed_pair``
+    None; a wide one, compact rows (``pair_fused=False``).
+
     A shard of the range-sharded engine (parallel/range_sharded.py) is a
-    view too: ``packed`` and ``sampled_sa`` hold its block range and its
-    sample range only, ``packed_pair`` is None, and a wide shard's rows
-    are the compact ones (``pair_fused=False``).
+    view too, marked ``shard``: ``packed`` and ``sampled_sa`` hold its
+    block range and its sample range only, ``packed_pair`` is None, and a
+    wide shard's rows are the compact ones (``pair_fused=False``). Only
+    K1R and K1Rw take a shard; every other kernel takes whole views.
     """
 
     packed: torch.Tensor  # (num_blocks, row_bytes) uint8 fused blocks
-    packed_pair: Optional[torch.Tensor]  # (num_blocks, pair_row_bytes) uint8; None in a shard
+    packed_pair: Optional[torch.Tensor]  # (num_blocks, pair_row_bytes) uint8; None: no pair rows
     prefix_sums: torch.Tensor  # (A+2,) u32 as int32 / u64 as int64
     seed_table: torch.Tensor  # (A**k, 2) u32 as int32 / u64 as int64
     sampled_sa: Optional[torch.Tensor]  # (num_samples,) u32 as int32 / u64 as int64; None = on disk
@@ -233,8 +247,15 @@ class DeviceIndex:
     alphabet: AlphabetType
     wide: bool = False  # u64 positions over the wide row layout
     # wide rows pair-fused (plane stride 64); False: the compact rows
-    # (stride 32) of the range-sharded engine's shards
+    # (stride 32) of a view without pair rows or of a shard
     pair_fused: bool = True
+    shard: bool = False  # one shard of the range-sharded engine
+
+    @property
+    def pair_rows(self) -> bool:
+        """Whether a step can read pair rows: a narrow view's pair table,
+        or a wide view's pair-fused rows."""
+        return self.pair_fused if self.wide else self.packed_pair is not None
 
     @property
     def device(self) -> torch.device:
@@ -379,6 +400,13 @@ def pack_device_blocks64(
     off = n_planes * stride
     out[:, off : off + (card + 1) * 8] = ms.view(np.uint8).reshape(nb, (card + 1) * 8)
     return out
+
+
+def view_has_pair_rows(alphabet: AlphabetType, wide: bool, pair_rows: bool) -> bool:
+    """Whether ``to_device(wide=wide, pair_rows=pair_rows)`` builds a view
+    with pair rows: asked for, or a wide nucleotide view, whose pair-fused
+    rows are as large as its compact ones (256 B)."""
+    return bool(pair_rows) or (wide and alphabet != AlphabetType.AMINO)
 
 
 def device_code_masks(alphabet: AlphabetType) -> np.ndarray:
@@ -566,16 +594,24 @@ class FmIndex:
         milestones[1:] = cum[:-1]
         return milestones
 
-    def to_device(self, device, wide: Optional[bool] = None) -> DeviceIndex:
+    def to_device(self, device, wide: Optional[bool] = None,
+                  pair_rows: Optional[bool] = None) -> DeviceIndex:
         """Build (or return the cached) torch view on ``device``.
 
         ``wide`` selects the 64-bit layout (u64 milestones, int64
         tables; see the module docstring). By default it is chosen for
         bwtLength >= 2^32; ``wide=True`` forces it on a smaller index,
-        with the same answers. A cached view is returned only when it
-        lies on ``device`` and has the width asked for; otherwise the
-        view is rebuilt, and a seed table that lives only in the cached
-        view is carried over, widened or narrowed as needed.
+        with the same answers. ``pair_rows=False`` builds the view
+        without pair rows (module docstring): no narrow pair table, the
+        compact amino wide rows; the answers stay the same. ``None`` (the
+        default) keeps the layout of the view installed on ``device``,
+        and means pair rows where there is none, so that a caller that
+        does not name the layout never swaps one view for the other. A
+        cached view is returned only when it lies on ``device`` and has
+        the width and the layout asked for; otherwise the view is rebuilt,
+        and a seed table that lives only in the cached view is carried
+        over (the same tensor at the same width; widened or narrowed
+        otherwise).
 
         Until the builder attaches the seed table, the view carries a
         (1, 2) zeros placeholder. A dense device SA cut at build
@@ -583,10 +619,14 @@ class FmIndex:
         chains shorten, answers stay the same.
         """
         device = as_device(device)
+        cache = self._device_cache
+        if pair_rows is None:
+            pair_rows = cache.pair_rows if cache is not None and cache.device == device else True
         if wide is None:
             wide = self.bwt_length >= 2**32
-        cache = self._device_cache
-        if cache is not None and cache.device == device and cache.wide == wide:
+        pair = view_has_pair_rows(self.alphabet, wide, pair_rows)
+        if (cache is not None and cache.device == device and cache.wide == wide
+                and cache.pair_rows == pair):
             return cache
         if wide:
             # the limits of the JAX package's wide view, so that both
@@ -608,12 +648,17 @@ class FmIndex:
             )
         as_table = u64_tensor if wide else u32_tensor
         if wide:
-            rows = pack_device_blocks64(self.bwt_letters, self.milestones(), self.alphabet)
-            packed = pair = torch.from_numpy(rows).to(device)
+            rows = pack_device_blocks64(self.bwt_letters, self.milestones(), self.alphabet,
+                                        pair=pair)
+            packed = torch.from_numpy(rows).to(device)
+            pair_table = packed if pair else None
         else:
             rows = pack_device_blocks(self.bwt_letters, self.milestones(), self.alphabet)
             packed = torch.from_numpy(rows).to(device)
-            pair = torch.from_numpy(pack_pair_rows_from_blocks(rows, self.alphabet)).to(device)
+            pair_table = None
+            if pair:
+                pair_table = torch.from_numpy(
+                    pack_pair_rows_from_blocks(rows, self.alphabet)).to(device)
         k = int(self.config.kmer_length_in_seed_table)
         seed = self.seed_table_tensor(device, wide)
         if seed is None:
@@ -627,7 +672,7 @@ class FmIndex:
             dev_ratio = int(self.device_sa_ratio)
         dev = DeviceIndex(
             packed=packed,
-            packed_pair=pair,
+            packed_pair=pair_table,
             prefix_sums=as_table(self.prefix_sums, device),
             seed_table=seed,
             sampled_sa=None if dev_sa is None else as_table(dev_sa, device),
@@ -640,12 +685,13 @@ class FmIndex:
             kmer_length_in_seed_table=k,
             alphabet=self.alphabet,
             wide=wide,
+            pair_fused=not wide or pair,
         )
         self._device_cache = dev
         return dev
 
     def densify_device_sa(
-        self, ratio: int, chunk: int = 1 << 22, *, device, wide: Optional[bool] = None
+        self, ratio: int, chunk: int = 1 << 22, *, device, wide: Optional[bool] = None,
     ) -> DeviceIndex:
         """Rebuild a DENSER device-side suffix array from the loaded one.
 
@@ -663,17 +709,18 @@ class FmIndex:
         also installed as this index's device view, so later
         ``to_device``/engine constructions see it. Needs the sampled SA
         in memory. ``wide`` defaults to the width ``to_device`` picks, or
-        wide when a wide view is already installed on ``device``.
+        wide when a wide view is already installed on ``device``; the
+        layout is the installed view's (``to_device``'s default), so the
+        dense view keeps it.
         """
         from ..search import backtrace_resolve
 
         if ratio < 1:
             raise ValueError("ratio must be >= 1")
+        cache = self._device_cache
+        here = cache is not None and cache.device == as_device(device)
         if wide is None:
-            cache = self._device_cache
-            wide = self.bwt_length >= 2**32 or (
-                cache is not None and cache.wide and cache.device == as_device(device)
-            )
+            wide = self.bwt_length >= 2**32 or (here and cache.wide)
         dev = self.to_device(device, wide=wide)
         if dev.sampled_sa is None:
             raise ValueError(

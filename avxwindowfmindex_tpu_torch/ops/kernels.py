@@ -37,7 +37,9 @@ from typing import Optional
 
 import torch
 
-from ..models.index import device_row_bytes, device_row_bytes64, kernel_letter_tables
+from ..models.index import (
+    device_pair_row_bytes, device_row_bytes, device_row_bytes64, kernel_letter_tables,
+)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -50,12 +52,15 @@ NVCC_FLAGS = [
 
 class Kernel:
     """One hand-written kernel: its name, where it lives, what TPU code
-    it replaces, and how many times it was launched."""
+    it replaces, and how many times it was launched. ``prefix`` names its
+    C entry points, ``awfm_<prefix>_<mode>`` (default: the name's first
+    word)."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str, prefix: Optional[str] = None):
         self.name = name
         self.source = source
         self.replaces = replaces
+        self.prefix = prefix or name.split("_")[0]
         self.launches = 0
 
 
@@ -123,7 +128,42 @@ K1RW = Kernel(
     "k1rw_rank", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/parallel/range_sharded.py:54",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW, K1R_ROUTE)
+# the forms for a view without pair rows (to_device(pair_rows=False)): K2
+# and K4's tail step the first-block class over the block row and every
+# wider range over two block rows; K1w, K1WX, K2w and K3w read the compact
+# wide rows (planes 32 B apart). The JAX package takes its classic step
+# there, P1's rank over the block rows.
+_SRC = "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu"
+K2_BLOCK = Kernel(
+    "k2_ranges_block", _SRC,
+    "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/ops/rank.py:285",
+    prefix="k2_block",
+)
+K4_BLOCK = Kernel(
+    "k4_ngram_ranges_block", _SRC,
+    "experiments/ab_r5_pallas_gather.py:119, its tail: avxwindowfmindex_tpu/ops/rank_pallas.py:40 "
+    "under avxwindowfmindex_tpu/search.py:1671",
+    prefix="k4_block",
+)
+K1W_COMPACT = Kernel("k1w_rank_compact", _SRC, "avxwindowfmindex_tpu/ops/rank64.py:410",
+                     prefix="k1w_compact")
+K1WX_COMPACT = Kernel(
+    "k1w_extend_compact", _SRC,
+    "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/search64.py:564",
+    prefix="k1w_compact",
+)
+K2W_COMPACT = Kernel("k2w_ranges_compact", _SRC, "avxwindowfmindex_tpu/ops/rank64.py:416",
+                     prefix="k2w_compact")
+K3W_COMPACT = Kernel("k3w_backtrace_resolve_compact", _SRC, "avxwindowfmindex_tpu/search64.py:473",
+                     prefix="k3w_compact")
+KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW, K1R_ROUTE,
+           K2_BLOCK, K4_BLOCK, K1W_COMPACT, K1WX_COMPACT, K2W_COMPACT, K3W_COMPACT)
+# the form of a kernel a view takes: by its width, then, without pair
+# rows, by its layout (a narrow view's K1, K1X and K3 read its block rows
+# either way)
+_WIDE = {K1: K1W, K2: K2W, K3: K3W, K1X: K1WX, K1R: K1RW}
+_WITHOUT_PAIR_ROWS = {K2: K2_BLOCK, K4: K4_BLOCK, K1W: K1W_COMPACT, K1WX: K1WX_COMPACT,
+                      K2W: K2W_COMPACT, K3W: K3W_COMPACT}
 
 
 def reset_launch_counts() -> None:
@@ -253,10 +293,16 @@ def build() -> float:
             i32, tables_p, vp, i64, u64, u64, vp, vp, vp, vp, vp,
         ]
         lib.awfm_k3w_compact_backtrace_resolve.argtypes = lib.awfm_k3w_backtrace_resolve.argtypes
+        lib.awfm_k1w_compact_occ.argtypes = lib.awfm_k1_occ.argtypes
+        lib.awfm_k1w_compact_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
+        lib.awfm_k1w_compact_extend.argtypes = lib.awfm_k1_extend.argtypes
+        lib.awfm_k2_block_ranges.argtypes = lib.awfm_k2_ranges.argtypes
+        lib.awfm_k2w_compact_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k4_ngram_ranges.argtypes = [
             i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
             i64, i64, i32, vp, vp, vp,
         ]
+        lib.awfm_k4_block_ngram_ranges.argtypes = lib.awfm_k4_ngram_ranges.argtypes
         lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
         lib.awfm_k5_gather_walk.argtypes = [
             i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, vp, vp,
@@ -268,6 +314,8 @@ def build() -> float:
             lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
             lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
             lib.awfm_k3w_backtrace_resolve, lib.awfm_k3w_compact_backtrace_resolve,
+            lib.awfm_k1w_compact_occ, lib.awfm_k1w_compact_letter_lf, lib.awfm_k1w_compact_extend,
+            lib.awfm_k2_block_ranges, lib.awfm_k2w_compact_ranges, lib.awfm_k4_block_ngram_ranges,
             lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
             lib.awfm_k1rw_lf,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
@@ -307,43 +355,55 @@ def _pos_dtype(dev):
 
 
 def _tables(dev, shard: bool = False) -> _Tables:
-    """The tables of a view; ``shard``: of one shard of the range-sharded
-    engine (no pair rows; compact rows when wide), for K1R and K1Rw only."""
+    """The tables of a whole view, or with ``shard`` of one shard of the
+    range-sharded engine (``dev.shard``), for K1R and K1Rw only. The row
+    tables are checked against the layout the view names: narrow block
+    rows and, where it has them, pair rows; wide pair-fused rows (one
+    table for both roles) or compact rows. A view without pair rows
+    passes a null pair table, so that no form reads one."""
     device = dev.packed.device
-    if shard != (dev.packed_pair is None) or (dev.wide and dev.pair_fused == shard):
+    if shard != dev.shard:
         raise ValueError(
             "K1R and K1Rw take the shards of a range-sharded engine (no pair "
             "rows, compact wide rows); the other kernels take whole views"
         )
-    pair = dev.packed if shard else dev.packed_pair
+    pair = dev.packed_pair
+    if dev.wide:
+        want = device_row_bytes64(dev.alphabet, dev.pair_fused)
+        # one table serves both roles; its 16 B loads need aligned rows
+        if (pair is not None) != dev.pair_fused or (pair is not None and pair is not dev.packed):
+            raise ValueError("a wide view has one row table: packed is packed_pair when "
+                             "pair-fused, and packed_pair is None over compact rows")
+    else:
+        want = device_row_bytes(dev.alphabet)
+    if shard and dev.pair_rows:
+        raise ValueError("a shard has no pair rows")
+    if dev.packed.dim() != 2 or dev.packed.shape[1] != want:
+        raise ValueError(f"rows must be {want} B, got {tuple(dev.packed.shape)}")
+    if pair is not None and not dev.wide:
+        if pair.shape != (dev.packed.shape[0], device_pair_row_bytes(dev.alphabet)):
+            raise ValueError(f"pair rows must be ({dev.packed.shape[0]}, "
+                             f"{device_pair_row_bytes(dev.alphabet)}), got {tuple(pair.shape)}")
+        _require(pair, "packed_pair", torch.uint8, device)
     for name, t, dtype in (
-        ("packed", dev.packed, torch.uint8), ("packed_pair", pair, torch.uint8),
+        ("packed", dev.packed, torch.uint8),
         ("prefix_sums", dev.prefix_sums, _pos_dtype(dev)),
         ("code_masks", dev.code_masks, torch.uint8),
     ):
         _require(t, name, dtype, device)
-    if dev.wide:
-        # one table serves both roles; its 16 B loads need aligned rows
-        if pair.data_ptr() != dev.packed.data_ptr():
-            raise ValueError("a wide view has one row table (packed is packed_pair)")
-        want = device_row_bytes64(dev.alphabet, dev.pair_fused)
-    else:
-        want = device_row_bytes(dev.alphabet)
-    if dev.packed.shape[1] != want:
-        raise ValueError(f"rows must be {want} B, got {dev.packed.shape[1]}")
-    if dev.packed.data_ptr() % 16 or pair.data_ptr() % 16:
+    if dev.packed.data_ptr() % 16 or (pair is not None and pair.data_ptr() % 16):
         raise ValueError("row tables must be 16-byte aligned")
     if dev.prefix_sums.shape != (dev.cardinality + 2,):
         raise ValueError("prefix_sums must hold cardinality + 2 entries")
     letter_code, code_letter = _letter_tables(dev.alphabet)
     return _Tables(
         packed=dev.packed.data_ptr(),
-        packed_pair=pair.data_ptr(),
+        packed_pair=None if pair is None else pair.data_ptr(),
         prefix_sums=dev.prefix_sums.data_ptr(),
         code_masks=dev.code_masks.data_ptr(),
         nb=int(dev.packed.shape[0]),
         row_bytes=int(dev.packed.shape[1]),
-        pair_row_bytes=int(pair.shape[1]),
+        pair_row_bytes=0 if pair is None else int(pair.shape[1]),
         card=int(dev.cardinality),
         n_planes=int(dev.n_planes),
         letter_code=letter_code, code_letter=code_letter,
@@ -378,12 +438,24 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _entry(dev, kernel: Kernel, suffix: str):
-    """(C entry point, its name, its Kernel) of K1, K2, K3, K1X or K1R for
-    the view's width: ``awfm_k1_occ`` and K1, or ``awfm_k1w_occ`` and K1W."""
+def form_of(dev, kernel: Kernel) -> Kernel:
+    """The form of K1, K1X, K2, K3, K4 or K1R that the view takes: its
+    64-bit form for a wide view, and without pair rows the form that
+    reads the block rows (``K2_BLOCK``, ``K4_BLOCK``) or the compact wide
+    rows (``K1W_COMPACT`` ...)."""
     if dev.wide:
-        kernel = {K1: K1W, K2: K2W, K3: K3W, K1X: K1WX, K1R: K1RW}[kernel]
-    name = f"awfm_{kernel.name.split('_')[0]}_{suffix}"
+        kernel = _WIDE.get(kernel, kernel)
+    if not dev.pair_rows and not dev.shard:
+        kernel = _WITHOUT_PAIR_ROWS.get(kernel, kernel)
+    return kernel
+
+
+def _entry(dev, kernel: Kernel, suffix: str):
+    """(C entry point, its name, its Kernel) of the view's form of
+    ``kernel`` (:func:`form_of`): ``awfm_k1_occ`` and K1, ``awfm_k1w_occ``
+    and K1W, ``awfm_k2_block_ranges`` and K2_BLOCK ..."""
+    kernel = form_of(dev, kernel)
+    name = f"awfm_{kernel.prefix}_{suffix}"
     return getattr(_library(), name), name, kernel
 
 
@@ -602,7 +674,8 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
 
 def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tensor):
     """K2: final (start, end) BWT ranges, (b,) int64 each, as u32; K2w
-    for a wide view, as u64."""
+    for a wide view, as u64; over block rows (compact wide rows) for a
+    view without pair rows."""
     tables = _tables(dev)
     device = dev.packed.device
     _require(dev.seed_table, "seed_table", _pos_dtype(dev), device)
@@ -631,23 +704,11 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
 
 
 def k3_backtrace_resolve(dev, positions: torch.Tensor):
-    """K3 (K3w for a wide view): hits (n,) int64 when the sampled SA is
-    resident, else the sampled positions and walk offsets ((n,) int64
-    each), each at its hit's own index whatever lane walked it."""
+    """K3 (K3w for a wide view, over compact rows for a view without pair
+    rows): hits (n,) int64 when the sampled SA is resident, else the
+    sampled positions and walk offsets ((n,) int64 each), each at its
+    hit's own index whatever lane walked it."""
     return _backtrace(dev, positions, _tables(dev), lambda: _entry(dev, K3, "backtrace_resolve"))
-
-
-def k3w_compact_backtrace_resolve(dev, positions: torch.Tensor):
-    """K3w's kernel over a wide view of compact rows
-    (``pack_device_blocks64(pair=False)`` of every block, no pair rows:
-    one range-sharded shard that holds the whole index), with K3w's
-    outputs. ``tools.kernel_ab --cases k3w`` times it against K3w to size
-    what the pair-fused layout costs the walk; no search path calls it."""
-    if not dev.wide:
-        raise ValueError("the compact rows are a wide view's")
-    name = "awfm_k3w_compact_backtrace_resolve"
-    return _backtrace(dev, positions, _tables(dev, shard=True),
-                      lambda: (getattr(_library(), name), name, K3W))
 
 
 def _backtrace(dev, positions: torch.Tensor, tables, entry):
@@ -690,7 +751,8 @@ def _backtrace(dev, positions: torch.Tensor, tables, entry):
 
 def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     """K4: final (start, end) BWT ranges of a uniform-length clean batch
-    through the n-gram table ``ng``, (b,) int64 each, as u32."""
+    through the n-gram table ``ng``, (b,) int64 each, as u32; its tail
+    steps over the block rows for a view without pair rows."""
     if dev.wide:
         raise ValueError("K4 takes narrow views only")
     tables = _tables(dev)
@@ -720,14 +782,15 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
         nb=int(ng.packed.shape[0]), row_bytes=int(ng.packed.shape[1]),
         n=int(ng.n), biased=int(bool(ng.biased)),
     )
-    rc = _library().awfm_k4_ngram_ranges(
+    fn, name, kernel = _entry(dev, K4, "ngram_ranges")
+    rc = fn(
         device.index, ctypes.byref(tables), ctypes.byref(ngt),
         dev.seed_table.data_ptr(), int(dev.seed_table.shape[0]), k,
         mat.data_ptr(), b, l_pad, int(kmer_len),
         start.data_ptr(), end.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k4_ngram_ranges")
-    K4.launches += 1
+    _check(rc, name)
+    kernel.launches += 1
     return start, end
 
 

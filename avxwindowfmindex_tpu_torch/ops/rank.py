@@ -30,6 +30,11 @@ index has code 0 and milestone 0, and one above the sentinel has C = 0.
 ``occurrence`` and ``letter_and_lf_at`` are the dispatch wrappers of
 K1 and K1w (ops/kernels.py): they launch the kernel for CUDA tensors and
 take the ``*_plain`` versions below only for CPU tensors.
+
+A step's first-block class reads the pair rows where the view has them
+and the block rows of a view without pair rows (``first_block_rows``);
+such a view has no pair step (``backward_step_pair`` refuses it), so its
+wider ranges take the classic two-row ``backward_step``.
 """
 
 from __future__ import annotations
@@ -264,11 +269,22 @@ def window_classes(start, end, keep, pos_mask: int = MASK32) -> torch.Tensor:
                         (keep & ~first & ~window).sum()])
 
 
+def first_block_rows(dev):
+    """(table, plane stride, milestone offset) that a first-block step of
+    the view reads: its pair rows (planes 64 B apart) where it has them,
+    else its block rows at the view's plane stride."""
+    if dev.pair_rows:
+        return dev.packed_pair, 64, dev.pair_milestone_offset
+    return dev.packed, dev.plane_stride, dev.milestone_offset
+
+
 def backward_step_first_block(dev, start, end, letters, active=None):
-    """The first-block class of the pair-row step: for a range with both
-    ends in the first block of its row (delta < 256) it reads only bytes
-    [64 p, 64 p + 32) of each plane p and the letter's milestone, and
-    gives what :func:`backward_step_pair` gives.
+    """The first-block class of a step: for a range with both ends in
+    the first block of its row (delta < 256) it reads only the first
+    32 B of each plane and the letter's milestone, of the pair row
+    (bytes [64 p, 64 p + 32) of plane p) or, in a view without pair
+    rows, of the block row, and gives what :func:`backward_step_pair`
+    (:func:`backward_step`) gives.
 
     Returns (new_start, new_end, first): ``first`` marks the valid,
     active rows of that class; every other row keeps its range.
@@ -279,15 +295,16 @@ def backward_step_first_block(dev, start, end, letters, active=None):
     letters = letters.to(torch.int64)
     c = _prefix_sum_select(dev, letters)
     pos_s = (start - 1) & mask
-    rows, local_s = _gather_rows(dev.packed_pair, pos_s, dev.wide)
+    table, stride, ms_off = first_block_rows(dev)
+    rows, local_s = _gather_rows(table, pos_s, dev.wide)
     delta = window_delta(start, end, mask)
     first = (delta >= 0) & (delta < 256) & le_unsigned(start, end, dev.wide)
     if active is not None:
         first = first & active
-    match = _match_bytes(dev, rows, letters, 32, 64)
+    match = _match_bytes(dev, rows, letters, 32, stride)
     occ_s = _popcount_sum(match & _inclusive_mask(local_s, 32))
     occ_e = _popcount_sum(match & _inclusive_mask(delta.clamp(0, 255), 32))
-    ms = _milestone(dev, rows, letters, dev.pair_milestone_offset)
+    ms = _milestone(dev, rows, letters, ms_off)
     new_start = (c + ms + occ_s) & mask
     new_end = (c + ms + occ_e - 1) & mask
     return torch.where(first, new_start, start), torch.where(first, new_end, end), first
@@ -301,8 +318,11 @@ def backward_step_pair(dev, start, end, letters, bad, active=None):
     (wrong) end and its flag set. The window offset is compared
     unsigned at the full position width before any narrowing
     (ops/rank.py:382-388 and ops/rank64.py:470-473 of the JAX package);
-    the clamped end comes from its low 32 bits, as there.
+    the clamped end comes from its low 32 bits, as there. A view
+    without pair rows has no such step.
     """
+    if not dev.pair_rows:
+        raise ValueError("the view has no pair rows (to_device(pair_rows=False))")
     mask = dev.pos_mask
     start = start.to(torch.int64) & mask
     end = end.to(torch.int64) & mask

@@ -36,12 +36,14 @@ def _engine_for(index: FmIndex, device=None) -> SearchEngine:
     device = resolve_device(device)
     key = (id(index), device)
     eng = _ENGINE_CACHE.get(key)
+    # to_device's view at its default width and in the installed layout
+    view = index.to_device(device)
     # host_index identity guards against id() reuse after an evicted index
-    # was garbage collected; the view check against what to_device
-    # returns now guards against a view replaced since the engine was
-    # built (an index holds one cached view: attach_seed_table,
-    # densify_device_sa or a view on another device replace it)
-    if eng is None or eng.host_index is not index or eng.dev is not index.to_device(device):
+    # was garbage collected; the view check guards against a view
+    # replaced since the engine was built (an index holds one cached
+    # view: attach_seed_table, densify_device_sa or a view on another
+    # device replace it)
+    if eng is None or eng.host_index is not index or eng.dev is not view:
         eng = SearchEngine(index, device=device)
         _ENGINE_CACHE[key] = eng
     _ENGINE_CACHE.move_to_end(key)

@@ -181,6 +181,7 @@ class RangeShardedSearchEngine(SearchEngine):
                 alphabet=index.alphabet,
                 wide=self.wide,
                 pair_fused=not self.wide,
+                shard=True,
                 **tables[d],
             )
             for i, d in enumerate(self.devices)

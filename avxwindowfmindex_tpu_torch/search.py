@@ -39,6 +39,13 @@ u64 values in int64 tensors; every real one is below 2^39, so it is
 non-negative and ``%``, ``//`` and sums act as on u64. The n-gram engine
 stays narrow-only, as in the JAX package.
 
+A view without pair rows (``to_device(device, pair_rows=False)``, or
+``pair_rows=False`` on the engines) runs through the same functions too:
+its steps read the first block's sectors of the block row, or two block
+rows, through K2's and K4's block-row forms (narrow) and K2w's compact
+form (wide amino); K1, K3 and their wide forms read the block rows of
+any view.
+
 The single-query parity API (AwFmSearch.c's per-query functions) is at
 the end of the module: each call runs one query through the same
 kernels, on the ``device`` it is given.
@@ -53,7 +60,7 @@ import torch
 
 from .models import alphabet as alpha
 from .models.config import AlphabetType
-from .models.index import MASK32, DeviceIndex, FmIndex, as_device
+from .models.index import MASK32, DeviceIndex, FmIndex, as_device, view_has_pair_rows
 from .ops import ngram as ngram_ops
 from .ops import rank as rank_ops
 from .utils import metrics
@@ -75,11 +82,11 @@ def _round_up(n: int, m: int) -> int:
 def _step_exact(dev, start, end, letters, active, classes=None):
     """One exact backward step the way K2 takes it, by window class: the
     first block's sectors of the pair row, the whole pair window, or the
-    two-row classic step outside it. ``classes``: a (3,) int64 tensor
-    that gains the number of rows stepped in each class."""
-    bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    two-row classic step outside it. In a view without pair rows, the
+    first block's sectors of the block row, else the two-row step.
+    ``classes``: a (3,) int64 tensor that gains the number of rows
+    stepped in each class."""
     fs, fe, first = rank_ops.backward_step_first_block(dev, start, end, letters, active)
-    ps, pe, bad = rank_ops.backward_step_pair(dev, start, end, letters, bad, active)
     cs, ce = rank_ops.backward_step(
         dev, start, end, letters, active, occurrence_fn=rank_ops.occurrence_plain
     )
@@ -88,8 +95,11 @@ def _step_exact(dev, start, end, letters, active, classes=None):
         if active is not None:
             keep = keep & active
         classes += rank_ops.window_classes(start, end, keep, dev.pos_mask)
-    return (torch.where(first, fs, torch.where(bad, cs, ps)),
-            torch.where(first, fe, torch.where(bad, ce, pe)))
+    if dev.pair_rows:
+        bad = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+        ps, pe, bad = rank_ops.backward_step_pair(dev, start, end, letters, bad, active)
+        cs, ce = torch.where(bad, cs, ps), torch.where(bad, ce, pe)
+    return torch.where(first, fs, cs), torch.where(first, fe, ce)
 
 
 def _seed_lookup(dev, mat, lengths):
@@ -373,19 +383,27 @@ def locate_first_hit(dev, start: torch.Tensor, end: torch.Tensor) -> torch.Tenso
 class SearchEngine:
     """Batched count/locate over an index resident on ``device``.
 
-    ``wide`` is passed to ``FmIndex.to_device``: None picks the 64-bit
-    view for bwtLength >= 2^32, True forces it on a smaller index, with
-    the same answers. A ``DeviceIndex`` brings its own width."""
+    ``wide`` and ``pair_rows`` are passed to ``FmIndex.to_device``: None
+    picks the 64-bit view for bwtLength >= 2^32, True forces it on a
+    smaller index; ``pair_rows=False`` builds the view without pair rows
+    (None: the installed view's layout, else pair rows). The answers are
+    the same either way. A ``DeviceIndex`` brings its own width and
+    layout."""
 
     def __init__(self, index: Union[FmIndex, DeviceIndex], *, device,
-                 wide: Optional[bool] = None):
+                 wide: Optional[bool] = None, pair_rows: Optional[bool] = None):
         self.device = as_device(device)
         if isinstance(index, FmIndex):
             self.host_index = index
-            self.dev = index.to_device(self.device, wide=wide)
+            self.dev = index.to_device(self.device, wide=wide, pair_rows=pair_rows)
         else:
             if wide is not None and wide != index.wide:
                 raise ValueError("a DeviceIndex brings its own width")
+            if pair_rows is not None and index.pair_rows != view_has_pair_rows(
+                    index.alphabet, index.wide, pair_rows):
+                raise ValueError("a DeviceIndex brings its own layout (pair_rows)")
+            if index.shard:
+                raise ValueError("a shard of the range-sharded engine is no whole view")
             if index.device != self.device:
                 raise ValueError(
                     f"DeviceIndex lives on {index.device}, not {self.device}"
@@ -575,8 +593,8 @@ class NgramSearchEngine(SearchEngine):
     with identical results either way."""
 
     def __init__(self, index: FmIndex, n: int = 2, *, device,
-                 wide: Optional[bool] = None):
-        super().__init__(index, device=device, wide=wide)
+                 wide: Optional[bool] = None, pair_rows: Optional[bool] = None):
+        super().__init__(index, device=device, wide=wide, pair_rows=pair_rows)
         if self.dev.alphabet == AlphabetType.AMINO:
             raise NotImplementedError("n-gram stepping is nucleotide-only")
         if not isinstance(index, FmIndex):
@@ -610,8 +628,9 @@ class NgramSearchEngine(SearchEngine):
 class DigramSearchEngine(NgramSearchEngine):
     """The n = 2 (double-step) engine."""
 
-    def __init__(self, index: FmIndex, *, device, wide: Optional[bool] = None):
-        super().__init__(index, n=2, device=device, wide=wide)
+    def __init__(self, index: FmIndex, *, device, wide: Optional[bool] = None,
+                 pair_rows: Optional[bool] = None):
+        super().__init__(index, n=2, device=device, wide=wide, pair_rows=pair_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -632,14 +651,17 @@ def _from_u64(t: torch.Tensor) -> int:
 
 def iterative_step_backward_search(index: FmIndex, start_ptr: int, end_ptr: int,
                                    letter_index: int, *, device,
-                                   wide: Optional[bool] = None) -> Tuple[int, int]:
+                                   wide: Optional[bool] = None,
+                                   pair_rows: Optional[bool] = None) -> Tuple[int, int]:
     """awFmNucleotide/AminoIterativeStepBackwardSearch (AwFmSearch.c:42-159).
 
     One unconditional backward step on an explicit [start, end] range,
     the letter-by-letter building block of custom search loops. Returns
-    the new (start_ptr, end_ptr). ``wide``, here and below, is
-    ``FmIndex.to_device``'s: None picks the view by bwtLength."""
-    dev = index.to_device(device, wide=wide)
+    the new (start_ptr, end_ptr). ``wide`` and ``pair_rows``, here and
+    below, are ``FmIndex.to_device``'s: None picks the width by
+    bwtLength; ``pair_rows=False``, the view without pair rows, None the
+    installed view's layout."""
+    dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
     s, e = rank_ops.backward_step(
         dev, _as_u64(start_ptr, dev.device), _as_u64(end_ptr, dev.device),
         torch.tensor([letter_index], dtype=torch.int64, device=dev.device),
@@ -666,33 +688,36 @@ def query_can_use_kmer_table(index: FmIndex, kmer: Union[str, bytes]) -> bool:
 
 
 def find_database_hit_positions(index: FmIndex, start_ptr: int, end_ptr: int, *,
-                                device, wide: Optional[bool] = None) -> np.ndarray:
+                                device, wide: Optional[bool] = None,
+                                pair_rows: Optional[bool] = None) -> np.ndarray:
     """awFmFindDatabaseHitPositions (AwFmSearch.c:161-246): every BWT
     position of [start_ptr, end_ptr] backtraced and resolved to a
     database position (uint64; empty for an invalid range)."""
     if start_ptr > end_ptr:
         return np.empty(0, dtype=np.uint64)
     positions = np.arange(start_ptr, end_ptr + 1, dtype=np.uint64)
-    return SearchEngine(index, device=device, wide=wide).resolve_positions(positions)
+    eng = SearchEngine(index, device=device, wide=wide, pair_rows=pair_rows)
+    return eng.resolve_positions(positions)
 
 
 def find_database_hit_position_single(index: FmIndex, bwt_position: int, *, device,
-                                      wide: Optional[bool] = None) -> int:
+                                      wide: Optional[bool] = None,
+                                      pair_rows: Optional[bool] = None) -> int:
     """awFmFindDatabaseHitPositionSingle (AwFmSearch.c:248-282)."""
-    eng = SearchEngine(index, device=device, wide=wide)
+    eng = SearchEngine(index, device=device, wide=wide, pair_rows=pair_rows)
     return int(eng.resolve_positions(np.array([bwt_position], dtype=np.uint64))[0])
 
 
 def backtrace_return_previous_letter_index(index: FmIndex, bwt_position: int, *,
-                                           device, wide: Optional[bool] = None
-                                           ) -> Tuple[int, int]:
+                                           device, wide: Optional[bool] = None,
+                                           pair_rows: Optional[bool] = None) -> Tuple[int, int]:
     """awFm*BacktraceReturnPreviousLetterIndex (AwFmSearch.c:429-483).
 
     Returns (letter_index, new_bwt_position): the BWT letter at the
     position and its LF mapping. A sentinel returns letter 0 and leaves
     the position unchanged, as the reference's early-out does (it
     returns before writing *bwtPosition, AwFmSearch.c:443-445)."""
-    dev = index.to_device(device, wide=wide)
+    dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
     lett, lf = rank_ops.letter_and_lf_at(dev, _as_u64(bwt_position, dev.device))
     lett_v = int(lett[0])
     if lett_v == dev.sentinel:
@@ -701,11 +726,12 @@ def backtrace_return_previous_letter_index(index: FmIndex, bwt_position: int, *,
 
 
 def find_search_range_for_string(index: FmIndex, kmer: Union[str, bytes], *,
-                                 device, wide: Optional[bool] = None) -> Tuple[int, int]:
+                                 device, wide: Optional[bool] = None,
+                                 pair_rows: Optional[bool] = None) -> Tuple[int, int]:
     """awFmFindSearchRangeForString (AwFmSearch.c:317-358). Like the
     reference, this path never uses the kmer seed table. Returns
     (start_ptr, end_ptr) as Python ints."""
-    eng = SearchEngine(index, device=device, wide=wide)
+    eng = SearchEngine(index, device=device, wide=wide, pair_rows=pair_rows)
     mat, lengths, _ = eng.encode_kmers([kmer])
     start, end = search_ranges(
         eng.dev,
@@ -717,9 +743,10 @@ def find_search_range_for_string(index: FmIndex, kmer: Union[str, bytes], *,
 
 
 def single_kmer_exists(index: FmIndex, kmer: Union[str, bytes], *, device,
-                       wide: Optional[bool] = None) -> bool:
+                       wide: Optional[bool] = None, pair_rows: Optional[bool] = None) -> bool:
     """awFmSingleKmerExists (AwFmSearch.c:360-367)."""
-    s, e = find_search_range_for_string(index, kmer, device=device, wide=wide)
+    s, e = find_search_range_for_string(index, kmer, device=device, wide=wide,
+                                        pair_rows=pair_rows)
     return s <= e
 
 

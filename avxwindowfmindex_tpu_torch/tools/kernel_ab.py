@@ -2,7 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
-        [--cases all|bfs|rs|k3w|k5] [--cache DIR]
+        [--cases all|bfs|rs|k3w|k5|pairless] [--cache DIR]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -74,6 +74,15 @@ On every table but the 64M random positions, this checkout's K3w is also
 timed against its kernel over the same text in compact rows
 (``compact_view``: planes 32 B apart), the layout's ceiling.
 
+``--cases pairless``: the forms for a view without pair rows against the
+pair-row forms, in turns in one process: K2 and K4 (n = 2 and 3) on the
+``--queries`` sampled 25-mers over the index with its pair rows and
+over its view without them (``to_device(pair_rows=False)``: block rows
+only), and K2w (12-mers) and K3w (random positions) over an amino index
+of ``AMINO_RESIDUES`` residues forced wide, on its pair-fused rows and on
+its compact rows (``to_device(wide=True, pair_rows=False)``). Every
+other checkout runs its pair-row forms beside them.
+
 ``--cases k5``: K5's reduce alone at phase 3b's shapes (``gather_probe``'s
 P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
 whole, of 1 KB rows their first 128 B), over a 1 GiB table (device
@@ -97,7 +106,7 @@ import sys
 
 import numpy as np
 
-CASES = ("all", "bfs", "rs", "k3w", "k5")
+CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless")
 BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
 AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
@@ -374,7 +383,7 @@ def straddle_shard(part, n: int, device):
         vec_to_index=torch.from_numpy(
             alpha.vector_to_index_lut(AlphabetType.DNA).astype(np.int32)).to(device),
         bwt_length=n, ratio=8, kmer_length_in_seed_table=1, alphabet=AlphabetType.DNA,
-        wide=True, pair_fused=False,
+        wide=True, pair_fused=False, shard=True,
     )
 
 
@@ -520,7 +529,7 @@ def k3w_runs(tag: str, view, positions, libs: dict, reps: int, compact=None) -> 
         run_case(f"k3w {tag}, pair-fused rows against compact rows", shape,
                  lambda fv: fv[0](fv[1], positions),
                  {"pair-fused": (kernels.k3_backtrace_resolve, view),
-                  "compact": (kernels.k3w_compact_backtrace_resolve, compact)}, reps)
+                  "compact": (kernels.k3_backtrace_resolve, compact)}, reps)
         pieces = compact_pieces(view.n_planes, view.cardinality)
         model.update(compact_pieces_per_visit=pieces,
                      compact_piece_model_ms=model["lf_steps"] * pieces * 64 / HBM_BYTES_PER_S * 1e3)
@@ -611,6 +620,64 @@ def k3w_cases(index, seq_arr, args, libs: dict, device) -> None:
     k3w_runs(f"{info['n']}-position tiled table, starts whose walks end within 16 steps", view,
              starts, libs, reps, compact)
     del info, view, compact, starts
+    torch.cuda.empty_cache()
+
+
+def forms_case(case: str, shape: str, call, forms: dict, libs: dict, reps: int) -> None:
+    """``call(kernels_module, view)`` through this checkout over each view
+    of ``forms`` (name -> view), and through every other checkout over the
+    ``"pair"`` view: equal results, then times in turns (``run_case``)."""
+    entries = {name: (libs["this"], view) for name, view in forms.items()}
+    entries.update({f"{name}, pair": (lib, forms["pair"]) for name, lib in libs.items()
+                    if name != "this"})
+    run_case(case, shape, lambda e: call(e[0], e[1]), entries, reps)
+
+
+def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
+    """K2, K4, K2w and K3w in their forms with and without pair rows
+    (module note)."""
+    import torch
+
+    from .. import AlphabetType, IndexConfiguration, SearchEngine, create_index
+    from ..ops import ngram
+
+    rng = np.random.default_rng(12)
+    reps = args.reps
+    eng = SearchEngine(index, device=device)
+    forms = {"pair": eng.dev, "block": index.to_device(device, pair_rows=False)}
+    rows = _sampled(rng, seq_arr, 25, args.queries)
+    mat, lengths, _ = eng.encode_kmers([r.tobytes() for r in rows])
+    seeded = eng._seed_eligibility(mat, lengths)
+    q25 = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+           torch.from_numpy(seeded.astype(np.uint8)).to(device))
+    forms_case("k2, pair rows and block rows", f"{args.queries} 25-mers",
+               lambda k, v: k.k2_ranges(v, *q25), forms, libs, reps)
+    for n in (2, 3):
+        ng = ngram.build_ngram_device(index, n, device=device)
+        forms_case(f"k4 n={n}, tail over pair rows and block rows", f"{args.queries} 25-mers",
+                   lambda k, v: k.k4_ngram_ranges(v, ng, q25[0], 25), forms, libs, reps)
+        del ng
+    del forms, eng, q25
+    torch.cuda.empty_cache()
+
+    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=AMINO_RESIDUES)
+    aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
+                            sa_backend="native", device=device)
+    forms = {"pair": aa_index.to_device(device, wide=True, pair_rows=True),
+             "compact": aa_index.to_device(device, wide=True, pair_rows=False)}
+    aa_eng = SearchEngine(forms["compact"], device=device)
+    rows = _sampled(rng, aa, 12, args.queries)
+    mat, lengths, _ = aa_eng.encode_kmers([r.tobytes() for r in rows])
+    seeded = aa_eng._seed_eligibility(mat, lengths)
+    q12 = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+           torch.from_numpy(seeded.astype(np.uint8)).to(device))
+    forms_case(f"k2w amino {AMINO_RESIDUES // 1_000_000}M, pair-fused and compact rows",
+               f"{args.queries} 12-mers, k=5", lambda k, v: k.k2_ranges(v, *q12), forms, libs, reps)
+    rand = torch.from_numpy(rng.integers(0, aa_index.bwt_length, size=args.queries)).to(device)
+    forms_case(f"k3w amino {AMINO_RESIDUES // 1_000_000}M, pair-fused and compact rows",
+               f"{args.queries} random positions, ratio 8",
+               lambda k, v: k.k3_backtrace_resolve(v, rand), forms, libs, reps)
+    del forms, aa_eng, aa_index, q12, rand
     torch.cuda.empty_cache()
 
 
@@ -706,6 +773,9 @@ def main(argv=None) -> int:
         return 0
     if args.cases == "k3w":
         k3w_cases(index, seq_arr, args, libs, device)
+        return 0
+    if args.cases == "pairless":
+        pairless_cases(index, seq_arr, args, libs, device)
         return 0
     dev = index.to_device(device)
     eng = SearchEngine(index, device=device)

@@ -36,27 +36,22 @@ device SA, then the digram table, then the pair rows.
 Engine modes, in preference order (the JAX planner's):
     replicated     the index fits one card (``SearchEngine``, or the
                    query-parallel engine over several); a corpus of 2^32
-                   positions and more gets a wide plan, which keeps its
-                   pair-fused rows and has no n-gram candidate;
+                   positions and more gets a wide plan, which has no
+                   n-gram candidate;
     range_sharded  ``n_devices > 1`` and the index exceeds one card but
                    fits the devices together: per-device bytes are the
                    sharded components split n ways plus the replicated
                    seed table (parallel/range_sharded.py); no n-gram
                    candidate.
 
-The range-sharded candidates are the JAX planner's: pair rows first,
-then the compact rows. The engine itself holds only the block rows
-(narrow) or the compact wide rows, so a plan with ``pair_rows`` on
-counts more than the engine allocates; the figures follow the JAX
-planner's so that both packages pick the same plan.
-
-Not ported: a replicated wide plan on the compact rows, the JAX
-planner's last resort for a wide corpus. The single-device wide engines
-take pair-fused rows only (ROADMAP item "the compact amino wide
-layout"), so the port's replicated wide candidates stop before it; the
-rows cost the same for nucleotides, and only an amino corpus that one
-card holds on compact rows alone plans differently (range-sharded, or
-no fit).
+The candidates are the JAX planner's, for both engines: pair rows
+first, then, as the last resort, none (``pair_rows=False``: no narrow
+pair table, the compact amino wide rows), which
+``FmIndex.to_device(device, wide=plan.wide, pair_rows=plan.pair_rows)``
+builds. The range-sharded engine holds only the block rows (narrow) or
+the compact wide rows, so its plan with ``pair_rows`` on counts more
+than the engine allocates; the figures follow the JAX planner's so that
+both packages pick the same plan.
 """
 
 from __future__ import annotations
@@ -194,18 +189,16 @@ class CapacityPlan:
         )
 
 
-def _candidates(alphabet, wide, max_k, min_k, dense_ratio, compact_wide=False):
+def _candidates(alphabet, wide, max_k, min_k, dense_ratio):
     """Configs richest-first along the degradation ladder; a wide plan
-    has no n-gram candidate, and its compact rows only where the engine
-    takes them (``compact_wide``: the range-sharded engine)."""
+    has no n-gram candidate."""
     ngram_ok = alphabet != AlphabetType.AMINO and not wide
     for ngram in ([True, False] if ngram_ok else [False]):
         for dense in ([dense_ratio, None] if dense_ratio else [None]):
             for k in range(max_k, min_k - 1, -1):
                 yield dict(seed_k=k, device_sa_ratio=dense, ngram=ngram,
                            pair_rows=True)
-    if wide and not compact_wide:
-        return
+    # last resorts: no pair rows
     for k in range(max_k, min_k - 1, -1):
         yield dict(seed_k=k, device_sa_ratio=None, ngram=False,
                    pair_rows=False)
@@ -276,8 +269,7 @@ def plan_capacity(
     for engine in ("replicated", "range_sharded"):
         if engine == "range_sharded" and n_devices < 2:
             continue
-        for cand in _candidates(alphabet, wide, max_k, min_k, device_sa_ratio,
-                                compact_wide=engine == "range_sharded"):
+        for cand in _candidates(alphabet, wide, max_k, min_k, device_sa_ratio):
             if engine == "range_sharded" and cand["ngram"]:
                 continue  # the range-sharded rank steps one letter at a time
             comp, total, per_chip = build(cand, engine, n_devices)

@@ -24,9 +24,20 @@ Phases (any failure raises and the script exits nonzero):
      amino k = 5 BFS and crafted parent tables: start == 0, absent
      ranges, both ends in one block, in two, on the last row, past the
      table, a ragged count), with kernel and plain times side by side;
+     K2 over block rows (the view without pair rows) on every K2 batch
+     of the 1M-base indexes and on the window-class corpus with short and
+     ambiguous queries in one odd-sized batch (each class taken at least
+     once, by the plain counts), and K4 with its tail over block rows, n =
+     2 and 3, each equal to its plain version and to the pair-row form;
   3w. the same for K1w, K2w, K3w and K1WX on the forced-wide views of
      such indexes (u64 positions over 256 B / 512 B rows), with positions
      no search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
+     and their forms over the compact 384 B rows of the amino index's
+     wide view without pair rows (to_device(wide=True, pair_rows=False)):
+     K1WX at every depth of the k = 5 BFS and on crafted parents, K1w's
+     occ and LF modes on the same positions, K2w on every batch, K3w with
+     the SA resident and on disk, each equal to its plain version and to
+     the pair-fused form;
   4. the main path at full size: create_index on 64M random bases
      (seed k = 14, SA ratio 8, native SA-IS) -> DigramSearchEngine
      (n = 2, Cn-biased table, as bench.py runs it) -> count and locate
@@ -154,6 +165,27 @@ Phases (any failure raises and the script exits nonzero):
      same process; 8c, the same over 2 shards of compact wide rows
      (K1Rw); 8d, plan_capacity over 4 devices for a corpus this card
      cannot hold, which must pick the range-sharded engine.
+  4p. views without pair rows at full size (after phase 8, on phase 4's
+     index, batch and answers): (a) to_device(device, pair_rows=False),
+     whose seed table is the one the index already holds (device memory
+     grows by far less than its 2.15 GB), 32 MB of block rows and no pair
+     table; SearchEngine and DigramSearchEngine over it, count and locate
+     of the 1,048,576 25-mers and the 4,096 multi-hit 11-mers equal to
+     phase 4's, the launch counts reset just before and read just after
+     (K2's and K4's block-row forms and K3; no pair-row K2 or K4); K2 and
+     K4 in both forms in turns at the main shapes, the block-row forms
+     against their plain versions, their window classes and bounds, and
+     the API q/s beside phase 4's. (b) A 2^26-residue random amino index
+     (seed k = 5, ratio 8) as to_device(wide=True, pair_rows=False):
+     K1WX's BFS over the 384 B rows equal to the narrow table widened,
+     SearchEngine's count and locate of 1,048,576 sampled 12-mers equal to
+     the narrow amino engine's, the single-query API
+     (iterative_step_backward_search, backtrace_return_previous_letter_index)
+     over 256 of them equal to the narrow answers, the launches read around
+     all of it; each compact form against its plain version (K1WX's whole
+     k = 5 BFS against the plain BFS), and K2w and K3w against their
+     pair-fused forms, in turns; the C launchers refuse a table of the
+     other wide layout;
   9a. the multi-process front at full size: the 64M index saved as an
      .awfmx of its own; worlds of rank processes started by
      parallel/dist.py:spawn_ranks over a tcp:// rendezvous (this script
@@ -205,6 +237,7 @@ no step.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -234,6 +267,15 @@ SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
 RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
 RS_LF_LANES = 1 << 20  # phase 8a: LF lanes, the backtrace's first step at 1M hits
 RANK_TIMEOUT_S = 300  # phase 9a: a rank still running after this fails the script
+# phase 4p: the kernels of the views without pair rows; (a) the narrow
+# main path's, (b) the wide amino path's over compact rows
+PAIRLESS_KERNELS = ("k2_ranges_block", "k4_ngram_ranges_block", "k3_backtrace_resolve")
+COMPACT_KERNELS = ("k1w_extend_compact", "k2w_ranges_compact", "k3w_backtrace_resolve_compact",
+                   "k1w_rank_compact")
+AMINO_RESIDUES = 1 << 26  # phase 4p(b): tools.kernel_ab's amino case, beyond the L2
+AMINO_SEED_K = 5  # the amino default of tools/build_index.py
+AMINO_KMER_LEN = 12
+SINGLE_QUERY_WALKS = 256
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
 WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
@@ -342,6 +384,41 @@ def time_in_turns(label: str, kernel_fn, plain_fn, kernel_reps: int, plain_reps:
     p2 = cuda_ms(plain_fn, plain_reps)
     log(f"  {label} time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
     return min(k1, k2), min(p1, p2)
+
+
+def timed_engine_call(fn, kmers, runs: int = 3):
+    """(last result, median seconds, the runs' seconds) of ``fn(kmers)``
+    after a warm-up on the first 4,096, as phase 4 times its engines."""
+    import numpy as np
+    import torch
+
+    fn(kmers[:4096])
+    times, out = [], None
+    for _ in range(runs):
+        t = time.time()
+        out = fn(kmers)
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+    return out, float(np.median(times)), times
+
+
+def flat_hits(hits):
+    """(hits per query, every hit in one uint64 array) of a locate."""
+    import numpy as np
+
+    lens = np.array([len(h) for h in hits])
+    return lens, (np.concatenate(hits) if len(hits) else np.empty(0)).astype(np.uint64)
+
+
+def forms_in_turns(label: str, fns: dict, reps: int = 10) -> dict:
+    """Milliseconds of each of two forms of a kernel on the same inputs,
+    in turns (first, second, second, first): {form: [ms, ms]}."""
+    names = list(fns)
+    ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        ms[n].append(cuda_ms(fns[n], reps))
+    log(f"  {label}: " + "; ".join(f"{n} {v[0]:.4f} / {v[1]:.4f} ms" for n, v in ms.items()))
+    return ms
 
 
 def max_abs_err(a, b) -> int:
@@ -664,6 +741,21 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
             ps, pe = search.ranges_plain(dev, *args)
             rec.compare(k2, f"{name} {label} (l_pad {mat.shape[1]}) start x{odd}", ks, ps)
             rec.compare(k2, f"{name} {label} (l_pad {mat.shape[1]}) end x{odd}", ke, pe)
+            k2_in[f"{label} (l_pad {mat.shape[1]}) x{odd}"] = args
+
+        if not wide:
+            # K2 over block rows: the same view without its pair table, on
+            # every batch above, equal to its plain version and to K2
+            block = dataclasses.replace(dev, packed_pair=None)
+            for label, args in k2_in.items():
+                ks, ke = kernels.k2_ranges(block, *args)
+                ps, pe = search.ranges_plain(block, *args)
+                rec.compare("k2_ranges_block", f"{name} {label} start", ks, ps)
+                rec.compare("k2_ranges_block", f"{name} {label} end", ke, pe)
+                ws, we = kernels.k2_ranges(dev, *args)
+                if not (torch.equal(ks, ws) and torch.equal(ke, we)):
+                    raise AssertionError(f"{name} {label}: K2 over block rows differs from K2")
+            del block
 
         # K3, what a grid that hands out hits could break: every position
         # of the index (more hits than the grid holds at once, the
@@ -690,6 +782,9 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
             if label == "0-step walks" and int(ko.max()) != 0:
                 raise AssertionError("the sampled positions must need no LF step")
         del every, odd_ratio, odd_dev, odd_pos
+
+        if wide and alphabet == AlphabetType.AMINO:
+            compact_forms(rec, name, index, k, pos_t, lett_t, lpos, k2_in, bpos, device)
 
         if wide:
             # the wide engine's answers are the narrow engine's
@@ -802,6 +897,38 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
     if wide:
         return None
 
+    # K2 over block rows on the same corpus (to_device(pair_rows=False)):
+    # the window-class queries with short and ambiguous ones, seeded and
+    # unseeded in one odd-sized batch; every class must be taken
+    wc_block = wc_index.to_device(device, pair_rows=False)
+    if wc_block.packed_pair is not None or wc_block.pair_rows:
+        raise AssertionError("to_device(pair_rows=False) kept a pair table")
+    short = [wc_text[s : s + int(rng.integers(1, 6))] for s in rng.integers(0, len(wc_text) - 6, 300)]
+    ambig = [wc_text[s : s + 20] + b"n" for s in rng.integers(0, len(wc_text) - 21, 120)]
+    mixed = k2_qs + short + ambig
+    mixed = [mixed[i] for i in rng.permutation(len(mixed))]
+    mat, lengths, _ = wc_eng.encode_kmers(mixed)
+    seeded = wc_eng._seed_eligibility(mat, lengths)
+    odd = len(mixed) - 1 if len(mixed) % 2 == 0 else len(mixed)
+    args = (
+        torch.from_numpy(mat[:odd]).to(device), torch.from_numpy(lengths[:odd]).to(device),
+        torch.from_numpy(seeded[:odd].astype(np.uint8)).to(device),
+    )
+    if not 0 < int(seeded[:odd].sum()) < odd:
+        raise AssertionError("the block-row batch must hold seeded and unseeded queries")
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ks, ke = kernels.k2_ranges(wc_block, *args)
+    ps, pe = search.ranges_plain(wc_block, *args, classes)
+    rec.compare("k2_ranges_block", f"window-class corpus start x{odd}", ks, ps)
+    rec.compare("k2_ranges_block", f"window-class corpus end x{odd}", ke, pe)
+    pks, pke = kernels.k2_ranges(wc_dev, *args)
+    if not (torch.equal(ks, pks) and torch.equal(ke, pke)):
+        raise AssertionError("window-class corpus: K2 over block rows differs from K2")
+    log(f"  window-class corpus k2_ranges_block: {odd} queries ({int(seeded[:odd].sum())} seeded) "
+        f"exact and equal to K2's; steps: {class_shares(classes.tolist())}")
+    if min(classes.tolist()) < 1:
+        raise AssertionError(f"k2_ranges_block: a window class was never taken: {classes.tolist()}")
+
     # K4 on the same corpus: one uniform batch of 40-mers, A x 40 and
     # windows that straddle the end of the A run. A final range wider than
     # 512 means every range before it was too, so the n-gram steps took
@@ -847,10 +974,104 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
                 f"tail steps {class_shares(shares['pair'])}")
             if min(shares["ngram_pair"]) < 1 or sum(shares["pair"]) < 1:
                 raise AssertionError(f"{what}: a window class was never taken: {shares}")
-        counts = NgramSearchEngine(wc_index, n_gram, device=device).count(k4_qs[:16])
+            # K4 with its tail steps over block rows: equal to its plain
+            # version on the view without pair rows and to K4
+            classes = search.new_step_classes(device)
+            bs, be = search.ngram_ranges_plain(wc_block, ng, mat, wc_len, classes)
+            ks, ke = kernels.k4_ngram_ranges(wc_block, ng, mat, wc_len)
+            rec.compare("k4_ngram_ranges_block", f"{what} start x{len(k4_qs)}", ks, bs)
+            rec.compare("k4_ngram_ranges_block", f"{what} end x{len(k4_qs)}", ke, be)
+            ks, ke = kernels.k4_ngram_ranges(wc_block, ng, mat[:501], wc_len)
+            rec.compare("k4_ngram_ranges_block", f"{what} ragged start x501", ks, bs[:501])
+            rec.compare("k4_ngram_ranges_block", f"{what} ragged end x501", ke, be[:501])
+            if not (torch.equal(bs, ps) and torch.equal(be, pe)):
+                raise AssertionError(f"{what}: K4 over block rows differs from K4")
+            tail = classes["pair"].tolist()
+            log(f"  {what}, block-row tail: {class_shares(tail)}")
+            if sum(tail) < 1:
+                raise AssertionError(f"{what}: the block-row tail took no step")
+        counts = NgramSearchEngine(wc_index, n_gram, device=device, pair_rows=True).count(k4_qs[:16])
         if list(counts) != want:
             raise AssertionError(f"window-class corpus n={n_gram} counts {list(counts)} != {want}")
     return kept
+
+
+def compact_forms(rec: Record, name: str, index, k: int, pos_t, lett_t, lpos, k2_in: dict,
+                  bpos, device: str) -> None:
+    """Phase 3w, the amino index's wide view without pair rows
+    (``to_device(wide=True, pair_rows=False)``: the compact 384 B rows):
+    K1WX over every depth of the BFS and crafted parents, K1w's occ mode
+    on phase 3w's positions (2^64 - 1, 2^40 + 5 and the other block-index
+    edges among them) and its LF mode, K2w on every batch of phase 3w, and
+    K3w with the SA resident and on disk, on every position too, each
+    against its plain version and equal to the pair-fused view's kernel."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import SearchEngine, search
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+
+    rng = np.random.default_rng(17)
+    pair = index.to_device(device, wide=True)
+    dev = index.to_device(device, wide=True, pair_rows=False)
+    if dev.pair_fused or dev.packed_pair is not None or dev.packed.shape[1] != 384:
+        raise AssertionError(f"{name}: the view without pair rows is not the compact one")
+    tag = f"{name} compact"
+    table = seed_table.build_seed_table(dev, dev.cardinality, 1, index.prefix_sums)
+    for depth in range(1, k):
+        got = kernels.k1_extend(dev, table)
+        table = seed_table.extend_level_plain(dev, table)
+        rec.compare("k1w_extend_compact", f"{tag} BFS depth {depth} x{table.shape[0]}", got, table)
+    if not torch.equal(table, dev.seed_table):
+        raise AssertionError(f"{tag}: the BFS differs from the view's (widened) seed table")
+    parents = crafted_parents(rng, dev)
+    rec.compare("k1w_extend_compact", f"{tag} crafted parents x{parents.shape[0]}",
+                kernels.k1_extend(dev, parents), seed_table.extend_level_plain(dev, parents))
+    got = kernels.k1_occurrence(dev, pos_t, lett_t)
+    rec.compare("k1w_rank_compact", f"{tag} occ x{pos_t.numel()}", got,
+                rank.occurrence_plain(dev, pos_t, lett_t))
+    if not torch.equal(got, kernels.k1_occurrence(pair, pos_t, lett_t)):
+        raise AssertionError(f"{tag}: K1w's occ over compact rows differs from K1w's")
+    kl, kf = kernels.k1_letter_and_lf(dev, lpos)
+    pl, pf = rank.letter_and_lf_plain(dev, lpos)
+    rec.compare("k1w_rank_compact", f"{tag} letter x{lpos.numel()}", kl, pl)
+    rec.compare("k1w_rank_compact", f"{tag} LF x{lpos.numel()}", kf, pf)
+    for label, args in k2_in.items():
+        ks, ke = kernels.k2_ranges(dev, *args)
+        ps, pe = search.ranges_plain(dev, *args)
+        rec.compare("k2w_ranges_compact", f"{tag} {label} start", ks, ps)
+        rec.compare("k2w_ranges_compact", f"{tag} {label} end", ke, pe)
+        ws, we = kernels.k2_ranges(pair, *args)
+        if not (torch.equal(ks, ws) and torch.equal(ke, we)):
+            raise AssertionError(f"{tag} {label}: K2w over compact rows differs from K2w")
+    every = torch.arange(dev.bwt_length, dtype=torch.int64, device=device)
+    for label, positions in (("hits", bpos), ("every position", every),
+                             ("0-step walks", (bpos // dev.ratio) * dev.ratio)):
+        got = kernels.k3_backtrace_resolve(dev, positions)
+        rec.compare("k3w_backtrace_resolve_compact", f"{tag} {label} x{positions.numel()}", got,
+                    search.backtrace_resolve_plain(dev, positions))
+        if not torch.equal(got, kernels.k3_backtrace_resolve(pair, positions)):
+            raise AssertionError(f"{tag} {label}: K3w over compact rows differs from K3w")
+        disk = dataclasses.replace(dev, sampled_sa=None)
+        kp, ko = kernels.k3_backtrace_resolve(disk, positions)
+        pp, po = search.backtrace_resolve_plain(disk, positions)
+        rec.compare("k3w_backtrace_resolve_compact", f"{tag} {label} on-disk p", kp, pp)
+        rec.compare("k3w_backtrace_resolve_compact", f"{tag} {label} on-disk off", ko, po)
+    eng = SearchEngine(index, device=device, wide=True, pair_rows=False)
+    if eng.dev is not dev:
+        raise AssertionError(f"{tag}: the engine did not take the installed compact view")
+    log(f"  {tag}: K1WX, K1w, K2w and K3w over the 384 B rows equal their plain versions "
+        f"and the pair-fused view's kernels")
+
+
+def block_step_tables(nb: int, n_planes: int, ms_bytes: int, classes):
+    """``step_tables`` for steps over a table of ``nb`` block rows (a view
+    without pair rows): a first-block step needs the first 32 B of each
+    plane and one milestone of its row (both 64 B pieces of a 128 B
+    nucleotide row), every wider step the same of two rows."""
+    first, window, two = (int(c) for c in classes)
+    tables = [(nb, n_planes * 32 + ms_bytes, first + 2 * (window + two))]
+    ops = first * pair_step_ops(n_planes, 8) + (window + two) * 2 * rank_ops(n_planes)
+    return tables, ops
 
 
 def phase_main(bases: int, device: str):
@@ -895,21 +1116,11 @@ def phase_main(bases: int, device: str):
     sample = rng.integers(0, QUERIES, size=32)
     want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
 
-    def timed(fn, runs=3):
-        fn(kmers[:4096])  # warm-up
-        times, out = [], None
-        for _ in range(runs):
-            t = time.time()
-            out = fn(kmers)
-            torch.cuda.synchronize()
-            times.append(time.time() - t)
-        return out, float(np.median(times)), times
-
     stats = {"build_s": build_s, "ngram_build_s": ngram_build_s}
     answers = None  # the digram engine's (counts, lengths, flat hits), for phase 7
     for label, eng in (("digram", engine), ("single", single)):
-        counts, count_s, count_times = timed(eng.count)
-        hits, locate_s, locate_times = timed(eng.locate)
+        counts, count_s, count_times = timed_engine_call(eng.count, kmers)
+        hits, locate_s, locate_times = timed_engine_call(eng.locate, kmers)
         stats[f"{label}_count_qps"] = QUERIES / count_s
         stats[f"{label}_locate_qps"] = QUERIES / locate_s
         log(
@@ -1696,20 +1907,10 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
     want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
     windows = np.lib.stride_tricks.sliding_window_view(seq_arr, KMER_LEN)
 
-    def timed(fn, runs=3):
-        fn(kmers[:4096])  # warm-up
-        times, out = [], None
-        for _ in range(runs):
-            t0 = time.time()
-            out = fn(kmers)
-            torch.cuda.synchronize()
-            times.append(time.time() - t0)
-        return out, float(np.median(times)), times
-
     # the narrow answers are phase 4's (its digram and single-step engines
     # gave the same, in the same order), timed there
-    w_counts, count_s, count_times = timed(wide.count)
-    hits, locate_s, locate_times = timed(wide.locate)
+    w_counts, count_s, count_times = timed_engine_call(wide.count, kmers)
+    hits, locate_s, locate_times = timed_engine_call(wide.locate, kmers)
     stats["wide_count_qps"] = QUERIES / count_s
     stats["wide_locate_qps"] = QUERIES / locate_s
     log(f"[4w] wide count {QUERIES} x {KMER_LEN}-mers: median {count_s:.4f}s of "
@@ -2041,9 +2242,9 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     rebuild = []
     real_attach = build_mod.attach_seed_table
 
-    def timed_attach(idx, dev):
+    def timed_attach(idx, dev, *rest):
         t0 = time.time()
-        real_attach(idx, dev)
+        real_attach(idx, dev, *rest)
         torch.cuda.synchronize()
         rebuild.append(time.time() - t0)
 
@@ -2789,6 +2990,326 @@ def phase_single_query(engine, kmers, device: str) -> dict:
     return stats
 
 
+def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
+                   device: str) -> dict:
+    """Phase 4p: views without pair rows at full size. (a) The phase-4
+    index as ``to_device(device, pair_rows=False)``, its seed table the one
+    the index holds on the card: SearchEngine and DigramSearchEngine over
+    it, count and locate of phase 4's 1,048,576 25-mers and its 4,096
+    multi-hit 11-mers equal to phase 4's, the launch counts reset just
+    before and read just after (K2's and K4's block-row forms and K3, no
+    pair-row K2 or K4); then K2 and K4 in both forms in turns at the main
+    shapes, each block-row form against its plain version, with the window
+    classes and bounds. (b) A 2^26-residue amino index (seed k = 5, SA
+    ratio 8) as a wide view on compact rows: K1WX's BFS over them equal to
+    the narrow table widened, SearchEngine's count and locate of 1,048,576
+    sampled 12-mers equal to the narrow amino engine's, the single-query
+    API over 256 of them equal to the narrow answers, the launches read
+    around all of it; then each compact form against its plain version
+    (K1WX's whole BFS against the plain BFS) and K2w and K3w against their
+    pair-fused forms, in turns, and the C launchers' layout refusals."""
+    import numpy as np
+    import torch
+    import avxwindowfmindex_tpu_torch as pt
+    from avxwindowfmindex_tpu_torch import (
+        AlphabetType, DigramSearchEngine, IndexConfiguration, SearchEngine, create_index, search,
+    )
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+
+    t_phase = time.time()
+    stats = {"launches": {}}
+    index, pair = engine.host_index, engine.dev
+    mh_want = flat_hits(engine.locate(mh_kmers))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.time()
+    view = index.to_device(device, pair_rows=False)
+    torch.cuda.synchronize()
+    stats["view_s"] = time.time() - t
+    grew = torch.cuda.memory_allocated() - before
+    seed_bytes = view.seed_table.numel() * view.seed_table.element_size()
+    if view.pair_rows or view.packed_pair is not None:
+        raise AssertionError("[4p] to_device(pair_rows=False) kept a pair table")
+    if grew >= seed_bytes or not torch.equal(view.seed_table, pair.seed_table):
+        raise AssertionError(f"[4p] the view's seed table is not the one the index holds "
+                             f"(device memory grew {grew} B)")
+    log(f"[4p] to_device(pair_rows=False) in {stats['view_s']:.3f}s: {view.packed.shape[0]} block "
+        f"rows x {view.packed.shape[1]} B = {view.packed.numel() / 1e6:.1f} MB and no pair table "
+        f"(phase 4's view: {pair.packed_pair.numel() / 1e6:.1f} MB of pair rows beside the same "
+        f"block rows); device memory grew {grew / 1e6:.1f} MB, the {seed_bytes / 1e9:.2f} GB seed "
+        f"table is the one the index holds")
+    single = SearchEngine(view, device=device)
+    t = time.time()
+    digram = DigramSearchEngine(index, device=device, pair_rows=False)
+    log(f"[4p] DigramSearchEngine(pair_rows=False) with its n-gram table: {time.time() - t:.3f}s")
+    if digram.dev is not view:
+        raise AssertionError("[4p] the digram engine did not take the installed view")
+
+    kernels.reset_launch_counts()
+    for label, eng in (("digram", digram), ("single", single)):
+        counts, count_s, count_times = timed_engine_call(eng.count, kmers)
+        hits, locate_s, locate_times = timed_engine_call(eng.locate, kmers)
+        lens, flat = flat_hits(hits)
+        del hits
+        if not (np.array_equal(counts, answers[0]) and np.array_equal(lens, answers[1])
+                and np.array_equal(flat, answers[2])):
+            raise AssertionError(f"[4p] {label}: counts or hits differ from phase 4's")
+        stats[f"{label}_count_qps"] = QUERIES / count_s
+        stats[f"{label}_locate_qps"] = QUERIES / locate_s
+        log(f"[4p] {label} over block rows: count {QUERIES} x {KMER_LEN}-mers median {count_s:.4f}s "
+            f"of {count_times} -> {QUERIES / count_s:.1f} q/s (phase 4: "
+            f"{main[f'{label}_count_qps']:.1f}); locate median {locate_s:.4f}s of {locate_times} -> "
+            f"{QUERIES / locate_s:.1f} q/s (phase 4: {main[f'{label}_locate_qps']:.1f}); "
+            f"{len(flat)} hits; counts and hits equal to phase 4's")
+    mh = flat_hits(digram.locate(mh_kmers))
+    if not all(np.array_equal(a, b) for a, b in zip(mh, mh_want)):
+        raise AssertionError("[4p] multi-hit locate over block rows differs from phase 4's engine")
+    log(f"[4p] multi-hit locate {len(mh_kmers)} x {MULTIHIT_LEN}-mers: {len(mh[1])} hits equal "
+        f"to phase 4's engine")
+    launches = expect_launches("4p", PAIRLESS_KERNELS,
+                               exact={"k2_ranges": 0, "k4_ngram_ranges": 0, "k1_rank": 0,
+                                      "k1_extend": 0})
+    stats["launches"].update({n: launches[n] for n in PAIRLESS_KERNELS if n.endswith("_block")})
+
+    # K2 and K4 in both forms at the main path's shapes
+    mat, lengths, n = engine.encode_kmers(kmers)
+    seeded = engine._seed_eligibility(mat, lengths)
+    args = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+            torch.from_numpy(seeded.astype(np.uint8)).to(device))
+    mat_d, ng = args[0], digram.ng
+    k2_classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ps, pe = search.ranges_plain(view, *args, k2_classes)
+    ks, ke = kernels.k2_ranges(view, *args)
+    rec.compare("k2_ranges_block", f"main start x{n}", ks, ps)
+    rec.compare("k2_ranges_block", f"main end x{n}", ke, pe)
+    k4_classes = search.new_step_classes(device)
+    ps, pe = search.ngram_ranges_plain(view, ng, mat_d, KMER_LEN, k4_classes)
+    ks, ke = kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN)
+    rec.compare("k4_ngram_ranges_block", f"main n={ng.n} start x{n}", ks, ps)
+    rec.compare("k4_ngram_ranges_block", f"main n={ng.n} end x{n}", ke, pe)
+    del ps, pe, ks, ke
+    k2_classes = k2_classes.tolist()
+    k4_classes = {t: c.tolist() for t, c in k4_classes.items()}
+    log(f"[4p] window classes over block rows: K2's steps {class_shares(k2_classes)}; K4's "
+        f"n-gram steps {class_shares(k4_classes['ngram_pair'])}, its tail steps "
+        f"{class_shares(k4_classes['pair'])}; 64 B pieces a first-block visit touches: a block "
+        f"row 2, a pair row {pair.n_planes + 1}")
+    stats["forms"] = {
+        "k2_ranges": forms_in_turns(f"K2, {n} 25-mers, pair rows against block rows", {
+            "pair": lambda: kernels.k2_ranges(pair, *args),
+            "block": lambda: kernels.k2_ranges(view, *args)}),
+        "k4_ngram_ranges": forms_in_turns(f"K4 n={ng.n}, {n} 25-mers, tail over pair rows "
+                                          f"against block rows", {
+            "pair": lambda: kernels.k4_ngram_ranges(pair, ng, mat_d, KMER_LEN),
+            "block": lambda: kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN)}),
+    }
+    rec.ms["k2_ranges_block"] = time_in_turns(
+        f"k2_ranges_block main x{n}", lambda: kernels.k2_ranges(view, *args),
+        lambda: search.ranges_plain(view, *args), 10, 1)
+    rec.ms["k4_ngram_ranges_block"] = time_in_turns(
+        f"k4_ngram_ranges_block main n={ng.n} x{n}",
+        lambda: kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN),
+        lambda: search.ngram_ranges_plain(view, ng, mat_d, KMER_LEN), 10, 1)
+    nb, np_ = view.num_blocks, view.n_planes
+    tables, ops = block_step_tables(nb, np_, 4, k2_classes)
+    rec.set_bound("k2_ranges_block", tables, n * (mat_d.shape[1] + 4 + 1 + 2 * 4 + 16), ops,
+                  other_visits={"seed_table": n})
+    ng_tables, ng_ops = step_tables(ng.packed.shape[0], 2 * ng.n + 1, 4, k4_classes["ngram_pair"])
+    tail_tables, tail_ops = block_step_tables(nb, np_, 4, k4_classes["pair"])
+    rec.set_bound(
+        "k4_ngram_ranges_block", ng_tables + tail_tables,
+        n * (mat_d.shape[1] + 2 * 4 + 16), ng_ops + tail_ops,
+        row_visits=[sum(k4_classes["ngram_pair"]) + k4_classes["ngram_pair"][2],
+                    tail_tables[0][2]],
+        other_visits={"seed_table": n})
+    seed_only = lengthwise_batch(mat_d, KMER_LEN, view.kmer_length_in_seed_table)
+    rec.fixed["k2_ranges_block"] = min(
+        cuda_ms(lambda: kernels.k2_ranges(view, *seed_only), 10) for _ in range(2))
+    # the seed-table visit and the stores are K4's in both forms: phase 4s's fit
+    rec.fixed["k4_ngram_ranges_block"] = rec.fixed["k4_ngram_ranges"]
+    log(f"  k2_ranges_block with no step: {rec.fixed['k2_ranges_block']:.4f} ms")
+    del args, mat_d, seed_only, single, digram, view
+    torch.cuda.empty_cache()
+    stats["a_s"] = time.time() - t_phase
+
+    # (b) a wide amino view on compact rows
+    t_b = time.time()
+    rng = np.random.default_rng(2614)
+    text = random_text(rng, AMINO_RESIDUES, AlphabetType.AMINO)
+    t = time.time()
+    aa = create_index(text, IndexConfiguration(8, AMINO_SEED_K, AlphabetType.AMINO),
+                      sa_backend="native", device=device)
+    torch.cuda.synchronize()
+    stats["amino_build_s"] = time.time() - t
+    narrow = SearchEngine(aa, device=device)
+    arr = np.frombuffer(text, np.uint8)
+    windows = np.lib.stride_tricks.sliding_window_view(arr, AMINO_KMER_LEN)
+    buf = windows[rng.integers(0, len(arr) - AMINO_KMER_LEN, size=QUERIES)].tobytes()
+    aa_kmers = [buf[i * AMINO_KMER_LEN : (i + 1) * AMINO_KMER_LEN] for i in range(QUERIES)]
+    del windows, buf
+    want_counts = narrow.count(aa_kmers)
+    want_lens, want_flat = flat_hits(narrow.locate(aa_kmers))
+    if not (want_counts >= 1).all():
+        raise AssertionError("[4p] a sampled amino 12-mer counted 0")
+    walks = aa_kmers[:SINGLE_QUERY_WALKS]
+    want_ranges = narrow.find_ranges(walks)
+    lf_pos = [int(p) for p in rng.integers(0, aa.bwt_length, SINGLE_QUERY_WALKS)]
+    lett_want, lf_want = rank.letter_and_lf_plain(
+        narrow.dev, torch.tensor(lf_pos, dtype=torch.int64, device=device))
+    log(f"[4p] amino index: {AMINO_RESIDUES} residues, seed k={AMINO_SEED_K}, ratio 8, built in "
+        f"{stats['amino_build_s']:.3f}s; the narrow engine's answers to {QUERIES} "
+        f"{AMINO_KMER_LEN}-mers: {len(want_flat)} hits")
+    t = time.time()
+    view = aa.to_device(device, wide=True, pair_rows=False)
+    torch.cuda.synchronize()
+    if view.pair_fused or view.packed.shape[1] != 384:
+        raise AssertionError("[4p] the amino view without pair rows is not on compact rows")
+    log(f"[4p] to_device(wide=True, pair_rows=False) in {time.time() - t:.3f}s: "
+        f"{view.packed.shape[0]} rows x {view.packed.shape[1]} B = {view.packed.numel() / 1e6:.1f} MB "
+        f"(pair-fused: {view.packed.shape[0] * 512 / 1e6:.1f} MB)")
+
+    kernels.reset_launch_counts()
+    t = time.time()
+    bfs = seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, aa.prefix_sums)
+    torch.cuda.synchronize()
+    stats["amino_bfs_s"] = time.time() - t
+    if not torch.equal(bfs, view.seed_table):
+        raise AssertionError("[4p] K1WX's BFS over compact rows differs from the narrow table widened")
+    comp = SearchEngine(aa, device=device, wide=True, pair_rows=False)
+    if comp.dev is not view:
+        raise AssertionError("[4p] the compact engine did not take the installed view")
+    counts, count_s, _ = timed_engine_call(comp.count, aa_kmers)
+    hits, locate_s, _ = timed_engine_call(comp.locate, aa_kmers)
+    lens, flat = flat_hits(hits)
+    del hits
+    if not (np.array_equal(counts, want_counts) and np.array_equal(lens, want_lens)
+            and np.array_equal(flat, want_flat)):
+        raise AssertionError("[4p] the compact amino engine differs from the narrow amino engine")
+    stats["amino_count_qps"] = QUERIES / count_s
+    stats["amino_locate_qps"] = QUERIES / locate_s
+    ps_host = [int(c) for c in aa.prefix_sums]
+    for q, (want_s, want_e) in zip(walks, want_ranges):
+        letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), aa.alphabet).tolist()
+        s, e = ps_host[letters[-1]], ps_host[letters[-1] + 1] - 1
+        for lett in reversed(letters[:-1]):
+            s, e = pt.iterative_step_backward_search(aa, s, e, lett, device=device, wide=True,
+                                                     pair_rows=False)
+        if (s, e) != (int(want_s), int(want_e)):
+            raise AssertionError(f"[4p] {q} walked to {(s, e)}, the narrow range is "
+                                 f"{(want_s, want_e)}")
+    for p, lw, fw in zip(lf_pos, lett_want.tolist(), lf_want.tolist()):
+        got = pt.backtrace_return_previous_letter_index(aa, p, device=device, wide=True,
+                                                        pair_rows=False)
+        if got != ((0, p) if lw == view.sentinel else (lw, fw)):
+            raise AssertionError(f"[4p] LF of {p} over compact rows gave {got}")
+    steps = SINGLE_QUERY_WALKS * (AMINO_KMER_LEN - 1) + len(lf_pos)
+    launches = expect_launches("4p", COMPACT_KERNELS, exact={
+        "k1w_extend_compact": AMINO_SEED_K - 1, "k1w_rank_compact": steps, "k1w_rank": 0,
+        "k1w_extend": 0, "k2w_ranges": 0, "k3w_backtrace_resolve": 0})
+    stats["launches"].update({n: launches[n] for n in COMPACT_KERNELS})
+    log(f"[4p] compact amino engine: count {QUERIES} x {AMINO_KMER_LEN}-mers "
+        f"{QUERIES / count_s:.1f} q/s, locate {QUERIES / locate_s:.1f} q/s ({len(flat)} hits), "
+        f"equal to the narrow amino engine; K1WX's k={AMINO_SEED_K} BFS over the 384 B rows "
+        f"{stats['amino_bfs_s']:.4f}s equal to the narrow table widened; the single-query API "
+        f"over {SINGLE_QUERY_WALKS} 12-mers ({steps} K1w launches) equal to the narrow answers")
+
+    # each compact form against its plain version, and K2w, K3w against
+    # their pair-fused forms, at this path's shapes
+    plain_bfs = seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, aa.prefix_sums,
+                                            occurrence_fn=rank.occurrence_plain)
+    rec.compare("k1w_extend_compact", f"main k={AMINO_SEED_K} BFS x{bfs.numel()}", bfs, plain_bfs)
+    del bfs, plain_bfs
+    mat, lengths, n = comp.encode_kmers(aa_kmers)
+    seeded = comp._seed_eligibility(mat, lengths)
+    args = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
+            torch.from_numpy(seeded.astype(np.uint8)).to(device))
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ps, pe = search.ranges_plain(view, *args, classes)
+    ks, ke = kernels.k2_ranges(view, *args)
+    rec.compare("k2w_ranges_compact", f"main start x{n}", ks, ps)
+    rec.compare("k2w_ranges_compact", f"main end x{n}", ke, pe)
+    classes = classes.tolist()
+    positions = search.enumerate_range_positions(ks[:len(aa_kmers)], search.range_counts(
+        ks[:len(aa_kmers)], ke[:len(aa_kmers)], wide=True))
+    rec.compare("k3w_backtrace_resolve_compact", f"main hits x{positions.numel()}",
+                kernels.k3_backtrace_resolve(view, positions),
+                search.backtrace_resolve_plain(view, positions))
+    occ_n = 1 << 23
+    occ_pos = torch.from_numpy(rng.integers(0, view.bwt_length, occ_n)).to(device)
+    occ_lett = torch.from_numpy(rng.integers(0, view.cardinality, occ_n).astype(np.int32)).to(device)
+    rec.compare("k1w_rank_compact", f"main occ x{occ_n}", kernels.k1_occurrence(view, occ_pos, occ_lett),
+                rank.occurrence_plain(view, occ_pos, occ_lett))
+    ps_arr = aa.prefix_sums
+    rec.ms["k1w_extend_compact"] = time_in_turns(
+        f"k1w_extend_compact, the k={AMINO_SEED_K} BFS",
+        lambda: seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, ps_arr),
+        lambda: seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, ps_arr,
+                                            occurrence_fn=rank.occurrence_plain), 5, 1)
+    rec.ms["k1w_rank_compact"] = time_in_turns(
+        f"k1w_rank_compact x{occ_n}", lambda: kernels.k1_occurrence(view, occ_pos, occ_lett),
+        lambda: rank.occurrence_plain(view, occ_pos, occ_lett), 10, 2)
+    rec.ms["k2w_ranges_compact"] = time_in_turns(
+        f"k2w_ranges_compact x{n}", lambda: kernels.k2_ranges(view, *args),
+        lambda: search.ranges_plain(view, *args), 10, 1)
+    rec.ms["k3w_backtrace_resolve_compact"] = time_in_turns(
+        f"k3w_backtrace_resolve_compact x{positions.numel()}",
+        lambda: kernels.k3_backtrace_resolve(view, positions),
+        lambda: search.backtrace_resolve_plain(view, positions), 10, 1)
+    fused = aa.to_device(device, wide=True, pair_rows=True)
+    if not fused.pair_fused or fused.packed.shape[1] != 512:
+        raise AssertionError("[4p] the amino view with pair rows is not pair-fused")
+    ws, we = kernels.k2_ranges(fused, *args)
+    wh = kernels.k3_backtrace_resolve(fused, positions)
+    if not (torch.equal(ws, ks) and torch.equal(we, ke)
+            and torch.equal(wh, kernels.k3_backtrace_resolve(view, positions))):
+        raise AssertionError("[4p] K2w or K3w over compact rows differs from the pair-fused form")
+    # the C launchers check the rows' layout themselves: each refuses the
+    # other layout's table before it launches anything
+    lib = kernels._library()
+    refused = torch.empty(4, dtype=torch.int64, device=device)
+    for entry, other in (("awfm_k1w_occ", view), ("awfm_k1w_compact_occ", fused),
+                         ("awfm_k1_occ", view)):
+        rc = getattr(lib, entry)(view.device.index, ctypes.byref(kernels._tables(other)),
+                                 occ_pos.data_ptr(), occ_lett.data_ptr(), 4, refused.data_ptr(),
+                                 kernels._stream(view.device))
+        if rc == 0:
+            raise AssertionError(f"[4p] {entry} took {other.packed.shape[1]} B rows")
+    log("[4p] awfm_k1w_occ refused the 384 B compact rows, awfm_k1w_compact_occ the 512 B "
+        "pair-fused rows and awfm_k1_occ the compact rows, before any launch")
+    stats["forms"]["k2w_ranges"] = forms_in_turns(
+        f"K2w, {n} amino 12-mers, pair-fused rows against compact rows", {
+            "pair-fused": lambda: kernels.k2_ranges(fused, *args),
+            "compact": lambda: kernels.k2_ranges(view, *args)})
+    stats["forms"]["k3w_backtrace_resolve"] = forms_in_turns(
+        f"K3w, {positions.numel()} hits, pair-fused rows against compact rows", {
+            "pair-fused": lambda: kernels.k3_backtrace_resolve(fused, positions),
+            "compact": lambda: kernels.k3_backtrace_resolve(view, positions)})
+    del fused, ws, we, wh
+    nb, np_, ms_b = view.num_blocks, view.n_planes, view.milestone_bytes
+    rec.set_bound("k1w_rank_compact", [(nb, np_ * 32 + ms_b, occ_n)], occ_n * (8 + 4 + 8),
+                  occ_n * rank_ops(np_))
+    tables, ops = block_step_tables(nb, np_, ms_b, classes)
+    rec.set_bound("k2w_ranges_compact", tables, n * (mat.shape[1] + 4 + 1 + 2 * 8 + 16), ops,
+                  other_visits={"seed_table": n})
+    _, off = kernels.k3_backtrace_resolve(dataclasses.replace(view, sampled_sa=None), positions)
+    walked = int(off.sum())
+    rec.set_bound("k3w_backtrace_resolve_compact", [(nb, np_ * 32 + ms_b, walked)],
+                  positions.numel() * (8 + 8 + 8), walked * rank_ops(np_),
+                  other_visits={"sampled_sa": positions.numel()})
+    set_bfs_bound(rec, "k1w_extend_compact", view, AMINO_SEED_K, ps_arr, "4p")
+    log(f"[4p] K2w's steps over compact rows: {class_shares(classes)}; K3w: {walked} LF steps "
+        f"for {positions.numel()} hits")
+    del view, comp, narrow, aa, args, positions, occ_pos, occ_lett, ks, ke, ps, pe
+    torch.cuda.empty_cache()
+    stats["b_s"] = time.time() - t_b
+    log(f"[4p] phase 4p took {time.time() - t_phase:.1f}s ((a) {stats['a_s']:.1f}s, "
+        f"(b) {stats['b_s']:.1f}s)")
+    return stats
+
+
+
 def free_port() -> int:
     import socket
 
@@ -3051,7 +3572,7 @@ def main(argv=None) -> int:
     for name in WIDE_PATH_KERNELS:
         launches[name] = wide_launches[name]
     main_stats["wide"] = wide_stats
-    del mh_kmers, bench_stats["dense"]
+    del bench_stats["dense"]
     torch.cuda.empty_cache()
     mark("phase 4w")
     main_stats["straddle"] = phase_straddle(rec, device)
@@ -3065,6 +3586,11 @@ def main(argv=None) -> int:
     main_stats["range_sharded"] = phase_range_sharded(rec, engine, kmers, answers, device)
     launches.update(main_stats["range_sharded"]["launches"])
     mark("phase 8")
+    main_stats["pairless"] = phase_pairless(rec, engine, kmers, mh_kmers, answers, main_stats,
+                                            device)
+    launches.update(main_stats["pairless"].pop("launches"))
+    del mh_kmers
+    mark("phase 4p")
     main_stats["multiprocess"] = phase_multiprocess(engine, kmers, answers, main_stats, device)
     rank_launches = main_stats["multiprocess"]["rank_launches"]
     del engine, kmers, answers
@@ -3088,6 +3614,9 @@ def main(argv=None) -> int:
         "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
         "k1_extend": ("single",), "k1w_extend": ("wide",),
         "k2w_ranges": ("wide",), "k3w_backtrace_resolve": ("wide",),
+        # a view without pair rows: its steps visit the block rows, whose
+        # calibrated rate is the single table's
+        "k2_ranges_block": ("single",), "k4_ngram_ranges_block": ("ngram_pair", "single"),
     }
     main_stats["models"] = {}
     for name, tables in rate_of.items():

@@ -134,21 +134,62 @@ def test_planner_assumes_no_device_memory():
     dict(num_bases=6_200_000_000, hbm_bytes=int(40e9), batch=1 << 22),
     dict(num_bases=5_000_000_000, alphabet="AMINO", hbm_bytes=80 * 2**30, batch=1 << 20, kmer_len=20),
     dict(num_bases=20_000_000_000, hbm_bytes=80 * 2**30, batch=1 << 22),
-], ids=["5G-16GB", "5G-80GiB", "6.2G-40GB", "amino-5G", "20G-no-dense"])
+    # one card holds this amino corpus on the compact 384 B rows only
+    dict(num_bases=5_000_000_000, alphabet="AMINO", hbm_bytes=int(16e9), batch=1 << 20,
+         kmer_len=20, pair_rows=False),
+], ids=["5G-16GB", "5G-80GiB", "6.2G-40GB", "amino-5G", "20G-no-dense", "amino-5G-compact"])
 def test_wide_plan_picks_equal_jax(monkeypatch, case):
     """A corpus of 2^32 positions and more gets a wide plan with the JAX
     planner's component bytes: 16 B seed entries, 8 B SA entries, one
-    table of wide rows, no n-gram candidate."""
+    table of wide rows, no n-gram candidate; pair-fused rows, or the
+    compact amino rows where only they fit (``pair_rows`` of the case)."""
+    monkeypatch.setattr(pcap, "_WORKSPACE_SLACK_BYTES", jcap._XLA_SLACK_BYTES)
+    case = dict(case)
+    alphabet = case.pop("alphabet", "DNA")
+    pair_rows = case.pop("pair_rows", True)
+    want = jcap.plan_capacity(alphabet=jx.AlphabetType[alphabet], **case)
+    got = pcap.plan_capacity(alphabet=pt.AlphabetType[alphabet], **case)
+    assert got.wide and want.wide and not got.ngram
+    assert got.pair_rows == want.pair_rows == pair_rows
+    assert (got.seed_k, got.device_sa_ratio) == (want.seed_k, want.device_sa_ratio)
+    assert got.components == want.components and got.budget == want.budget
+    assert set(got.components) == {"packed", "seed_table", "sampled_sa"}
+    assert "wide" in got.summary()
+
+
+@pytest.mark.parametrize("case", [
+    dict(num_bases=5_000_000_000, alphabet="AMINO", hbm_bytes=int(16e9), batch=1 << 20,
+         kmer_len=20),
+    dict(num_bases=3_000_000_000, hbm_bytes=int(6e9), batch=1 << 20),
+], ids=["amino-wide-compact", "dna-narrow-no-pair-rows"])
+def test_plans_without_pair_rows_equal_jax_and_build(monkeypatch, case):
+    """A corpus one card holds only without pair rows: the port's plan is
+    the JAX planner's (seed k, pair_rows, components, budget), and the
+    port builds the view that plan names, at a small scale, with the
+    plan's bytes per row: the compact 384 B amino wide rows, or narrow
+    block rows with no pair table."""
     monkeypatch.setattr(pcap, "_WORKSPACE_SLACK_BYTES", jcap._XLA_SLACK_BYTES)
     case = dict(case)
     alphabet = case.pop("alphabet", "DNA")
     want = jcap.plan_capacity(alphabet=jx.AlphabetType[alphabet], **case)
     got = pcap.plan_capacity(alphabet=pt.AlphabetType[alphabet], **case)
-    assert got.wide and want.wide and not got.ngram and got.pair_rows
-    assert (got.seed_k, got.device_sa_ratio) == (want.seed_k, want.device_sa_ratio)
+    assert not got.pair_rows and not want.pair_rows
+    assert (got.seed_k, got.device_sa_ratio, got.ngram, got.wide, got.engine) == (
+        want.seed_k, want.device_sa_ratio, want.ngram, want.wide, want.engine)
     assert got.components == want.components and got.budget == want.budget
-    assert set(got.components) == {"packed", "seed_table", "sampled_sa"}
-    assert "wide" in got.summary()
+    assert "pair_rows=off" in got.summary()
+    palpha = pt.AlphabetType[alphabet]
+    seq = random_sequence(np.random.default_rng(31), 4000, jx.AlphabetType[alphabet], clean=True)
+    idx = pt.create_index(seq, pt.IndexConfiguration(8, 3, palpha), device="cpu")
+    dev = idx.to_device("cpu", wide=got.wide, pair_rows=got.pair_rows)
+    assert dev.packed_pair is None and not dev.pair_rows and dev.wide == got.wide
+    small = pcap.component_bytes(len(seq), palpha, seed_k=3, sa_ratio=8, pair_rows=False,
+                                 wide=got.wide)
+    assert small == {"packed": dev.packed.numel(),
+                     "seed_table": dev.seed_table.numel() * dev.seed_table.element_size(),
+                     "sampled_sa": dev.sampled_sa.numel() * dev.sampled_sa.element_size()}
+    if got.wide:
+        assert dev.packed.shape[1] == 384 and not dev.pair_fused
 
 
 def test_wide_component_bytes_equal_jax_and_port_tensors():

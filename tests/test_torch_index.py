@@ -141,9 +141,9 @@ def test_to_device_takes_the_wide_view_from_2_32(monkeypatch):
     fm = _hollow_index(2**32 + 5, ratio=8)
     seen = {}
 
-    def fake_pack(letters, milestones, alphabet):
-        seen["called"] = True
-        return np.zeros((2, index_mod.device_row_bytes64(alphabet)), np.uint8)
+    def fake_pack(letters, milestones, alphabet, pair=True):
+        seen["called"] = pair  # the pair-fused rows
+        return np.zeros((2, index_mod.device_row_bytes64(alphabet, pair)), np.uint8)
 
     monkeypatch.setattr(index_mod, "pack_device_blocks64", fake_pack)
     monkeypatch.setattr(pt.FmIndex, "milestones", lambda self: np.zeros((2, 6), np.uint64))

@@ -26,14 +26,14 @@ from torch_helpers import build_both
 DNA, AMINO = jx.AlphabetType.DNA, jx.AlphabetType.AMINO
 
 
-@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5"])
+@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5", "pairless"])
 def test_every_case_parses(case):
     assert case in kernel_ab.CASES
     assert kernel_ab.parse_args(["--cases", case]).cases == case
 
 
 def test_case_list_and_defaults():
-    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5")
+    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5", "pairless")
     args = kernel_ab.parse_args([])
     assert args.cases == "all" and args.other == [] and args.reps == 10
     assert args.bases == 64_000_000 and args.queries == 1 << 20 and args.seed_k == 14
@@ -89,12 +89,13 @@ def test_compact_view_rows_equal_jax(index_pair):
     pos = torch.from_numpy(np.random.default_rng(3).integers(0, wide.bwt_length, 400))
     # the walk over the compact rows gives the pair-fused rows' answers
     assert torch.equal(psearch.backtrace_resolve(compact, pos), psearch.backtrace_resolve(wide, pos))
-    # the kernel's wrapper takes CUDA tensors only, and refuses before any build
+    # the compact view takes K3w's compact form, the pair-fused one K3w; the
+    # wrapper takes CUDA tensors only, and refuses before any build
+    assert kernels.form_of(compact, kernels.K3) is kernels.K3W_COMPACT
+    assert kernels.form_of(wide, kernels.K3) is kernels.K3W
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.k3w_compact_backtrace_resolve(compact, pos)
-    with pytest.raises(ValueError, match="compact"):
-        kernels.k3w_compact_backtrace_resolve(wide, pos)
+        kernels.k3_backtrace_resolve(compact, pos)
     assert all(k.launches == 0 for k in kernels.KERNELS)
 
 

@@ -150,12 +150,21 @@ def test_convert_wide_round_trip(both):
 
 
 def test_convert_refuses_the_compact_layout(both):
+    """The compact layout is asked for by ``pair_fused=False`` and held to
+    its row width: rows of another width are refused, the 512 B amino
+    pair-fused rows among them (the compact view itself converts:
+    tests/test_torch_pairless.py)."""
     j, p, jdev, _ = both
     arrays = jax_wide_arrays(jdev)
     kw = dict(bwt_length=jdev.bwt_length, ratio=jdev.ratio, k=jdev.kmer_length_in_seed_table,
               alphabet=jdev.alphabet, device="cpu")
-    with pytest.raises(NotImplementedError, match="compact"):
-        convert.wide_device_index_from_numpy(arrays, pair_fused=False, **kw)
+    want = pindex.device_row_bytes64(pt.AlphabetType(int(jdev.alphabet)), pair=False)
+    with pytest.raises(ValueError, match=f"wide rows must be \\(nb, {want}\\)"):
+        convert.wide_device_index_from_numpy(dict(arrays, packed=arrays["packed"][:, :128]),
+                                             pair_fused=False, **kw)
+    if want != arrays["packed"].shape[1]:
+        with pytest.raises(ValueError, match="wide rows must be"):
+            convert.wide_device_index_from_numpy(arrays, pair_fused=False, **kw)
     with pytest.raises(ValueError, match="wide rows"):
         convert.wide_device_index_from_numpy(dict(arrays, packed=arrays["packed"][:, :128]), **kw)
 
@@ -573,7 +582,7 @@ def test_create_index_wide_route(monkeypatch, alphabet, k):
     want = pt.create_index(seq, cfg, device="cpu")
     orig = pt.FmIndex.to_device
     monkeypatch.setattr(pt.FmIndex, "to_device",
-                        lambda self, device, wide=None: orig(self, device, wide=True))
+                        lambda self, device, wide=None, **kw: orig(self, device, wide=True, **kw))
     index = pt.create_index(seq, cfg, device="cpu")
     assert index.to_device("cpu").wide
     np.testing.assert_array_equal(index.seed_table_host(), want.seed_table_host())
