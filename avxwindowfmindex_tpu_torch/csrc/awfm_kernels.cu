@@ -7,15 +7,40 @@
 // 32 B sectors, and a row's planes lie 64 B apart, so what a step costs is
 // the number of sectors it asks for, not the row's width.
 //
-//   K1 awfm_k1_occ / awfm_k1_letter_lf
+//   K1 awfm_k1_occ / awfm_k1_letter_lf, awfm_k1_step / awfm_k1_lf_at
 //       Replaces avxwindowfmindex_tpu/ops/rank_pallas.py:_rank_kernel (the
 //       one Pallas kernel) and ops/rank.py:_gather_rows / _count_rows /
 //       letter_and_lf_from_rows. Unlike the Pallas kernel it gathers the
 //       block row itself. occ(l, p) = milestone[l] + popcount(match(code(l))
 //       & inclusive_mask(p % 256)); the LF mode returns the letter at p and
 //       LF = C[l] + occ(l, p) - 1, sentinel -> 0, through the same LF step
-//       as K3 (BlockRow). One thread per item. It serves the single-query
-//       API and the comparisons; the seed-table BFS takes K1X.
+//       as K3 (BlockRow). Its user is the single-query API
+//       (search.py:iterative_step_backward_search and
+//       backtrace_return_previous_letter_index, the reference's
+//       letter-by-letter calls, one range or one position a call); the
+//       seed-table BFS takes K1X, the batch modes serve the comparisons.
+//       What bounds a single-query call on this card: the call, not the row.
+//       Two row visits cost ~1.3 us of device time, where the batched step
+//       on a one-element batch cost 340-810 us of host time a call (three
+//       uploads, ~20 small launches, two synchronising readbacks). What the
+//       design does about it: the step mode (k1_step_kernel) takes start,
+//       end and the letter by value and computes the whole unconditional
+//       step, C[l] + occ(l, start - 1) and C[l] + occ(l, end) - 1, in one
+//       launch of 16 lanes (8 a row visit, both visits and C[l] asked for
+//       together), writing 16 B; the LF mode by value (k1_lf_at_kernel)
+//       writes (letter, LF) likewise; the wrapper keeps the checked tables,
+//       the entry points and a 16 B device and pinned host buffer per view
+//       (ops/kernels.py:_view_state), so a call is one launch, one 16 B
+//       device-to-host copy and one synchronisation of the stream
+//       (awfm_read_back): 26-58 us a call against a floor of 20-38 us for
+//       an empty launch and the same readback, in one process (H100 80GB
+//       HBM3, 700 W; tools.kernel_ab --cases k1, chip_smoke.py phase 7f).
+//       The batch occ mode takes two lanes a position (as K1R), the
+//       letter's code from the kernel's parameters and streaming loads and
+//       stores: 0.227 ms for 8,388,608 pairs from 0.340 (K1w 0.42-0.44 from
+//       0.53, compact 0.60 from 0.76); one lane a position with the same
+//       code and stores measured 0.328 narrow and 2% behind the old body
+//       wide, and is not kept.
 //   K1X awfm_k1_extend
 //       K1's level-extend form: one depth of the seed-table BFS
 //       (ops/seed_table.py; the JAX package runs rank_pallas.py's kernel
@@ -144,7 +169,7 @@
 //       descriptor and a coordinate, not 32 B pieces at data-dependent
 //       addresses, and there is no matrix product for wgmma.
 //
-//   K1w awfm_k1w_occ / awfm_k1w_letter_lf, K2w awfm_k2w_ranges,
+//   K1w awfm_k1w_occ / awfm_k1w_letter_lf / awfm_k1w_step / awfm_k1w_lf_at, K2w awfm_k2w_ranges,
 //   K3w awfm_k3w_backtrace_resolve, K1WX awfm_k1w_extend
 //       The 64-bit instantiations of K1, K2, K3 and K1X, for indexes of 2^32
 //       positions and more. They replace the second engine the JAX package
@@ -229,7 +254,7 @@
 //   Forms for a view without pair rows (the JAX package's AWFM_PAIR_ROWS=0,
 //   FmIndex.to_device(pair_rows=False) here): K2 awfm_k2_block_ranges and K4
 //   awfm_k4_block_ngram_ranges (its tail steps) over the narrow block rows;
-//   K1w awfm_k1w_compact_occ / _letter_lf, K1WX awfm_k1w_compact_extend, K2w
+//   K1w awfm_k1w_compact_occ / _letter_lf / _step / _lf_at, K1WX awfm_k1w_compact_extend, K2w
 //   awfm_k2w_compact_ranges and K3w awfm_k3w_compact_backtrace_resolve over
 //   the compact amino wide rows (384 B in place of 512 B; WideCompact).
 //       The same kernels, instantiated over that layout: a step's
@@ -256,7 +281,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avxwindowfmindex_tpu_torch/ops/kernels.py).
-// Every entry point returns cudaGetLastError() after its launch.
+// Every entry point returns cudaGetLastError() after its launch, but
+// awfm_read_back, the single-query calls' readback, which copies 16 B to
+// pinned host memory on the stream and synchronises that stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -296,9 +323,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// K1's occ mode takes a letter's plane code from code_masks: a rank is too
+// K1R's occ mode takes a letter's plane code from code_masks: a rank is too
 // short to pay for a block's staging, and the table in the kernel's
-// parameters measured 2.5% behind on wide rows.
+// parameters measured 2.5% behind on wide rows in K1's first occ form (one
+// thread a position). K1's occ mode now takes it from the parameters.
 __device__ __forceinline__ uint32_t code_of_letter(const AwfmTables& t, int np,
                                                    uint32_t l) {
   if (l > static_cast<uint32_t>(t.card)) return 0u;
@@ -813,18 +841,6 @@ __device__ __forceinline__ void store_range(int64_t* start_out, int64_t* end_out
 }
 
 template <class G, int NP>
-__global__ void k1_occ_kernel(AwfmTables t, const int64_t* __restrict__ pos,
-                              const int32_t* __restrict__ letters, int64_t n,
-                              int64_t* __restrict__ out) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t l = static_cast<uint32_t>(letters[i]);
-  out[i] = static_cast<int64_t>(occ_at<G, NP>(
-      t, static_cast<typename G::pos_t>(pos[i]), code_of_letter(t, NP, l),
-      l <= static_cast<uint32_t>(t.card), l));
-}
-
-template <class G, int NP>
 __global__ void k1_letter_lf_kernel(AwfmTables t,
                                     const int64_t* __restrict__ pos, int64_t n,
                                     int32_t* __restrict__ letters_out,
@@ -943,6 +959,85 @@ struct GroupRow {
     return e.c + milestone_of(e.column()) + c - 1u;
   }
 };
+
+// K1, occ mode over a batch (module note): two neighbouring lanes share a
+// position (occ_at_group, as K1R), the letter's plane code comes from the
+// table in the kernel's parameters, positions and letters are read
+// evict-first and the counts stored streaming.
+constexpr int kK1OccLanes = 2;
+
+template <class G, int NP>
+__global__ void __launch_bounds__(kThreads) k1_occ_kernel(
+    AwfmTables t, const int64_t* __restrict__ pos, const int32_t* __restrict__ letters,
+    int64_t n, int64_t* __restrict__ out) {
+  const Group<kK1OccLanes> grp;
+  const int64_t i =
+      (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / kK1OccLanes;
+  if (i >= n) return;  // the lanes of a group share i: they leave together
+  const uint32_t l = static_cast<uint32_t>(__ldcs(letters + i));
+  const bool has_ms = l <= static_cast<uint32_t>(t.card);
+  const auto v = occ_at_group<G, NP, kK1OccLanes>(
+      t, static_cast<typename G::pos_t>(__ldcs(reinterpret_cast<const long long*>(pos) + i)),
+      has_ms ? table_byte(t.letter_code, l) : 0u, has_ms, l, grp);
+  if (grp.sub == 0) __stcs(reinterpret_cast<long long*>(out + i), static_cast<long long>(v));
+}
+
+// K1's single-query modes (module note): one range or one position passed by
+// value, one launch of one warp or less, one 16 B result.
+constexpr int kStepGroup = 8;  // lanes that share one row visit
+
+// K1, step mode: the unconditional backward step of one range by letter l
+// (<= 255; the launcher clamps), newStart = C[l] + occ(l, start - 1) and
+// newEnd = C[l] + occ(l, end) - 1 in pos_t arithmetic. Lanes 0-7 count at
+// start - 1 and lanes 8-15 at end, each lane loading one word of every plane
+// and the milestone (occ_at_group), so the two row visits and C[l] are asked
+// for together; lane 0 takes the end's count by shuffle and writes
+// (newStart, newEnd) as one 16 B store.
+template <class G, int NP>
+__global__ void __launch_bounds__(2 * kStepGroup) k1_step_kernel(
+    AwfmTables t, uint64_t start, uint64_t end, uint32_t l, int64_t* __restrict__ out) {
+  using pos_t = typename G::pos_t;
+  const Group<kStepGroup> grp;
+  const LetterEntry<pos_t> e = letter_entry<G>(t, l);
+  const pos_t at = threadIdx.x < kStepGroup ? static_cast<pos_t>(start) - 1u
+                                            : static_cast<pos_t>(end);
+  const pos_t occ = occ_at_group<G, NP, kStepGroup>(t, at, e.code(), e.flag(), e.column(), grp);
+  const pos_t occ_e = __shfl_sync((1u << (2 * kStepGroup)) - 1u, occ, kStepGroup);
+  if (threadIdx.x == 0) {
+    const pos_t new_start = e.c + occ;
+    const pos_t new_end = e.c + occ_e - 1u;
+    *reinterpret_cast<longlong2*>(out) =
+        make_longlong2(static_cast<long long>(new_start), static_cast<long long>(new_end));
+  }
+}
+
+// K1, LF mode for one position: the letter at pos and LF(pos), the sentinel
+// -> 0, through K1R's group step (GroupRow, 8 lanes a row, the planes' words
+// and, where BlockRow asks for them up front, the milestones loaded before
+// the letter is known); the row's loads are issued before the 32 lanes stage
+// C[] in shared memory, so the two overlap. Lane 0 writes (letter, LF) as
+// one 16 B store.
+template <class G, int NP>
+__global__ void __launch_bounds__(32) k1_lf_at_kernel(AwfmTables t, uint64_t pos,
+                                                      int64_t* __restrict__ out) {
+  using pos_t = typename G::pos_t;
+  __shared__ BlockConsts<pos_t> s;
+  const Group<kStepGroup> grp;
+  const pos_t p = static_cast<pos_t>(pos);
+  GroupRow<G, NP, kStepGroup> r;
+  r.load(t, p, grp);
+  stage_consts<G>(t, s);
+  uint32_t lett;
+  const pos_t lf = r.lf(s, p, &lett, grp);
+  if (threadIdx.x == 0) {
+    *reinterpret_cast<longlong2*>(out) =
+        make_longlong2(static_cast<long long>(lett), static_cast<long long>(lf));
+  }
+}
+
+// Nothing: the floor of a single-query call (an empty launch, then the 16 B
+// readback), timed by chip_smoke.py and tools.kernel_ab beside K1's modes.
+__global__ void empty_kernel() {}
 
 // The shard that owns pos, as the route decides it: its global block, bits
 // 8..39 of pos read as int32 (parallel/range_sharded.py: _local_occurrence,
@@ -1587,10 +1682,47 @@ int launch_k1_occ(int device, const AwfmTables* t, const int64_t* pos,
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = grid_for(n * kK1OccLanes);
   if (t->n_planes == 3) {
-    k1_occ_kernel<G, 3><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+    k1_occ_kernel<G, 3><<<grid, kThreads, 0, stream>>>(*t, pos, letters, n, out);
   } else if (t->n_planes == 5) {
-    k1_occ_kernel<G, 5><<<grid_for(n), kThreads, 0, stream>>>(*t, pos, letters, n, out);
+    k1_occ_kernel<G, 5><<<grid, kThreads, 0, stream>>>(*t, pos, letters, n, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's step mode: the range and the letter by value. Every letter above 255
+// is above the sentinel index, as 255 is: C = 0, code 0, no milestone.
+template <class G>
+int launch_k1_step(int device, const AwfmTables* t, uint64_t start, uint64_t end,
+                   uint32_t letter, int64_t* out, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t l = letter < 255u ? letter : 255u;
+  if (t->n_planes == 3) {
+    k1_step_kernel<G, 3><<<1, 2 * kStepGroup, 0, stream>>>(*t, start, end, l, out);
+  } else if (t->n_planes == 5) {
+    k1_step_kernel<G, 5><<<1, 2 * kStepGroup, 0, stream>>>(*t, start, end, l, out);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's LF mode for one position, by value.
+template <class G>
+int launch_k1_lf_at(int device, const AwfmTables* t, uint64_t pos, int64_t* out,
+                    cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t)) return static_cast<int>(cudaErrorInvalidValue);
+  if (t->n_planes == 3) {
+    k1_lf_at_kernel<G, 3><<<1, 32, 0, stream>>>(*t, pos, out);
+  } else if (t->n_planes == 5) {
+    k1_lf_at_kernel<G, 5><<<1, 32, 0, stream>>>(*t, pos, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1960,6 +2092,57 @@ int awfm_k1w_compact_letter_lf(int device, const AwfmTables* t, const int64_t* p
                                cudaStream_t stream) {
   return launch_k1_letter_lf<WideCompact>(device, t, pos, n, letters_out, lf_out,
                                           stream);
+}
+
+// K1's single-query modes: (newStart, newEnd), or (letter, LF), into out[0..1].
+int awfm_k1_step(int device, const AwfmTables* t, uint64_t start, uint64_t end,
+                 uint32_t letter, int64_t* out, cudaStream_t stream) {
+  return launch_k1_step<Narrow>(device, t, start, end, letter, out, stream);
+}
+
+int awfm_k1w_step(int device, const AwfmTables* t, uint64_t start, uint64_t end,
+                  uint32_t letter, int64_t* out, cudaStream_t stream) {
+  return launch_k1_step<Wide>(device, t, start, end, letter, out, stream);
+}
+
+int awfm_k1w_compact_step(int device, const AwfmTables* t, uint64_t start, uint64_t end,
+                          uint32_t letter, int64_t* out, cudaStream_t stream) {
+  return launch_k1_step<WideCompact>(device, t, start, end, letter, out, stream);
+}
+
+int awfm_k1_lf_at(int device, const AwfmTables* t, uint64_t pos, int64_t* out,
+                  cudaStream_t stream) {
+  return launch_k1_lf_at<Narrow>(device, t, pos, out, stream);
+}
+
+int awfm_k1w_lf_at(int device, const AwfmTables* t, uint64_t pos, int64_t* out,
+                   cudaStream_t stream) {
+  return launch_k1_lf_at<Wide>(device, t, pos, out, stream);
+}
+
+int awfm_k1w_compact_lf_at(int device, const AwfmTables* t, uint64_t pos, int64_t* out,
+                           cudaStream_t stream) {
+  return launch_k1_lf_at<WideCompact>(device, t, pos, out, stream);
+}
+
+// The readback of a single-query call: `bytes` from `src` (device) to `host`
+// (pinned) on the stream, then the stream's own synchronisation, so the
+// host reads what the call's launch wrote and nothing later in the stream.
+int awfm_read_back(int device, void* host, const void* src, int64_t bytes,
+                   cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err == cudaSuccess) {
+    err = cudaMemcpyAsync(host, src, static_cast<size_t>(bytes), cudaMemcpyDeviceToHost, stream);
+  }
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  return static_cast<int>(err);
+}
+
+int awfm_empty(int device, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<1, 1, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 int awfm_k1r_route(int device, int wide, const int64_t* pos, int64_t n,

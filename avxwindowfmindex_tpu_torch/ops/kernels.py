@@ -12,13 +12,20 @@ and the objects are linked (``nvcc -shared``) into
 (ignored by git); the shared library is loaded with ctypes. Each C
 entry point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; the launchers below raise when it is nonzero.
+The one exception is ``awfm_read_back``: K1's single-query modes
+(``k1_step``, ``k1_lf_at``) return their 16 B result through it, a copy
+to pinned host memory on the current stream and that stream's
+synchronisation, so such a call is one launch and one readback with the
+checked tables and the buffers kept per view (``_view_state``).
 Nothing here falls back to the plain torch versions: those are chosen
 by the dispatch wrappers (``ops/rank.py``, ``search.py``,
 ``ops/probes.py``) only for tensors that lie on the CPU.
 
 Each kernel keeps a plain integer count of its launches
 (``K1.launches`` ...), incremented right after a launch and nowhere
-else, so a run can show that its main path went through the kernels.
+else, so a run can show that its main path went through the kernels;
+K1's forms also count by mode (``K1.modes``: occ, letter_lf, step,
+lf_at; ``launch_counts``).
 """
 
 from __future__ import annotations
@@ -62,6 +69,12 @@ class Kernel:
         self.replaces = replaces
         self.prefix = prefix or name.split("_")[0]
         self.launches = 0
+        self.modes = {}  # K1's forms: launches by mode ("occ", "letter_lf", "step", "lf_at")
+
+    def count(self, mode: str) -> None:
+        """One launch in ``mode``: the total and the mode's count."""
+        self.launches += 1
+        self.modes[mode] = self.modes.get(mode, 0) + 1
 
 
 K1 = Kernel(
@@ -169,6 +182,17 @@ _WITHOUT_PAIR_ROWS = {K2: K2_BLOCK, K4: K4_BLOCK, K1W: K1W_COMPACT, K1WX: K1WX_C
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.modes = {}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches by name and, for a kernel with modes, by
+    ``name.mode`` too (``k1_rank.step``)."""
+    out = {}
+    for k in KERNELS:
+        out[k.name] = k.launches
+        out.update({f"{k.name}.{mode}": c for mode, c in k.modes.items()})
+    return out
 
 
 class _Tables(ctypes.Structure):
@@ -269,6 +293,12 @@ def build() -> float:
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.awfm_k1_occ.argtypes = [i32, tables_p, vp, vp, i64, vp, vp]
         lib.awfm_k1_letter_lf.argtypes = [i32, tables_p, vp, i64, vp, vp, vp]
+        lib.awfm_k1_step.argtypes = [
+            i32, tables_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, vp, vp,
+        ]
+        lib.awfm_k1_lf_at.argtypes = [i32, tables_p, ctypes.c_uint64, vp, vp]
+        lib.awfm_read_back.argtypes = [i32, vp, vp, i64, vp]
+        lib.awfm_empty.argtypes = [i32, vp]
         lib.awfm_k1_extend.argtypes = [i32, tables_p, vp, i64, vp, vp]
         lib.awfm_k1r_route.argtypes = [
             i32, i32, vp, i64, i32, i32, ctypes.c_uint64, i64, vp, vp, vp, vp, vp, vp, vp,
@@ -295,6 +325,9 @@ def build() -> float:
         lib.awfm_k3w_compact_backtrace_resolve.argtypes = lib.awfm_k3w_backtrace_resolve.argtypes
         lib.awfm_k1w_compact_occ.argtypes = lib.awfm_k1_occ.argtypes
         lib.awfm_k1w_compact_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
+        for form in ("k1w", "k1w_compact"):
+            getattr(lib, f"awfm_{form}_step").argtypes = lib.awfm_k1_step.argtypes
+            getattr(lib, f"awfm_{form}_lf_at").argtypes = lib.awfm_k1_lf_at.argtypes
         lib.awfm_k1w_compact_extend.argtypes = lib.awfm_k1_extend.argtypes
         lib.awfm_k2_block_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k2w_compact_ranges.argtypes = lib.awfm_k2_ranges.argtypes
@@ -317,7 +350,9 @@ def build() -> float:
             lib.awfm_k1w_compact_occ, lib.awfm_k1w_compact_letter_lf, lib.awfm_k1w_compact_extend,
             lib.awfm_k2_block_ranges, lib.awfm_k2w_compact_ranges, lib.awfm_k4_block_ngram_ranges,
             lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
-            lib.awfm_k1rw_lf,
+            lib.awfm_k1rw_lf, lib.awfm_k1_step, lib.awfm_k1w_step, lib.awfm_k1w_compact_step,
+            lib.awfm_k1_lf_at, lib.awfm_k1w_lf_at, lib.awfm_k1w_compact_lf_at,
+            lib.awfm_read_back, lib.awfm_empty,
             lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
             lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain,
         ):
@@ -354,6 +389,14 @@ def _pos_dtype(dev):
     return torch.int64 if dev.wide else torch.int32
 
 
+def _check_shard(dev, shard: bool) -> None:
+    if shard != dev.shard:
+        raise ValueError(
+            "K1R and K1Rw take the shards of a range-sharded engine (no pair "
+            "rows, compact wide rows); the other kernels take whole views"
+        )
+
+
 def _tables(dev, shard: bool = False) -> _Tables:
     """The tables of a whole view, or with ``shard`` of one shard of the
     range-sharded engine (``dev.shard``), for K1R and K1Rw only. The row
@@ -362,11 +405,7 @@ def _tables(dev, shard: bool = False) -> _Tables:
     table for both roles) or compact rows. A view without pair rows
     passes a null pair table, so that no form reads one."""
     device = dev.packed.device
-    if shard != dev.shard:
-        raise ValueError(
-            "K1R and K1Rw take the shards of a range-sharded engine (no pair "
-            "rows, compact wide rows); the other kernels take whole views"
-        )
+    _check_shard(dev, shard)
     pair = dev.packed_pair
     if dev.wide:
         want = device_row_bytes64(dev.alphabet, dev.pair_fused)
@@ -410,20 +449,67 @@ def _tables(dev, shard: bool = False) -> _Tables:
     )
 
 
-_SHARD_TABLES = {}  # id(shard view) -> (weakref to it, its checked _Tables)
+class _ViewState:
+    """What the wrappers keep of one view between calls: its checked
+    tables and the key they were built under (:func:`_view_state`), the C
+    entries of its form of K1 by mode, and the single-query buffers. Those are
+    a 16 B output on the view's device that every call's launch writes and
+    a pinned host copy that ``awfm_read_back`` fills and syncs; a call
+    holds ``lock`` from its launch until it has read the copy, so a reused
+    buffer is never read before the launch that fills it has finished."""
+
+    def __init__(self, key, tables: _Tables):
+        self.key = key
+        self.tables = tables
+        self.ref = ctypes.pointer(tables)
+        self.entries = {}
+        self.lock = threading.Lock()
+        self.out = self.host = self.words = None
+
+    def entry(self, dev, suffix: str):
+        """``_entry(dev, K1, suffix)``, looked up once: the view's form of
+        K1 in mode ``suffix``."""
+        hit = self.entries.get(suffix)
+        if hit is None:
+            hit = self.entries[suffix] = _entry(dev, K1, suffix)
+        return hit
+
+    def buffers(self, device):
+        """(device output pointer, pinned host pointer, the host copy as
+        two c_uint64), made at the view's first single-query call."""
+        if self.out is None:
+            self.out = torch.empty(2, dtype=torch.int64, device=device)
+            self.host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+            self.words = (ctypes.c_uint64 * 2).from_address(self.host.data_ptr())
+        return self.out.data_ptr(), self.host.data_ptr(), self.words
 
 
-def _shard_tables(dev) -> _Tables:
-    """``_tables(dev, shard=True)``, checked once a shard view: a
-    range-sharded step launches on every shard, and the engine never
-    changes a shard's fields after making it."""
-    key = id(dev)
-    hit = _SHARD_TABLES.get(key)
-    if hit is not None and hit[0]() is dev:
+_VIEW_STATE = {}  # id(view) -> (weakref to it, its _ViewState)
+
+
+def _view_key(dev):
+    """What a view's tables are made of: the data pointer and shape of each
+    tensor they point into, and the layout."""
+    return tuple(None if t is None else (t.data_ptr(), t.shape)
+                 for t in (dev.packed, dev.packed_pair, dev.prefix_sums, dev.code_masks)) + (
+        dev.alphabet, dev.wide, dev.pair_fused, dev.shard)
+
+
+def _view_state(dev, shard: bool = False) -> _ViewState:
+    """The view's :class:`_ViewState`, its tables checked once (``_tables(dev,
+    shard)``) and built again whenever a tensor they point into or the
+    layout has changed since: a view made anew (``attach_seed_table``,
+    ``densify_device_sa``, a ``to_device`` rebuild or layout swap) has no
+    state yet, and one whose fields were replaced in place fails the key."""
+    _check_shard(dev, shard)
+    key = _view_key(dev)
+    hit = _VIEW_STATE.get(id(dev))
+    if hit is not None and hit[0]() is dev and hit[1].key == key:
         return hit[1]
-    tables = _tables(dev, shard=True)
-    _SHARD_TABLES[key] = (weakref.ref(dev, lambda _: _SHARD_TABLES.pop(key, None)), tables)
-    return tables
+    state = _ViewState(key, _tables(dev, shard))
+    vid = id(dev)
+    _VIEW_STATE[vid] = (weakref.ref(dev, lambda _: _VIEW_STATE.pop(vid, None)), state)
+    return state
 
 
 @functools.lru_cache(maxsize=None)
@@ -462,7 +548,7 @@ def _entry(dev, kernel: Kernel, suffix: str):
 def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.Tensor:
     """K1, occ mode: (n,) int64 occ(letter, position mod 2^32), as u32.
     K1w for a wide view: positions and counts are u64 in int64."""
-    tables = _tables(dev)
+    state = _view_state(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
     _require(letters, "letters", torch.int32, device)
@@ -472,20 +558,20 @@ def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.
     out = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out
-    fn, name, kernel = _entry(dev, K1, "occ")
+    fn, name, kernel = state.entry(dev, "occ")
     rc = fn(
-        device.index, ctypes.byref(tables), positions.data_ptr(),
+        device.index, state.ref, positions.data_ptr(),
         letters.data_ptr(), n, out.data_ptr(), _stream(device),
     )
     _check(rc, name)
-    kernel.launches += 1
+    kernel.count("occ")
     return out
 
 
 def k1_letter_and_lf(dev, positions: torch.Tensor):
     """K1 (K1w for a wide view), LF mode: ((n,) int32 letters, (n,) int64
     LF positions)."""
-    tables = _tables(dev)
+    state = _view_state(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
     if positions.dim() != 1:
@@ -495,14 +581,60 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     lf = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return letters, lf
-    fn, name, kernel = _entry(dev, K1, "letter_lf")
+    fn, name, kernel = state.entry(dev, "letter_lf")
     rc = fn(
-        device.index, ctypes.byref(tables), positions.data_ptr(), n,
+        device.index, state.ref, positions.data_ptr(), n,
         letters.data_ptr(), lf.data_ptr(), _stream(device),
     )
     _check(rc, name)
-    kernel.launches += 1
+    kernel.count("letter_lf")
     return letters, lf
+
+
+def _single(dev, suffix: str, *args):
+    """One single-query launch of K1's form ``suffix`` with ``args`` by
+    value, then its 16 B readback: ``(word 0, word 1)`` as u64 ints. No
+    host-to-device copy; one launch, one device-to-host copy and one
+    synchronisation of the current stream. A view on the CPU is refused
+    (``_tables``) before anything is built."""
+    state = _view_state(dev)
+    device = dev.packed.device
+    fn, name, kernel = state.entry(dev, suffix)
+    with state.lock:
+        out, host, words = state.buffers(device)
+        stream = _stream(device)
+        _check(fn(device.index, state.ref, *args, out, stream), name)
+        kernel.count(suffix)
+        _check(_library().awfm_read_back(device.index, host, out, 16, stream), "awfm_read_back")
+        return words[0], words[1]
+
+
+def k1_step(dev, start: int, end: int, letter: int):
+    """K1's step mode (K1w's for a wide view, over compact rows without
+    pair rows): the unconditional backward step of one range, ``(newStart,
+    newEnd)``. ``start`` and ``end`` are u32 (u64) values, ``letter`` a
+    u32 that the launcher clamps to 255, as ``rank.step_args`` packs them."""
+    return _single(dev, "step", start, end, letter)
+
+
+def k1_lf_at(dev, position: int):
+    """K1's LF mode for one position (a u32 or u64 value): ``(letter at
+    it, LF)``, the sentinel's LF 0."""
+    return _single(dev, "lf_at", position)
+
+
+def empty_call(dev) -> None:
+    """The floor of a single-query call on the view: an empty launch, then
+    the 16 B readback, through the view's buffers and the current stream.
+    Counted on no kernel."""
+    state = _view_state(dev)
+    device = dev.packed.device
+    with state.lock:
+        out, host, _ = state.buffers(device)
+        stream = _stream(device)
+        lib = _library()
+        _check(lib.awfm_empty(device.index, stream), "awfm_empty")
+        _check(lib.awfm_read_back(device.index, host, out, 16, stream), "awfm_read_back")
 
 
 def _first_block(dev, first_block: int) -> int:
@@ -604,7 +736,7 @@ def k1r_occurrence(dev, first_block: int, slot_pos: torch.Tensor,
     ..``. For a slice copied to the shard's device (``slot_lane`` and
     ``counts`` None), entry j takes ``letters[j]`` and goes to ``out[j]``.
     ``letters`` and ``out`` have ``slot_pos``'s shape."""
-    tables = _shard_tables(dev)
+    tables = _view_state(dev, shard=True).tables
     device = dev.packed.device
     first_block = _first_block(dev, first_block)
     lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)
@@ -628,7 +760,7 @@ def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[to
     letter), pos) - 1 wrapped to the width, the sentinel -> 0) and
     ``letters[lane]`` = l when given. Lanes and copied slices as
     ``k1r_occurrence``."""
-    tables = _shard_tables(dev)
+    tables = _view_state(dev, shard=True).tables
     device = dev.packed.device
     first_block = _first_block(dev, first_block)
     lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)

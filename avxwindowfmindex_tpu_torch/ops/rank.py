@@ -29,7 +29,9 @@ index has code 0 and milestone 0, and one above the sentinel has C = 0.
 
 ``occurrence`` and ``letter_and_lf_at`` are the dispatch wrappers of
 K1 and K1w (ops/kernels.py): they launch the kernel for CUDA tensors and
-take the ``*_plain`` versions below only for CPU tensors.
+take the ``*_plain`` versions below only for CPU tensors. ``single_step``
+and ``single_lf`` do the same for one range or one position passed by
+value (K1's step and LF-at modes), by the view's device.
 
 A step's first-block class reads the pair rows where the view has them
 and the block rows of a view without pair rows (``first_block_rows``);
@@ -38,6 +40,8 @@ wider ranges take the classic two-row ``backward_step``.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -212,6 +216,77 @@ def letter_and_lf_at(dev, positions: torch.Tensor):
         lett, lf = kernels.k1_letter_and_lf(dev, positions.to(torch.int64).contiguous())
         return lett.to(torch.int64), lf
     return letter_and_lf_plain(dev, positions)
+
+
+# ---------------------------------------------------------------------------
+# K1 for one range or one position (the single-query API)
+# ---------------------------------------------------------------------------
+
+def int64_of(value: int) -> int:
+    """The int64 that holds the bits of a u64 value."""
+    return value - 2**64 if value >= 2**63 else value
+
+
+def word_mask(dev) -> int:
+    """``dev.pos_mask`` for Python ints: 2^32 - 1, or 2^64 - 1 for a wide
+    view (whose ``pos_mask`` is the int64 -1 that tensors take)."""
+    return 2**64 - 1 if dev.wide else MASK32
+
+
+def step_args(dev, start: int, end: int, letter: int) -> Tuple[int, int, int]:
+    """(start, end, letter) as K1's step mode takes them by value: the
+    positions wrapped to the view's width (u32 or u64, as
+    ``backward_step``'s ``& pos_mask``), the letter a u32 of at most 255.
+    Every letter outside [0, 255] is above the sentinel index, as 255 is
+    (C = 0, code 0, no milestone), so the clamp changes no answer."""
+    mask = word_mask(dev)
+    letter = int(letter)
+    return int(start) & mask, int(end) & mask, letter if 0 <= letter <= 255 else 255
+
+
+def step_plain(dev, start: int, end: int, letter: int) -> Tuple[int, int]:
+    """The plain version of K1's step mode, on arguments as :func:`step_args`
+    packs them: ``backward_step(check_valid=False)`` over
+    ``occurrence_plain`` on the one range; (newStart, newEnd) as u32 (u64)
+    ints, the words the kernel writes."""
+    def one(v):
+        return torch.tensor([int64_of(v)], dtype=torch.int64, device=dev.device)
+
+    s, e = backward_step(dev, one(start), one(end), one(letter), check_valid=False,
+                         occurrence_fn=occurrence_plain)
+    return int(s[0]) & word_mask(dev), int(e[0]) & word_mask(dev)
+
+
+def single_step(dev, start: int, end: int, letter: int) -> Tuple[int, int]:
+    """One unconditional backward step of one range (``search.py:
+    iterative_step_backward_search``): K1's step mode (``kernels.k1_step``)
+    for a view on the card, :func:`step_plain` for one on the CPU."""
+    args = step_args(dev, start, end, letter)
+    if device_kind(dev.packed) == "cuda":
+        from . import kernels
+
+        return kernels.k1_step(dev, *args)
+    return step_plain(dev, *args)
+
+
+def lf_at_plain(dev, position: int) -> Tuple[int, int]:
+    """The plain version of K1's LF mode for one position (a u32 or u64
+    value): (letter at it, LF) as ints, the sentinel's LF 0."""
+    lett, lf = letter_and_lf_plain(
+        dev, torch.tensor([int64_of(position)], dtype=torch.int64, device=dev.device))
+    return int(lett[0]), int(lf[0]) & word_mask(dev)
+
+
+def single_lf(dev, position: int) -> Tuple[int, int]:
+    """(letter, LF) at one position wrapped to the view's width
+    (``search.py:backtrace_return_previous_letter_index``): K1's LF mode by
+    value (``kernels.k1_lf_at``) on the card, :func:`lf_at_plain` on the CPU."""
+    position = int(position) & word_mask(dev)
+    if device_kind(dev.packed) == "cuda":
+        from . import kernels
+
+        return kernels.k1_lf_at(dev, position)
+    return lf_at_plain(dev, position)
 
 
 # ---------------------------------------------------------------------------

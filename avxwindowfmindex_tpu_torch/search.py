@@ -637,13 +637,6 @@ class DigramSearchEngine(NgramSearchEngine):
 # Single-query parity API (AwFmSearch.c)
 # ---------------------------------------------------------------------------
 
-def _as_u64(value: int, device) -> torch.Tensor:
-    """(1,) int64 tensor holding ``value`` mod 2^64 as a u64."""
-    v = int(value) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([v - (1 << 64) if v >= (1 << 63) else v], dtype=torch.int64,
-                        device=device)
-
-
 def _from_u64(t: torch.Tensor) -> int:
     """The first value of an int64 tensor, read as a u64."""
     return int(t[0]) & 0xFFFFFFFFFFFFFFFF
@@ -660,14 +653,11 @@ def iterative_step_backward_search(index: FmIndex, start_ptr: int, end_ptr: int,
     the new (start_ptr, end_ptr). ``wide`` and ``pair_rows``, here and
     below, are ``FmIndex.to_device``'s: None picks the width by
     bwtLength; ``pair_rows=False``, the view without pair rows, None the
-    installed view's layout."""
+    installed view's layout. On the card the step is one launch of K1's
+    step mode with the range and the letter passed by value, and one 16 B
+    readback (``rank.single_step``)."""
     dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
-    s, e = rank_ops.backward_step(
-        dev, _as_u64(start_ptr, dev.device), _as_u64(end_ptr, dev.device),
-        torch.tensor([letter_index], dtype=torch.int64, device=dev.device),
-        check_valid=False,
-    )
-    return _from_u64(s), _from_u64(e)
+    return rank_ops.single_step(dev, start_ptr, end_ptr, letter_index)
 
 
 def search_range_is_valid(start_ptr: int, end_ptr: int) -> bool:
@@ -716,13 +706,14 @@ def backtrace_return_previous_letter_index(index: FmIndex, bwt_position: int, *,
     Returns (letter_index, new_bwt_position): the BWT letter at the
     position and its LF mapping. A sentinel returns letter 0 and leaves
     the position unchanged, as the reference's early-out does (it
-    returns before writing *bwtPosition, AwFmSearch.c:443-445)."""
+    returns before writing *bwtPosition, AwFmSearch.c:443-445). On the
+    card: one launch of K1's LF mode by value, one readback
+    (``rank.single_lf``)."""
     dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
-    lett, lf = rank_ops.letter_and_lf_at(dev, _as_u64(bwt_position, dev.device))
-    lett_v = int(lett[0])
-    if lett_v == dev.sentinel:
+    lett, lf = rank_ops.single_lf(dev, bwt_position)
+    if lett == dev.sentinel:
         return 0, bwt_position
-    return lett_v, _from_u64(lf)
+    return lett, lf
 
 
 def find_search_range_for_string(index: FmIndex, kmer: Union[str, bytes], *,

@@ -2,7 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
-        [--cases all|bfs|rs|k3w|k5|pairless] [--cache DIR]
+        [--cases all|bfs|rs|k3w|k5|pairless|k1] [--cache DIR]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -88,6 +88,20 @@ P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
 whole, of 1 KB rows their first 128 B), over a 1 GiB table (device
 memory) and a 64 MiB one (mostly the L2).
 
+``--cases k1``: K1, parent against change in turns in one process. Its
+occ mode at 8,388,608 random pairs over the 64M index (narrow, forced
+wide) and a 2^26-residue amino index on compact wide rows (phase 4p's),
+and its LF mode at 1,048,576 positions; then the single-query
+API a call: 16 sampled 25-mers walked letter by letter by
+``iterative_step_backward_search`` (384 steps) and 64
+``backtrace_return_previous_letter_index`` calls through each checkout's
+own ``search`` module, on the narrow view with and without pair rows, the
+forced-wide view and the compact amino view (16 12-mers): the median host
+us of a call in turns, the floor of a call beside each turn (an empty
+launch and a 16 B readback, ``kernels.empty_call``), equal answers; then
+one ``torch.profiler`` run a checkout gives the device us, launches and
+copies a call (``"device"``; traces under ``--cache``/traces).
+
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per case: ``{"case", "shape", "ms": {name: [first, second]}}`` with
 ``this`` for this checkout.
@@ -106,9 +120,10 @@ import sys
 
 import numpy as np
 
-CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless")
+CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
 BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
 AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
+K1_AMINO_RESIDUES = 1 << 26  # k1: chip_smoke.py phase 4p's compact amino index
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
 OPS_PER_S = 67e12  # published float32 rate outside the tensor cores
 DEFAULT_CACHE = os.path.join(
@@ -681,6 +696,226 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
     torch.cuda.empty_cache()
 
 
+def _package_module(kernels_module, name: str):
+    """The module ``<package>.<name>`` of the checkout whose ``ops.kernels``
+    is ``kernels_module`` (``search``)."""
+    return importlib.import_module(kernels_module.__name__.rsplit(".", 2)[0] + "." + name)
+
+
+def occ_route_step(index, start: int, end: int, letter: int, *, device, wide=None,
+                   pair_rows=None):
+    """``iterative_step_backward_search`` as it ran before K1's step mode:
+    the batched ``rank.backward_step`` over K1's occ mode on a one-element
+    batch, its range and letter uploaded, its answer read back word by
+    word. Kept to time the two routes in turns in one process."""
+    import torch
+    from ..ops import rank
+
+    dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
+
+    def one(v):
+        return torch.tensor([rank.int64_of(int(v) & 2**64 - 1)], dtype=torch.int64,
+                            device=dev.device)
+
+    s, e = rank.backward_step(dev, one(start), one(end),
+                              torch.tensor([letter], dtype=torch.int64, device=dev.device),
+                              check_valid=False)
+    return int(s[0]) & 2**64 - 1, int(e[0]) & 2**64 - 1
+
+
+def occ_route_lf(index, position: int, *, device, wide=None, pair_rows=None):
+    """``backtrace_return_previous_letter_index`` as it ran before K1's LF
+    mode by value: the batched ``rank.letter_and_lf_at`` on an uploaded
+    one-element batch, letter and LF read back one after the other."""
+    import torch
+    from ..ops import rank
+
+    dev = index.to_device(device, wide=wide, pair_rows=pair_rows)
+    lett, lf = rank.letter_and_lf_at(dev, torch.tensor(
+        [rank.int64_of(int(position) & 2**64 - 1)], dtype=torch.int64, device=dev.device))
+    lett_v = int(lett[0])
+    if lett_v == dev.sentinel:
+        return 0, position
+    return lett_v, int(lf[0]) & 2**64 - 1
+
+
+def trace_calls(fn, out_dir: str, tag: str) -> dict:
+    """A torch.profiler trace of ``fn()`` on the card, read from its chrome
+    trace (written to ``out_dir/<tag>.json``): ``{"kernels": {name: [launches,
+    device us]}, "dtoh": n, "htod": n, "other_copies": n, "device_us":
+    total}``, the copies being its ``gpu_memcpy`` events by direction.
+    ``fn`` runs twice, once in the profiler's warm-up cycle, whose events
+    are dropped (the first of a cold trace can be lost), then traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{tag}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    out = {"kernels": {}, "dtoh": 0, "htod": 0, "other_copies": 0, "device_us": 0.0}
+    for ev in events:
+        cat, name, dur = ev.get("cat", ""), ev.get("name", ""), float(ev.get("dur", 0.0))
+        if cat == "kernel":
+            k = out["kernels"].setdefault(name, [0, 0.0])
+            k[0] += 1
+            k[1] += dur
+        elif cat == "gpu_memcpy":
+            key = "dtoh" if "DtoH" in name else ("htod" if "HtoD" in name else "other_copies")
+            out[key] += 1
+        else:
+            continue
+        out["device_us"] += dur
+    return out
+
+
+def walk_calls(index, walks, lf_pos, kw: dict, step, lf):
+    """Each query of ``walks`` walked letter by letter by ``step`` (an
+    ``iterative_step_backward_search``) from its last letter's range, and
+    ``lf`` (a ``backtrace_return_previous_letter_index``) at each position
+    of ``lf_pos``, every call timed on the host clock: (step us, LF us,
+    the walks' ranges and the LF answers)."""
+    import time
+
+    from ..models import alphabet as alpha
+
+    ps = [int(c) for c in index.prefix_sums]
+    step_us, lf_us, answers = [], [], []
+    for q in walks:
+        letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), index.alphabet).tolist()
+        s, e = ps[letters[-1]], ps[letters[-1] + 1] - 1
+        for lett in reversed(letters[:-1]):
+            t0 = time.perf_counter_ns()
+            s, e = step(index, s, e, lett, **kw)
+            step_us.append((time.perf_counter_ns() - t0) / 1e3)
+        answers.append((s, e))
+    for p in lf_pos:
+        t0 = time.perf_counter_ns()
+        answers.append(lf(index, p, **kw))
+        lf_us.append((time.perf_counter_ns() - t0) / 1e3)
+    return step_us, lf_us, answers
+
+
+def floor_us(dev, calls: int) -> float:
+    """Median host us of ``kernels.empty_call`` (an empty launch and the
+    16 B readback) over ``calls`` calls."""
+    import time
+
+    from ..ops import kernels
+
+    kernels.empty_call(dev)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        kernels.empty_call(dev)
+        times.append((time.perf_counter_ns() - t0) / 1e3)
+    return float(np.median(times))
+
+
+def single_query_case(tag: str, index, kw: dict, walks, lf_pos, libs: dict, device,
+                      trace_dir: str) -> None:
+    """The single-query API through every checkout on the view ``kw`` names
+    (installed on ``index``), in turns: the median host us of a step call
+    and of an LF call, the floor beside each turn, equal answers; then one
+    traced run a checkout: device us and copies a call."""
+    names = list(libs)
+    kw = dict(device=device, **kw)
+    dev = index.to_device(**kw)
+    api = {name: _package_module(km, "search") for name, km in libs.items()}
+    for name in names:  # warm-up: builds, views' tables, buffers
+        walk_calls(index, walks[:1], lf_pos[:1], kw, api[name].iterative_step_backward_search,
+                   api[name].backtrace_return_previous_letter_index)
+    want = None
+    step_us = {name: [] for name in names}
+    lf_us = {name: [] for name in names}
+    floors = []
+    for name in names + names[::-1]:
+        st, lt, got = walk_calls(index, walks, lf_pos, kw, api[name].iterative_step_backward_search,
+                                 api[name].backtrace_return_previous_letter_index)
+        if want is None:
+            want = got
+        elif got != want:
+            raise AssertionError(f"{tag}: {name}'s single-query answers differ")
+        step_us[name].append(float(np.median(st)))
+        lf_us[name].append(float(np.median(lt)))
+        floors.append(floor_us(dev, len(st) + len(lt)))
+    steps = len(walks) * (len(walks[0]) - 1)
+    device_per_call = {}
+    for name in names:
+        step_trace = trace_calls(lambda: walk_calls(
+            index, walks, [], kw, api[name].iterative_step_backward_search,
+            api[name].backtrace_return_previous_letter_index), trace_dir, f"{tag}-{name}-step")
+        lf_trace = trace_calls(lambda: walk_calls(
+            index, [], lf_pos, kw, api[name].iterative_step_backward_search,
+            api[name].backtrace_return_previous_letter_index), trace_dir, f"{tag}-{name}-lf")
+        device_per_call[name] = {}
+        for mode, tr, calls in (("step", step_trace, steps), ("lf", lf_trace, len(lf_pos))):
+            k1_us = sum(us for k, (_, us) in tr["kernels"].items() if "k1_" in k)
+            device_per_call[name][mode] = {
+                "k1_us": k1_us / calls, "device_us": tr["device_us"] / calls,
+                "kernels": sum(c for c, _ in tr["kernels"].values()) / calls,
+                "dtoh": tr["dtoh"] / calls, "htod": tr["htod"] / calls}
+    print(json.dumps({"case": f"k1{tag} single-query calls",
+                      "shape": f"{len(walks)} walks ({steps} steps), {len(lf_pos)} LF calls",
+                      "step_us": step_us, "lf_us": lf_us, "floor_us": floors,
+                      "device": device_per_call}), flush=True)
+
+
+def k1_batch_case(tag: str, dev, libs: dict, reps: int, rng, device) -> None:
+    """K1's occ mode at 8,388,608 random pairs, then its LF mode at
+    1,048,576 positions, through every checkout, in turns."""
+    import torch
+
+    b = 1 << 23
+    pos = torch.from_numpy(rng.integers(0, dev.bwt_length, size=b)).to(device)
+    lett = torch.from_numpy(rng.integers(0, dev.cardinality, size=b).astype(np.int32)).to(device)
+    run_case(f"k1{tag} occ", f"{b} pairs", lambda k: k.k1_occurrence(dev, pos, lett), libs, reps)
+    lpos = pos[: 1 << 20].contiguous()
+    run_case(f"k1{tag} letter_lf", f"{lpos.numel()} positions",
+             lambda k: k.k1_letter_and_lf(dev, lpos), libs, reps)
+    del pos, lett, lpos
+    torch.cuda.empty_cache()
+
+
+def k1_cases(index, seq_arr, args, libs: dict, device) -> None:
+    """K1's single-query calls and its batch modes (module note)."""
+    import torch
+
+    from .. import AlphabetType, IndexConfiguration, create_index
+
+    rng = np.random.default_rng(15)
+    trace_dir = os.path.join(args.cache, "traces")
+    walks = [r.tobytes() for r in _sampled(rng, seq_arr, 25, 16)]
+    lf_pos = [int(p) for p in rng.integers(0, index.bwt_length, 64)]
+    k1_batch_case("", index.to_device(device), libs, args.reps, rng, device)
+    for tag, kw in (("", {}), (" without pair rows", {"pair_rows": False}),
+                    ("w", {"wide": True})):
+        single_query_case(tag, index, kw, walks, lf_pos, libs, device, trace_dir)
+    k1_batch_case("w", index.to_device(device, wide=True), libs, args.reps, rng, device)
+    index._device_cache = None
+    torch.cuda.empty_cache()
+    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=K1_AMINO_RESIDUES)
+    aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
+                            sa_backend="native", device=device)
+    view = aa_index.to_device(device, wide=True, pair_rows=False)
+    _log(f"amino index of {K1_AMINO_RESIDUES} residues on {view.packed.shape[1]} B compact rows")
+    k1_batch_case("w compact", view, libs, args.reps, rng, device)
+    aa_walks = [r.tobytes() for r in _sampled(rng, aa, 12, 16)]
+    aa_lf = [int(p) for p in rng.integers(0, aa_index.bwt_length, 64)]
+    single_query_case("w compact", aa_index, {"wide": True, "pair_rows": False}, aa_walks,
+                      aa_lf, libs, device, trace_dir)
+
+
 def k5_cases(libs: dict, reps: int, device) -> None:
     """K5's reduce through every checkout at phase 3b's shapes, over a
     1 GiB table and a 64 MiB one (module note)."""
@@ -776,6 +1011,9 @@ def main(argv=None) -> int:
         return 0
     if args.cases == "pairless":
         pairless_cases(index, seq_arr, args, libs, device)
+        return 0
+    if args.cases == "k1":
+        k1_cases(index, seq_arr, args, libs, device)
         return 0
     dev = index.to_device(device)
     eng = SearchEngine(index, device=device)

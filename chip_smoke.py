@@ -29,6 +29,11 @@ Phases (any failure raises and the script exits nonzero):
      ambiguous queries in one odd-sized batch (each class taken at least
      once, by the plain counts), and K4 with its tail over block rows, n =
      2 and 3, each equal to its plain version and to the pair-row form;
+     K1's single-query modes (a step of one range and the LF of one
+     position, passed by value) on crafted ranges, letters and positions
+     (single_edges: start 0, end = bwtLength - 1, end < start, the
+     ambiguity and sentinel letters and letters beyond them, the
+     sentinel's position), tolerance 0;
   3w. the same for K1w, K2w, K3w and K1WX on the forced-wide views of
      such indexes (u64 positions over 256 B / 512 B rows), with positions
      no search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
@@ -112,7 +117,8 @@ Phases (any failure raises and the script exits nonzero):
      its first LF steps at positions >= 2^32, on starts within 2^20 of
      2^32 on both sides whose walks end within 16 steps (the plain LF
      on the card picks them: a tiled table's LF can cycle), exactly, and
-     timed over such starts across the whole table. (No text of
+     timed over such starts across the whole table; K1w's single-query
+     modes on ranges whose start - 1 and end lie on both sides of 2^32. (No text of
      4.3G bases is indexed: its suffix array on the host alone would
      outlast the script's time limit.)
   7. the public API at full size, on the phase-4 index, each part's
@@ -134,10 +140,18 @@ Phases (any failure raises and the script exits nonzero):
      and count_replicated equal to phase 4's with K2 once a part and no
      range copied to the host before K3, and its count over the
      forced-wide view (K2w once a part); 7f, the single-query API over
-     the wide and the narrow view: 16 25-mers walked letter by letter by
-     iterative_step_backward_search (K1's, K1w's occ mode) equal to the
-     engine's ranges, and backtrace_return_previous_letter_index (their
-     LF mode) equal to the plain LF.
+     the wide view, the narrow one and the narrow one without pair rows:
+     16 25-mers walked letter by letter by iterative_step_backward_search
+     (K1's, K1w's step mode: one launch and one 16 B readback a step)
+     equal to the engine's ranges, and
+     backtrace_return_previous_letter_index (their LF mode by value)
+     equal to the plain LF, the launches counted by mode; each view's
+     calls timed on the host clock against the route before the step
+     mode (the batched step over K1's occ mode on a one-element batch),
+     in turns, beside the floor of a call (an empty launch and a 16 B
+     readback) and the plain versions, and a torch.profiler trace of 16
+     step and 16 LF calls that must show one K1 launch and one
+     device-to-host copy a call and nothing else.
   8. the range-sharded engine on the phase-4 index: 8a, the route and
      K1R / K1Rw (occ mode, LF mode with the done rule, letter mode)
      against their plain versions (tolerance 0: the route's totals and
@@ -182,7 +196,8 @@ Phases (any failure raises and the script exits nonzero):
      the narrow amino engine's, the single-query API
      (iterative_step_backward_search, backtrace_return_previous_letter_index)
      over 256 of them equal to the narrow answers, the launches read around
-     all of it; each compact form against its plain version (K1WX's whole
+     all of it (by mode); K1w compact's single-query modes on crafted
+     edges, and its calls timed and traced as in 7f; each compact form against its plain version (K1WX's whole
      k = 5 BFS against the plain BFS), and K2w and K3w against their
      pair-fused forms, in turns; the C launchers refuse a table of the
      other wide layout;
@@ -224,7 +239,12 @@ entry one PyTorch call computes too (the ring reduce, the single slab
 gather; K5's ms is device time with the queue kept full, K6's ms and
 library_ms are the graph-replay pair); their walk
 and chain at the calibration shapes are compared and timed in phase 6
-and logged there. Two looser models of each index kernel are logged and
+and logged there. K1's single-query modes have entries of their own
+(k1_rank.step, k1_rank.lf_at, and K1w's and K1w compact's): their ms is
+the host time of an API call on its path (7f, 4p), their plain_ms the
+plain version's, their bound the bytes of one or two row visits, beside
+floor_ms (an empty launch and a 16 B readback) and device_ms (the
+kernel in a profiler trace). Two looser models of each index kernel are logged and
 kept out of that line: every visit's row sectors over the same 3.35 TB/s
 (the stages' roofline), and every visit the kernel makes at a rate
 measured in this process: its row visits at the calibrated random-row
@@ -258,12 +278,12 @@ EXACT = 0  # every quantity compared is an integer: tolerance 0
 # the kernels each path launches: phase 4 (the main path, its build's
 # seed-table BFS through K1X), phase 6 (the bench's calibration), phase 4w
 # (the wide path, its BFS through K1WX) and phase 7f (the single-query
-# API, K1's and K1w's occ and LF modes), whose counts the kernels line
+# API, K1's and K1w's step and LF-at modes), whose counts the kernels line
 # reports
 MAIN_PATH_KERNELS = ("k1_extend", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
 BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
 WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
-SINGLE_QUERY_KERNELS = ("k1_rank", "k1w_rank")
+SINGLE_MODES = ("step", "lf_at")  # K1's single-query modes, entries of their own in the kernels line
 RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
 RS_LF_LANES = 1 << 20  # phase 8a: LF lanes, the backtrace's first step at 1M hits
 RANK_TIMEOUT_S = 300  # phase 9a: a rank still running after this fails the script
@@ -438,15 +458,159 @@ def expect_launches(tag: str, names, exact=None) -> dict:
     times."""
     from avxwindowfmindex_tpu_torch.ops import kernels
 
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = kernels.launch_counts()  # K1's forms also by mode: "k1_rank.step"
     log(f"[{tag}] launches: { {n: c for n, c in launches.items() if c} }")
-    missing = [n for n in names if launches[n] <= 0]
+    missing = [n for n in names if launches.get(n, 0) <= 0]
     if missing:
         raise AssertionError(f"[{tag}] never launched {missing}")
     for name, want in (exact or {}).items():
-        if launches[name] != want:
-            raise AssertionError(f"[{tag}] launched {name} {launches[name]} times, not {want}")
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"[{tag}] launched {name} {launches.get(name, 0)} times, "
+                                 f"not {want}")
     return launches
+
+
+def single_edges(rec: "Record", dev, rng, tag: str, sentinel_pos=None, around=()) -> None:
+    """K1's single-query modes on the view ``dev`` (its form: K1, K1w or K1w
+    compact) against their plain versions on the same arguments, packed by
+    ``rank.step_args``: steps of crafted ranges (start 0, whose start - 1
+    wraps; end = bwtLength - 1; end < start; ends one block apart; positions
+    past the table and, for ``around``, on both sides of 2^32) by every
+    letter of the alphabet, the ambiguity and sentinel letters and letters
+    beyond the table (32, 255, 256, -1, 2^40), and the LF by value at the
+    same positions and the sentinel's (``sentinel_pos``). Tolerance 0."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank
+
+    kname = kernels.form_of(dev, kernels.K1).name
+    n, card = dev.bwt_length, dev.cardinality
+    beyond = [2**32 - 1, 2**32, 2**40 + 5, 2**63, 2**64 - 1] if dev.wide else [2**32 - 1, 2**32 + 5, -1]
+    pts = [0, 1, 7, 8, 255, 256, 257, n - 2, n - 1, n, n + 300, *beyond, *around]
+    pts += [int(p) for p in rng.integers(0, n, 4)]
+    letters = [*range(card + 2), card + 2, 31, 32, 255, 256, 1000, -1, 2**31, 2**40]
+    ranges = [(s, e) for s in pts for e in (s - 1, s, s + 255, s + 256, n - 1)]
+    ranges += [(0, n - 1), (0, 0), (n - 1, 0), (300, 20)]
+    calls = [(s, e, letters[i % len(letters)]) for i, (s, e) in enumerate(ranges)]
+    calls += [(s, e, lett) for s, e in ranges[:: max(1, len(ranges) // 12)] for lett in letters]
+    # the plain versions (rank.step_plain, rank.lf_at_plain) row for row,
+    # as one batched call of the same plain step and LF
+    as_t = lambda v: torch.tensor([rank.int64_of(x) for x in v], dtype=torch.int64,
+                                  device=dev.device)
+    args = [rank.step_args(dev, s, e, lett) for s, e, lett in calls]
+    got = [w for a in args for w in kernels.k1_step(dev, *a)]
+    ws, we = rank.backward_step(dev, *(as_t(col) for col in zip(*args)), check_valid=False,
+                                occurrence_fn=rank.occurrence_plain)
+    want = torch.stack([ws & dev.pos_mask, we & dev.pos_mask], dim=1).reshape(-1)
+    rec.compare(f"{kname}.step", f"{tag} crafted steps x{len(calls)}", as_t(got), want)
+    mask = rank.word_mask(dev)
+    lf_pts = [p & mask for p in pts + ([] if sentinel_pos is None else [sentinel_pos])]
+    got = [w for p in lf_pts for w in kernels.k1_lf_at(dev, p)]
+    lett, lf = rank.letter_and_lf_plain(dev, as_t(lf_pts))
+    rec.compare(f"{kname}.lf_at", f"{tag} crafted LF positions x{len(lf_pts)}", as_t(got),
+                torch.stack([lett, lf], dim=1).reshape(-1))
+
+
+def single_query_calls(rec: "Record", index, kw: dict, walks, lf_pos, device: str, tag: str,
+                       record: bool = True) -> dict:
+    """The single-query API on the view ``kw`` names, installed on ``index``
+    (its launches already checked): (1) the median host us of a call of
+    ``iterative_step_backward_search`` and of
+    ``backtrace_return_previous_letter_index`` over the walks, against the
+    route before K1's step mode (``tools.kernel_ab.occ_route_step`` /
+    ``occ_route_lf``: the batched step over K1's occ mode on a one-element
+    batch) in turns, old, new, new, old, with equal answers, and the floor
+    of a call (an empty launch and a 16 B readback) beside each turn; the
+    plain versions a call; (2) a ``torch.profiler`` trace of 16 step calls
+    and of 16 LF calls, which must show one K1 kernel of the view's form and
+    one device-to-host copy a call and no other kernel and no host-to-device
+    copy (a trace without device activity fails). With ``record``, the
+    form's ``.step`` and ``.lf_at`` entries of the kernels line take these
+    times and bounds."""
+    import numpy as np
+    import avxwindowfmindex_tpu_torch as pt
+    from avxwindowfmindex_tpu_torch.models import alphabet as alpha
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import (
+        floor_us, occ_route_lf, occ_route_step, trace_calls, walk_calls)
+
+    kw = dict(device=device, **kw)
+    dev = index.to_device(**kw)
+    kname = kernels.form_of(dev, kernels.K1).name
+    new = (pt.iterative_step_backward_search, pt.backtrace_return_previous_letter_index)
+    old = (occ_route_step, occ_route_lf)
+
+    def plain_step(ix, s, e, lett, **k):
+        view = ix.to_device(**k)
+        return rank.step_plain(view, *rank.step_args(view, s, e, lett))
+
+    def plain_lf(ix, p, **k):
+        view = ix.to_device(**k)
+        lett, lf = rank.lf_at_plain(view, p & rank.word_mask(view))
+        return (0, p) if lett == view.sentinel else (lett, lf)
+
+    routes = {"occ route": old, "step mode": new}
+    for fns in routes.values():  # warm-up
+        walk_calls(index, walks[:1], lf_pos[:1], kw, *fns)
+    us = {name: {"step": [], "lf": []} for name in routes}
+    floors, want = [], None
+    for name in ["occ route", "step mode", "step mode", "occ route"]:
+        st, lt, got = walk_calls(index, walks, lf_pos, kw, *routes[name])
+        if want is None:
+            want = got
+        elif got != want:
+            raise AssertionError(f"[{tag}] the {name}'s answers differ from the occ route's")
+        us[name]["step"].append(float(np.median(st)))
+        us[name]["lf"].append(float(np.median(lt)))
+        floors.append(floor_us(dev, len(st) + len(lt)))
+    pst, plt, got = walk_calls(index, walks[:2], lf_pos[:16], kw, plain_step, plain_lf)
+    if got != want[:2] + want[len(walks):len(walks) + 16]:
+        raise AssertionError(f"[{tag}] the plain single-query versions differ")
+    plain = {"step": float(np.median(pst)), "lf": float(np.median(plt))}
+    trace_dir = os.path.join(REPO, "avxwindowfmindex_tpu_torch", "build", "traces")
+    steps16, ps = [], [int(c) for c in index.prefix_sums]  # the walks' first 16 steps
+    for q in walks:
+        letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), index.alphabet).tolist()
+        s, e = ps[letters[-1]], ps[letters[-1] + 1] - 1
+        for lett in reversed(letters[:-1]):
+            steps16.append((s, e, lett))
+            s, e = new[0](index, s, e, lett, **kw)
+        if len(steps16) >= 16:
+            break
+    steps16 = steps16[:16]
+    tr = trace_calls(lambda: ([new[0](index, *args, **kw) for args in steps16],
+                              [new[1](index, p, **kw) for p in lf_pos[:16]]),
+                     trace_dir, f"{tag}-{kname}".replace(" ", "_"))
+    if not tr["kernels"] and not tr["dtoh"]:
+        raise AssertionError(f"[{tag}] the profiler saw no device activity")
+    found = {mode: {k: v for k, v in tr["kernels"].items() if f"k1_{mode}_kernel" in k}
+             for mode in ("step", "lf_at")}
+    launches = {mode: sum(c for c, _ in ks.values()) for mode, ks in found.items()}
+    others = sum(c for c, _ in tr["kernels"].values()) - sum(launches.values())
+    if (launches != {"step": 16, "lf_at": 16} or others or tr["dtoh"] != 32 or tr["htod"]
+            or tr["other_copies"]):
+        raise AssertionError(f"[{tag}] 16 step and 16 LF calls traced {tr}: not one K1 launch "
+                             f"and one device-to-host copy a call alone")
+    device_us = {mode: sum(d for _, d in found[key].values()) / 16
+                 for mode, key in (("step", "step"), ("lf", "lf_at"))}
+    log(f"[{tag}] profiler, 16 step and 16 LF calls: {launches['step']} + {launches['lf_at']} "
+        f"{kname} launches ({device_us['step']:.2f} / {device_us['lf']:.2f} us each), "
+        f"{tr['dtoh']} device-to-host copies, no other kernel, no host-to-device copy")
+    for mode, word in (("step", "step"), ("lf", "LF")):
+        log(f"[{tag}] {word} call, host us (median a call, in turns): occ route "
+            f"{us['occ route'][mode][0]:.2f} / {us['occ route'][mode][1]:.2f}, step mode "
+            f"{us['step mode'][mode][0]:.2f} / {us['step mode'][mode][1]:.2f}; floor "
+            f"{min(floors):.2f}-{max(floors):.2f}; plain {plain[mode]:.2f}; device "
+            f"{device_us[mode]:.2f}")
+    if record:
+        nb, np_, ms_b = dev.num_blocks, dev.n_planes, dev.milestone_bytes
+        for mode, suffix, visits in (("step", "step", 2), ("lf", "lf_at", 1)):
+            name = f"{kname}.{suffix}"
+            rec.ms[name] = (min(us["step mode"][mode]) / 1e3, plain[mode] / 1e3)
+            rec.set_bound(name, [(nb, np_ * 32 + ms_b, visits)], ms_b + 16,
+                          visits * rank_ops(np_))
+            rec.bound[name]["floor_ms"] = min(floors) / 1e3
+            rec.bound[name]["device_ms"] = device_us[mode] / 1e3
+    return {"us": us, "floor_us": floors, "plain_us": plain, "device_us": device_us}
 
 
 class Record:
@@ -679,6 +843,9 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
         pl, pf = rank.letter_and_lf_plain(dev, lpos)
         rec.compare(k1, f"{name} letter x{len(lpos)}", kl, pl)
         rec.compare(k1, f"{name} LF x{len(lpos)}", kf, pf)
+        # K1's single-query modes, by value, on crafted ranges and letters
+        single_edges(rec, dev, rng, f"[{tag}] {name}", sentinel_pos=int(
+            np.flatnonzero(index.bwt_letters == index.sentinel_index)[0]))
 
         # K2: 64K seeded queries and 4K unseeded ones (short or ambiguous)
         eng = SearchEngine(index, device=device, wide=wide)
@@ -2061,6 +2228,9 @@ def phase_straddle(rec: Record, device: str, boundary: int = 2**32) -> dict:
     rec.compare("k1w_rank", f"straddle LF x{len(pos)}", kf, pf)
     if int(kf.max()) < boundary:
         raise AssertionError("no LF value above the boundary")
+    # K1w's single-query modes with start - 1 and end on both sides of 2^32
+    single_edges(rec, dev, rng, "[4x]", around=[boundary + d for d in (-300, -257, -256, -1, 1, 2, 256)]
+                 + [int(ps[3]), int(ps[4]) - 1])
 
     # K2w: unseeded queries start from whole-letter ranges; those ending in
     # T start on a range that straddles the boundary and step through
@@ -2939,14 +3109,18 @@ def phase_range_sharded(rec: Record, engine, kmers, answers, device: str) -> dic
     return stats
 
 
-def phase_single_query(engine, kmers, device: str) -> dict:
-    """Phase 7f: the single-query API over the forced-wide and the narrow
-    view of the phase-4 index: 16 25-mers walked letter by letter by
-    ``iterative_step_backward_search`` (K1's occ mode, K1w's on the wide
-    view, one launch a step) equal to the engine's ranges, and
-    ``backtrace_return_previous_letter_index`` (their LF mode) equal to
-    the plain LF. Returns each kernel's launches, read after each view's
-    calls (counts reset before them)."""
+def phase_single_query(rec: Record, engine, kmers, device: str) -> dict:
+    """Phase 7f: the single-query API over the forced-wide view of the
+    phase-4 index, its narrow view and that view without pair rows:
+    16 25-mers walked letter by letter by ``iterative_step_backward_search``
+    (K1's step mode, K1w's on the wide view: one launch and one readback a
+    step) equal to the engine's ranges, and
+    ``backtrace_return_previous_letter_index`` (their LF mode by value)
+    equal to the plain LF; the launch counts, by mode, reset before each
+    view's calls and read after them. Then each view's calls timed against
+    the route before the step mode, in turns, beside the floor of a call,
+    and traced (``single_query_calls``). Returns each kernel's launches and
+    the times."""
     import numpy as np
     import torch
     import avxwindowfmindex_tpu_torch as pt
@@ -2959,34 +3133,52 @@ def phase_single_query(engine, kmers, device: str) -> dict:
     lf_pos = [int(p) for p in rng.integers(0, index.bwt_length, 64)]
     want_ranges = engine.find_ranges(walks)
     ps = [int(c) for c in index.prefix_sums]
-    stats = {}
-    for wide, name in ((True, "k1w_rank"), (False, "k1_rank")):
-        view = index.to_device(device, wide=wide)
+    stats = {"launches": {}, "calls": {}}
+    narrow = None
+    for tag, kw in (("wide", {"wide": True}), ("narrow", {"wide": False, "pair_rows": True}),
+                    ("narrow without pair rows", {"wide": False, "pair_rows": False})):
+        t = time.time()
+        if kw["wide"] or kw["pair_rows"]:
+            view = index.to_device(device, **kw)
+            narrow = None if kw["wide"] else view
+        else:
+            # what to_device(pair_rows=False) would pack anew: the narrow
+            # view's block rows without its pair table, installed as the
+            # index's view, so that the calls naming that layout find it
+            view = index._device_cache = dataclasses.replace(narrow, packed_pair=None)
+            if index.to_device(device, **kw) is not view:
+                raise AssertionError("7f: the view without pair rows is not the installed one")
+        name = kernels.form_of(view, kernels.K1).name
         lett_want, lf_want = rank.letter_and_lf_plain(
             view, torch.tensor(lf_pos, dtype=torch.int64, device=device))
         kernels.reset_launch_counts()
-        t = time.time()
         for q, (want_s, want_e) in zip(walks, want_ranges):
             letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), index.alphabet).tolist()
             s, e = ps[letters[-1]], ps[letters[-1] + 1] - 1
             for lett in reversed(letters[:-1]):
-                s, e = pt.iterative_step_backward_search(index, s, e, lett, device=device,
-                                                         wide=wide)
+                s, e = pt.iterative_step_backward_search(index, s, e, lett, device=device, **kw)
             if (s, e) != (int(want_s), int(want_e)):
                 raise AssertionError(f"7f: {q} walked to {(s, e)}, the engine's range is "
                                      f"{(want_s, want_e)}")
         for p, lw, fw in zip(lf_pos, lett_want.tolist(), lf_want.tolist()):
-            got = pt.backtrace_return_previous_letter_index(index, p, device=device, wide=wide)
+            got = pt.backtrace_return_previous_letter_index(index, p, device=device, **kw)
             want = (0, p) if lw == view.sentinel else (lw, fw)
             if got != want:
                 raise AssertionError(f"7f: LF of {p} gave {got}, the plain version {want}")
         steps = len(walks) * (KMER_LEN - 1)
-        launches = expect_launches("7f", (name,), exact={name: steps + len(lf_pos)})
-        stats[name] = launches[name]
-        log(f"[7f] single-query API, {'wide' if wide else 'narrow'} view: {len(walks)} 25-mers "
-            f"walked by iterative_step_backward_search ({steps} steps) equal to the engine's "
-            f"ranges, {len(lf_pos)} backtrace_return_previous_letter_index calls equal to the "
-            f"plain LF; {launches[name]} {name} launches, {time.time() - t:.3f}s")
+        launches = expect_launches("7f", (name,), exact={
+            name: steps + len(lf_pos), f"{name}.step": steps, f"{name}.lf_at": len(lf_pos),
+            f"{name}.occ": 0, f"{name}.letter_lf": 0})
+        for key in (name, f"{name}.step", f"{name}.lf_at"):
+            stats["launches"][key] = launches[key]
+        log(f"[7f] single-query API, {tag} view: {len(walks)} 25-mers walked by "
+            f"iterative_step_backward_search ({steps} steps) equal to the engine's ranges, "
+            f"{len(lf_pos)} backtrace_return_previous_letter_index calls equal to the plain LF; "
+            f"{launches[name]} {name} launches ({launches[f'{name}.step']} step, "
+            f"{launches[f'{name}.lf_at']} LF by value), {time.time() - t:.3f}s")
+        stats["calls"][tag] = single_query_calls(rec, index, kw, walks, lf_pos, device,
+                                                 f"7f {tag}", record=tag != "narrow without pair rows")
+    index._device_cache = narrow  # the narrow view with pair rows, as phase 7f found it built
     return stats
 
 
@@ -3204,11 +3396,20 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
                                                         pair_rows=False)
         if got != ((0, p) if lw == view.sentinel else (lw, fw)):
             raise AssertionError(f"[4p] LF of {p} over compact rows gave {got}")
-    steps = SINGLE_QUERY_WALKS * (AMINO_KMER_LEN - 1) + len(lf_pos)
+    steps = SINGLE_QUERY_WALKS * (AMINO_KMER_LEN - 1)
     launches = expect_launches("4p", COMPACT_KERNELS, exact={
-        "k1w_extend_compact": AMINO_SEED_K - 1, "k1w_rank_compact": steps, "k1w_rank": 0,
+        "k1w_extend_compact": AMINO_SEED_K - 1, "k1w_rank_compact": steps + len(lf_pos),
+        "k1w_rank_compact.step": steps, "k1w_rank_compact.lf_at": len(lf_pos),
+        "k1w_rank_compact.occ": 0, "k1w_rank": 0,
         "k1w_extend": 0, "k2w_ranges": 0, "k3w_backtrace_resolve": 0})
     stats["launches"].update({n: launches[n] for n in COMPACT_KERNELS})
+    stats["launches"].update({f"k1w_rank_compact.{m}": launches[f"k1w_rank_compact.{m}"]
+                              for m in ("step", "lf_at")})
+    steps += len(lf_pos)
+    single_edges(rec, view, rng, "[4p]", sentinel_pos=int(
+        np.flatnonzero(aa.bwt_letters == aa.sentinel_index)[0]))
+    stats["single_query"] = single_query_calls(
+        rec, aa, {"wide": True, "pair_rows": False}, walks[:16], lf_pos[:64], device, "4p")
     log(f"[4p] compact amino engine: count {QUERIES} x {AMINO_KMER_LEN}-mers "
         f"{QUERIES / count_s:.1f} q/s, locate {QUERIES / locate_s:.1f} q/s ({len(flat)} hits), "
         f"equal to the narrow amino engine; K1WX's k={AMINO_SEED_K} BFS over the 384 B rows "
@@ -3580,8 +3781,8 @@ def main(argv=None) -> int:
     main_stats["public_api"] = phase_public_api(
         engine, kmers, seq_arr, answers, small_index, small_text, small_path, main_stats, device,
     )
-    main_stats["single_query"] = phase_single_query(engine, kmers, device)
-    launches.update(main_stats["single_query"])
+    main_stats["single_query"] = phase_single_query(rec, engine, kmers, device)
+    launches.update(main_stats["single_query"].pop("launches"))
     mark("phase 7")
     main_stats["range_sharded"] = phase_range_sharded(rec, engine, kmers, answers, device)
     launches.update(main_stats["range_sharded"]["launches"])
@@ -3634,15 +3835,21 @@ def main(argv=None) -> int:
 
     log(f"[summary] {json.dumps(main_stats)}")
     log(smi)
+    # K1's single-query modes are entries of their own: launches on their
+    # path (7f, 4p), per-call host ms against the plain version's, their
+    # bound beside the floor of a call and the kernel's device time
+    entries = [(k, k.name) for k in kernels.KERNELS] + [
+        (k, f"{k.name}.{mode}") for k in (kernels.K1, kernels.K1W, kernels.K1W_COMPACT)
+        for mode in SINGLE_MODES]
     print(json.dumps({"kernels": [
         {
-            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches[k.name] + rank_launches.get(k.name, 0),
-            "rank_launches": rank_launches.get(k.name, 0), "max_abs_err": rec.err[k.name],
-            "ms": rec.ms[k.name][0], "plain_ms": rec.ms[k.name][1],
-            **rec.bound[k.name], "library_ms": rec.library.get(k.name),
+            "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+            "launches": launches[name] + rank_launches.get(name, 0),
+            "rank_launches": rank_launches.get(name, 0), "max_abs_err": rec.err[name],
+            "ms": rec.ms[name][0], "plain_ms": rec.ms[name][1],
+            **rec.bound[name], "library_ms": rec.library.get(name),
         }
-        for k in kernels.KERNELS
+        for k, name in entries
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

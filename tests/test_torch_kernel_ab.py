@@ -26,14 +26,14 @@ from torch_helpers import build_both
 DNA, AMINO = jx.AlphabetType.DNA, jx.AlphabetType.AMINO
 
 
-@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5", "pairless"])
+@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5", "pairless", "k1"])
 def test_every_case_parses(case):
     assert case in kernel_ab.CASES
     assert kernel_ab.parse_args(["--cases", case]).cases == case
 
 
 def test_case_list_and_defaults():
-    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5", "pairless")
+    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
     args = kernel_ab.parse_args([])
     assert args.cases == "all" and args.other == [] and args.reps == 10
     assert args.bases == 64_000_000 and args.queries == 1 << 20 and args.seed_k == 14
@@ -46,6 +46,40 @@ def test_case_list_and_defaults():
     got = kernel_ab.parse_args(["--other", "parent=build/parent", "--other", "b=x=y",
                                 "--cache", "somewhere"])
     assert got.other == ["parent=build/parent", "b=x=y"] and got.cache == "somewhere"
+
+
+def test_k1_case_arguments():
+    """``--cases k1`` with a parent checkout, as the README runs it: the
+    parent and the case parse, the traces go under ``--cache``, and the
+    amino index is phase 4p's 2^26 residues."""
+    got = kernel_ab.parse_args(["--other", "parent=build/parent", "--cases", "k1", "--reps", "5"])
+    assert got.cases == "k1" and got.other == ["parent=build/parent"] and got.reps == 5
+    assert got.bases == 64_000_000 and got.seed_k == 14
+    assert kernel_ab.K1_AMINO_RESIDUES == 1 << 26
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_k1_case_routes_agree_on_the_cpu(wide):
+    """The route the k1 case times the step mode against (the batched step
+    over K1's occ mode on a one-element batch, ``occ_route_step`` /
+    ``occ_route_lf``) gives the API's answers, walk for walk, on the CPU."""
+    import avxwindowfmindex_tpu_torch as pt
+
+    rng = np.random.default_rng(0xA1)
+    seq = random_sequence(rng, 3000, DNA)
+    _, p = build_both(seq, 4, 3, DNA)
+    arr = np.frombuffer(seq, np.uint8)
+    walks = [r.tobytes() for r in kernel_ab._sampled(rng, arr, 9, 4)]
+    lf_pos = [0, 1, int(p.bwt_length) - 1, *rng.integers(0, p.bwt_length, 8).tolist()]
+    kw = dict(device="cpu", wide=wide)
+    new = kernel_ab.walk_calls(p, walks, lf_pos, kw, pt.iterative_step_backward_search,
+                               pt.backtrace_return_previous_letter_index)
+    old = kernel_ab.walk_calls(p, walks, lf_pos, kw, kernel_ab.occ_route_step,
+                               kernel_ab.occ_route_lf)
+    assert len(new[0]) == 4 * 8 and len(new[1]) == len(lf_pos)
+    assert new[2] == old[2]
+    engine = psearch.SearchEngine(p, **kw)
+    assert new[2][:4] == [(int(s), int(e)) for s, e in engine.find_ranges(walks)]
 
 
 @pytest.mark.parametrize("argv", [["--cases", "k4"], ["--other", "parent"], ["--reps", "x"]],
