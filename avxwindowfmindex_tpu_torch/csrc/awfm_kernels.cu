@@ -164,7 +164,11 @@
 //       threads a block and a budget of 128 registers a thread
 //       (__launch_bounds__(256, 2)): ptxas spends them on loads started
 //       early, and the kernel measured 2-3% ahead of its default choice
-//       of 58 and 7% ahead of a cap of 64. Two Hopper features
+//       of 58 and 7% ahead of a cap of 64. The query's letters are read
+//       once, as 4 B words into registers (QueryRow, as K2), where the
+//       letter rows are aligned words of at most 32 letters: 0.1-1.1%
+//       ahead of reading each n-gram's letters from memory between steps,
+//       in both forms. Two Hopper features
 //       have no use here: TMA copies tiles whose addresses follow from a
 //       descriptor and a coordinate, not 32 B pieces at data-dependent
 //       addresses, and there is no matrix product for wgmma.
@@ -268,6 +272,30 @@
 //       without pair rows passes a null pair table, and each launcher
 //       refuses a table whose layout is not its form's. A narrow view's K1,
 //       K1X and K3 read the block rows in either view.
+//       What bounds K4 over block rows on this card: its n-gram steps. The
+//       n = 2 rows (96 MB) lie beyond the L2, and K5's walk over their
+//       first-block sectors alone (192 B a visit) runs at 17.5G visits a
+//       second, 3.35 TB/s of sectors; K4 makes its 5.2M n-gram visits at
+//       about 0.65 of that rate, beside the 32 MB block rows and the seed
+//       table in the same L2, and stands at 1.41 of a model that charges
+//       every visit at its table's walked rate (tools.kernel_ab --cases
+//       pairless). What the design does: the letters in registers (K4's
+//       note). Measured against it in one process and not kept (H100 80GB
+//       HBM3, 700 W): an evict-last L2 policy (createpolicy.fractional)
+//       on the block rows beside a share of the n-gram rows, 1-4% behind;
+//       on a share of the n-gram rows sized to the L2 alone, 1-2% behind;
+//       two queries a lane pair, their first-block loads asked for
+//       together and the rarer classes out of line, 3% behind at n = 2 and
+//       13% at n = 3 (128 registers and spills): the visits in flight were
+//       not what held it.
+//       What bounds K2w over compact rows: the same walk over the 100.7 MB
+//       amino rows runs at 20G visits a second (the five plane sectors and
+//       a milestone sector, 192 B), and K2w makes its 7.46M visits at
+//       1.06-1.10 of that model. It keeps K2's form (K2's note); measured against
+//       it and not kept: an evict-last share of the plane sectors sized to
+//       36 MB, 7% behind; the milestone loaded by one lane of the pair and
+//       shuffled, level; one lane a query (five whole plane sectors a
+//       lane), 33% behind.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -1603,11 +1631,12 @@ constexpr int kK4Group = 2;  // lanes per query
 
 // Every query has length kmer_len > k and letters < 4 (the n-gram fast
 // path's contract, checked by the host engine). kK4Group lanes walk one
-// query; the seed-table entry is loaded and the ranges are stored with
-// the streaming hints (.cs). PAIR: the tail steps over the pair rows, else
-// over the block rows (backward_step); the n-gram steps read the n-gram
-// pair rows either way, as the JAX package's do.
-template <int N, int NP, bool PAIR>
+// query, its letters in registers where LW > 0 (QueryRow); the seed-table
+// entry is loaded and the ranges are stored with the streaming hints
+// (.cs). PAIR: the tail steps over the pair rows, else over the block rows
+// (backward_step); the n-gram steps read the n-gram pair rows either way,
+// as the JAX package's do.
+template <int N, int NP, int LW, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 2)
 k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
                        const uint32_t* __restrict__ seed_table,
@@ -1620,7 +1649,7 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
   if (q >= b) return;
-  const QueryRow<0> row(mat + q * l_pad, l_pad);
+  const QueryRow<LW> row(mat + q * l_pad, l_pad);
   const Group<GL> grp;
   uint32_t start, end;
   seed_range(seed_table, seed_rows, k, static_cast<uint32_t>(t.card), row,
@@ -1628,10 +1657,9 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
   const int m = kmer_len - k;
   // step s prepends columns m - N(s+1) .. m - N s - 1, leftmost first
   for (int st = 0; st < m / N && start <= end; ++st) {
-    const uint8_t* w = row.row + (m - N * (st + 1));
     uint32_t v = 0u;
 #pragma unroll
-    for (int j = 0; j < N; ++j) v = v * 4u + w[j];
+    for (int j = 0; j < N; ++j) v = v * 4u + row[m - N * (st + 1) + j];
     ngram_step<N, GL>(g, start, end, v, grp);
   }
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
@@ -2026,6 +2054,23 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int N, bool PAIR>
+void launch_k4_letters(const AwfmTables* t, const NgramTables* g, const uint32_t* seed_table,
+                       int64_t seed_rows, int k, const uint8_t* mat, int64_t b, int64_t l_pad,
+                       int kmer_len, int64_t* start_out, int64_t* end_out,
+                       cudaStream_t stream) {
+  const unsigned int grid = grid_for(b * kK4Group);
+  // letters in registers where the rows are whole aligned words of at most
+  // 32 letters, as K2 takes them (launch_k2_planes)
+  if (l_pad % 4 == 0 && l_pad <= 32 && reinterpret_cast<uintptr_t>(mat) % 4 == 0) {
+    k4_ngram_ranges_kernel<N, 3, 8, PAIR><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out);
+  } else {
+    k4_ngram_ranges_kernel<N, 3, 0, PAIR><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out);
+  }
+}
+
 template <bool PAIR>
 int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               const uint32_t* seed_table, int64_t seed_rows, int k,
@@ -2033,18 +2078,15 @@ int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned int grid = grid_for(b * kK4Group);
   if (t->n_planes != 3 || !rows_fit<Narrow>(t) || !pair_rows_fit<Narrow, PAIR>(t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (g->n == 2) {
-    k4_ngram_ranges_kernel<2, 3, PAIR><<<grid, kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
-        end_out);
+    launch_k4_letters<2, PAIR>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
+                               start_out, end_out, stream);
   } else if (g->n == 3) {
-    k4_ngram_ranges_kernel<3, 3, PAIR><<<grid, kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out,
-        end_out);
+    launch_k4_letters<3, PAIR>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
+                               start_out, end_out, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -31,9 +31,10 @@
 //       one thread per lane, its vector loads of a row all in flight
 //       together. A sector mask (bit s: the row's 32 B sector s) limits the
 //       loads and the sum to the sectors a search step reads, so the walk
-//       can measure the rate of visits that touch only those. Every
-//       fraction of a ceiling divides by the walk's rates, so the walk
-//       keeps its form.
+//       can measure the rate of visits that touch only those (the walk
+//       also takes the 768 B rows of an n = 3 n-gram table, which
+//       tools.kernel_ab's models calibrate). Every fraction of a ceiling
+//       divides by the walk's rates, so the walk keeps its form.
 //   K6 awfm_k6_slab_gather / awfm_k6_slab_chain
 //       Replaces experiments/ab_r5_pallas_gather.py:_k1_kernel (P5):
 //       out[i, :] = slab[idx[i], :] over a (S, 128) u32 slab of 1-4 MiB.
@@ -369,6 +370,7 @@ int awfm_k5_gather_walk(int device, const uint8_t* table, int64_t nb,
     case 256: err = launch_walk<256>(table, nb, idx, n, seg, sector_mask, out, stream); break;
     case 384: err = launch_walk<384>(table, nb, idx, n, seg, sector_mask, out, stream); break;
     case 512: err = launch_walk<512>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 768: err = launch_walk<768>(table, nb, idx, n, seg, sector_mask, out, stream); break;
     case 1024: err = launch_walk<1024>(table, nb, idx, n, seg, sector_mask, out, stream); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -978,9 +978,9 @@ def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
                    sector_mask: int = 0xFFFFFFFF) -> torch.Tensor:
     """K5's walk entry: (n,) int32 indices after ``seg`` dependent steps,
     each reading and summing the row's 32 B sectors set in ``sector_mask``."""
-    from .probes import K5_ROW_BYTES
+    from .probes import K5_WALK_ROW_BYTES
 
-    device = _probe_table(table, "table", torch.uint8, K5_ROW_BYTES)
+    device = _probe_table(table, "table", torch.uint8, K5_WALK_ROW_BYTES)
     n = _probe_idx(idx, device)
     if seg < 0 or not 0 <= sector_mask <= 0xFFFFFFFF:
         raise ValueError("need seg >= 0 and a 32-bit sector_mask")

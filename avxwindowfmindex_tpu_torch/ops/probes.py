@@ -45,6 +45,8 @@ from .rank import device_kind
 #: Row widths K5 is instantiated for: the experiments' 128, 512 and
 #: 1024 B rows and the index's 128, 256 and 384 B tables.
 K5_ROW_BYTES = (128, 256, 384, 512, 1024)
+#: Row widths K5's walk entry is instantiated for: those and the n = 3 n-gram rows.
+K5_WALK_ROW_BYTES = (128, 256, 384, 512, 768, 1024)
 #: Ring depths (16 B pieces in flight per lane) K5 is instantiated for.
 K5_RING_DEPTHS = (2, 4, 8, 16, 32)
 SLAB_LANES = 128  # K6 rows: 128 u32 words = 512 B

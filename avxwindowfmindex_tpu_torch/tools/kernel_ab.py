@@ -74,14 +74,29 @@ On every table but the 64M random positions, this checkout's K3w is also
 timed against its kernel over the same text in compact rows
 (``compact_view``: planes 32 B apart), the layout's ceiling.
 
-``--cases pairless``: the forms for a view without pair rows against the
-pair-row forms, in turns in one process: K2 and K4 (n = 2 and 3) on the
-``--queries`` sampled 25-mers over the index with its pair rows and
-over its view without them (``to_device(pair_rows=False)``: block rows
-only), and K2w (12-mers) and K3w (random positions) over an amino index
-of ``AMINO_RESIDUES`` residues forced wide, on its pair-fused rows and on
-its compact rows (``to_device(wide=True, pair_rows=False)``). Every
-other checkout runs its pair-row forms beside them.
+``--cases pairless``: the forms for a view without pair rows, every
+checkout on the same views and inputs, in turns in one process. First
+each checkout's registers and spills of K4 and of K2w over compact rows,
+from its build's ``-Xptxas -v`` report (``"registers"`` lines). Then, on
+the ``--queries`` sampled 25-mers: K2 over pair rows and over the view
+without them (``to_device(pair_rows=False)``: block rows only), this
+checkout's two forms and every other checkout's pair form; the
+calibration of K5's masked walk (``utils/roofline.calibrate_gather_rates``
+with ``first_block_visits``' sector masks) over the 32 MB block rows, the
+64 MB pair rows and the n = 2 and n = 3 n-gram rows (96 MB and 192 MB,
+beyond the 50 MB L2); K4 at n = 2 and 3 with its tail over block rows
+and over pair rows, every checkout. Then an amino index of
+``K1_AMINO_RESIDUES`` residues (phase 4p's, 262,145 compact rows of
+384 B): K2w (12-mers) over its compact rows and over its pair-fused rows,
+every checkout; K3w on both, this checkout's and every other checkout's
+pair-fused form; the walk over the compact rows. After each K4 and K2w
+case, its model (``": model"`` lines): the row visits its steps make, by
+window class from the plain version's counts, at the calibrated rate of
+each table, plus a launch that makes the seed-table visit and the stores
+and no step (K2 over the same view on the queries' last k letters), each
+checkout's better time over it, the bytes bound (distinct rows x the
+bytes a visit needs, plus inputs and outputs, over 3.35 TB/s) and, for
+K2w, the piece model (visits x 3.8 pieces of 64 B over 3.35 TB/s).
 
 ``--cases k5``: K5's reduce alone at phase 3b's shapes (``gather_probe``'s
 P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
@@ -116,7 +131,9 @@ import importlib.util
 import json
 import math
 import os
+import re
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -189,10 +206,11 @@ def _same(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = False) -> None:
+def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = False) -> dict:
     """``call(kernels_module)`` through every checkout: equal results, then
     times in turns (``device``: the device time of a primed queue too,
-    ``"device_ms"``, beside the wall time ``"ms"``)."""
+    ``"device_ms"``, beside the wall time ``"ms"``); returns the times,
+    ``{name: [first, second]}``."""
     names = list(libs)
     want = call(libs[names[0]])
     for name in names[1:]:
@@ -208,6 +226,7 @@ def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = 
     if device:
         line["device_ms"] = dev_ms
     print(json.dumps(line), flush=True)
+    return ms
 
 
 def _sibling(kernels_module, name: str):
@@ -493,11 +512,11 @@ def k3w_model(view, positions) -> dict:
     steps, hits = int(off.sum()), positions.numel()
     nb, n_planes = view.packed.shape[0], view.n_planes
     need = n_planes * 32 + view.milestone_bytes  # a visit: each plane's first sector, milestones
-    once = nb * (1.0 - math.exp(-steps / nb)) * need + hits * (8 + 8 + 8)
     ops = steps * (8 * (2 * n_planes + 1) + 4 * 8)  # a match and a count over 8 words
     pieces = n_planes + 1  # each plane's first-block sector and the milestone lie in 64 B pieces of their own
     return {"hits": hits, "lf_steps": steps, "table_bytes": nb * view.packed.shape[1],
-            "bound_ms": max(once / HBM_BYTES_PER_S, ops / OPS_PER_S) * 1e3,
+            "bound_ms": max(bytes_bound_ms([(nb, need, steps)], hits * (8 + 8 + 8)),
+                            ops / OPS_PER_S * 1e3),
             "pieces_per_visit": pieces,
             "piece_model_ms": steps * pieces * 64 / HBM_BYTES_PER_S * 1e3}
 
@@ -648,51 +667,172 @@ def forms_case(case: str, shape: str, call, forms: dict, libs: dict, reps: int) 
     run_case(case, shape, lambda e: call(e[0], e[1]), entries, reps)
 
 
+def kernel_registers(build_log: str, *needles: str) -> list:
+    """``{"kernel", "registers", "spill_bytes"}`` of each kernel entry in
+    nvcc's ``-Xptxas -v`` report whose mangled name holds every needle;
+    ``kernel`` is the needle's template with its arguments read from the
+    mangled name (``k4_ngram_ranges_kernel<2, 3, 8, 0>``)."""
+    out, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            if all(n in name for n in needles):
+                head = needles[0]
+                seg = name[name.index(head) + len(head):]
+                seg = seg[1:seg.index("EE") + 1] if seg.startswith("I") and "EE" in seg else ""
+                targs = [a or b or c for a, b, c in
+                         re.findall(r"\d+(Narrow|WideCompact|Wide)|Li(\d+)E|Lb([01])E", seg)]
+                out.append({"kernel": f"{head}<{', '.join(targs)}>",
+                            "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return out
+
+
+def mask_pieces(mask: int) -> int:
+    """64 B pieces of a row that a sector mask (bit s: 32 B sector s) touches."""
+    return len({s // 2 for s in range(mask.bit_length()) if mask >> s & 1})
+
+
+def visit_model(visits: dict, rates: dict, fixed_ms: float, ms: dict) -> dict:
+    """A kernel's model (module note): its row visits by table at the
+    calibrated rate of each table, plus ``fixed_ms`` (a launch that makes
+    its seed-table visit and its stores and no step); each checkout's
+    better time of its turns (``ms``) divided by it."""
+    rows_ms = sum(v / rates[t] for t, v in visits.items()) * 1e3
+    model = rows_ms + fixed_ms
+    best = {name: min(times) for name, times in ms.items()}
+    return {"row_visits": visits, "row_visits_ms": rows_ms, "fixed_ms": fixed_ms,
+            "model_ms": model, "ms": best,
+            "ms_over_model": {name: t / model for name, t in best.items()}}
+
+
+def bytes_bound_ms(tables, stream_bytes: int) -> float:
+    """Bytes moved once over 3.35 TB/s: ``tables`` (rows, bytes a visit
+    needs, visits), distinct rows under uniformly random visits, plus the
+    inputs and outputs."""
+    once = float(stream_bytes)
+    for nb, need, visits in tables:
+        once += nb * (1.0 - math.exp(-visits / nb)) * need
+    return once / HBM_BYTES_PER_S * 1e3
+
+
 def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
-    """K2, K4, K2w and K3w in their forms with and without pair rows
-    (module note)."""
+    """The forms for a view without pair rows, every checkout in turns,
+    with the calibrated models (module note)."""
     import torch
 
-    from .. import AlphabetType, IndexConfiguration, SearchEngine, create_index
+    from .. import AlphabetType, IndexConfiguration, SearchEngine, create_index, search
     from ..ops import ngram
+    from ..utils import roofline
 
     rng = np.random.default_rng(12)
     reps = args.reps
+    this = libs["this"]
+    for name, lib in libs.items():
+        regs = (kernel_registers(lib.BUILD_LOG, "k4_ngram_ranges_kernel")
+                + kernel_registers(lib.BUILD_LOG, "k4_block_ngram_ranges_kernel")
+                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "WideCompact"))
+        # a library built by an earlier process of the same checkout leaves no report
+        print(json.dumps({"case": "registers", "checkout": name, "built_here": bool(lib.BUILD_LOG),
+                          "kernels": regs}), flush=True)
+
     eng = SearchEngine(index, device=device)
-    forms = {"pair": eng.dev, "block": index.to_device(device, pair_rows=False)}
+    pair, block = eng.dev, index.to_device(device, pair_rows=False)
     rows = _sampled(rng, seq_arr, 25, args.queries)
     mat, lengths, _ = eng.encode_kmers([r.tobytes() for r in rows])
     seeded = eng._seed_eligibility(mat, lengths)
     q25 = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
            torch.from_numpy(seeded.astype(np.uint8)).to(device))
     forms_case("k2, pair rows and block rows", f"{args.queries} 25-mers",
-               lambda k, v: k.k2_ranges(v, *q25), forms, libs, reps)
-    for n in (2, 3):
-        ng = ngram.build_ngram_device(index, n, device=device)
-        forms_case(f"k4 n={n}, tail over pair rows and block rows", f"{args.queries} 25-mers",
-                   lambda k, v: k.k4_ngram_ranges(v, ng, q25[0], 25), forms, libs, reps)
-        del ng
-    del forms, eng, q25
+               lambda k, v: k.k2_ranges(v, *q25), {"pair": pair, "block": block}, libs, reps)
+    seed_only = lengthwise_batch(q25[0], 25, args.seed_k)
+    fixed = min(cuda_ms(lambda: this.k2_ranges(block, *seed_only), reps) for _ in range(2))
+    ngs = {n: ngram.build_ngram_device(index, n, device=device) for n in (2, 3)}
+    masks = {"block": roofline.first_block_visits(ngram_n=2)["single"][0],
+             "pair": roofline.first_block_visits(ngram_n=2)["pair"][0]}
+    tables = {"block": block.packed, "pair": pair.packed_pair}
+    for n, ng in ngs.items():
+        masks[f"ngram{n}"] = roofline.first_block_visits(ngram_n=n)["ngram_pair"][0]
+        tables[f"ngram{n}"] = ng.packed
+    rates = roofline.calibrate_gather_rates(tables, args.queries, device=device, log=_log,
+                                            sector_masks=masks)
+    print(json.dumps({"case": "pairless calibration", "rates_rows_per_s": rates, "tables": {
+        t: {"rows": tab.shape[0], "row_bytes": tab.shape[1], "mask": masks[t],
+            "pieces_per_visit": mask_pieces(masks[t]),
+            "pieces_TB_per_s": rates[t] * mask_pieces(masks[t]) * 64 / 1e12}
+        for t, tab in tables.items()}, "seed_only_k2_block_ms": fixed}), flush=True)
+    nb = block.num_blocks
+    for n, ng in ngs.items():
+        classes = search.new_step_classes(device)
+        search.ngram_ranges_plain(block, ng, q25[0], 25, classes)
+        ngc, tail = classes["ngram_pair"].tolist(), classes["pair"].tolist()
+        ng_visits = ngc[0] + ngc[1] + 2 * ngc[2]
+        ng_need = (2 * n + 1) * 32 + 4
+        for tag, view in (("block", block), ("pair", pair)):
+            ms = run_case(f"k4 n={n}, tail over {tag} rows", f"{args.queries} 25-mers",
+                          lambda k: k.k4_ngram_ranges(view, ng, q25[0], 25), libs, reps)
+            if tag == "block":
+                visits = {f"ngram{n}": ng_visits, "block": tail[0] + 2 * (tail[1] + tail[2])}
+            else:
+                visits = {f"ngram{n}": ng_visits, "pair": tail[0] + tail[1], "block": 2 * tail[2]}
+            line = visit_model(visits, rates, fixed, ms)
+            line["bound_ms"] = bytes_bound_ms(
+                [(ng.packed.shape[0], ng_need, ng_visits), (nb, 3 * 32 + 4, sum(visits.values()) - ng_visits)],
+                args.queries * (q25[0].shape[1] + 2 * 8 + 16))
+            line.update(ngram_classes=ngc, tail_classes=tail)
+            print(json.dumps({"case": f"k4 n={n}, tail over {tag} rows: model", **line}), flush=True)
+    del ngs, eng, pair, block, q25, seed_only
     torch.cuda.empty_cache()
 
-    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=AMINO_RESIDUES)
+    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=K1_AMINO_RESIDUES)
     aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
                             sa_backend="native", device=device)
     forms = {"pair": aa_index.to_device(device, wide=True, pair_rows=True),
              "compact": aa_index.to_device(device, wide=True, pair_rows=False)}
-    aa_eng = SearchEngine(forms["compact"], device=device)
+    compact = forms["compact"]
+    aa_eng = SearchEngine(compact, device=device)
     rows = _sampled(rng, aa, 12, args.queries)
     mat, lengths, _ = aa_eng.encode_kmers([r.tobytes() for r in rows])
     seeded = aa_eng._seed_eligibility(mat, lengths)
     q12 = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
            torch.from_numpy(seeded.astype(np.uint8)).to(device))
-    forms_case(f"k2w amino {AMINO_RESIDUES // 1_000_000}M, pair-fused and compact rows",
-               f"{args.queries} 12-mers, k=5", lambda k, v: k.k2_ranges(v, *q12), forms, libs, reps)
+    shape = f"{args.queries} 12-mers, k=5"
+    tag = f"amino {K1_AMINO_RESIDUES}"
+    ms = run_case(f"k2w {tag}, compact rows", shape, lambda k: k.k2_ranges(compact, *q12), libs, reps)
+    run_case(f"k2w {tag}, pair-fused rows", shape, lambda k: k.k2_ranges(forms["pair"], *q12),
+             libs, reps)
     rand = torch.from_numpy(rng.integers(0, aa_index.bwt_length, size=args.queries)).to(device)
-    forms_case(f"k3w amino {AMINO_RESIDUES // 1_000_000}M, pair-fused and compact rows",
+    forms_case(f"k3w {tag}, pair-fused and compact rows",
                f"{args.queries} random positions, ratio 8",
                lambda k, v: k.k3_backtrace_resolve(v, rand), forms, libs, reps)
-    del forms, aa_eng, aa_index, q12, rand
+    mask = roofline.first_block_visits(AlphabetType.AMINO, compact=True)["compact"][0]
+    rate = roofline.calibrate_gather_rates({"compact": compact.packed}, args.queries,
+                                           device=device, log=_log, sector_masks={"compact": mask})
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    search.ranges_plain(compact, *q12, classes)
+    c = classes.tolist()
+    visits = c[0] + 2 * (c[1] + c[2])
+    seed_only = lengthwise_batch(q12[0], 12, compact.kmer_length_in_seed_table)
+    fixed = min(cuda_ms(lambda: this.k2_ranges(compact, *seed_only), reps) for _ in range(2))
+    line = visit_model({"compact": visits}, rate, fixed, ms)
+    need = compact.n_planes * 32 + 8
+    pieces = compact_pieces(compact.n_planes, compact.cardinality)
+    line.update(classes=c, rates_rows_per_s=rate, mask=mask, pieces_per_visit=mask_pieces(mask),
+                pieces_TB_per_s=rate["compact"] * mask_pieces(mask) * 64 / 1e12,
+                bound_ms=bytes_bound_ms([(compact.num_blocks, need, visits)],
+                                        args.queries * (q12[0].shape[1] + 4 + 1 + 2 * 8 + 16)),
+                piece_model_ms=visits * pieces * 64 / HBM_BYTES_PER_S * 1e3,
+                compact_pieces_per_visit=pieces)
+    print(json.dumps({"case": f"k2w {tag}, compact rows: model", **line}), flush=True)
+    del forms, compact, aa_eng, aa_index, q12, rand, seed_only
     torch.cuda.empty_cache()
 
 
@@ -993,8 +1133,11 @@ def main(argv=None) -> int:
     for item in args.other:
         name, root = item.split("=", 1)
         libs[name] = load_kernels(name, root)
+    # each checkout's library at once: one nvcc a source, all started together
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(lambda lib: lib.build(), libs.values())))
     for name, lib in libs.items():
-        _log(f"{name}: built in {lib.build():.1f}s -> {lib.library_path()}")
+        _log(f"{name}: built in {built[name]:.1f}s -> {lib.library_path()}")
 
     if args.cases == "k5":
         k5_cases(libs, args.reps, device)

@@ -164,11 +164,20 @@ def first_block_sector_mask(n_planes: int, plane_stride: int, milestone_offset: 
     return mask
 
 
-def first_block_visits(alphabet=None, *, ngram_n: int = 2) -> Dict[str, tuple]:
+def first_block_visits(alphabet=None, *, ngram_n: int = 2,
+                       compact: bool = False) -> Dict[str, tuple]:
     """(sector mask, bytes) of a first-block visit to each table of the
     narrow engine: what K1 and K3 read of a block row (all of it) and
     what a step of K2 and K4 reads of a pair row and an n-gram pair row
-    when both ends of its range lie in the row's first block."""
+    (``ngram_n`` letters a step: 5 planes at n = 2, 7 at n = 3, 64 B
+    apart) when both ends of its range lie in the row's first block.
+
+    ``compact``: also ``"compact"``, a visit to the compact wide rows of
+    a view without pair rows (``pack_device_blocks64(pair=False)``: planes
+    32 B apart, u64 milestones after them), what K1w, K2w and K3w read
+    there. Those milestones span several sectors and 64 B pieces; the
+    middle letter's stands for them, so the walk touches the pieces most
+    visits touch (amino: four, as 16 of 20 letters' visits do)."""
     from ..models import alphabet as alpha
     from ..models.config import AlphabetType
 
@@ -183,6 +192,9 @@ def first_block_visits(alphabet=None, *, ngram_n: int = 2) -> Dict[str, tuple]:
 
         _, _, ng_planes, ms_offset, _ = ngram_ops._geometry_pair(ngram_n)
         masks["ngram_pair"] = first_block_sector_mask(ng_planes, 64, ms_offset)
+    if compact:
+        middle = alpha.cardinality(alphabet) // 2
+        masks["compact"] = first_block_sector_mask(n_planes, 32, n_planes * 32 + 8 * middle)
     return {t: (m, 32 * bin(m).count("1")) for t, m in masks.items()}
 
 

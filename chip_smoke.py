@@ -186,14 +186,19 @@ Phases (any failure raises and the script exits nonzero):
      table; SearchEngine and DigramSearchEngine over it, count and locate
      of the 1,048,576 25-mers and the 4,096 multi-hit 11-mers equal to
      phase 4's, the launch counts reset just before and read just after
-     (K2's and K4's block-row forms and K3; no pair-row K2 or K4); K2 and
-     K4 in both forms in turns at the main shapes, the block-row forms
-     against their plain versions, their window classes and bounds, and
-     the API q/s beside phase 4's. (b) A 2^26-residue random amino index
+     (K2's and K4's block-row forms and K3; no pair-row K2 or K4); phase
+     4's host-scan sample through the block-row engines at n = 2 and 3;
+     K2 and K4 in both forms in turns at the main shapes, the block-row
+     forms against their plain versions (K4 at n = 2 and 3), their window
+     classes, bounds and calibrated rates, K4 over block rows (n = 2, 3;
+     41-mers and their last 29 letters) and K2w compact on the
+     window-class corpora of pairless_corpora, every class taken, and the
+     API q/s beside phase 4's. (b) A 2^26-residue random amino index
      (seed k = 5, ratio 8) as to_device(wide=True, pair_rows=False):
      K1WX's BFS over the 384 B rows equal to the narrow table widened,
      SearchEngine's count and locate of 1,048,576 sampled 12-mers equal to
-     the narrow amino engine's, the single-query API
+     the narrow amino engine's, 32 of them against a host scan, the
+     single-query API
      (iterative_step_backward_search, backtrace_return_previous_letter_index)
      over 256 of them equal to the narrow answers, the launches read around
      all of it (by mode); K1w compact's single-query modes on crafted
@@ -296,6 +301,10 @@ AMINO_RESIDUES = 1 << 26  # phase 4p(b): tools.kernel_ab's amino case, beyond th
 AMINO_SEED_K = 5  # the amino default of tools/build_index.py
 AMINO_KMER_LEN = 12
 SINGLE_QUERY_WALKS = 256
+PAIRLESS_CORPUS_SEED = 0x4C0  # phase 4p's window-class corpora (pairless_corpora)
+PAIRLESS_AMINO_SEED_K = 3  # their amino index's seed k (20^3 entries)
+PAIRLESS_SHORT_LEN = 29  # their K4 queries' last 29 letters: rows of 32 columns, letters in registers
+HOST_SAMPLE = 32  # phase 4p: amino queries checked against a host scan (phase 4 samples 32 too)
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
 WIDE_INDEX_KERNELS = ("k1w_rank", "k2w_ranges", "k3w_backtrace_resolve")
@@ -708,16 +717,16 @@ def class_shares(classes) -> str:
                      zip(("first block", "pair window", "two rows"), classes))
 
 
-def window_class_corpus(rng):
+def window_class_corpus(rng, alphabet=None):
     """(text, K2 queries, K4 41-mers): runs of one letter (700 A, 300 C,
-    420 G) inside random text, so that at seed k = 6 the steps of queries
-    from the runs sit in the pair-window and two-row classes and those of
-    random windows in the first block."""
+    420 G) inside random text of ``alphabet`` (default DNA), so that at
+    seed k = 6 the steps of queries from the runs sit in the pair-window
+    and two-row classes and those of random windows in the first block."""
     import numpy as np
     from avxwindowfmindex_tpu_torch import AlphabetType
 
     def rand(n):
-        return random_text(rng, n, AlphabetType.DNA).upper()
+        return random_text(rng, n, alphabet or AlphabetType.DNA).upper()
 
     text = rand(2500) + b"A" * 700 + rand(2500) + b"C" * 300 + rand(1500) + b"G" * 420 + rand(2000)
     runs = ((2500, 700), (5700, 300), (7500, 420))
@@ -730,6 +739,21 @@ def window_class_corpus(rng):
     k2_qs = (k4_qs[:200] + [text[lo : lo + L] for lo, _ in runs for L in range(7, 40)]
              + [text[s : s + 14] for s in rng.integers(0, len(text) - 14, 256)])
     return text, k2_qs, k4_qs, klen
+
+
+def pairless_corpora(seed: int = PAIRLESS_CORPUS_SEED):
+    """Phase 4p's window-class corpora (``window_class_corpus``), which
+    ``tests/test_torch_pairless.py`` shows reach every window class of each
+    form on the CPU: (DNA text, its 41-mers, their length) for K4 over
+    block rows at seed k = 6, and (amino text, its queries) for K2w over
+    compact rows at seed k = ``PAIRLESS_AMINO_SEED_K``."""
+    import numpy as np
+    from avxwindowfmindex_tpu_torch import AlphabetType
+
+    rng = np.random.default_rng(seed)
+    text, _, k4_qs, klen = window_class_corpus(rng)
+    aa_text, aa_qs, _, _ = window_class_corpus(rng, AlphabetType.AMINO)
+    return text, k4_qs, klen, aa_text, aa_qs
 
 
 def random_text(rng, n: int, alphabet) -> bytes:
@@ -1163,6 +1187,99 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
     return kept
 
 
+def host_sample(sample: dict, kmers, text_arr, engines: dict, tag: str, counts=None) -> None:
+    """A host-scan sample through ``engines``: ``sample`` names queries of
+    ``kmers`` (``"queries"``) and their counts by a scan of the text
+    (``"counts"``); each engine's count of them must equal the scan (and,
+    with ``counts``, so must the batch's answers there) and every hit of
+    its locate must lie in the text and hold its query."""
+    import numpy as np
+
+    idx, want = sample["queries"], sample["counts"]
+    qs = [kmers[i] for i in idx]
+    if counts is not None and [int(counts[i]) for i in idx] != want:
+        raise AssertionError(f"{tag} the batch's counts of the sample differ from the host scan")
+    length = len(qs[0])
+    windows = np.lib.stride_tricks.sliding_window_view(text_arr, length)
+    for label, eng in engines.items():
+        got = [int(c) for c in eng.count(qs)]
+        if got != want:
+            raise AssertionError(f"{tag} {label}: sample counts {got} != host scan {want}")
+        for q, c, hits in zip(qs, want, eng.locate(qs)):
+            h = np.asarray(hits).astype(np.int64)
+            if len(h) != c or (h > len(text_arr) - length).any() or not all(
+                    windows[p].tobytes() == q for p in h):
+                raise AssertionError(f"{tag} {label}: a locate hit of {q!r} does not hold it")
+    log(f"{tag} host-scan sample of {len(qs)} {length}-mers ({sum(want)} hits): counts equal "
+        f"the scan and every locate hit holds its query, through {', '.join(engines)}")
+
+
+def pairless_corpus_checks(rec: Record, device: str) -> dict:
+    """Phase 4p on the window-class corpora (``pairless_corpora``): K4
+    over block rows at n = 2 and 3 and K2w over compact rows against
+    their plain versions, whole and ragged; each must take every window
+    class of its steps (K4: the n-gram steps and the block-row tail), by
+    the plain versions' counts, which are logged and returned."""
+    import torch
+    from avxwindowfmindex_tpu_torch import (
+        AlphabetType, IndexConfiguration, SearchEngine, create_index, search,
+    )
+    from avxwindowfmindex_tpu_torch.ops import kernels, ngram
+
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+
+    text, k4_qs, klen, aa_text, aa_qs = pairless_corpora()
+    index = create_index(text, IndexConfiguration(8, 6, AlphabetType.DNA), device=device)
+    view = index.to_device(device, pair_rows=False)
+    mat = torch.from_numpy(SearchEngine(view, device=device).encode_kmers(k4_qs)[0]).to(device)
+    # the 41-mers (letters read from memory) and their last 29 letters (a
+    # 32-column matrix: letters in registers)
+    batches = {klen: mat, PAIRLESS_SHORT_LEN: lengthwise_batch(mat, klen, PAIRLESS_SHORT_LEN)[0]}
+    out = {}
+    for n in (2, 3):
+        ng = ngram.build_ngram_device(index, n, device=device)
+        for length, lmat in batches.items():
+            classes = search.new_step_classes(device)
+            ps, pe = search.ngram_ranges_plain(view, ng, lmat, length, classes)
+            what = f"window-class corpus n={n}, {length}-mers"
+            ks, ke = kernels.k4_ngram_ranges(view, ng, lmat, length)
+            rec.compare("k4_ngram_ranges_block", f"{what} start x{len(k4_qs)}", ks, ps)
+            rec.compare("k4_ngram_ranges_block", f"{what} end x{len(k4_qs)}", ke, pe)
+            ks, ke = kernels.k4_ngram_ranges(view, ng, lmat[:501], length)
+            rec.compare("k4_ngram_ranges_block", f"{what} ragged start x501", ks, ps[:501])
+            rec.compare("k4_ngram_ranges_block", f"{what} ragged end x501", ke, pe[:501])
+            shares = {t: c.tolist() for t, c in classes.items()}
+            log(f"[4p] K4 over block rows, {what}: n-gram steps "
+                f"{class_shares(shares['ngram_pair'])}; block-row tail {class_shares(shares['pair'])}")
+            if min(shares["ngram_pair"]) < 1 or min(shares["pair"]) < 1:
+                raise AssertionError(f"[4p] K4 over block rows, {what}: a window class was never "
+                                     f"taken: {shares}")
+            out[f"k4_block_n{n}_{length}"] = shares
+    aa = create_index(aa_text, IndexConfiguration(8, PAIRLESS_AMINO_SEED_K, AlphabetType.AMINO),
+                      device=device)
+    compact = aa.to_device(device, wide=True, pair_rows=False)
+    eng = SearchEngine(compact, device=device)
+    amat, lengths, _ = eng.encode_kmers(aa_qs)
+    seeded = eng._seed_eligibility(amat, lengths)
+    args = (torch.from_numpy(amat).to(device), torch.from_numpy(lengths).to(device),
+            torch.from_numpy(seeded.astype("uint8")).to(device))
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    ps, pe = search.ranges_plain(compact, *args, classes)
+    ks, ke = kernels.k2_ranges(compact, *args)
+    rec.compare("k2w_ranges_compact", f"window-class corpus start x{len(aa_qs)}", ks, ps)
+    rec.compare("k2w_ranges_compact", f"window-class corpus end x{len(aa_qs)}", ke, pe)
+    ks, ke = kernels.k2_ranges(compact, *(a[:333] for a in args))
+    rec.compare("k2w_ranges_compact", "window-class corpus ragged start x333", ks, ps[:333])
+    rec.compare("k2w_ranges_compact", "window-class corpus ragged end x333", ke, pe[:333])
+    classes = classes.tolist()
+    log(f"[4p] K2w over compact rows, amino window-class corpus ({len(aa_qs)} queries, "
+        f"{int(seeded[:len(aa_qs)].sum())} seeded): steps {class_shares(classes)}")
+    if min(classes) < 1:
+        raise AssertionError(f"[4p] K2w over compact rows: a window class was never taken: {classes}")
+    out["k2w_compact"] = classes
+    return out
+
+
 def compact_forms(rec: Record, name: str, index, k: int, pos_t, lett_t, lpos, k2_in: dict,
                   bpos, device: str) -> None:
     """Phase 3w, the amino index's wide view without pair rows
@@ -1283,7 +1400,8 @@ def phase_main(bases: int, device: str):
     sample = rng.integers(0, QUERIES, size=32)
     want = np.array([count_overlapping(seq_bytes, kmers[i]) for i in sample])
 
-    stats = {"build_s": build_s, "ngram_build_s": ngram_build_s}
+    stats = {"build_s": build_s, "ngram_build_s": ngram_build_s,
+             "host_sample": {"queries": [int(i) for i in sample], "counts": [int(c) for c in want]}}
     answers = None  # the digram engine's (counts, lengths, flat hits), for phase 7
     for label, eng in (("digram", engine), ("single", single)):
         counts, count_s, count_times = timed_engine_call(eng.count, kmers)
@@ -3182,7 +3300,7 @@ def phase_single_query(rec: Record, engine, kmers, device: str) -> dict:
     return stats
 
 
-def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
+def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, seq_arr,
                    device: str) -> dict:
     """Phase 4p: views without pair rows at full size. (a) The phase-4
     index as ``to_device(device, pair_rows=False)``, its seed table the one
@@ -3190,25 +3308,35 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
     it, count and locate of phase 4's 1,048,576 25-mers and its 4,096
     multi-hit 11-mers equal to phase 4's, the launch counts reset just
     before and read just after (K2's and K4's block-row forms and K3, no
-    pair-row K2 or K4); then K2 and K4 in both forms in turns at the main
-    shapes, each block-row form against its plain version, with the window
-    classes and bounds. (b) A 2^26-residue amino index (seed k = 5, SA
-    ratio 8) as a wide view on compact rows: K1WX's BFS over them equal to
-    the narrow table widened, SearchEngine's count and locate of 1,048,576
-    sampled 12-mers equal to the narrow amino engine's, the single-query
-    API over 256 of them equal to the narrow answers, the launches read
-    around all of it; then each compact form against its plain version
-    (K1WX's whole BFS against the plain BFS) and K2w and K3w against their
-    pair-fused forms, in turns, and the C launchers' layout refusals."""
+    pair-row K2 or K4); phase 4's host-scan sample of 32 25-mers through
+    the K4-over-block-rows engines at n = 2 and n = 3 (counts against the
+    scan, every locate hit against its window); then K2 and K4 in both
+    forms in turns at the main shapes, each block-row form against its
+    plain version (K4 at n = 2 and n = 3), with the window classes and
+    bounds, and K4 over block rows at n = 2 and 3 and K2w over compact rows
+    on the window-class corpora of ``pairless_corpora`` (every class taken,
+    by the plain versions' counts); the calibrated rate of the n = 3
+    n-gram rows. (b) A 2^26-residue amino index (seed k = 5, SA ratio 8)
+    as a wide view on compact rows: K1WX's BFS over them equal to the
+    narrow table widened, SearchEngine's count and locate of 1,048,576
+    sampled 12-mers equal to the narrow amino engine's, a sample of 32 of
+    them against a host scan of the text (counts, every locate hit against
+    its window), the single-query API over 256 of them equal to the narrow
+    answers, the launches read around all of it; then each compact form
+    against its plain version (K1WX's whole BFS against the plain BFS) and
+    K2w and K3w against their pair-fused forms, in turns, the C launchers'
+    layout refusals, and the calibrated rate of the compact rows."""
     import numpy as np
     import torch
     import avxwindowfmindex_tpu_torch as pt
     from avxwindowfmindex_tpu_torch import (
-        AlphabetType, DigramSearchEngine, IndexConfiguration, SearchEngine, create_index, search,
+        AlphabetType, DigramSearchEngine, IndexConfiguration, NgramSearchEngine, SearchEngine,
+        create_index, search,
     )
     from avxwindowfmindex_tpu_torch.models import alphabet as alpha
     from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
     from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+    from avxwindowfmindex_tpu_torch.utils import roofline
 
     t_phase = time.time()
     stats = {"launches": {}}
@@ -3264,6 +3392,10 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
                                exact={"k2_ranges": 0, "k4_ngram_ranges": 0, "k1_rank": 0,
                                       "k1_extend": 0})
     stats["launches"].update({n: launches[n] for n in PAIRLESS_KERNELS if n.endswith("_block")})
+    ngram3 = NgramSearchEngine(index, 3, device=device, pair_rows=False)
+    if ngram3.dev is not view:
+        raise AssertionError("[4p] the n = 3 engine did not take the installed view")
+    host_sample(main["host_sample"], kmers, seq_arr, {"digram": digram, "n=3": ngram3}, "[4p]")
 
     # K2 and K4 in both forms at the main path's shapes
     mat, lengths, n = engine.encode_kmers(kmers)
@@ -3281,7 +3413,15 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
     ks, ke = kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN)
     rec.compare("k4_ngram_ranges_block", f"main n={ng.n} start x{n}", ks, ps)
     rec.compare("k4_ngram_ranges_block", f"main n={ng.n} end x{n}", ke, pe)
+    ng3, k4_3_classes = ngram3.ng, search.new_step_classes(device)
+    ps, pe = search.ngram_ranges_plain(view, ng3, mat_d, KMER_LEN, k4_3_classes)
+    ks, ke = kernels.k4_ngram_ranges(view, ng3, mat_d, KMER_LEN)
+    rec.compare("k4_ngram_ranges_block", f"main n=3 start x{n}", ks, ps)
+    rec.compare("k4_ngram_ranges_block", f"main n=3 end x{n}", ke, pe)
     del ps, pe, ks, ke
+    k4_3_classes = {t: c.tolist() for t, c in k4_3_classes.items()}
+    log(f"[4p] K4 n=3 over block rows: n-gram steps {class_shares(k4_3_classes['ngram_pair'])}, "
+        f"tail steps {class_shares(k4_3_classes['pair'])}")
     k2_classes = k2_classes.tolist()
     k4_classes = {t: c.tolist() for t, c in k4_classes.items()}
     log(f"[4p] window classes over block rows: K2's steps {class_shares(k2_classes)}; K4's "
@@ -3304,6 +3444,11 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
         f"k4_ngram_ranges_block main n={ng.n} x{n}",
         lambda: kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN),
         lambda: search.ngram_ranges_plain(view, ng, mat_d, KMER_LEN), 10, 1)
+    # logged, not in the kernels line: the same form at n = 3
+    rec.ms["k4_ngram_ranges_block n=3"] = time_in_turns(
+        f"k4_ngram_ranges_block main n=3 x{n}",
+        lambda: kernels.k4_ngram_ranges(view, ng3, mat_d, KMER_LEN),
+        lambda: search.ngram_ranges_plain(view, ng3, mat_d, KMER_LEN), 10, 1)
     nb, np_ = view.num_blocks, view.n_planes
     tables, ops = block_step_tables(nb, np_, 4, k2_classes)
     rec.set_bound("k2_ranges_block", tables, n * (mat_d.shape[1] + 4 + 1 + 2 * 4 + 16), ops,
@@ -3316,14 +3461,30 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
         row_visits=[sum(k4_classes["ngram_pair"]) + k4_classes["ngram_pair"][2],
                     tail_tables[0][2]],
         other_visits={"seed_table": n})
+    ng3_tables, ng3_ops = step_tables(ng3.packed.shape[0], 2 * ng3.n + 1, 4,
+                                      k4_3_classes["ngram_pair"])
+    tail3_tables, tail3_ops = block_step_tables(nb, np_, 4, k4_3_classes["pair"])
+    rec.set_bound(
+        "k4_ngram_ranges_block n=3", ng3_tables + tail3_tables,
+        n * (mat_d.shape[1] + 2 * 4 + 16), ng3_ops + tail3_ops,
+        row_visits=[sum(k4_3_classes["ngram_pair"]) + k4_3_classes["ngram_pair"][2],
+                    tail3_tables[0][2]],
+        other_visits={"seed_table": n})
     seed_only = lengthwise_batch(mat_d, KMER_LEN, view.kmer_length_in_seed_table)
     rec.fixed["k2_ranges_block"] = min(
         cuda_ms(lambda: kernels.k2_ranges(view, *seed_only), 10) for _ in range(2))
-    # the seed-table visit and the stores are K4's in both forms: phase 4s's fit
+    # the seed-table visit and the stores are K4's in both forms and at
+    # both n: phase 4s's fit
     rec.fixed["k4_ngram_ranges_block"] = rec.fixed["k4_ngram_ranges"]
+    rec.fixed["k4_ngram_ranges_block n=3"] = rec.fixed["k4_ngram_ranges"]
     log(f"  k2_ranges_block with no step: {rec.fixed['k2_ranges_block']:.4f} ms")
-    del args, mat_d, seed_only, single, digram, view
+    mask3 = roofline.first_block_visits(ngram_n=3)["ngram_pair"][0]
+    stats["rates"] = {"ngram_pair3": roofline.calibrate_gather_rates(
+        {"ngram_pair3": ng3.packed}, QUERIES, device=device, sector_masks={"ngram_pair3": mask3},
+        log=lambda m: log(f"[4p] {m}"))["ngram_pair3"]}
+    del args, mat_d, seed_only, single, digram, ngram3, ng3, view
     torch.cuda.empty_cache()
+    stats["corpora"] = pairless_corpus_checks(rec, device)
     stats["a_s"] = time.time() - t_phase
 
     # (b) a wide amino view on compact rows
@@ -3381,6 +3542,9 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
         raise AssertionError("[4p] the compact amino engine differs from the narrow amino engine")
     stats["amino_count_qps"] = QUERIES / count_s
     stats["amino_locate_qps"] = QUERIES / locate_s
+    pick = np.random.default_rng(2615).integers(0, QUERIES, HOST_SAMPLE)
+    host_sample({"queries": pick.tolist(), "counts": [count_overlapping(text, aa_kmers[i]) for i in pick]},
+                aa_kmers, arr, {"compact amino": comp}, "[4p]", counts=counts)
     ps_host = [int(c) for c in aa.prefix_sums]
     for q, (want_s, want_e) in zip(walks, want_ranges):
         letters = alpha.ascii_to_index(np.frombuffer(q, np.uint8), aa.alphabet).tolist()
@@ -3454,6 +3618,18 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
     rec.ms["k2w_ranges_compact"] = time_in_turns(
         f"k2w_ranges_compact x{n}", lambda: kernels.k2_ranges(view, *args),
         lambda: search.ranges_plain(view, *args), 10, 1)
+    # the [models] lines' other visits: K2w's seed-table visit and stores,
+    # K3w's SA visit, each by a launch that makes no step
+    seed_only = lengthwise_batch(args[0], AMINO_KMER_LEN, AMINO_SEED_K)
+    sampled = (positions // view.ratio) * view.ratio
+    rec.fixed["k2w_ranges_compact"] = min(
+        cuda_ms(lambda: kernels.k2_ranges(view, *seed_only), 10) for _ in range(2))
+    rec.fixed["k3w_backtrace_resolve_compact"] = min(
+        cuda_ms(lambda: kernels.k3_backtrace_resolve(view, sampled), 10) for _ in range(2))
+    log(f"  k2w_ranges_compact with no step: {rec.fixed['k2w_ranges_compact']:.4f} ms; "
+        f"k3w_backtrace_resolve_compact with no LF step: "
+        f"{rec.fixed['k3w_backtrace_resolve_compact']:.4f} ms")
+    del seed_only, sampled
     rec.ms["k3w_backtrace_resolve_compact"] = time_in_turns(
         f"k3w_backtrace_resolve_compact x{positions.numel()}",
         lambda: kernels.k3_backtrace_resolve(view, positions),
@@ -3500,6 +3676,10 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict,
                   positions.numel() * (8 + 8 + 8), walked * rank_ops(np_),
                   other_visits={"sampled_sa": positions.numel()})
     set_bfs_bound(rec, "k1w_extend_compact", view, AMINO_SEED_K, ps_arr, "4p")
+    cmask = roofline.first_block_visits(AlphabetType.AMINO, compact=True)["compact"][0]
+    stats["rates"]["compact"] = roofline.calibrate_gather_rates(
+        {"compact": view.packed}, QUERIES, device=device, sector_masks={"compact": cmask},
+        log=lambda m: log(f"[4p] {m}"))["compact"]
     log(f"[4p] K2w's steps over compact rows: {class_shares(classes)}; K3w: {walked} LF steps "
         f"for {positions.numel()} hits")
     del view, comp, narrow, aa, args, positions, occ_pos, occ_lett, ks, ke, ps, pe
@@ -3788,7 +3968,7 @@ def main(argv=None) -> int:
     launches.update(main_stats["range_sharded"]["launches"])
     mark("phase 8")
     main_stats["pairless"] = phase_pairless(rec, engine, kmers, mh_kmers, answers, main_stats,
-                                            device)
+                                            seq_arr, device)
     launches.update(main_stats["pairless"].pop("launches"))
     del mh_kmers
     mark("phase 4p")
@@ -3809,7 +3989,7 @@ def main(argv=None) -> int:
     # a launch that makes those visits and no step (K4: the fixed term of
     # its fit over query lengths)
     rates = dict(main_stats["bench"]["gather_rates_rows_per_sec"],
-                 wide=wide_stats["gather_rate_rows_per_sec"])
+                 wide=wide_stats["gather_rate_rows_per_sec"], **main_stats["pairless"]["rates"])
     rate_of = {
         "k1_rank": ("single",), "k2_ranges": ("pair",), "k3_backtrace_resolve": ("single",),
         "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
@@ -3818,6 +3998,10 @@ def main(argv=None) -> int:
         # a view without pair rows: its steps visit the block rows, whose
         # calibrated rate is the single table's
         "k2_ranges_block": ("single",), "k4_ngram_ranges_block": ("ngram_pair", "single"),
+        "k4_ngram_ranges_block n=3": ("ngram_pair3", "single"),
+        # the compact amino rows at their calibrated rate (phase 4p)
+        "k1w_rank_compact": ("compact",), "k1w_extend_compact": ("compact",),
+        "k2w_ranges_compact": ("compact",), "k3w_backtrace_resolve_compact": ("compact",),
     }
     main_stats["models"] = {}
     for name, tables in rate_of.items():

@@ -146,3 +146,155 @@ def test_k3w_model_counts_the_jax_walk(index_pair):
     assert model["piece_model_ms"] == pytest.approx(steps * (wide.n_planes + 1) * 64 / 3.35e9)
     assert model["table_bytes"] == wide.packed.numel()
     assert 0 < model["bound_ms"] < model["piece_model_ms"]
+
+
+def test_first_block_masks_match_the_row_layouts():
+    """``roofline.first_block_visits``' masks of the compact wide row and of
+    the n = 3 n-gram row name the sectors those rows hold a first-block
+    visit's bytes in: the first 32 B of each plane, as
+    ``pack_device_blocks64(pair=False)`` and ``_geometry_pair(3)`` lay them
+    out, and the sector of one milestone (the compact row: the middle
+    letter's), and no other."""
+    from avxwindowfmindex_tpu_torch.models import alphabet as palpha
+    from avxwindowfmindex_tpu_torch.models import index as pindex
+    from avxwindowfmindex_tpu_torch.ops import ngram as pngram
+    from avxwindowfmindex_tpu_torch.utils import roofline
+
+    def sectors(mask):
+        return {s for s in range(32) if mask >> s & 1}
+
+    rng = np.random.default_rng(0xAB5)
+    for alphabet in (AMINO, DNA):
+        seq = random_sequence(rng, 2000, alphabet)
+        _, p = build_both(seq, 8, 2, alphabet)
+        rows = pindex.pack_device_blocks64(p.bwt_letters, p.milestones(), p.alphabet, pair=False)
+        n_planes, card = palpha.num_bit_planes(p.alphabet), palpha.cardinality(p.alphabet)
+        mask, nbytes = roofline.first_block_visits(p.alphabet, compact=True)["compact"]
+        codes = palpha.index_to_vector_lut(p.alphabet)[p.bwt_letters]
+        codes = np.concatenate([codes, np.zeros(rows.shape[0] * 256 - len(codes), np.uint8)])
+        for i in range(n_planes):  # plane i's bits of each block in sector i
+            bits = np.packbits(((codes >> i) & 1).reshape(-1, 256), axis=1, bitorder="little")
+            np.testing.assert_array_equal(rows[:, 32 * i : 32 * i + 32], bits)
+        off = n_planes * 32 + 8 * (card // 2)  # the middle letter's u64 milestone
+        np.testing.assert_array_equal(rows[:, off : off + 8].copy().view("<u8")[:, 0],
+                                      p.milestones()[:, card // 2])
+        assert sectors(mask) == set(range(n_planes)) | {off // 32} and off % 32 + 8 <= 32
+        assert nbytes == 32 * (n_planes + 1) and rows.shape[1] == pindex.device_row_bytes64(
+            p.alphabet, False)
+    # the n = 3 n-gram pair row: 7 planes, each block's first 32 B at 64 i,
+    # then word 0's milestone at the offset of _geometry_pair(3)
+    seq = random_sequence(rng, 3000, DNA)
+    _, p = build_both(seq, 8, 3, DNA)
+    codes, _ = pngram.build_ngram_host(p, 3)
+    blocks = pngram.pack_ngram_blocks(codes, 3)
+    pair = pngram.pair_rows_from_ngram_blocks(blocks, 3)
+    _, _, ng_planes, ms_offset, row_bytes = pngram._geometry_pair(3)
+    _, _, _, block_ms_offset, _ = pngram._geometry(3)
+    mask, nbytes = roofline.first_block_visits(ngram_n=3)["ngram_pair"]
+    assert ng_planes == 7 and row_bytes == pair.shape[1] == 768
+    for i in range(ng_planes):
+        np.testing.assert_array_equal(pair[:, 64 * i : 64 * i + 32], blocks[:, 32 * i : 32 * i + 32])
+    np.testing.assert_array_equal(pair[:, ms_offset : ms_offset + 32],
+                                  blocks[:, block_ms_offset : block_ms_offset + 32])
+    assert sectors(mask) == {2 * i for i in range(ng_planes)} | {ms_offset // 32}
+    assert nbytes == 256 and kernel_ab.mask_pieces(mask) == 8
+    assert kernel_ab.mask_pieces(roofline.first_block_visits(AMINO, compact=True)["compact"][0]) == 4
+
+
+def test_kernel_registers_read_the_ptxas_report():
+    """The pairless case's register lines: each matching entry of an
+    ``-Xptxas -v`` report with its template arguments, registers and
+    spills; entries that do not match are left out."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_128k4_block_ngram_ranges_kernelILi3ELi3ELi8EEEv11AwfmTables' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_128k4_block_ngram_ranges_kernel",
+        "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 0 barriers, 424 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_116k2_ranges_kernelINS_11WideCompactELi5ELi2ELi8ELb0EEEv11AwfmTables' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113k1_occ_kernelI6NarrowLi3EEEv' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 30 registers",
+    ])
+    assert kernel_ab.kernel_registers(log, "k4_block_ngram_ranges_kernel") == [
+        {"kernel": "k4_block_ngram_ranges_kernel<3, 3, 8>", "registers": 128, "spill_bytes": 20}]
+    assert kernel_ab.kernel_registers(log, "k2_ranges_kernel", "WideCompact") == [
+        {"kernel": "k2_ranges_kernel<WideCompact, 5, 2, 8, 0>", "registers": 64, "spill_bytes": 0}]
+    assert kernel_ab.kernel_registers(log, "k4_ngram_ranges_kernel") == []
+    assert kernel_ab.kernel_registers("", "k2_ranges_kernel") == []
+
+
+def test_pairless_models_on_the_cpu():
+    """The pairless case's models from a run's numbers: row visits at the
+    calibrated rates plus the fixed launch, each checkout's better time
+    over it, and the bytes bound."""
+    line = kernel_ab.visit_model({"ngram2": 5_000_000, "block": 1_000_000},
+                                 {"ngram2": 1e10, "block": 2e10}, 0.05,
+                                 {"this": [0.6, 0.55], "parent": [0.7, 0.66]})
+    assert line["row_visits_ms"] == pytest.approx(0.5 + 0.05)
+    assert line["model_ms"] == pytest.approx(0.6)
+    assert line["ms"] == {"this": 0.55, "parent": 0.66}
+    assert line["ms_over_model"]["parent"] == pytest.approx(1.1)
+    # every row visited: the table once, plus the stream
+    assert kernel_ab.bytes_bound_ms([(1000, 100, 10**9)], 335) == pytest.approx(
+        (1000 * 100 + 335) / 3.35e12 * 1e3)
+    assert kernel_ab.bytes_bound_ms([], 0) == 0
+
+
+def test_pairless_case_runs_on_the_cpu(monkeypatch, capsys):
+    """``--cases pairless`` end to end on a small index, each checkout's
+    kernels stood in for by the plain versions and CUDA events by the
+    host clock: every line it prints, the registers, the calibration over
+    the four tables, each K4 and K2w case and its model, in order."""
+    import json
+    import time
+    import types
+
+    from avxwindowfmindex_tpu_torch import AlphabetType as PA, IndexConfiguration, create_index
+
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_128k4_block_ngram_ranges_kernelILi2ELi3ELi8EEEv' for 'sm_90a'\n"
+           "ptxas info    : Used 120 registers\n")
+    plain = types.SimpleNamespace(
+        BUILD_LOG=log,
+        k2_ranges=lambda v, *a: psearch.ranges_plain(v, *a),
+        k4_ngram_ranges=lambda v, ng, mat, n: psearch.ngram_ranges_plain(v, ng, mat, n),
+        k3_backtrace_resolve=lambda v, pos: psearch.backtrace_resolve_plain(v, pos))
+
+    def host_ms(fn, reps):
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    monkeypatch.setattr(kernel_ab, "cuda_ms", host_ms)
+    monkeypatch.setattr(kernel_ab, "K1_AMINO_RESIDUES", 20_000)
+    rng = np.random.default_rng(7)
+    seq = rng.choice(np.frombuffer(b"acgt", np.uint8), size=40_000)
+    index = create_index(seq.tobytes(), IndexConfiguration(8, 6, PA.DNA), device="cpu")
+    args = types.SimpleNamespace(queries=96, reps=1, seed_k=6, bases=len(seq))
+    kernel_ab.pairless_cases(index, seq, args, {"this": plain, "parent": plain}, "cpu")
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["case"] for x in lines] == [
+        "registers", "registers", "k2, pair rows and block rows", "pairless calibration",
+        "k4 n=2, tail over block rows", "k4 n=2, tail over block rows: model",
+        "k4 n=2, tail over pair rows", "k4 n=2, tail over pair rows: model",
+        "k4 n=3, tail over block rows", "k4 n=3, tail over block rows: model",
+        "k4 n=3, tail over pair rows", "k4 n=3, tail over pair rows: model",
+        "k2w amino 20000, compact rows", "k2w amino 20000, pair-fused rows",
+        "k3w amino 20000, pair-fused and compact rows", "k2w amino 20000, compact rows: model"]
+    assert lines[0]["kernels"] == [
+        {"kernel": "k4_block_ngram_ranges_kernel<2, 3, 8>", "registers": 120, "spill_bytes": 0}]
+    assert set(lines[3]["tables"]) == {"block", "pair", "ngram2", "ngram3"}
+    for model in (x for x in lines if x["case"].endswith(": model")):
+        assert set(model["ms"]) == {"this", "parent"} and model["model_ms"] > 0
+        assert sum(model["row_visits"].values()) > 0 and model["bound_ms"] > 0
+    k4 = lines[5]
+    # 25-mers at k = 6: up to 9 n-gram steps and one tail step a query, and
+    # every sampled query makes its first n-gram step
+    assert sum(k4["ngram_classes"]) >= 96 and 0 < sum(k4["tail_classes"]) <= sum(k4["ngram_classes"]) / 9 + 1
+    assert k4["row_visits"]["block"] >= sum(k4["tail_classes"])
+    assert lines[-1]["compact_pieces_per_visit"] == 3.8 and lines[-1]["pieces_per_visit"] == 4

@@ -30,10 +30,12 @@ from avxwindowfmindex_tpu_torch.io import artifact as partifact
 from avxwindowfmindex_tpu_torch.models import convert
 from avxwindowfmindex_tpu_torch.models import index as pindex
 from avxwindowfmindex_tpu_torch.ops import kernels
+from avxwindowfmindex_tpu_torch.ops import ngram as pngram
 from avxwindowfmindex_tpu_torch.ops import rank as prank
 from avxwindowfmindex_tpu_torch.parallel import api as papi
 from avxwindowfmindex_tpu_torch.parallel import dist as pdist
 from avxwindowfmindex_tpu_torch.parallel.range_sharded import RangeShardedSearchEngine
+from avxwindowfmindex_tpu_torch.tools import kernel_ab
 
 from oracle import random_kmer, random_sequence
 from torch_helpers import DEVICE_FIELDS, assert_locates_equal, build_both
@@ -567,3 +569,52 @@ def test_kernel_forms_follow_the_layout():
         with pytest.raises(ValueError, match="CUDA tensor"):
             k.k2_ranges(view, mat, lengths, torch.ones(4, dtype=torch.uint8))
     assert all(x.launches == 0 for x in k.KERNELS)
+
+
+@pytest.mark.parametrize("form", ["k4-n2-41", "k4-n3-41", "k4-n2-29", "k4-n3-29", "k2w-compact"])
+def test_phase_4p_corpora_reach_every_window_class(form, jax_pairless):
+    """``chip_smoke.py`` phase 4p holds K4 over block rows (n = 2 and 3)
+    and K2w over compact rows to their plain versions on the corpora of
+    ``pairless_corpora``: here the plain versions' class counts show that
+    those inputs take every window class of K4's n-gram steps, of its
+    block-row tail and of K2w's compact steps, and the plain answers equal
+    the JAX engines' under AWFM_PAIR_ROWS=0."""
+    import chip_smoke
+
+    text, k4_qs, klen, aa_text, aa_qs = chip_smoke.pairless_corpora()
+    if form.startswith("k4"):
+        # the 41-mers and their last 29 letters (K4's letters from memory
+        # and in registers)
+        n, short = int(form.split("-")[1][1:]), chip_smoke.PAIRLESS_SHORT_LEN
+        length = klen if form.endswith(str(klen)) else short
+        qs = [q[-length:] for q in k4_qs]
+        j, p = build_both(text, 8, 6, DNA)
+        view = p.to_device("cpu", pair_rows=False)
+        ng = pngram.build_ngram_device(p, n, device="cpu")
+        mat = torch.from_numpy(pt.SearchEngine(view, device="cpu").encode_kmers(k4_qs)[0])
+        if length == short:
+            mat = kernel_ab.lengthwise_batch(mat, klen, short)[0]
+            assert mat.shape[1] == 32
+        classes = psearch.new_step_classes("cpu")
+        s, e = psearch.ngram_ranges_plain(view, ng, mat, length, classes)
+        for table in ("ngram_pair", "pair"):  # the n-gram steps, the block-row tail
+            assert min(classes[table].tolist()) >= 1, (table, classes[table].tolist())
+        _jax_view(j, jax_pairless)
+        want = jx.NgramSearchEngine(j, n=n).find_ranges(qs)
+    else:
+        j, p = build_both(aa_text, 8, chip_smoke.PAIRLESS_AMINO_SEED_K, AMINO)
+        view = p.to_device("cpu", wide=True, pair_rows=False)
+        assert not view.pair_fused and view.packed.shape[1] == 384
+        eng = pt.SearchEngine(view, device="cpu")
+        mat, lengths, _ = eng.encode_kmers(aa_qs)
+        seeded = eng._seed_eligibility(mat, lengths)
+        classes = torch.zeros(3, dtype=torch.int64)
+        s, e = psearch.ranges_plain(view, torch.from_numpy(mat), torch.from_numpy(lengths),
+                                    torch.from_numpy(seeded), classes)
+        assert min(classes.tolist()) >= 1, classes.tolist()
+        jwide = jx.SearchEngine(_jax_view(j, jax_pairless, wide=True))
+        jwide.host_index = j
+        qs = aa_qs
+        want = jwide.find_ranges(qs)
+    got = torch.stack([s, e], dim=1)[: len(qs)].numpy().astype(np.uint64)
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.uint64))

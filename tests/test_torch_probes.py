@@ -370,6 +370,30 @@ def test_k5_masked_walk_equals_a_numpy_loop(mask):
     assert probes.sector_columns(64, 0b10) == list(range(32, 64))
 
 
+def test_k5_masked_walk_over_n3_ngram_rows():
+    """The walk over 768 B rows (an n = 3 n-gram table, which the pairless
+    models calibrate) with the n = 3 first-block mask: the same recurrence
+    in numpy; the walk entry takes the width, the reduce does not."""
+    from avxwindowfmindex_tpu_torch.utils import roofline
+
+    mask = roofline.first_block_visits(ngram_n=3)["ngram_pair"][0]
+    rng = np.random.default_rng(768)
+    nb, row_bytes, seg = 301, 768, 4
+    table = _table(rng, nb, row_bytes)
+    idx = rng.integers(0, nb, size=200, dtype=np.int32)
+    want = []
+    for x in idx.astype(np.int64):
+        for _ in range(seg):
+            total = sum(int(table[x, 32 * sec : 32 * sec + 32].sum())
+                        for sec in range(row_bytes // 32) if (mask >> sec) & 1)
+            x = ((int(x) * 1103515245 + total + 12345) % 2**32) % nb
+        want.append(x)
+    got = probes.gather_walk(torch.from_numpy(table), torch.from_numpy(idx), seg, mask)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    assert 768 in probes.K5_WALK_ROW_BYTES and 768 not in probes.K5_ROW_BYTES
+    assert set(probes.K5_ROW_BYTES) < set(probes.K5_WALK_ROW_BYTES)
+
+
 @pytest.mark.parametrize("n", [1, 37])
 def test_k6_ragged_batch_with_indices_out_of_range(n):
     """A batch that is no multiple of the kernel's tile of rows, some
