@@ -203,9 +203,9 @@
 //       (64 MB, mostly in the L2), 0.74 ms on a 268 MB wide view, 0.50 ms
 //       for 4.7M steps over a 4.56 GB table above 2^32 (H100 80GB HBM3,
 //       700 W). Over compact rows (planes 32 B apart: two pieces a visit)
-//       the same kernel takes 24-41% less (awfm_k3w_compact_backtrace_resolve,
-//       timed by tools.kernel_ab), the form that a wide view without pair
-//       rows takes (below).
+//       the same kernel takes 24-41% less (awfm_k3w_compact_backtrace_resolve),
+//       the form that a wide view without pair rows takes (below). Both
+//       row forms take a power-of-two ratio as a shift, as K3 does.
 //   K1R awfm_k1r_occ / awfm_k1r_lf, K1Rw awfm_k1rw_occ / awfm_k1rw_lf,
 //   and their route awfm_k1r_route
 //       K1 over one shard of the range-sharded engine
@@ -296,6 +296,48 @@
 //       36 MB, 7% behind; the milestone loaded by one lane of the pair and
 //       shuffled, level; one lane a query (five whole plane sectors a
 //       lane), 33% behind.
+//       What bounds K2 over block rows: the L2's rate of row visits. The
+//       32 MB rows stay in the L2, and K5's walk over their four sectors a
+//       visit runs at about 32G visits a second with one lane a chain and
+//       about twice that with four (each lane a share of the row's pieces;
+//       a warp load instruction then touches 8 rows; two lanes gain only
+//       5-10%): the block rows' ceiling, its readings in PERF.md section 6.
+//       K2's steps make their 11.6M visits at about 57G a second, and the
+//       launch stands at about 1.1-1.3 of a model at the four-lane rate
+//       plus a launch that makes the seed-table visits and no step. It
+//       keeps K2's form; measured against it and not kept
+//       (H100 80GB HBM3, 700 W, each in turns in one process): a grid the
+//       card holds at once whose lane pairs walk queries in turn, asking
+//       for the next query's letters (into the L2 a turn ahead) and
+//       seed-table entry before stepping the current one, 40-57% behind
+//       with the entry in registers (74 registers), 18-19% behind with it
+//       prefetched into the L2 and loaded at its turn, 16-55% behind at 4
+//       or 5 blocks an SM (64 and 48 registers); four lanes a query, 54%
+//       behind; this form held to 6 and 8 blocks an SM (40 and 32
+//       registers, spills), 16% and 45% behind. Fewer queries in flight
+//       cost more than the seed visits the grid hides.
+//       What bounds K3w over compact rows: the 100.7 MB rows lie beyond
+//       the L2, and the walk's 7.35M LF steps, 3.8 pieces of 64 B each,
+//       move near the memory rate with the table's share in the L2: 1.48-
+//       1.56 of a model at the rows' calibrated 19.2-19.4G visits a second
+//       (a walk that asks for a visit's sectors in one round trip). One
+//       thread a hit keeps a lane busy 23% of its warp's time (mean steps
+//       over the warp's longest walk) and the grid that hands out hits 68%,
+//       yet every grid form measured behind (in turns in one process):
+//       the block row's five plane sectors as 40 words, then the
+//       milestone, 4% behind and 12% in the on-disk form (76 registers, 3
+//       blocks an SM); lf_bytes in the grid, 27% (38 registers: a full
+//       grid's plane sectors outgrow the L1 between its dependent reads);
+//       an L2 prefetch of the milestone pieces beside the plane loads, 28%
+//       (five pieces a step in place of 3.8); the plane sectors copied to
+//       shared memory by cp.async, 22-25% (47-53 registers); the block-row
+//       form held to 4 or 5 blocks an SM, 20% and 160% (spills). Nor did
+//       one thread a hit gain from the first milestone sector asked for
+//       beside the plane bytes (6% behind) or from 8 blocks an SM (32
+//       registers, 7-8% behind). Busier lanes did not walk faster: beyond
+//       the L2 the pieces a step moves, not idle lanes, set the pace. Kept:
+//       one thread a hit, a power-of-two ratio taken as a shift (p % ratio
+//       in u64 is a software routine on this card), about 1% ahead.
 //
 // Semantics follow the JAX package bit for bit. Narrow positions are u32 and
 // wrap mod 2^32 (start - 1 at start == 0 is 0xFFFFFFFF); a block index past
@@ -1516,11 +1558,13 @@ __device__ __forceinline__ typename G::pos_t lf_bytes(const AwfmTables& t,
 // longest walk, which on wide rows costs nothing the card could use: the
 // grid that hands out hits (below) measured 4% behind this on random hits
 // and 16% behind in the on-disk form, and two lanes a hit (lf_bytes) 1-14%
-// behind. G is Wide, or WideCompact for the measurement entry.
+// behind. G is Wide, or WideCompact (a wide view without pair rows), where
+// the grid measured behind too (the module note). shift: log2(ratio), or -1
+// when ratio is no power of two (p % ratio in u64 is a software routine).
 template <class G, int NP>
 __global__ void __launch_bounds__(kK3Threads)
 k3_per_hit_kernel(AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
-                  typename G::pos_t ratio, typename G::pos_t bwt_length,
+                  typename G::pos_t ratio, int shift, typename G::pos_t bwt_length,
                   const typename G::pos_t* __restrict__ sa,
                   int64_t* __restrict__ hits_out, int64_t* __restrict__ p_out,
                   int64_t* __restrict__ off_out) {
@@ -1531,13 +1575,13 @@ k3_per_hit_kernel(AwfmTables t, const int64_t* __restrict__ pos, int64_t n,
   pos_t off = 0;
   // a valid BWT's LF walk reaches a sampled position in < bwtLength steps;
   // the bound only keeps a malformed index from spinning forever
-  while (p % ratio != 0 && off < bwt_length) {
+  while ((shift >= 0 ? (p & (ratio - 1u)) != 0 : p % ratio != 0) && off < bwt_length) {
     p = lf_bytes<G, NP>(t, p);
     ++off;
   }
   if (sa != nullptr) {
     // sa < bwtLength and off <= bwtLength < 2^39: the sum cannot wrap
-    const uint64_t h = static_cast<uint64_t>(sa[p / ratio]) + off;
+    const uint64_t h = static_cast<uint64_t>(sa[shift >= 0 ? p >> shift : p / ratio]) + off;
     hits_out[i] = static_cast<int64_t>(h % bwt_length);
   } else {
     p_out[i] = static_cast<int64_t>(p);
@@ -2003,9 +2047,13 @@ int launch_k3_planes(int device, const AwfmTables* t, const int64_t* pos,
                      typename G::pos_t bwt_length,
                      const typename G::pos_t* sa, int64_t* hits_out,
                      int64_t* p_out, int64_t* off_out, cudaStream_t stream) {
+  int shift = -1;
+  if ((ratio & (ratio - 1u)) == 0) {
+    for (shift = 0; (static_cast<typename G::pos_t>(1) << shift) != ratio; ++shift) {}
+  }
   if constexpr (sizeof(typename G::pos_t) == 8) {
     k3_per_hit_kernel<G, NP><<<grid_for(n), kK3Threads, 0, stream>>>(
-        *t, pos, n, ratio, bwt_length, sa, hits_out, p_out, off_out);
+        *t, pos, n, ratio, shift, bwt_length, sa, hits_out, p_out, off_out);
   } else {
     // a grid the card holds at once, each block with an equal share of the hits
     int per_sm = 0, sms = 0;
@@ -2019,10 +2067,6 @@ int launch_k3_planes(int device, const AwfmTables* t, const int64_t* pos,
     const int64_t fit = (n + kK3Threads - 1) / kK3Threads;
     if (blocks > fit) blocks = fit;
     const int64_t chunk = (n + blocks - 1) / blocks;
-    int shift = -1;
-    if ((ratio & (ratio - 1u)) == 0) {
-      for (shift = 0; (static_cast<typename G::pos_t>(1) << shift) != ratio; ++shift) {}
-    }
     k3_backtrace_resolve_kernel<G, NP>
         <<<static_cast<unsigned int>(blocks), kK3Threads, 0, stream>>>(
             *t, pos, n, chunk, ratio, shift, bwt_length, sa, hits_out, p_out,

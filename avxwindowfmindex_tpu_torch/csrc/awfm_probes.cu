@@ -28,8 +28,12 @@
 //       (0.226). The walk entry runs
 //       bench.py's calibration walk, idx <- (idx * 1103515245 + sum of the
 //       row's bytes + 12345) mod nb in u32, for seg steps in one launch,
-//       one thread per lane, its vector loads of a row all in flight
-//       together. A sector mask (bit s: the row's 32 B sector s) limits the
+//       one chain per lane, its vector loads of a row all in flight
+//       together (or per 4 lanes, each loading a share of the row's
+//       pieces: a warp load instruction then touches 8 rows; over the
+//       L2-resident block rows four lanes a chain walk twice as fast as
+//       one, the ceiling tools.kernel_ab sets K2 against). A
+//       sector mask (bit s: the row's 32 B sector s) limits the
 //       loads and the sum to the sectors a search step reads, so the walk
 //       can measure the rate of visits that touch only those (the walk
 //       also takes the 768 B rows of an n = 3 n-gram table, which
@@ -162,43 +166,56 @@ k5_gather_reduce_kernel(const uint8_t* __restrict__ table, int64_t nb, int row_b
   }
 }
 
-// MASKED false: every sector of the row, loaded unconditionally.
-template <int R, bool MASKED>
+// MASKED false: every sector of the row, loaded unconditionally. L
+// neighbouring lanes walk one chain (L = 1 or 4): lane sub loads pieces
+// sub, sub + L, ... of the row, so one warp load instruction touches 32 / L
+// rows, and the sum is taken over the L lanes by shuffle.
+template <int R, bool MASKED, int L>
 __global__ void k5_gather_walk_kernel(const uint8_t* __restrict__ table,
                                       int64_t nb, const int32_t* __restrict__ idx,
                                       int64_t n, int seg, uint32_t sector_mask,
                                       int32_t* __restrict__ out) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
+  const int64_t i = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / L;
+  if (i >= n) return;  // the same in the L lanes of a chain, which alone shuffle
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (L - 1);
+  const unsigned group = L == 1 ? 1u << lane : ((1u << L) - 1u) << (lane & ~(L - 1));
   const uint32_t rows = static_cast<uint32_t>(nb);
   uint32_t x = static_cast<uint32_t>(clamp_row(idx[i], nb));
   for (int s = 0; s < seg; ++s) {
     const uint4* row = reinterpret_cast<const uint4*>(table + static_cast<int64_t>(x) * R);
     uint32_t sum = 0u;
-    if constexpr (!MASKED) {
+    if constexpr (!MASKED && L == 1) {
 #pragma unroll
       for (int q = 0; q < R / 16; ++q) sum += byte_sum(__ldg(row + q));
     } else {
-      // two 16 B pieces per sector, kBatch pieces loaded before the first
-      // is summed: a load under its mask bit and nothing else, so that the
-      // compiler predicates it and the batch is in flight together
-      constexpr int kPieces = R / 16;
-      constexpr int kBatch = kPieces <= 24 ? kPieces : 16;
+      // a lane's pieces, kBatch loaded before the first is summed: a load
+      // under its mask bit and nothing else, so that the compiler predicates
+      // it and the batch is in flight together
+      constexpr int kMine = R / 16 / L;
+      constexpr int kBatch = kMine <= 24 ? kMine : 16;
 #pragma unroll
-      for (int q0 = 0; q0 < kPieces; q0 += kBatch) {
+      for (int q0 = 0; q0 < kMine; q0 += kBatch) {
         uint4 v[kBatch];
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          v[j] = make_uint4(0u, 0u, 0u, 0u);
-          if ((sector_mask >> ((q0 + j) / 2)) & 1u) v[j] = __ldg(row + q0 + j);
+          const int q = (q0 + j) * L + sub;
+          if constexpr (MASKED) {
+            v[j] = make_uint4(0u, 0u, 0u, 0u);
+            if ((sector_mask >> (q / 2)) & 1u) v[j] = __ldg(row + q);
+          } else {
+            v[j] = __ldg(row + q);
+          }
         }
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) sum += byte_sum(v[j]);
       }
     }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(group, sum, o);
     x = (x * 1103515245u + sum + 12345u) % rows;
   }
-  out[i] = static_cast<int32_t>(x);
+  if (sub == 0) out[i] = static_cast<int32_t>(x);
 }
 
 constexpr int kK6BlocksPerSm = 4;  // the grid's cap: this many blocks per SM
@@ -279,19 +296,30 @@ cudaError_t launch_slab_gather(int device, const int32_t* slab, int64_t s,
 }
 
 // A mask that holds every sector of the row takes the whole-row walk.
-template <int R>
-cudaError_t launch_walk(const uint8_t* table, int64_t nb, const int32_t* idx,
-                        int64_t n, int seg, uint32_t sector_mask, int32_t* out,
-                        cudaStream_t stream) {
+template <int R, int L>
+cudaError_t launch_walk_lanes(const uint8_t* table, int64_t nb, const int32_t* idx,
+                              int64_t n, int seg, uint32_t sector_mask, int32_t* out,
+                              cudaStream_t stream) {
   constexpr uint32_t kAll = R / 32 == 32 ? 0xFFFFFFFFu : (1u << (R / 32)) - 1u;
   if ((sector_mask & kAll) == kAll) {
-    k5_gather_walk_kernel<R, false><<<blocks_for(n), kThreads, 0, stream>>>(
+    k5_gather_walk_kernel<R, false, L><<<blocks_for(n * L), kThreads, 0, stream>>>(
         table, nb, idx, n, seg, sector_mask, out);
   } else {
-    k5_gather_walk_kernel<R, true><<<blocks_for(n), kThreads, 0, stream>>>(
+    k5_gather_walk_kernel<R, true, L><<<blocks_for(n * L), kThreads, 0, stream>>>(
         table, nb, idx, n, seg, sector_mask, out);
   }
   return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_walk(const uint8_t* table, int64_t nb, const int32_t* idx,
+                        int64_t n, int seg, uint32_t sector_mask, int lanes, int32_t* out,
+                        cudaStream_t stream) {
+  switch (lanes) {
+    case 1: return launch_walk_lanes<R, 1>(table, nb, idx, n, seg, sector_mask, out, stream);
+    case 4: return launch_walk_lanes<R, 4>(table, nb, idx, n, seg, sector_mask, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // A grid the card holds at once (at most one block a chunk), of blocks of
@@ -361,17 +389,17 @@ int awfm_k5_gather_reduce(int device, const uint8_t* table, int64_t nb,
 
 int awfm_k5_gather_walk(int device, const uint8_t* table, int64_t nb,
                         int row_bytes, const int32_t* idx, int64_t n, int seg,
-                        uint32_t sector_mask, int32_t* out,
+                        uint32_t sector_mask, int lanes, int32_t* out,
                         cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (row_bytes) {
-    case 128: err = launch_walk<128>(table, nb, idx, n, seg, sector_mask, out, stream); break;
-    case 256: err = launch_walk<256>(table, nb, idx, n, seg, sector_mask, out, stream); break;
-    case 384: err = launch_walk<384>(table, nb, idx, n, seg, sector_mask, out, stream); break;
-    case 512: err = launch_walk<512>(table, nb, idx, n, seg, sector_mask, out, stream); break;
-    case 768: err = launch_walk<768>(table, nb, idx, n, seg, sector_mask, out, stream); break;
-    case 1024: err = launch_walk<1024>(table, nb, idx, n, seg, sector_mask, out, stream); break;
+    case 128: err = launch_walk<128>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
+    case 256: err = launch_walk<256>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
+    case 384: err = launch_walk<384>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
+    case 512: err = launch_walk<512>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
+    case 768: err = launch_walk<768>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
+    case 1024: err = launch_walk<1024>(table, nb, idx, n, seg, sector_mask, lanes, out, stream); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -338,7 +338,7 @@ def build() -> float:
         lib.awfm_k4_block_ngram_ranges.argtypes = lib.awfm_k4_ngram_ranges.argtypes
         lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
         lib.awfm_k5_gather_walk.argtypes = [
-            i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, vp, vp,
+            i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, i32, vp, vp,
         ]
         lib.awfm_k6_slab_gather.argtypes = [i32, vp, i64, vp, i64, vp, vp]
         lib.awfm_k6_slab_chain.argtypes = [i32, vp, i64, vp, i64, i32, vp, vp]
@@ -975,21 +975,23 @@ def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
 
 
 def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
-                   sector_mask: int = 0xFFFFFFFF) -> torch.Tensor:
+                   sector_mask: int = 0xFFFFFFFF, lanes: int = 1) -> torch.Tensor:
     """K5's walk entry: (n,) int32 indices after ``seg`` dependent steps,
-    each reading and summing the row's 32 B sectors set in ``sector_mask``."""
-    from .probes import K5_WALK_ROW_BYTES
+    each reading and summing the row's 32 B sectors set in ``sector_mask``;
+    ``lanes`` (1 or 4) neighbouring lanes walk each chain."""
+    from .probes import K5_WALK_LANES, K5_WALK_ROW_BYTES
 
     device = _probe_table(table, "table", torch.uint8, K5_WALK_ROW_BYTES)
     n = _probe_idx(idx, device)
-    if seg < 0 or not 0 <= sector_mask <= 0xFFFFFFFF:
-        raise ValueError("need seg >= 0 and a 32-bit sector_mask")
+    if seg < 0 or not 0 <= sector_mask <= 0xFFFFFFFF or lanes not in K5_WALK_LANES:
+        raise ValueError(f"need seg >= 0, a 32-bit sector_mask and lanes in {K5_WALK_LANES}")
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
     rc = _library().awfm_k5_gather_walk(
         device.index, table.data_ptr(), int(table.shape[0]), int(table.shape[1]),
-        idx.data_ptr(), n, int(seg), int(sector_mask), out.data_ptr(), _stream(device),
+        idx.data_ptr(), n, int(seg), int(sector_mask), int(lanes), out.data_ptr(),
+        _stream(device),
     )
     _check(rc, "awfm_k5_gather_walk")
     K5.launches += 1

@@ -47,6 +47,8 @@ from .rank import device_kind
 K5_ROW_BYTES = (128, 256, 384, 512, 1024)
 #: Row widths K5's walk entry is instantiated for: those and the n = 3 n-gram rows.
 K5_WALK_ROW_BYTES = (128, 256, 384, 512, 768, 1024)
+#: Lanes a chain of K5's walk: each loads a share of the row's pieces.
+K5_WALK_LANES = (1, 4)
 #: Ring depths (16 B pieces in flight per lane) K5 is instantiated for.
 K5_RING_DEPTHS = (2, 4, 8, 16, 32)
 SLAB_LANES = 128  # K6 rows: 128 u32 words = 512 B
@@ -118,13 +120,16 @@ def gather_walk_plain(table: torch.Tensor, idx: torch.Tensor, seg: int,
 
 
 def gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
-                sector_mask: int = ALL_SECTORS) -> torch.Tensor:
+                sector_mask: int = ALL_SECTORS, lanes: int = 1) -> torch.Tensor:
     """K5's walk entry for CUDA tensors (all ``seg`` steps in one launch,
-    one chain per lane), the plain version for CPU ones."""
+    ``lanes`` lanes a chain), the plain version for CPU ones, where
+    ``lanes`` changes nothing but is checked."""
     if device_kind(table) == "cuda":
         from . import kernels
 
-        return kernels.k5_gather_walk(table, idx, seg, sector_mask)
+        return kernels.k5_gather_walk(table, idx, seg, sector_mask, lanes)
+    if lanes not in K5_WALK_LANES:
+        raise ValueError(f"lanes must be one of {K5_WALK_LANES}")
     return gather_walk_plain(table, idx, seg, sector_mask)
 
 

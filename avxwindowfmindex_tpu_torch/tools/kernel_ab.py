@@ -76,27 +76,36 @@ timed against its kernel over the same text in compact rows
 
 ``--cases pairless``: the forms for a view without pair rows, every
 checkout on the same views and inputs, in turns in one process. First
-each checkout's registers and spills of K4 and of K2w over compact rows,
-from its build's ``-Xptxas -v`` report (``"registers"`` lines). Then, on
-the ``--queries`` sampled 25-mers: K2 over pair rows and over the view
-without them (``to_device(pair_rows=False)``: block rows only), this
-checkout's two forms and every other checkout's pair form; the
-calibration of K5's masked walk (``utils/roofline.calibrate_gather_rates``
-with ``first_block_visits``' sector masks) over the 32 MB block rows, the
-64 MB pair rows and the n = 2 and n = 3 n-gram rows (96 MB and 192 MB,
-beyond the 50 MB L2); K4 at n = 2 and 3 with its tail over block rows
-and over pair rows, every checkout. Then an amino index of
+each checkout's registers and spills of K4, K2w over compact rows, K2
+over block rows and K3w over compact rows, from its build's ``-Xptxas -v``
+report (``"registers"`` lines). Then, on the ``--queries`` sampled
+25-mers: K2 over the view without pair rows (``to_device(pair_rows=False)``:
+block rows only) and over the pair rows, and K3 on their hits, every
+checkout; the calibration of K5's masked walk
+(``utils/roofline.calibrate_gather_rates`` with ``first_block_visits``'
+sector masks) over the 32 MB block rows, the 64 MB pair rows and the n = 2
+and n = 3 n-gram rows (96 MB and 192 MB, beyond the 50 MB L2), and over
+the block rows again with ``CEILING_LANES`` lanes a chain (each lane a
+share of a row's pieces: the block rows' ceiling, which K2 over them does
+not beat); K2 over block rows' model; K4 at n = 2 and 3 with its tail over
+block rows and over pair rows, every checkout. Then an amino index of
 ``K1_AMINO_RESIDUES`` residues (phase 4p's, 262,145 compact rows of
 384 B): K2w (12-mers) over its compact rows and over its pair-fused rows,
-every checkout; K3w on both, this checkout's and every other checkout's
-pair-fused form; the walk over the compact rows. After each K4 and K2w
-case, its model (``": model"`` lines): the row visits its steps make, by
-window class from the plain version's counts, at the calibrated rate of
-each table, plus a launch that makes the seed-table visit and the stores
-and no step (K2 over the same view on the queries' last k letters), each
-checkout's better time over it, the bytes bound (distinct rows x the
-bytes a visit needs, plus inputs and outputs, over 3.35 TB/s) and, for
-K2w, the piece model (visits x 3.8 pieces of 64 B over 3.35 TB/s).
+and K3w on random positions over the compact rows (resolved and on-disk)
+and the pair-fused rows, every checkout; the walk over the compact rows.
+After K2 over block rows and each K4 and K2w compact case, its model
+(``": model"`` lines): the row visits its steps make, by window class
+from the plain version's counts, at the calibrated rate of each table,
+plus a launch that makes the seed-table visit and the stores and no step
+(K2 over the same view on the queries' last k letters), each checkout's
+better time over it, the bytes bound (distinct rows x the bytes a visit
+needs, plus inputs and outputs, over 3.35 TB/s) and, for K2 over block
+rows, the same against the ceiling, for K2w the piece model (visits x
+3.8 pieces of 64 B over 3.35 TB/s). K3w compact's model charges its LF
+steps at the compact rows' rate plus a launch whose walks take no step,
+and gives the lane-occupancy ratio of its one lane a hit
+(``lane_occupancy``: mean steps over the steps of the walk a lane's warp
+waits on, 1 when every lane walks all the time).
 
 ``--cases k5``: K5's reduce alone at phase 3b's shapes (``gather_probe``'s
 P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
@@ -141,6 +150,7 @@ CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
 BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
 AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
 K1_AMINO_RESIDUES = 1 << 26  # k1: chip_smoke.py phase 4p's compact amino index
+CEILING_LANES = 4  # pairless: lanes a chain of the block rows' ceiling walk
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
 OPS_PER_S = 67e12  # published float32 rate outside the tensor cores
 DEFAULT_CACHE = os.path.join(
@@ -657,16 +667,6 @@ def k3w_cases(index, seq_arr, args, libs: dict, device) -> None:
     torch.cuda.empty_cache()
 
 
-def forms_case(case: str, shape: str, call, forms: dict, libs: dict, reps: int) -> None:
-    """``call(kernels_module, view)`` through this checkout over each view
-    of ``forms`` (name -> view), and through every other checkout over the
-    ``"pair"`` view: equal results, then times in turns (``run_case``)."""
-    entries = {name: (libs["this"], view) for name, view in forms.items()}
-    entries.update({f"{name}, pair": (lib, forms["pair"]) for name, lib in libs.items()
-                    if name != "this"})
-    run_case(case, shape, lambda e: call(e[0], e[1]), entries, reps)
-
-
 def kernel_registers(build_log: str, *needles: str) -> list:
     """``{"kernel", "registers", "spill_bytes"}`` of each kernel entry in
     nvcc's ``-Xptxas -v`` report whose mangled name holds every needle;
@@ -727,6 +727,8 @@ def bytes_bound_ms(tables, stream_bytes: int) -> float:
 def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
     """The forms for a view without pair rows, every checkout in turns,
     with the calibrated models (module note)."""
+    import dataclasses as dc
+
     import torch
 
     from .. import AlphabetType, IndexConfiguration, SearchEngine, create_index, search
@@ -739,7 +741,9 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
     for name, lib in libs.items():
         regs = (kernel_registers(lib.BUILD_LOG, "k4_ngram_ranges_kernel")
                 + kernel_registers(lib.BUILD_LOG, "k4_block_ngram_ranges_kernel")
-                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "WideCompact"))
+                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "WideCompact")
+                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "Narrow", "Lb0E")
+                + kernel_registers(lib.BUILD_LOG, "k3_per_hit_kernel", "WideCompact"))
         # a library built by an earlier process of the same checkout leaves no report
         print(json.dumps({"case": "registers", "checkout": name, "built_here": bool(lib.BUILD_LOG),
                           "kernels": regs}), flush=True)
@@ -751,8 +755,14 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
     seeded = eng._seed_eligibility(mat, lengths)
     q25 = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
            torch.from_numpy(seeded.astype(np.uint8)).to(device))
-    forms_case("k2, pair rows and block rows", f"{args.queries} 25-mers",
-               lambda k, v: k.k2_ranges(v, *q25), {"pair": pair, "block": block}, libs, reps)
+    shape = f"{args.queries} 25-mers"
+    k2_ms = run_case("k2 block rows", shape, lambda k: k.k2_ranges(block, *q25), libs, reps)
+    run_case("k2 pair rows", shape, lambda k: k.k2_ranges(pair, *q25), libs, reps)
+    s, e = search.ranges_plain(pair, *q25)
+    s, e = s[: len(rows)], e[: len(rows)]
+    hits = search.enumerate_range_positions(s, search.range_counts(s, e))
+    run_case("k3 narrow rows", f"{hits.numel()} hits of the 25-mers, ratio {pair.ratio}",
+             lambda k: k.k3_backtrace_resolve(pair, hits), libs, reps)
     seed_only = lengthwise_batch(q25[0], 25, args.seed_k)
     fixed = min(cuda_ms(lambda: this.k2_ranges(block, *seed_only), reps) for _ in range(2))
     ngs = {n: ngram.build_ngram_device(index, n, device=device) for n in (2, 3)}
@@ -764,12 +774,27 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
         tables[f"ngram{n}"] = ng.packed
     rates = roofline.calibrate_gather_rates(tables, args.queries, device=device, log=_log,
                                             sector_masks=masks)
+    # the block rows' ceiling: the same walk with CEILING_LANES lanes a chain
+    ceiling = roofline.calibrate_gather_rates(
+        {"block": block.packed}, args.queries, device=device, log=_log,
+        sector_masks={"block": masks["block"]}, lanes=CEILING_LANES)["block"]
     print(json.dumps({"case": "pairless calibration", "rates_rows_per_s": rates, "tables": {
         t: {"rows": tab.shape[0], "row_bytes": tab.shape[1], "mask": masks[t],
             "pieces_per_visit": mask_pieces(masks[t]),
             "pieces_TB_per_s": rates[t] * mask_pieces(masks[t]) * 64 / 1e12}
-        for t, tab in tables.items()}, "seed_only_k2_block_ms": fixed}), flush=True)
+        for t, tab in tables.items()}, "seed_only_k2_block_ms": fixed,
+        "block_rows_by_lanes_a_chain": {1: rates["block"], CEILING_LANES: ceiling}}), flush=True)
     nb = block.num_blocks
+    classes = torch.zeros(3, dtype=torch.int64, device=device)
+    search.ranges_plain(block, *q25, classes)
+    c = classes.tolist()
+    visits = c[0] + 2 * (c[1] + c[2])
+    line = visit_model({"block": visits}, rates, fixed, k2_ms)
+    line["ceiling"] = {"lanes_a_chain": CEILING_LANES, "rate_rows_per_s": ceiling,
+                       **visit_model({"block": visits}, {"block": ceiling}, fixed, k2_ms)}
+    line.update(classes=c, bound_ms=bytes_bound_ms(
+        [(nb, 3 * 32 + 4, visits)], args.queries * (q25[0].shape[1] + 4 + 1 + 2 * 8 + 16)))
+    print(json.dumps({"case": "k2 block rows: model", **line}), flush=True)
     for n, ng in ngs.items():
         classes = search.new_step_classes(device)
         search.ngram_ranges_plain(block, ng, q25[0], 25, classes)
@@ -777,7 +802,7 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
         ng_visits = ngc[0] + ngc[1] + 2 * ngc[2]
         ng_need = (2 * n + 1) * 32 + 4
         for tag, view in (("block", block), ("pair", pair)):
-            ms = run_case(f"k4 n={n}, tail over {tag} rows", f"{args.queries} 25-mers",
+            ms = run_case(f"k4 n={n}, tail over {tag} rows", shape,
                           lambda k: k.k4_ngram_ranges(view, ng, q25[0], 25), libs, reps)
             if tag == "block":
                 visits = {f"ngram{n}": ng_visits, "block": tail[0] + 2 * (tail[1] + tail[2])}
@@ -789,15 +814,14 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
                 args.queries * (q25[0].shape[1] + 2 * 8 + 16))
             line.update(ngram_classes=ngc, tail_classes=tail)
             print(json.dumps({"case": f"k4 n={n}, tail over {tag} rows: model", **line}), flush=True)
-    del ngs, eng, pair, block, q25, seed_only
+    del ngs, eng, pair, block, q25, seed_only, hits, s, e
     torch.cuda.empty_cache()
 
     aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=K1_AMINO_RESIDUES)
     aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
                             sa_backend="native", device=device)
-    forms = {"pair": aa_index.to_device(device, wide=True, pair_rows=True),
-             "compact": aa_index.to_device(device, wide=True, pair_rows=False)}
-    compact = forms["compact"]
+    fused = aa_index.to_device(device, wide=True, pair_rows=True)
+    compact = aa_index.to_device(device, wide=True, pair_rows=False)
     aa_eng = SearchEngine(compact, device=device)
     rows = _sampled(rng, aa, 12, args.queries)
     mat, lengths, _ = aa_eng.encode_kmers([r.tobytes() for r in rows])
@@ -807,12 +831,16 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
     shape = f"{args.queries} 12-mers, k=5"
     tag = f"amino {K1_AMINO_RESIDUES}"
     ms = run_case(f"k2w {tag}, compact rows", shape, lambda k: k.k2_ranges(compact, *q12), libs, reps)
-    run_case(f"k2w {tag}, pair-fused rows", shape, lambda k: k.k2_ranges(forms["pair"], *q12),
-             libs, reps)
+    run_case(f"k2w {tag}, pair-fused rows", shape, lambda k: k.k2_ranges(fused, *q12), libs, reps)
     rand = torch.from_numpy(rng.integers(0, aa_index.bwt_length, size=args.queries)).to(device)
-    forms_case(f"k3w {tag}, pair-fused and compact rows",
-               f"{args.queries} random positions, ratio 8",
-               lambda k, v: k.k3_backtrace_resolve(v, rand), forms, libs, reps)
+    pshape = f"{args.queries} random positions, ratio 8"
+    k3_ms = run_case(f"k3w {tag}, compact rows", pshape,
+                     lambda k: k.k3_backtrace_resolve(compact, rand), libs, reps)
+    disk = dc.replace(compact, sampled_sa=None)
+    run_case(f"k3w {tag}, compact rows, on-disk form", pshape,
+             lambda k: k.k3_backtrace_resolve(disk, rand), libs, reps)
+    run_case(f"k3w {tag}, pair-fused rows", pshape,
+             lambda k: k.k3_backtrace_resolve(fused, rand), libs, reps)
     mask = roofline.first_block_visits(AlphabetType.AMINO, compact=True)["compact"][0]
     rate = roofline.calibrate_gather_rates({"compact": compact.packed}, args.queries,
                                            device=device, log=_log, sector_masks={"compact": mask})
@@ -832,7 +860,21 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
                 piece_model_ms=visits * pieces * 64 / HBM_BYTES_PER_S * 1e3,
                 compact_pieces_per_visit=pieces)
     print(json.dumps({"case": f"k2w {tag}, compact rows: model", **line}), flush=True)
-    del forms, compact, aa_eng, aa_index, q12, rand, seed_only
+    # K3w over compact rows: its LF steps at the compact rows' rate plus a
+    # launch whose walks take no step (the SA visits and stores), the
+    # lane occupancy of one lane a hit, the bound
+    _, off = search.backtrace_resolve_plain(disk, rand)
+    steps = int(off.sum())
+    sampled = (rand // compact.ratio) * compact.ratio
+    fixed = min(cuda_ms(lambda: this.k3_backtrace_resolve(compact, sampled), reps) for _ in range(2))
+    line = visit_model({"compact": steps}, rate, fixed, k3_ms)
+    line.update(lf_steps=steps, hits=rand.numel(),
+                lane_occupancy=1.0 / roofline.warp_lane_occupancy(off),
+                bound_ms=max(bytes_bound_ms([(compact.num_blocks, need, steps)], rand.numel() * 24),
+                             steps * (8 * (2 * compact.n_planes + 1) + 4 * 8) / OPS_PER_S * 1e3),
+                piece_model_ms=steps * pieces * 64 / HBM_BYTES_PER_S * 1e3)
+    print(json.dumps({"case": f"k3w {tag}, compact rows: model", **line}), flush=True)
+    del fused, compact, disk, aa_eng, aa_index, q12, rand, seed_only, sampled, off
     torch.cuda.empty_cache()
 
 

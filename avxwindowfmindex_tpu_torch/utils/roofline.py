@@ -327,13 +327,15 @@ def difference_rate(run, lanes: int, runs: int, seg_lo: int, seg_hi: int) -> flo
 
 def calibrate_gather_rates(
     tables, batch: int, *, device, runs: int = 3, seg_lo: int = 4, seg_hi: int = 20,
-    log=None, sector_masks: Optional[Dict[str, int]] = None,
+    log=None, sector_masks: Optional[Dict[str, int]] = None, lanes: int = 1,
 ) -> Dict[str, float]:
     """Measured random row-read rate of each table (rows/s), plus the
     L2-resident slab rate under ``"slab"``. ``sector_masks``: per table,
     the 32 B sectors of a row that a visit reads and sums (K5's masked
     walk; :func:`first_block_visits`); a table without one is walked over
-    whole rows, as ``bench.py`` walks it.
+    whole rows, as ``bench.py`` walks it. ``lanes``: lanes a chain of the
+    walk (1, as ``bench.py``; 4 for the ceiling of an L2-resident table,
+    whose rate the rows a warp's load instruction touches set).
 
     The walk is ``bench.py``'s: each of ``batch`` lanes reads the row at
     its index and moves to ``(idx * 1103515245 + sum of the row's bytes
@@ -363,13 +365,13 @@ def calibrate_gather_rates(
         mask = (sector_masks or {}).get(name, probes.ALL_SECTORS)
 
         def run(seg, table=table, idx0=idx0, mask=mask):
-            return int(probes.gather_walk(table, idx0, seg, mask)[0])  # the readback syncs
+            return int(probes.gather_walk(table, idx0, seg, mask, lanes)[0])  # the readback syncs
 
         rates[name] = difference_rate(run, batch, runs, seg_lo, seg_hi)
         if log:
             read = len(probes.sector_columns(table.shape[1], mask))
             log(f"calib {name}: {rates[name] / 1e6:.1f}M rows/s "
-                f"({read} B read of a {table.shape[1]} B row, {nb} rows)")
+                f"({read} B read of a {table.shape[1]} B row, {nb} rows, {lanes} lane(s) a chain)")
     slab = torch.from_numpy(
         rng.integers(0, 2**32, size=(SLAB_ROWS, probes.SLAB_LANES), dtype=np.uint32).view(np.int32)
     ).to(device)

@@ -193,7 +193,13 @@ Phases (any failure raises and the script exits nonzero):
      classes, bounds and calibrated rates, K4 over block rows (n = 2, 3;
      41-mers and their last 29 letters) and K2w compact on the
      window-class corpora of pairless_corpora, every class taken, and the
-     API q/s beside phase 4's. (b) A 2^26-residue random amino index
+     API q/s beside phase 4's; the block rows' ceiling (K5's walk with 4
+     lanes a chain, against its plain version, calibrated);
+     the edges (pairless_edges): K3w compact on two 60,000-residue amino
+     indexes at SA ratios 6 and 8 (0, 1, 33 hits, every position,
+     1,000,003 random ones, the sentinel's row; SA resident and on disk)
+     and K2 over block rows on 0, 1 and 33 queries, an unseeded batch and
+     the DNA corpus (every class taken), each against its plain version. (b) A 2^26-residue random amino index
      (seed k = 5, ratio 8) as to_device(wide=True, pair_rows=False):
      K1WX's BFS over the 384 B rows equal to the narrow table widened,
      SearchEngine's count and locate of 1,048,576 sampled 12-mers equal to
@@ -304,6 +310,8 @@ SINGLE_QUERY_WALKS = 256
 PAIRLESS_CORPUS_SEED = 0x4C0  # phase 4p's window-class corpora (pairless_corpora)
 PAIRLESS_AMINO_SEED_K = 3  # their amino index's seed k (20^3 entries)
 PAIRLESS_SHORT_LEN = 29  # their K4 queries' last 29 letters: rows of 32 columns, letters in registers
+EDGE_RESIDUES = 60_000  # phase 4p's edge indexes (pairless_edges)
+EDGE_HITS = 1_000_003  # their random hits: more than the card holds at once, no multiple of a block
 HOST_SAMPLE = 32  # phase 4p: amino queries checked against a host scan (phase 4 samples 32 too)
 # the rank, range and backtrace kernels of each width
 INDEX_KERNELS = ("k1_rank", "k2_ranges", "k3_backtrace_resolve")
@@ -1277,6 +1285,103 @@ def pairless_corpus_checks(rec: Record, device: str) -> dict:
     if min(classes) < 1:
         raise AssertionError(f"[4p] K2w over compact rows: a window class was never taken: {classes}")
     out["k2w_compact"] = classes
+    out["edges"] = pairless_edges(rec, device, corpus_k2_batches(view, k4_qs, klen))
+    return out
+
+
+def corpus_k2_batches(view, k4_qs, klen: int) -> dict:
+    """K2's batches of the DNA window-class corpus for ``pairless_edges``:
+    its 41-mers (letters read from memory) and their last
+    ``PAIRLESS_SHORT_LEN`` letters (letters in registers)."""
+    return {f"window-class corpus, {klen}-mers": (view, list(k4_qs)),
+            f"window-class corpus, last {PAIRLESS_SHORT_LEN} letters":
+                (view, [q[-PAIRLESS_SHORT_LEN:] for q in k4_qs])}
+
+
+def pairless_edges(rec: Record, device: str, corpus_k2=None) -> dict:
+    """Phase 4p: K3w over compact rows and K2 over block rows at their
+    edges, each against its plain version. K3w on two small amino indexes,
+    SA ratio 6 (no power of two: p % ratio) and 8 (a shift): 0, 1 and 33
+    hits, every position of the index, a batch of EDGE_HITS random
+    positions (no multiple of a block), walks from the sentinel's row,
+    with the SA resident and on disk. K2: batches of 0, 1 and 33 queries, an
+    unseeded batch (every length <= k) and the batches of ``corpus_k2``
+    (label -> (view, queries): the DNA window-class corpus, each of which
+    must take every window class). Returns the walks' step counts and the
+    K2 batches' sizes and classes."""
+    import numpy as np
+    import torch
+    from avxwindowfmindex_tpu_torch import (
+        AlphabetType, IndexConfiguration, SearchEngine, create_index, search,
+    )
+    from avxwindowfmindex_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(0xED6E)
+    out = {"k3w_compact": {}, "k2_block": {}}
+    text = random_text(rng, EDGE_RESIDUES, AlphabetType.AMINO)
+    for ratio in (6, 8):
+        aa = create_index(text, IndexConfiguration(ratio, 3, AlphabetType.AMINO), device=device)
+        view = aa.to_device(device, wide=True, pair_rows=False)
+        if view.pair_fused or view.packed.shape[1] != 384:
+            raise AssertionError("[4p] edges: the amino view is not on compact rows")
+        disk = dataclasses.replace(view, sampled_sa=None)
+        n = view.bwt_length
+        sentinel = int(np.flatnonzero(aa.bwt_letters == aa.sentinel_index)[0])
+        every = torch.arange(n, dtype=torch.int64, device=device)
+        batches = {"0 hits": every[:0], "1 hit": every[sentinel:sentinel + 1],
+                   "33 hits": every[rng.integers(0, n, 33)],
+                   f"every position x{n}": every,
+                   f"random x{EDGE_HITS}": torch.from_numpy(rng.integers(0, n, EDGE_HITS)).to(device),
+                   "the sentinel's row x37": torch.full((37,), sentinel, dtype=torch.int64,
+                                                        device=device)}
+        for label, pos in batches.items():
+            what = f"ratio {ratio}, {label}"
+            got = kernels.k3_backtrace_resolve(view, pos)
+            rec.compare("k3w_backtrace_resolve_compact", f"edges {what}", got,
+                        search.backtrace_resolve_plain(view, pos))
+            kp, ko = kernels.k3_backtrace_resolve(disk, pos)
+            pp, po = search.backtrace_resolve_plain(disk, pos)
+            rec.compare("k3w_backtrace_resolve_compact", f"edges {what} on-disk p", kp, pp)
+            rec.compare("k3w_backtrace_resolve_compact", f"edges {what} on-disk off", ko, po)
+            out["k3w_compact"][what] = int(po.sum())
+        del aa, view, disk, every, batches
+
+    dna = create_index(random_text(rng, EDGE_RESIDUES, AlphabetType.DNA).upper(),
+                       IndexConfiguration(8, 6, AlphabetType.DNA), device=device)
+    view = dna.to_device(device, pair_rows=False)
+    sets = {}
+    qs = [random_text(rng, 25, AlphabetType.DNA) for _ in range(33)]
+    sets["0 queries"], sets["1 query"], sets["33 queries"] = qs[:0], qs[:1], qs
+    sets["unseeded x300 (lengths 1-5)"] = [random_text(rng, int(L), AlphabetType.DNA)
+                                          for L in rng.integers(1, 6, 300)]
+    batch_views = {label: (view, kmers) for label, kmers in sets.items()}
+    batch_views.update(corpus_k2 or {})
+    for label, (v, kmers) in batch_views.items():
+        e = SearchEngine(v, device=device)
+        if kmers:
+            mat, lengths, _ = e.encode_kmers(kmers)
+            seeded = e._seed_eligibility(mat, lengths)
+        else:
+            mat = np.zeros((0, 32), np.uint8)
+            lengths, seeded = np.zeros(0, np.int32), np.zeros(0, bool)
+        m = len(kmers)
+        args = (torch.from_numpy(mat[:m]).to(device), torch.from_numpy(lengths[:m]).to(device),
+                torch.from_numpy(seeded[:m].astype(np.uint8)).to(device))
+        classes = torch.zeros(3, dtype=torch.int64, device=device)
+        ps, pe = search.ranges_plain(v, *args, classes)
+        ks, ke = kernels.k2_ranges(v, *args)
+        rec.compare("k2_ranges_block", f"edges {label} start x{m}", ks, ps)
+        rec.compare("k2_ranges_block", f"edges {label} end x{m}", ke, pe)
+        out["k2_block"][label] = {"queries": m, "seeded": int(seeded[:m].sum()),
+                                  "classes": classes.tolist()}
+        if label.startswith("unseeded") and seeded[:m].any():
+            raise AssertionError("[4p] edges: the unseeded batch holds a seeded query")
+        if label in (corpus_k2 or {}) and min(classes.tolist()) < 1:
+            raise AssertionError(f"[4p] edges: K2 over block rows on the {label} never took a "
+                                 f"window class: {classes.tolist()}")
+    log(f"[4p] edges: K3w over compact rows at ratios 6 and 8 (LF steps by batch: "
+        f"{json.dumps(out['k3w_compact'])}), K2 over block rows ({json.dumps(out['k2_block'])}): "
+        f"equal to their plain versions")
     return out
 
 
@@ -3334,8 +3439,8 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
         create_index, search,
     )
     from avxwindowfmindex_tpu_torch.models import alphabet as alpha
-    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
-    from avxwindowfmindex_tpu_torch.tools.kernel_ab import lengthwise_batch
+    from avxwindowfmindex_tpu_torch.ops import kernels, probes, rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import CEILING_LANES, lengthwise_batch
     from avxwindowfmindex_tpu_torch.utils import roofline
 
     t_phase = time.time()
@@ -3450,6 +3555,7 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
         lambda: kernels.k4_ngram_ranges(view, ng3, mat_d, KMER_LEN),
         lambda: search.ngram_ranges_plain(view, ng3, mat_d, KMER_LEN), 10, 1)
     nb, np_ = view.num_blocks, view.n_planes
+    rng_walk = np.random.default_rng(4099)
     tables, ops = block_step_tables(nb, np_, 4, k2_classes)
     rec.set_bound("k2_ranges_block", tables, n * (mat_d.shape[1] + 4 + 1 + 2 * 4 + 16), ops,
                   other_visits={"seed_table": n})
@@ -3482,6 +3588,17 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
     stats["rates"] = {"ngram_pair3": roofline.calibrate_gather_rates(
         {"ngram_pair3": ng3.packed}, QUERIES, device=device, sector_masks={"ngram_pair3": mask3},
         log=lambda m: log(f"[4p] {m}"))["ngram_pair3"]}
+    # the block rows' ceiling: K5's walk with CEILING_LANES lanes a chain,
+    # against its plain version, then calibrated
+    bmask = roofline.first_block_visits()["single"][0]
+    walk_idx = torch.from_numpy(rng_walk.integers(0, nb, QUERIES).astype(np.int32)).to(device)
+    rec.compare("k5_gather_reduce", f"walk block rows, {CEILING_LANES} lanes a chain, seg=4 x{QUERIES}",
+                probes.gather_walk(view.packed, walk_idx, 4, bmask, CEILING_LANES),
+                probes.gather_walk_plain(view.packed, walk_idx, 4, bmask))
+    stats["rates"]["single, ceiling"] = roofline.calibrate_gather_rates(
+        {"block": view.packed}, QUERIES, device=device, sector_masks={"block": bmask},
+        lanes=CEILING_LANES, log=lambda m: log(f"[4p] {m}"))["block"]
+    del walk_idx
     del args, mat_d, seed_only, single, digram, ngram3, ng3, view
     torch.cuda.empty_cache()
     stats["corpora"] = pairless_corpus_checks(rec, device)
@@ -3904,6 +4021,7 @@ def main(argv=None) -> int:
     if args.rank_of:
         return rank_main(args.rank_of[0], int(args.rank_of[1]))
     from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import CEILING_LANES
 
     device = "cuda:0"
     smi = nvidia_smi_line()
@@ -4016,6 +4134,16 @@ def main(argv=None) -> int:
             f"{model['row_traffic_ms']:.4f} ms; row visits at the calibrated rate {rows_ms:.4f} ms; "
             f"with {model['other_visits'] or 'no other visit'} {all_ms:.4f} ms: "
             f"ms / model {rec.ms[name][0] / all_ms:.3f}")
+    # K2 over block rows against the block rows' ceiling: the same visits
+    # at the rate of K5's walk with CEILING_LANES lanes a chain (phase 4p)
+    model = rec.model["k2_ranges_block"]
+    rate = rates["single, ceiling"]
+    rows_ms = model["row_visits"][0] / rate * 1e3
+    all_ms = rows_ms + rec.fixed["k2_ranges_block"]
+    main_stats["models"]["k2_ranges_block, ceiling"] = {"rate": rate, "all_visits_ms": all_ms}
+    log(f"[models] k2_ranges_block against the walk with {CEILING_LANES} lanes a chain "
+        f"({rate / 1e9:.2f}G visits/s): row visits {rows_ms:.4f} ms, with the no-step launch "
+        f"{all_ms:.4f} ms: ms / model {rec.ms['k2_ranges_block'][0] / all_ms:.3f}")
 
     log(f"[summary] {json.dumps(main_stats)}")
     log(smi)

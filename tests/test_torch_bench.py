@@ -347,9 +347,10 @@ def test_calibration_walks_the_masked_sectors(monkeypatch):
     seen = {}
     real = probes.gather_walk
 
-    def spy(table, idx, seg, mask=probes.ALL_SECTORS):
+    def spy(table, idx, seg, mask=probes.ALL_SECTORS, lanes=1):
+        assert lanes == 1  # the bench's walk: one lane a chain
         seen[table.shape[1]] = mask
-        return real(table, idx, seg, mask)
+        return real(table, idx, seg, mask, lanes)
 
     monkeypatch.setattr(probes, "gather_walk", spy)
     seq = random_sequence(np.random.default_rng(16), 3000, DNA, clean=True)

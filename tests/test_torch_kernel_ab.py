@@ -19,6 +19,7 @@ from avxwindowfmindex_tpu.ops import rank64 as r64
 from avxwindowfmindex_tpu_torch import search as psearch
 from avxwindowfmindex_tpu_torch.ops import kernels
 from avxwindowfmindex_tpu_torch.tools import kernel_ab
+from avxwindowfmindex_tpu_torch.utils import roofline
 
 from oracle import random_sequence
 from torch_helpers import build_both
@@ -279,22 +280,38 @@ def test_pairless_case_runs_on_the_cpu(monkeypatch, capsys):
     kernel_ab.pairless_cases(index, seq, args, {"this": plain, "parent": plain}, "cpu")
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [x["case"] for x in lines] == [
-        "registers", "registers", "k2, pair rows and block rows", "pairless calibration",
+        "registers", "registers", "k2 block rows", "k2 pair rows", "k3 narrow rows",
+        "pairless calibration", "k2 block rows: model",
         "k4 n=2, tail over block rows", "k4 n=2, tail over block rows: model",
         "k4 n=2, tail over pair rows", "k4 n=2, tail over pair rows: model",
         "k4 n=3, tail over block rows", "k4 n=3, tail over block rows: model",
         "k4 n=3, tail over pair rows", "k4 n=3, tail over pair rows: model",
         "k2w amino 20000, compact rows", "k2w amino 20000, pair-fused rows",
-        "k3w amino 20000, pair-fused and compact rows", "k2w amino 20000, compact rows: model"]
+        "k3w amino 20000, compact rows", "k3w amino 20000, compact rows, on-disk form",
+        "k3w amino 20000, pair-fused rows", "k2w amino 20000, compact rows: model",
+        "k3w amino 20000, compact rows: model"]
     assert lines[0]["kernels"] == [
         {"kernel": "k4_block_ngram_ranges_kernel<2, 3, 8>", "registers": 120, "spill_bytes": 0}]
-    assert set(lines[3]["tables"]) == {"block", "pair", "ngram2", "ngram3"}
+    assert set(lines[5]["tables"]) == {"block", "pair", "ngram2", "ngram3"}
+    # the block rows walked with 1 and 4 lanes a chain
+    assert set(lines[5]["block_rows_by_lanes_a_chain"]) == {"1", str(kernel_ab.CEILING_LANES)}
+    for case in ("k2 block rows", "k2 pair rows", "k3 narrow rows", "k3w amino 20000, compact rows"):
+        timed = next(x for x in lines if x["case"] == case)
+        assert set(timed["ms"]) == {"this", "parent"} and all(len(t) == 2 for t in timed["ms"].values())
     for model in (x for x in lines if x["case"].endswith(": model")):
         assert set(model["ms"]) == {"this", "parent"} and model["model_ms"] > 0
         assert sum(model["row_visits"].values()) > 0 and model["bound_ms"] > 0
-    k4 = lines[5]
+    k2 = lines[6]
+    assert sum(k2["classes"]) > 0 and k2["row_visits"]["block"] >= sum(k2["classes"])
+    ceiling = k2["ceiling"]
+    assert ceiling["lanes_a_chain"] == 4 and ceiling["model_ms"] > 0
+    assert ceiling["rate_rows_per_s"] == lines[5]["block_rows_by_lanes_a_chain"]["4"]
+    k3 = lines[-1]
+    assert k3["row_visits"]["compact"] == k3["lf_steps"] > 0 and k3["hits"] == 96
+    assert 0 < k3["lane_occupancy"] <= 1
+    k4 = lines[8]
     # 25-mers at k = 6: up to 9 n-gram steps and one tail step a query, and
     # every sampled query makes its first n-gram step
     assert sum(k4["ngram_classes"]) >= 96 and 0 < sum(k4["tail_classes"]) <= sum(k4["ngram_classes"]) / 9 + 1
     assert k4["row_visits"]["block"] >= sum(k4["tail_classes"])
-    assert lines[-1]["compact_pieces_per_visit"] == 3.8 and lines[-1]["pieces_per_visit"] == 4
+    assert lines[-2]["compact_pieces_per_visit"] == 3.8 and lines[-2]["pieces_per_visit"] == 4

@@ -23,6 +23,7 @@ import torch
 
 import avxwindowfmindex_tpu as jx
 import avxwindowfmindex_tpu_torch as pt
+from avxwindowfmindex_tpu import search64 as jsearch64
 from avxwindowfmindex_tpu.ops import rank as jrank
 from avxwindowfmindex_tpu.ops import rank64 as r64
 from avxwindowfmindex_tpu_torch import search as psearch
@@ -571,18 +572,36 @@ def test_kernel_forms_follow_the_layout():
     assert all(x.launches == 0 for x in k.KERNELS)
 
 
-@pytest.mark.parametrize("form", ["k4-n2-41", "k4-n3-41", "k4-n2-29", "k4-n3-29", "k2w-compact"])
+@pytest.mark.parametrize("form", ["k4-n2-41", "k4-n3-41", "k4-n2-29", "k4-n3-29", "k2w-compact",
+                                  "k2-block-41", "k2-block-29"])
 def test_phase_4p_corpora_reach_every_window_class(form, jax_pairless):
-    """``chip_smoke.py`` phase 4p holds K4 over block rows (n = 2 and 3)
-    and K2w over compact rows to their plain versions on the corpora of
-    ``pairless_corpora``: here the plain versions' class counts show that
+    """``chip_smoke.py`` phase 4p holds K4 over block rows (n = 2 and 3),
+    K2w over compact rows and K2 over block rows to their plain versions on
+    the corpora of ``pairless_corpora`` (K2: the batches of
+    ``corpus_k2_batches``): here the plain versions' class counts show that
     those inputs take every window class of K4's n-gram steps, of its
-    block-row tail and of K2w's compact steps, and the plain answers equal
-    the JAX engines' under AWFM_PAIR_ROWS=0."""
+    block-row tail, of K2w's compact steps and of K2's block-row steps, and
+    the plain answers equal the JAX engines' under AWFM_PAIR_ROWS=0."""
     import chip_smoke
 
     text, k4_qs, klen, aa_text, aa_qs = chip_smoke.pairless_corpora()
-    if form.startswith("k4"):
+    if form.startswith("k2-block"):
+        j, p = build_both(text, 8, 6, DNA)
+        view = p.to_device("cpu", pair_rows=False)
+        length = int(form.split("-")[-1])
+        v, qs = next(b for b in chip_smoke.corpus_k2_batches(view, k4_qs, klen).values()
+                     if len(b[1][0]) == length)
+        assert v is view and len(qs) == len(k4_qs) and {len(q) for q in qs} == {length}
+        eng = pt.SearchEngine(view, device="cpu")
+        mat, lengths, _ = eng.encode_kmers(qs)
+        seeded = eng._seed_eligibility(mat, lengths)
+        classes = torch.zeros(3, dtype=torch.int64)
+        s, e = psearch.ranges_plain(view, torch.from_numpy(mat), torch.from_numpy(lengths),
+                                    torch.from_numpy(seeded), classes)
+        assert min(classes.tolist()) >= 1, classes.tolist()
+        _jax_view(j, jax_pairless)
+        want = jx.SearchEngine(j).find_ranges(qs)
+    elif form.startswith("k4"):
         # the 41-mers and their last 29 letters (K4's letters from memory
         # and in registers)
         n, short = int(form.split("-")[1][1:]), chip_smoke.PAIRLESS_SHORT_LEN
@@ -618,3 +637,39 @@ def test_phase_4p_corpora_reach_every_window_class(form, jax_pairless):
         want = jwide.find_ranges(qs)
     got = torch.stack([s, e], dim=1)[: len(qs)].numpy().astype(np.uint64)
     np.testing.assert_array_equal(got, np.asarray(want).astype(np.uint64))
+
+
+@pytest.mark.parametrize("output", ["resolve", "on-disk"])
+def test_compact_backtrace_at_a_ratio_no_power_of_two_equals_jax(output, jax_pairless):
+    """K3w's plain version over compact amino rows at SA ratio 6 (the
+    grid's ``p % ratio``, no shift) gives the JAX wide backtrace's answers
+    under AWFM_PAIR_ROWS=0, resolved and as (position, offset) pairs, on
+    random positions, the sentinel's row, 0, bwtLength - 1 and every 37th
+    position."""
+    rng = np.random.default_rng(0x9B6)
+    seq = random_sequence(rng, 3000, AMINO)
+    j, p = build_both(seq, 6, 3, AMINO)
+    view = p.to_device("cpu", wide=True, pair_rows=False)
+    assert not view.pair_fused and view.packed.shape[1] == 384 and view.ratio == 6
+    jdev = _jax_view(j, jax_pairless, wide=True)
+    assert not jdev.pair_fused and jdev.packed.shape[1] == 384
+    n = view.bwt_length
+    sentinel_row = int(np.flatnonzero(p.bwt_letters == view.sentinel)[0])
+    pos = np.concatenate([rng.integers(0, n, 600), [sentinel_row, 0, n - 1],
+                          np.arange(0, n, 37)]).astype(np.uint64)
+    hi, lo = r64.split_u64_host(pos)
+    p_hi, p_lo, off = jsearch64.backtrace_all64(jdev, jnp.asarray(hi), jnp.asarray(lo))
+    want_p = (np.asarray(p_hi).astype(np.uint64) << np.uint64(32)) | np.asarray(p_lo).astype(np.uint64)
+    want_off = np.asarray(off).astype(np.int64)
+    assert int(want_off.max()) >= 5 and (want_p % 6 == 0).all()
+    tpos = torch.from_numpy(pos.view(np.int64))
+    if output == "on-disk":
+        got_p, got_off = psearch.backtrace_resolve_plain(dataclasses.replace(view, sampled_sa=None),
+                                                         tpos)
+        np.testing.assert_array_equal(got_p.numpy().view(np.uint64), want_p)
+        np.testing.assert_array_equal(got_off.numpy(), want_off)
+    else:
+        h_hi, h_lo = jsearch64._resolve_samples64(jdev, p_hi, p_lo, off)
+        want = (np.asarray(h_hi).astype(np.uint64) << np.uint64(32)) | np.asarray(h_lo).astype(np.uint64)
+        got = psearch.backtrace_resolve_plain(view, tpos)
+        np.testing.assert_array_equal(got.numpy().view(np.uint64), want)

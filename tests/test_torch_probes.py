@@ -448,3 +448,18 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.k6_slab_chain(slab, idx, 1)
     assert kernels.K5.launches == 0 and kernels.K6.launches == 0
+
+
+def test_k5_walk_refuses_lanes_it_has_no_form_for():
+    """The walk takes 1 or 4 lanes a chain (four: the block rows' ceiling in
+    ``tools.kernel_ab --cases pairless``, held to the plain walk on the card
+    by ``chip_smoke.py`` phase 4p); another count is refused on the CPU
+    too, where the plain version answers."""
+    rng = np.random.default_rng(44)
+    nb, row_bytes, seg, mask = 1000, 128, 6, 0b1111
+    table = torch.from_numpy(_table(rng, nb, row_bytes))
+    idx = torch.from_numpy(rng.integers(0, nb, size=257, dtype=np.int32))
+    assert probes.K5_WALK_LANES == (1, 4)
+    for lanes in (0, 2, 3, 8):
+        with pytest.raises(ValueError, match="lanes"):
+            probes.gather_walk(table, idx, seg, mask, lanes)
