@@ -72,6 +72,44 @@
 //       for 67M parents, 0.80 ms of bytes), from 4.19 ms for a first form
 //       of one thread a parent that counted both ends (H100 80GB HBM3,
 //       700 W); the compile-time codes alone gave 7% of that.
+//   K1X's BFS mode awfm_k1_seed_table (awfm_k1w_seed_table,
+//   awfm_k1w_compact_seed_table)
+//       The same BFS, the whole table or its shallow depths, in ONE
+//       cooperative launch (ops/kernels.py:k1_seed_table; the JAX package
+//       runs rank_pallas.py's kernel under search64.py:_extend_level_chunked
+//       for a wide view). What bounds a small table on this card: the host,
+//       then the chain of depths. One launch a depth cost each depth its
+//       host work (a table uploaded from pageable memory, the wrapper's
+//       checks, the launch): an amino k = 5 table over the compact rows of a
+//       2^26-residue index, 168,420 parents in 4 depths, took 0.22-0.28 ms
+//       of host time for 0.063 ms of kernels. What the design does about it:
+//       the depth-1 ranges are formed in the kernel from C[] ([C[l],
+//       C[l + 1] - 1], wrapped to the width), each depth runs K1X's warp body
+//       (extend_warp) over the grid, a grid barrier lies between two depths,
+//       the levels between stay in one scratch allocation read and written
+//       through the L2 (another SM wrote them), and the last level goes to
+//       the output streaming: one ctypes call, no host table. 0.078-0.080 ms
+//       for that table as a caller waits (0.071-0.073 of device time, one
+//       kernel of 67-70 us), 3x faster than the per-depth route, against a
+//       0.028 ms bound: its last depth (160,000 parents, 47 us) moves a 384 B
+//       row a count and 51 MB of children at about 2.4 TB/s, and the three
+//       depths before it are a chain of dependent row visits (5, 6.5 and
+//       10.6 us, in-kernel timestamps). A block takes its runs of a depth
+//       eight at a time from a counter: k = 6 amino, 64M children, 0.516 ms
+//       of device time against 0.570 with a static stride; as a caller
+//       waits 0.544-0.560 against 0.66-0.75 one launch a depth; at k = 5 and
+//       the shallow depths of the other forms the stride was level. The
+//       narrow and pair-fused forms take their depths of at most 2^18 parents
+//       so (ops/seed_table.py:BFS_MAX_PARENTS): the k = 14 BFS 1.69-1.79 ms
+//       from 1.97-2.23, the wide k = 13 BFS 0.80-0.83 from 1.06-1.28; past
+//       that the K1X launch of one depth is ahead (77-85 registers here,
+//       44-45 in K1X). Measured against it and not kept (H100 80GB HBM3,
+//       700 W, in turns in one process): depths without grid barriers, each
+//       run waiting on flags of the runs that wrote its parents, a warp
+//       taking its runs from one counter: 1% ahead at k = 5, 1% behind at k = 6
+//       and 2.3x behind on the whole k = 14 table (one atomic a run); the
+//       milestones read two at a time: level; no floor of blocks an SM in
+//       the launch bounds: level.
 //   K2 awfm_k2_ranges
 //       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
 //       backward_step and backward_step_pair, and the flag-and-rerun protocol
@@ -258,7 +296,8 @@
 //   Forms for a view without pair rows (the JAX package's AWFM_PAIR_ROWS=0,
 //   FmIndex.to_device(pair_rows=False) here): K2 awfm_k2_block_ranges and K4
 //   awfm_k4_block_ngram_ranges (its tail steps) over the narrow block rows;
-//   K1w awfm_k1w_compact_occ / _letter_lf / _step / _lf_at, K1WX awfm_k1w_compact_extend, K2w
+//   K1w awfm_k1w_compact_occ / _letter_lf / _step / _lf_at, K1WX awfm_k1w_compact_extend
+//   and its BFS mode awfm_k1w_compact_seed_table, K2w
 //   awfm_k2w_compact_ranges and K3w awfm_k3w_compact_backtrace_resolve over
 //   the compact amino wide rows (384 B in place of 512 B; WideCompact).
 //       The same kernels, instantiated over that layout: a step's
@@ -1402,60 +1441,118 @@ __device__ __forceinline__ void counts_at(const AwfmTables& t, typename G::pos_t
 }
 
 // A (start, end) pair of the seed table at index j, read once (evict-first)
-// or written once (streaming).
-template <class P>
+// or written once (streaming); with kL2, through the L2 alone
+// (ld.global.cg / st.global.cg), for a level that the BFS mode writes and
+// reads back inside one launch: another SM wrote it before the grid
+// barrier, so its lines must not come from this SM's L1 or the
+// non-coherent path.
+template <bool kL2 = false, class P>
 __device__ __forceinline__ void load_pair(const P* table, int64_t j, P& start, P& end) {
   if constexpr (sizeof(P) == 4) {
-    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(table) + j);
+    const uint2* p = reinterpret_cast<const uint2*>(table) + j;
+    const uint2 v = kL2 ? __ldcg(p) : __ldcs(p);
     start = v.x;
     end = v.y;
   } else {
-    const ulonglong2 v = __ldcs(reinterpret_cast<const ulonglong2*>(table) + j);
+    const ulonglong2* p = reinterpret_cast<const ulonglong2*>(table) + j;
+    const ulonglong2 v = kL2 ? __ldcg(p) : __ldcs(p);
     start = v.x;
     end = v.y;
   }
 }
 
-template <class P>
+template <bool kL2 = false, class P>
 __device__ __forceinline__ void store_pair(P* table, int64_t j, P start, P end) {
   if constexpr (sizeof(P) == 4) {
-    __stcs(reinterpret_cast<uint2*>(table) + j, make_uint2(start, end));
+    uint2* p = reinterpret_cast<uint2*>(table) + j;
+    const uint2 v = make_uint2(start, end);
+    if constexpr (kL2) {
+      __stcg(p, v);
+    } else {
+      __stcs(p, v);
+    }
   } else {
-    __stcs(reinterpret_cast<ulonglong2*>(table) + j,
-           make_ulonglong2(static_cast<unsigned long long>(start),
-                           static_cast<unsigned long long>(end)));
+    ulonglong2* p = reinterpret_cast<ulonglong2*>(table) + j;
+    const ulonglong2 v = make_ulonglong2(static_cast<unsigned long long>(start),
+                                         static_cast<unsigned long long>(end));
+    if constexpr (kL2) {
+      __stcg(p, v);
+    } else {
+      __stcs(p, v);
+    }
   }
 }
 
 constexpr int kExtendParents = 31;  // parents a warp of K1X: lane 31 only counts
 
-// A warp steps kExtendParents consecutive parents of the n in `table` by
-// every letter, without a validity check (absent k-mers keep their
-// stepped-through start > end): child l * n + i = (C[l] + occ(l, start_i -
-// 1), C[l] + occ(l, end_i) - 1). A BFS level is in lexicographic order, so
-// within a letter's block of it the ranges tile the BWT, start_i - 1 ==
-// end_{i-1}: lane j counts every letter at one position q_j, the start - 1
-// of the warp's first parent for lane 0 and end_{j-1} for the others,
-// takes its end counts from lane j + 1 (q_{j+1} = end_j) and its start
-// counts from its own, and counts start - 1 itself only when it differs
-// from q_j (a parent that does not follow its neighbour: the first of a
-// letter's block, or any table that is no BFS level). So a parent costs one
-// row visit and one count per letter, where stepping its two ends costs
-// two.
-template <class G, int NP>
-__global__ void __launch_bounds__(kThreads)
-k1_extend_kernel(AwfmTables t, const typename G::pos_t* __restrict__ table,
-                 int64_t n, typename G::pos_t* __restrict__ nxt) {
+// Where a depth's parents come from and where its children go. K1X's
+// per-depth entry reads a table handed to it and writes the next (both
+// once: evict-first loads, streaming stores).
+template <class P>
+struct Streamed {
+  const P* table;
+
+  __device__ __forceinline__ void load(int64_t i, P& start, P& end) const {
+    load_pair(table, i, start, end);
+  }
+  __device__ __forceinline__ void store(P* nxt, int64_t j, P start, P end) const {
+    store_pair(nxt, j, start, end);
+  }
+};
+
+// The BFS mode reads its first depth from C[] (parent l = [C[l], C[l + 1] -
+// 1] in the view's width and wrap: the depth-1 table the host built before)
+// and every later one from the level it wrote before the last grid barrier,
+// through the L2; it writes the levels it reads back through the L2 and
+// the last one streaming.
+template <class P>
+struct Resident {
+  const P* table;  // null: depth 1, from C[]
+  const P* c;
+  bool last;
+
+  __device__ __forceinline__ void load(int64_t i, P& start, P& end) const {
+    if (table == nullptr) {
+      start = c[i];
+      end = c[i + 1] - 1u;
+    } else {
+      load_pair<true>(table, i, start, end);
+    }
+  }
+  __device__ __forceinline__ void store(P* nxt, int64_t j, P start, P end) const {
+    if (last) {
+      store_pair(nxt, j, start, end);
+    } else {
+      store_pair<true>(nxt, j, start, end);
+    }
+  }
+};
+
+// One warp of K1X: warp `warp` steps kExtendParents consecutive parents of
+// the n that `io` reads by every letter, without a validity check (absent
+// k-mers keep their stepped-through start > end): child l * n + i = (C[l] +
+// occ(l, start_i - 1), C[l] + occ(l, end_i) - 1). A BFS level is in
+// lexicographic order, so within a letter's block of it the ranges tile the
+// BWT, start_i - 1 == end_{i-1}: lane j counts every letter at one position
+// q_j, the start - 1 of the warp's first parent for lane 0 and end_{j-1}
+// for the others, takes its end counts from lane j + 1 (q_{j+1} = end_j)
+// and its start counts from its own, and counts start - 1 itself only when
+// it differs from q_j (a parent that does not follow its neighbour: the
+// first of a letter's block, or any table that is no BFS level). So a
+// parent costs one row visit and one count per letter, where stepping its
+// two ends costs two. Every lane of the warp calls this with the same warp
+// and n (the shuffles take all 32).
+template <class G, int NP, class IO>
+__device__ __forceinline__ void extend_warp(const AwfmTables& t, const IO& io, int64_t n,
+                                            int64_t warp, typename G::pos_t* nxt) {
   using pos_t = typename G::pos_t;
   constexpr int kCard = Card<NP>::value;
   constexpr unsigned kAll = 0xFFFFFFFFu;
-  const int64_t warp = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
-  if (warp * kExtendParents >= n) return;  // the same in every lane of the warp
   const uint32_t lane = threadIdx.x & 31u;
   const int64_t i = warp * kExtendParents + lane;
   const bool live = lane < static_cast<uint32_t>(kExtendParents) && i < n;
   pos_t start = 0, end = 0;
-  if (live) load_pair(table, i, start, end);
+  if (live) io.load(i, start, end);
   const pos_t prev_end = __shfl_up_sync(kAll, end, 1);
   const pos_t q = lane == 0u ? start - 1u : prev_end;
   pos_t occ_q[kCard];
@@ -1468,7 +1565,69 @@ k1_extend_kernel(AwfmTables t, const typename G::pos_t* __restrict__ table,
   const pos_t* c = static_cast<const pos_t*>(t.prefix_sums);
 #pragma unroll
   for (int l = 0; l < kCard; ++l) {
-    store_pair<pos_t>(nxt, l * n + i, c[l] + occ_q[l], c[l] + occ_e[l] - 1u);
+    io.store(nxt, l * n + i, c[l] + occ_q[l], c[l] + occ_e[l] - 1u);
+  }
+}
+
+// K1X / K1WX, one depth a launch: a warp a run of kExtendParents parents.
+template <class G, int NP>
+__global__ void __launch_bounds__(kThreads)
+k1_extend_kernel(AwfmTables t, const typename G::pos_t* __restrict__ table,
+                 int64_t n, typename G::pos_t* __restrict__ nxt) {
+  const int64_t warp = (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) >> 5;
+  if (warp * kExtendParents >= n) return;  // the same in every lane of the warp
+  extend_warp<G, NP>(t, Streamed<typename G::pos_t>{table}, n, warp, nxt);
+}
+
+// The BFS mode (awfm_k1*_seed_table): `steps` depths of the BFS in one
+// cooperative launch, from the depth-1 ranges formed from C[] to level
+// steps + 1, which goes to `out`. Depth d steps the card^d parents of
+// level d into level d + 1 with extend_warp, a warp a run of
+// kExtendParents parents; level d + 1 < steps + 1 lies in `levels` (level
+// 2 first, each after the one before), and depth d + 1 starts after grid
+// barrier d. sync[d - 1] is barrier d's counter (steps - 1 of them) and
+// sync[steps - 1 + d - 1] depth d's run counter, which hands a depth's
+// runs out eight at a time to a block (a static stride lets a long
+// depth's warps drift apart, and the children they store spread over more
+// of memory at once); all are zeroed on the stream before the launch.
+// steps == 0 writes the depth-1 ranges alone.
+template <class G, int NP>
+__global__ void __launch_bounds__(kThreads, 2)
+k1_seed_table_kernel(AwfmTables t, int steps, typename G::pos_t* levels, uint32_t* sync,
+                     typename G::pos_t* out) {
+  using pos_t = typename G::pos_t;
+  constexpr int kCard = Card<NP>::value;
+  __shared__ uint32_t handed;
+  const pos_t* c = static_cast<const pos_t*>(t.prefix_sums);
+  const int64_t thread = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (steps == 0) {
+    for (int64_t i = thread; i < kCard; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+      store_pair(out, i, c[i], static_cast<pos_t>(c[i + 1] - 1u));
+    }
+    return;
+  }
+  uint32_t* taken = sync + (steps - 1);
+  Resident<pos_t> io{nullptr, c, false};
+  pos_t* next = levels;
+  int64_t n = kCard;
+  for (int d = 1; d <= steps; ++d) {
+    io.last = d == steps;
+    pos_t* children = io.last ? out : next;
+    const int64_t runs = (n + kExtendParents - 1) / kExtendParents;
+    for (;;) {
+      if (threadIdx.x == 0) handed = atomicAdd(&taken[d - 1], blockDim.x >> 5);
+      __syncthreads();
+      const int64_t w = static_cast<int64_t>(handed) + (threadIdx.x >> 5);
+      const bool done = handed >= runs;
+      __syncthreads();
+      if (done) break;
+      if (w < runs) extend_warp<G, NP>(t, io, n, w, children);
+    }
+    if (io.last) break;
+    grid_barrier(&sync[d - 1]);
+    io.table = children;
+    next = children + 2 * n * kCard;
+    n *= kCard;
   }
 }
 
@@ -1988,6 +2147,82 @@ int launch_k1_extend(int device, const AwfmTables* t,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The BFS mode's 4 B counters for a table of `levels` levels: a barrier's
+// between two of its levels - 1 depths, and a depth's runs handed out.
+int64_t seed_table_counters(int levels) { return levels >= 2 ? 2 * levels - 3 : 0; }
+
+// Bytes of the BFS mode's scratch for a table of `levels` levels: the
+// counters, rounded up to 16 B, then levels 2 .. levels - 1, each card^j
+// (start, end) pairs of pos_bytes each; level `levels` goes to the
+// output. ops/kernels.py:k1_seed_table sizes the scratch with it
+// (awfm_seed_table_scratch_bytes).
+int64_t seed_table_scratch_bytes(int64_t card, int levels, int64_t pos_bytes) {
+  int64_t bytes = (seed_table_counters(levels) * 4 + 15) / 16 * 16;
+  int64_t n = card;
+  for (int j = 2; j < levels; ++j) {
+    n *= card;
+    bytes += n * 2 * pos_bytes;
+  }
+  return bytes;
+}
+
+template <class G, int NP>
+int launch_k1_seed_table_planes(int device, const AwfmTables* t, int levels, uint8_t* scratch,
+                                typename G::pos_t* out, cudaStream_t stream) {
+  using pos_t = typename G::pos_t;
+  constexpr int64_t kCard = Card<NP>::value;
+  int steps = levels - 1;
+  const int64_t counters = seed_table_counters(levels);
+  uint32_t* sync = reinterpret_cast<uint32_t*>(scratch);
+  pos_t* level2 = reinterpret_cast<pos_t*>(scratch + (counters * 4 + 15) / 16 * 16);
+  if (counters > 0) {
+    const cudaError_t err = cudaMemsetAsync(sync, 0, counters * sizeof(uint32_t), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // enough blocks for the deepest depth's runs of parents, at most what the
+  // card holds at once
+  int64_t n = kCard;
+  for (int d = 1; d < steps; ++d) n *= kCard;
+  const int64_t threads = steps == 0 ? kCard : (n + kExtendParents - 1) / kExtendParents * 32;
+  unsigned int grid = 0;
+  const int rc = resident_grid<k1_seed_table_kernel<G, NP>>(device, threads, &grid);
+  if (rc != 0) return rc;
+  AwfmTables tables = *t;
+  void* args[] = {&tables, &steps, &level2, &sync, &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(k1_seed_table_kernel<G, NP>), dim3(grid), dim3(kThreads),
+      args, 0, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The BFS mode: a table of card^levels ranges (levels >= 1) in one
+// cooperative launch on a grid the card holds at once. `scratch` holds
+// seed_table_scratch_bytes(card, levels, sizeof(pos_t)) bytes (null when
+// that is 0); the counters in it are zeroed on the stream first, as the
+// route zeroes its own. A refused launch (a grid the card cannot hold,
+// say) returns its error: nothing falls back.
+template <class G>
+int launch_k1_seed_table(int device, const AwfmTables* t, int levels, uint8_t* scratch,
+                         int64_t scratch_bytes, typename G::pos_t* out, cudaStream_t stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!rows_fit<G>(t) || levels < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t total = 1;
+  for (int j = 0; j < levels && total < INT32_MAX; ++j) total *= t->card;
+  if (total >= INT32_MAX || reinterpret_cast<uintptr_t>(scratch) % 16 ||
+      scratch_bytes < seed_table_scratch_bytes(t->card, levels, sizeof(typename G::pos_t))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (t->n_planes == 3 && t->card == Card<3>::value && letter_codes_match<3>(t)) {
+    return launch_k1_seed_table_planes<G, 3>(device, t, levels, scratch, out, stream);
+  }
+  if (t->n_planes == 5 && t->card == Card<5>::value && letter_codes_match<5>(t)) {
+    return launch_k1_seed_table_planes<G, 5>(device, t, levels, scratch, out, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <class G, int NP, int LW, bool PAIR>
 void launch_k2_form(const AwfmTables* t, const typename G::pos_t* seed_table,
                     int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
@@ -2293,6 +2528,29 @@ int awfm_k1w_extend(int device, const AwfmTables* t, const uint64_t* table,
 int awfm_k1w_compact_extend(int device, const AwfmTables* t, const uint64_t* table,
                             int64_t n, uint64_t* nxt, cudaStream_t stream) {
   return launch_k1_extend<WideCompact>(device, t, table, n, nxt, stream);
+}
+
+// K1X's BFS mode (K1WX's for a wide view, over compact rows for one without
+// pair rows): the first `levels` levels of the seed table in one launch.
+int awfm_k1_seed_table(int device, const AwfmTables* t, int levels, uint8_t* scratch,
+                       int64_t scratch_bytes, uint32_t* out, cudaStream_t stream) {
+  return launch_k1_seed_table<Narrow>(device, t, levels, scratch, scratch_bytes, out, stream);
+}
+
+int awfm_k1w_seed_table(int device, const AwfmTables* t, int levels, uint8_t* scratch,
+                        int64_t scratch_bytes, uint64_t* out, cudaStream_t stream) {
+  return launch_k1_seed_table<Wide>(device, t, levels, scratch, scratch_bytes, out, stream);
+}
+
+int awfm_k1w_compact_seed_table(int device, const AwfmTables* t, int levels, uint8_t* scratch,
+                                int64_t scratch_bytes, uint64_t* out, cudaStream_t stream) {
+  return launch_k1_seed_table<WideCompact>(device, t, levels, scratch, scratch_bytes, out,
+                                           stream);
+}
+
+// The bytes of scratch the BFS mode takes for a table of `levels` levels.
+int64_t awfm_seed_table_scratch_bytes(int64_t card, int levels, int64_t pos_bytes) {
+  return seed_table_scratch_bytes(card, levels, pos_bytes);
 }
 
 int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,

@@ -25,7 +25,9 @@ Each kernel keeps a plain integer count of its launches
 (``K1.launches`` ...), incremented right after a launch and nowhere
 else, so a run can show that its main path went through the kernels;
 K1's forms also count by mode (``K1.modes``: occ, letter_lf, step,
-lf_at; ``launch_counts``).
+lf_at; ``launch_counts``), and K1X's forms their BFS mode (``bfs``:
+``k1_seed_table``, the seed table's shallow depths or all of them in one
+launch).
 """
 
 from __future__ import annotations
@@ -69,7 +71,9 @@ class Kernel:
         self.replaces = replaces
         self.prefix = prefix or name.split("_")[0]
         self.launches = 0
-        self.modes = {}  # K1's forms: launches by mode ("occ", "letter_lf", "step", "lf_at")
+        # K1's forms: launches by mode ("occ", "letter_lf", "step", "lf_at");
+        # K1X's: the BFS mode ("bfs")
+        self.modes = {}
 
     def count(self, mode: str) -> None:
         """One launch in ``mode``: the total and the mode's count."""
@@ -116,7 +120,9 @@ K3W = Kernel(
     "avxwindowfmindex_tpu/search64.py:473",
 )
 # K1's level-extend form, one launch a depth of the seed-table BFS, with
-# launch counts of its own (the BFS's rows apart from the occ mode's)
+# launch counts of its own (the BFS's rows apart from the occ mode's); its
+# BFS mode, the whole table or its shallow depths in one launch, counts as
+# the mode "bfs" (``k1w_extend_compact.bfs``)
 K1X = Kernel(
     "k1_extend", "avxwindowfmindex_tpu_torch/csrc/awfm_kernels.cu",
     "avxwindowfmindex_tpu/ops/rank_pallas.py:40 under avxwindowfmindex_tpu/ops/seed_table.py:49",
@@ -329,6 +335,11 @@ def build() -> float:
             getattr(lib, f"awfm_{form}_step").argtypes = lib.awfm_k1_step.argtypes
             getattr(lib, f"awfm_{form}_lf_at").argtypes = lib.awfm_k1_lf_at.argtypes
         lib.awfm_k1w_compact_extend.argtypes = lib.awfm_k1_extend.argtypes
+        lib.awfm_k1_seed_table.argtypes = [i32, tables_p, i32, vp, i64, vp, vp]
+        lib.awfm_k1w_seed_table.argtypes = lib.awfm_k1_seed_table.argtypes
+        lib.awfm_k1w_compact_seed_table.argtypes = lib.awfm_k1_seed_table.argtypes
+        lib.awfm_seed_table_scratch_bytes.argtypes = [i64, i32, i64]
+        lib.awfm_seed_table_scratch_bytes.restype = i64
         lib.awfm_k2_block_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k2w_compact_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k4_ngram_ranges.argtypes = [
@@ -348,6 +359,7 @@ def build() -> float:
             lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
             lib.awfm_k3w_backtrace_resolve, lib.awfm_k3w_compact_backtrace_resolve,
             lib.awfm_k1w_compact_occ, lib.awfm_k1w_compact_letter_lf, lib.awfm_k1w_compact_extend,
+            lib.awfm_k1_seed_table, lib.awfm_k1w_seed_table, lib.awfm_k1w_compact_seed_table,
             lib.awfm_k2_block_ranges, lib.awfm_k2w_compact_ranges, lib.awfm_k4_block_ngram_ranges,
             lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
             lib.awfm_k1rw_lf, lib.awfm_k1_step, lib.awfm_k1w_step, lib.awfm_k1w_compact_step,
@@ -781,7 +793,7 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
     (card * n, 2) children of the (n, 2) parent ranges ``table``, in the
     view's storage type (u32 in int32, u64 in int64): child ``l * n + i``
     is parent i stepped by letter l, unconditionally."""
-    tables = _tables(dev)
+    tables = _view_state(dev).tables
     device = dev.packed.device
     _require(table, "table", _pos_dtype(dev), device)
     if table.dim() != 2 or table.shape[1] != 2:
@@ -802,6 +814,37 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
     _check(rc, name)
     kernel.launches += 1
     return nxt
+
+
+def k1_seed_table(dev, levels: int) -> torch.Tensor:
+    """K1X's BFS mode (K1WX's for a wide view, over compact rows without
+    pair rows): level ``levels`` of the seed-table BFS, the (card**levels,
+    2) ranges in the view's storage type, in ONE cooperative launch. The
+    depth-1 ranges are formed in the kernel from the view's C[] ([C[l],
+    C[l + 1] - 1], wrapped to the width), then ``levels - 1`` depths of
+    K1X's warp body run with a grid barrier between two; levels 2 ..
+    ``levels - 1`` and the barriers' counters lie in one scratch
+    allocation. No host table, no host-to-device copy: the output and the
+    scratch are allocated once each and the library is called once. A view
+    on the CPU is refused (``_tables``) before anything is built or
+    launched, and a refused launch raises; nothing falls back."""
+    state = _view_state(dev)
+    device = dev.packed.device
+    card = dev.cardinality
+    if card != {3: 4, 5: 20}.get(dev.n_planes):
+        raise ValueError(f"K1X takes 4 letters over 3 planes or 20 over 5, "
+                         f"not {card} over {dev.n_planes}")
+    if levels < 1 or card**levels >= 2**31:
+        raise ValueError(f"need 1 <= levels and card**levels < 2^31, got levels={levels}")
+    out = torch.empty((card**levels, 2), dtype=_pos_dtype(dev), device=device)
+    fn, name, kernel = _entry(dev, K1X, "seed_table")
+    nbytes = _library().awfm_seed_table_scratch_bytes(card, levels, out.element_size())
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+    rc = fn(device.index, state.ref, int(levels), None if scratch is None else scratch.data_ptr(),
+            nbytes, out.data_ptr(), _stream(device))
+    _check(rc, name)
+    kernel.count("bfs")
+    return out
 
 
 def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tensor):

@@ -3,6 +3,7 @@
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
         [--cases all|bfs|rs|k3w|k5|pairless|k1] [--cache DIR]
+        [--bfs-max-parents N ...]
 
 ``DIR`` is the root of another checkout of this repository (for one
 commit, ``git archive <commit> | tar -x -C DIR``). Its
@@ -33,7 +34,16 @@ steps a depth as its ``build_seed_table`` did, through this checkout's
 ``extend_level_plain`` over the checkout's K1 occ mode), and the same
 over the wide view at k = 13; at each depth, the K1 launches of the
 per-letter route are also timed alone, apart from the torch work around
-them (``"k1_launches_ms"``).
+them (``"k1_launches_ms"``); then the amino k = 5 and k = 6 tables over
+the compact rows of a ``K1_AMINO_RESIDUES``-residue index (chip_smoke.py
+phase 4p's), the whole table through each checkout's
+``build_seed_table``. ``--bfs-max-parents N ...`` adds to every whole
+table this checkout split at each N (``split_seed_table`` at the
+``seed_table.bfs_depths`` of N: the depths whose parents number at most
+N in one launch of the BFS mode, ``kernels.k1_seed_table``, then one
+``k1_extend`` launch a depth; 0 one launch a depth from the depth-1
+ranges), timed in the same turns: how the thresholds of
+``seed_table.BFS_MAX_PARENTS`` are set.
 
 ``--cases rs``: the range-sharded step alone, each checkout's on the
 same shards and positions: the 64M index split into 2 and 4 shards of
@@ -150,6 +160,7 @@ CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
 BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
 AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
 K1_AMINO_RESIDUES = 1 << 26  # k1: chip_smoke.py phase 4p's compact amino index
+COMPACT_BFS_K = (5, 6)  # bfs: the amino seed k of phase 4p and of an index of 2^32 positions
 CEILING_LANES = 4  # pairless: lanes a chain of the block rows' ceiling walk
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
 OPS_PER_S = 67e12  # published float32 rate outside the tensor cores
@@ -216,22 +227,26 @@ def _same(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = False) -> dict:
-    """``call(kernels_module)`` through every checkout: equal results, then
-    times in turns (``device``: the device time of a primed queue too,
-    ``"device_ms"``, beside the wall time ``"ms"``); returns the times,
-    ``{name: [first, second]}``."""
-    names = list(libs)
-    want = call(libs[names[0]])
+def run_case(case: str, shape: str, call, libs: dict, reps: int, device: bool = False,
+             variants=None) -> dict:
+    """``call(kernels_module)`` through every checkout, and each of
+    ``variants`` ({name: fn}, a setting of this checkout, timed as one
+    more column): equal results, then times in turns (``device``: the
+    device time of a primed queue too, ``"device_ms"``, beside the wall
+    time ``"ms"``); returns the times, ``{name: [first, second]}``."""
+    fns = {name: (lambda lib=lib: call(lib)) for name, lib in libs.items()}
+    fns.update(variants or {})
+    names = list(fns)
+    want = fns[names[0]]()
     for name in names[1:]:
-        if not _same(call(libs[name]), want):
+        if not _same(fns[name](), want):
             raise AssertionError(f"{case}: {name} differs from {names[0]}")
     ms = {name: [] for name in names}
     dev_ms = {name: [] for name in names}
     for name in names + names[::-1]:
-        ms[name].append(cuda_ms(lambda: call(libs[name]), reps))
+        ms[name].append(cuda_ms(fns[name], reps))
         if device:
-            dev_ms[name].append(device_ms(lambda: call(libs[name]), reps))
+            dev_ms[name].append(device_ms(fns[name], reps))
     line = {"case": case, "shape": shape, "ms": ms}
     if device:
         line["device_ms"] = dev_ms
@@ -282,18 +297,45 @@ def k1_launch_ms(dev, table) -> tuple:
     return sum(a.elapsed_time(b) for a, b in events), len(events)
 
 
-def bfs_cases(index, views, libs: dict, reps: int) -> None:
+def split_seed_table(dev, k: int, steps: int, prefix_sums):
+    """The k-mer seed table of ``dev`` with depths 1 .. ``steps`` in one
+    launch of the BFS mode (``kernels.k1_seed_table``) and one
+    ``extend_level`` (a ``k1_extend`` launch) a depth past them; steps = 0
+    is one launch a depth from the depth-1 ranges. On a CPU view the plain
+    loop throughout."""
+    from ..ops import kernels, rank, seed_table
+
+    if rank.device_kind(dev.packed) == "cuda":
+        table = kernels.k1_seed_table(dev, steps + 1)
+    else:
+        table = seed_table.build_seed_table(dev, dev.cardinality, steps + 1, prefix_sums)
+    for _depth in range(steps + 1, k):
+        table = seed_table.extend_level(dev, table)
+    return table
+
+
+def bfs_cases(index, views, libs: dict, reps: int, max_parents=(), depths: bool = True) -> None:
     """The seed-table BFS of ``index`` through every checkout: ``views``
-    maps a case tag to (device view, k)."""
+    maps a case tag to (device view, k). Each whole table also through
+    this checkout split at each threshold of ``max_parents``
+    (``"this, max_parents=N"``: ``split_seed_table`` at the depths N
+    takes, 0 one launch a depth); with ``depths``, then each depth alone."""
     import torch
     from ..ops import seed_table
 
     ps = index.prefix_sums
     for tag, (dev, k) in views.items():
         card = dev.cardinality
+        variants = {
+            f"this, max_parents={m}":
+                (lambda s=seed_table.bfs_depths(card, k, m): split_seed_table(dev, k, s, ps))
+            for m in max_parents}
         run_case(f"bfs{tag} k={k}", f"{card}^{k} ranges",
                  lambda km: _sibling(km, "seed_table").build_seed_table(dev, card, k, ps),
-                 libs, max(1, reps // 5))
+                 libs, max(1, reps // 5), variants=variants)
+        torch.cuda.empty_cache()
+        if not depths:
+            continue
         table = seed_table.build_seed_table(dev, card, 1, ps)
         for depth in range(1, k):
             parents = table
@@ -305,6 +347,26 @@ def bfs_cases(index, views, libs: dict, reps: int) -> None:
             table = seed_table.extend_level(dev, parents)
         del table, parents
         torch.cuda.empty_cache()
+
+
+def compact_bfs_cases(libs: dict, reps: int, max_parents, rng, device, ks=COMPACT_BFS_K) -> None:
+    """The amino BFS at each k of ``ks`` (k = 5 and 6) over the compact wide
+    rows of a ``K1_AMINO_RESIDUES``-residue index (chip_smoke.py phase 4p's,
+    ``to_device(wide=True, pair_rows=False)``), through every checkout's
+    ``build_seed_table`` and this checkout split at each threshold of
+    ``max_parents``, in turns; the whole tables only (``bfs_cases``
+    without depths)."""
+    from .. import AlphabetType, IndexConfiguration, create_index
+
+    aa = rng.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8), size=K1_AMINO_RESIDUES)
+    aa_index = create_index(aa.tobytes(), IndexConfiguration(8, 5, AlphabetType.AMINO),
+                            sa_backend="native", device=device)
+    view = aa_index.to_device(device, wide=True, pair_rows=False)
+    _log(f"amino index of {K1_AMINO_RESIDUES} residues on {view.packed.shape[1]} B compact rows")
+    for k in ks:
+        # a k = 5 table takes tens of microseconds: 5x the launches of a case
+        bfs_cases(aa_index, {" amino compact": (view, k)}, libs, reps * (5 if k < 6 else 1),
+                  max_parents, depths=False)
 
 
 def straddle_table(device, boundary: int = 2**32, seed: int = 4097, pat_blocks: int = 4096,
@@ -924,8 +986,9 @@ def occ_route_lf(index, position: int, *, device, wide=None, pair_rows=None):
 def trace_calls(fn, out_dir: str, tag: str) -> dict:
     """A torch.profiler trace of ``fn()`` on the card, read from its chrome
     trace (written to ``out_dir/<tag>.json``): ``{"kernels": {name: [launches,
-    device us]}, "dtoh": n, "htod": n, "other_copies": n, "device_us":
-    total}``, the copies being its ``gpu_memcpy`` events by direction.
+    device us]}, "dtoh": n, "htod": n, "other_copies": n, "memsets": n,
+    "device_us": total}``, the copies being its ``gpu_memcpy`` events by
+    direction, the memsets its ``gpu_memset`` events.
     ``fn`` runs twice, once in the profiler's warm-up cycle, whose events
     are dropped (the first of a cold trace can be lost), then traced."""
     import torch
@@ -945,7 +1008,7 @@ def trace_calls(fn, out_dir: str, tag: str) -> dict:
             prof.step()
     with open(path) as fh:
         events = json.load(fh).get("traceEvents", [])
-    out = {"kernels": {}, "dtoh": 0, "htod": 0, "other_copies": 0, "device_us": 0.0}
+    out = {"kernels": {}, "dtoh": 0, "htod": 0, "other_copies": 0, "memsets": 0, "device_us": 0.0}
     for ev in events:
         cat, name, dur = ev.get("cat", ""), ev.get("name", ""), float(ev.get("dur", 0.0))
         if cat == "kernel":
@@ -955,6 +1018,8 @@ def trace_calls(fn, out_dir: str, tag: str) -> dict:
         elif cat == "gpu_memcpy":
             key = "dtoh" if "DtoH" in name else ("htod" if "HtoD" in name else "other_copies")
             out[key] += 1
+        elif cat == "gpu_memset":
+            out["memsets"] += 1
         else:
             continue
         out["device_us"] += dur
@@ -1150,6 +1215,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--cases", choices=CASES, default="all")
     ap.add_argument("--cache", default=DEFAULT_CACHE,
                     help="k3w: where the big index is saved after its first build")
+    ap.add_argument("--bfs-max-parents", type=int, nargs="*", default=[],
+                    help="bfs: also time this checkout's whole BFS split at these thresholds")
     args = ap.parse_args(argv)
     for item in args.other:
         if "=" not in item:
@@ -1286,12 +1353,17 @@ def main(argv=None) -> int:
                      lambda k: locate_all(k, dense), libs, reps)
             del four, whole, s4, e4, hits4
 
-    bfs_cases(index, {"": (dev, args.seed_k)}, libs, reps)
+    splits = args.bfs_max_parents
+    bfs_cases(index, {"": (dev, args.seed_k)}, libs, reps, splits)
     if args.cases == "all":
         index_cases(dev, "", k4=True)
     wide = index.to_device(device, wide=True)
-    bfs_cases(index, {"w": (wide, args.seed_k - 1)}, libs, reps)
+    bfs_cases(index, {"w": (wide, args.seed_k - 1)}, libs, reps, splits)
     if args.cases == "bfs":
+        del dev, wide, eng, ng
+        index._device_cache = None
+        torch.cuda.empty_cache()
+        compact_bfs_cases(libs, reps, splits, rng, device)
         return 0
     index_cases(wide, "w", k4=False)
     del dev, wide, ng

@@ -23,7 +23,12 @@ Phases (any failure raises and the script exits nonzero):
      seed-table BFS's level extend, every depth of the DNA k = 10 and
      amino k = 5 BFS and crafted parent tables: start == 0, absent
      ranges, both ends in one block, in two, on the last row, past the
-     table, a ragged count), with kernel and plain times side by side;
+     table, a ragged count), and K1X's BFS mode (the depth-1 ranges and
+     the depths whose parents number at most a threshold in one
+     cooperative launch) against the plain BFS at every k up to the
+     index's, the whole table in the one launch and split at 16 or 400
+     parents, its launches read from the wrappers' counters, with kernel
+     and plain times side by side;
      K2 over block rows (the view without pair rows) on every K2 batch
      of the 1M-base indexes and on the window-class corpus with short and
      ambiguous queries in one odd-sized batch (each class taken at least
@@ -39,7 +44,10 @@ Phases (any failure raises and the script exits nonzero):
      no search produces (2^64 - 1, 2^40 + 5) for the block-index rule;
      and their forms over the compact 384 B rows of the amino index's
      wide view without pair rows (to_device(wide=True, pair_rows=False)):
-     K1WX at every depth of the k = 5 BFS and on crafted parents, K1w's
+     K1WX at every depth of the k = 5 BFS and on crafted parents, its BFS
+     mode against the plain BFS at every k from 1 to 5 and a profiler
+     trace of one k = 5 table (the script's first: no host-to-device copy,
+     no kernel but the BFS mode, one launch by the wrapper's counter), K1w's
      occ and LF modes on the same positions, K2w on every batch, K3w with
      the SA resident and on disk, each equal to its plain version and to
      the pair-fused form;
@@ -51,13 +59,15 @@ Phases (any failure raises and the script exits nonzero):
      over every query, and locate of 4,096 multi-hit 11-mers (shorter
      than k, so they fall back to the single-step kernel), all checked
      against host scans; the kernels' launch counts are reset just
-     before and read just after (the build's seed table: K1X, 13
-     launches; K1: none); then a stage breakdown of one digram locate,
-     and each kernel against its plain version at the shapes the main
-     path gave it, timed in turns: the k = 14 seed-table BFS by three
-     routes, each depth timed (K1X; the per-letter loop over K1's occ
-     mode, the parent's route, with its K1 launches timed apart from the
-     torch work around them; the plain version); the share of K4's and
+     before and read just after (the build's seed table: K1X, 5
+     launches, one of them its BFS mode's for depths 1-9; K1: none); then
+     a stage breakdown of one digram locate, and each kernel against its
+     plain version at the shapes the main path gave it, timed in turns:
+     the k = 14 seed-table BFS by four routes (K1X one launch a depth,
+     each depth timed; the build's route, BFS mode and then K1X, the
+     whole table timed; the per-letter loop over K1's occ mode, the
+     route before K1X, with its K1 launches timed apart from the torch
+     work around them; the plain version); the share of K4's and
      K2's steps in each window class, and their bounds charged by class;
   3b. the gather-rate probes against their plain versions: K5 at each
      experiment's own shapes (P2/P4: 2^19 indices over 1 GiB tables of
@@ -103,9 +113,10 @@ Phases (any failure raises and the script exits nonzero):
      the 11-mer multi-hit set through the wide SearchEngine, equal to the
      narrow engine's answers exactly and checked against host scans; the
      wide densify_device_sa(4) equal to the narrow one; the launch counts
-     of K1WX, K2w and K3w reset just before and read just after; then each
+     of K1WX (its BFS mode once), K2w and K3w reset just before and read
+     just after; then each
      against its plain version at this path's shapes (the k = 13 BFS by
-     the three routes of phase 4, 8,388,608 rank pairs, 1,048,576
+     the four routes of phase 4, 8,388,608 rank pairs, 1,048,576
      25-mers, their hits), timed in turns, with the narrow kernels' times
      beside them;
   4x. a table that really is above 2^32 positions: a 4,096-block pattern
@@ -124,7 +135,7 @@ Phases (any failure raises and the script exits nonzero):
   7. the public API at full size, on the phase-4 index, each part's
      launch counts reset before it and read after it: 7a, the index
      saved as an .awfmx artifact without its seed table and loaded on the
-     card (K1X rebuilds the table in 13 launches, torch.equal to phase
+     card (K1X rebuilds the table in 5 launches, torch.equal to phase
      4's; a DigramSearchEngine over it gives phase 4's counts and hits),
      and the 1M-base index saved with its table, whose load launches no
      K1 and no K1X;
@@ -201,15 +212,18 @@ Phases (any failure raises and the script exits nonzero):
      and K2 over block rows on 0, 1 and 33 queries, an unseeded batch and
      the DNA corpus (every class taken), each against its plain version. (b) A 2^26-residue random amino index
      (seed k = 5, ratio 8) as to_device(wide=True, pair_rows=False):
-     K1WX's BFS over the 384 B rows equal to the narrow table widened,
+     K1WX's BFS over the 384 B rows, one launch of its BFS mode by the
+     wrapper's counter, equal to the narrow table widened,
      SearchEngine's count and locate of 1,048,576 sampled 12-mers equal to
      the narrow amino engine's, 32 of them against a host scan, the
      single-query API
      (iterative_step_backward_search, backtrace_return_previous_letter_index)
      over 256 of them equal to the narrow answers, the launches read around
      all of it (by mode); K1w compact's single-query modes on crafted
-     edges, and its calls timed and traced as in 7f; each compact form against its plain version (K1WX's whole
-     k = 5 BFS against the plain BFS), and K2w and K3w against their
+     edges, and its calls timed and traced as in 7f; each compact form
+     against its plain version (the BFS mode's k = 5 and k = 6 tables and
+     the per-depth route's against the plain BFS, both k timed in turns,
+     BFS mode against one launch a depth), and K2w and K3w against their
      pair-fused forms, in turns; the C launchers refuse a table of the
      other wide layout;
   9a. the multi-process front at full size: the 64M index saved as an
@@ -219,7 +233,7 @@ Phases (any failure raises and the script exits nonzero):
      card a rank, on one card two gloo ranks sharing cuda:0 (NCCL refuses
      two ranks on one card; gloo's collectives pass through host memory)
      and a one-rank NCCL world. Each rank loads the file on its card (K1X
-     13 launches, read from the rank's launch counts), then over the
+     5 launches, read from the rank's launch counts), then over the
      narrow and the forced-wide view runs count_allgather on its half of
      phase 4's 1,048,576 25-mers (K2, K2w) and resolve_allgather on its
      half of their ranges' first positions (K3, K3w), a warm-up and a
@@ -255,7 +269,11 @@ and logged there. K1's single-query modes have entries of their own
 the host time of an API call on its path (7f, 4p), their plain_ms the
 plain version's, their bound the bytes of one or two row visits, beside
 floor_ms (an empty launch and a 16 B readback) and device_ms (the
-kernel in a profiler trace). Two looser models of each index kernel are logged and
+kernel in a profiler trace). So has K1WX's BFS mode over compact rows
+(k1w_extend_compact.bfs: phase 4p(b)'s k = 5 table in one launch; its
+bound streams that table alone, the levels between lying in its scratch),
+beside k1w_extend_compact, whose ms is now the per-depth route's k = 5
+BFS (one launch a depth). Two looser models of each index kernel are logged and
 kept out of that line: every visit's row sectors over the same 3.35 TB/s
 (the stages' roofline), and every visit the kernel makes at a rate
 measured in this process: its row visits at the calibrated random-row
@@ -291,9 +309,10 @@ EXACT = 0  # every quantity compared is an integer: tolerance 0
 # (the wide path, its BFS through K1WX) and phase 7f (the single-query
 # API, K1's and K1w's step and LF-at modes), whose counts the kernels line
 # reports
-MAIN_PATH_KERNELS = ("k1_extend", "k2_ranges", "k3_backtrace_resolve", "k4_ngram_ranges")
+MAIN_PATH_KERNELS = ("k1_extend", "k1_extend.bfs", "k2_ranges", "k3_backtrace_resolve",
+                     "k4_ngram_ranges")
 BENCH_KERNELS = ("k5_gather_reduce", "k6_slab_gather")
-WIDE_PATH_KERNELS = ("k1w_extend", "k2w_ranges", "k3w_backtrace_resolve")
+WIDE_PATH_KERNELS = ("k1w_extend", "k1w_extend.bfs", "k2w_ranges", "k3w_backtrace_resolve")
 SINGLE_MODES = ("step", "lf_at")  # K1's single-query modes, entries of their own in the kernels line
 RS_POSITIONS = 1 << 21  # phase 8a: random positions, a backward step's 2B at 1M queries
 RS_LF_LANES = 1 << 20  # phase 8a: LF lanes, the backtrace's first step at 1M hits
@@ -301,10 +320,11 @@ RANK_TIMEOUT_S = 300  # phase 9a: a rank still running after this fails the scri
 # phase 4p: the kernels of the views without pair rows; (a) the narrow
 # main path's, (b) the wide amino path's over compact rows
 PAIRLESS_KERNELS = ("k2_ranges_block", "k4_ngram_ranges_block", "k3_backtrace_resolve")
-COMPACT_KERNELS = ("k1w_extend_compact", "k2w_ranges_compact", "k3w_backtrace_resolve_compact",
-                   "k1w_rank_compact")
+COMPACT_KERNELS = ("k1w_extend_compact", "k1w_extend_compact.bfs", "k2w_ranges_compact",
+                   "k3w_backtrace_resolve_compact", "k1w_rank_compact")
 AMINO_RESIDUES = 1 << 26  # phase 4p(b): tools.kernel_ab's amino case, beyond the L2
 AMINO_SEED_K = 5  # the amino default of tools/build_index.py
+AMINO_BIG_SEED_K = 6  # phase 4p(b): the seed k an index of 2^32 positions and more would take
 AMINO_KMER_LEN = 12
 SINGLE_QUERY_WALKS = 256
 PAIRLESS_CORPUS_SEED = 0x4C0  # phase 4p's window-class corpora (pairless_corpora)
@@ -800,6 +820,39 @@ def crafted_parents(rng, dev):
     return (u64_tensor if dev.wide else u32_tensor)(np.concatenate(ranges), dev.device)
 
 
+def bfs_mode_checks(rec: Record, entry: str, dev, index, ks, tag: str) -> None:
+    """The BFS mode (``kernels.k1_seed_table``) against the plain BFS at
+    each k of ``ks``: through ``build_seed_table`` (the form's threshold,
+    ``seed_table.bfs_launches`` launches: the BFS mode's and one K1X launch a
+    depth past it), and split by ``kernel_ab.split_seed_table`` with the
+    whole table in the one launch and with depths 1-2 in it. Each table's
+    launches are read from the wrappers' counters."""
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import split_seed_table
+
+    card = dev.cardinality
+    form = kernels.form_of(dev, kernels.K1X).name
+    for k in ks:
+        plain = seed_table.build_seed_table(dev, card, k, index.prefix_sums,
+                                            occurrence_fn=rank.occurrence_plain)
+        split = seed_table.bfs_depths(card, k, seed_table.bfs_max_parents(dev))
+        builds = {split: lambda: seed_table.build_seed_table(dev, card, k, index.prefix_sums)}
+        for steps in {k - 1, min(2, k - 1)} - {split}:
+            builds[steps] = lambda steps=steps: split_seed_table(dev, k, steps, index.prefix_sums)
+        for steps, build in sorted(builds.items()):
+            before = kernels.launch_counts()
+            got = build()
+            after = kernels.launch_counts()
+            launched = {key: after.get(key, 0) - before.get(key, 0) for key in (form, f"{form}.bfs")}
+            want = {form: k - steps, f"{form}.bfs": 1}
+            if launched != want:
+                raise AssertionError(f"{tag}: the k={k} BFS with depths 1-{steps} in one launch "
+                                     f"launched {launched}, not {want}")
+            rec.compare(entry, f"{tag} k={k} BFS mode, depths 1-{steps} in one launch"
+                        f"{' (the build)' if steps == split else ''} x{got.shape[0]}", got, plain)
+        del plain, got
+
+
 def phase_kernels(rec: Record, device: str, wide: bool = False):
     """Phase 3 (3w with ``wide``): each kernel against its plain torch
     version on the card; K1w, K2w and K3w on forced-wide views, K4 on the
@@ -847,6 +900,8 @@ def phase_kernels(rec: Record, device: str, wide: bool = False):
         ragged = parents[:37].contiguous()
         rec.compare(kx, f"{name} crafted parents x37", kernels.k1_extend(dev, ragged),
                     seed_table.extend_level_plain(dev, ragged))
+        # the BFS mode over this view's rows, at every k up to the index's
+        bfs_mode_checks(rec, f"{kx}.bfs", dev, index, range(1, k + 1), f"[{tag}] {name}")
         if wide:
             # the view's table was widened from the narrow one; the BFS
             # through K1WX must give the same
@@ -1389,7 +1444,9 @@ def compact_forms(rec: Record, name: str, index, k: int, pos_t, lett_t, lpos, k2
                   bpos, device: str) -> None:
     """Phase 3w, the amino index's wide view without pair rows
     (``to_device(wide=True, pair_rows=False)``: the compact 384 B rows):
-    K1WX over every depth of the BFS and crafted parents, K1w's occ mode
+    K1WX over every depth of the BFS and crafted parents, its BFS mode at
+    every k up to the index's (``bfs_mode_checks``) and traced
+    (``trace_bfs``), K1w's occ mode
     on phase 3w's positions (2^64 - 1, 2^40 + 5 and the other block-index
     edges among them) and its LF mode, K2w on every batch of phase 3w, and
     K3w with the SA resident and on disk, on every position too, each
@@ -1415,6 +1472,8 @@ def compact_forms(rec: Record, name: str, index, k: int, pos_t, lett_t, lpos, k2
     parents = crafted_parents(rng, dev)
     rec.compare("k1w_extend_compact", f"{tag} crafted parents x{parents.shape[0]}",
                 kernels.k1_extend(dev, parents), seed_table.extend_level_plain(dev, parents))
+    bfs_mode_checks(rec, "k1w_extend_compact.bfs", dev, index, range(1, k + 1), f"[3w] {tag}")
+    trace_bfs(dev, index.prefix_sums, k, f"[3w] {tag}:")
     got = kernels.k1_occurrence(dev, pos_t, lett_t)
     rec.compare("k1w_rank_compact", f"{tag} occ x{pos_t.numel()}", got,
                 rank.occurrence_plain(dev, pos_t, lett_t))
@@ -1732,16 +1791,23 @@ def bfs_by_depth(dev, k: int, prefix_sums, step):
 
 
 def bfs_routes(rec: Record, dev, k: int, prefix_sums, tag: str, name: str) -> dict:
-    """The k-mer seed table of ``dev`` by three routes, each depth timed:
-    ``name`` (K1X or K1WX, one launch a depth); the per-letter loop over
-    K1's (K1w's) occ mode, which is the parent's route, kernel and torch
-    work alike (``extend_level_plain`` over ``rank.occurrence``); and the
-    plain version. In turns: plain, kernel, per-letter, per-letter,
-    kernel, plain; each route's best run. The kernel's and the per-letter
-    tables must equal the plain one (and the view's own, at its k). Then
-    the per-letter route's K1 launches alone at the deepest depth, and
-    the kernel's bound from this run's levels."""
-    from avxwindowfmindex_tpu_torch.ops import rank, seed_table
+    """The k-mer seed table of ``dev`` by four routes: ``name`` (K1X or
+    K1WX, one launch a depth, each depth timed); the build's route
+    (``build_seed_table``: the BFS mode's one launch for the shallow
+    depths, then one ``name`` launch a depth; the whole table timed); the
+    per-letter loop over K1's (K1w's) occ mode, the route before K1X,
+    kernel and torch work alike (``extend_level_plain`` over
+    ``rank.occurrence``, each depth timed); and the plain version (each
+    depth timed). In turns:
+    plain, kernel, build, per-letter, per-letter, build, kernel, plain;
+    each route's best run. Every table must equal the plain one (and the
+    view's own, at its k). Then the per-letter route's K1 launches alone
+    at the deepest depth, the bound of the per-depth route from this run's
+    levels, and the BFS mode alone (``name.bfs``: its one launch of the
+    build's shallow depths) against the plain BFS to the same level, with
+    its own bound."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import kernels, rank, seed_table
     from avxwindowfmindex_tpu_torch.tools.kernel_ab import k1_launch_ms
 
     routes = {
@@ -1750,12 +1816,22 @@ def bfs_routes(rec: Record, dev, k: int, prefix_sums, tag: str, name: str) -> di
         "per_letter": lambda d, t: seed_table.extend_level_plain(d, t, rank.occurrence),
     }
     best, tables = {}, {}
-    for route in ("plain", "kernel", "per_letter", "per_letter", "kernel", "plain"):
-        table, ms = bfs_by_depth(dev, k, prefix_sums, routes[route])
+    for route in ("plain", "kernel", "build", "per_letter", "per_letter", "build", "kernel",
+                  "plain"):
+        if route == "build":
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            table = seed_table.build_seed_table(dev, dev.cardinality, k, prefix_sums)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms = [ev[0].elapsed_time(ev[1])]
+        else:
+            table, ms = bfs_by_depth(dev, k, prefix_sums, routes[route])
         if route not in best or sum(ms) < sum(best[route]):
             best[route] = ms
-        if route == "per_letter":
-            rec.compare(name, f"k={k} table through the per-letter route == through {name}",
+        if route in ("per_letter", "build"):
+            rec.compare(name if route == "per_letter" else f"{name}.bfs",
+                        f"k={k} table through the {route} route == through {name}",
                         table, tables["kernel"])
         else:
             tables.setdefault(route, table)
@@ -1767,12 +1843,14 @@ def bfs_routes(rec: Record, dev, k: int, prefix_sums, tag: str, name: str) -> di
                     tables["kernel"], dev.seed_table)
     del tables
     totals = {route: sum(ms) for route, ms in best.items()}
+    split = seed_table.bfs_depths(dev.cardinality, k, seed_table.bfs_max_parents(dev))
     for route, ms in best.items():
         log(f"[{tag}] BFS k={k} {route}: {totals[route]:.4f} ms; by depth "
             f"{[round(m, 4) for m in ms]}")
-    log(f"[{tag}] BFS k={k}: {name} {totals['kernel']:.4f} ms, the per-letter route "
-        f"{totals['per_letter']:.4f} ms ({totals['per_letter'] / totals['kernel']:.1f}x), plain "
-        f"{totals['plain']:.4f} ms")
+    log(f"[{tag}] BFS k={k}: {name} {totals['kernel']:.4f} ms one launch a depth, "
+        f"{totals['build']:.4f} ms the build's route (depths 1-{split} in the BFS mode's one "
+        f"launch), the per-letter route {totals['per_letter']:.4f} ms "
+        f"({totals['per_letter'] / totals['kernel']:.1f}x), plain {totals['plain']:.4f} ms")
     deepest = seed_table.build_seed_table(dev, dev.cardinality, k - 1, prefix_sums)
     k1_ms, k1_launches = k1_launch_ms(dev, deepest)
     del deepest
@@ -1780,18 +1858,34 @@ def bfs_routes(rec: Record, dev, k: int, prefix_sums, tag: str, name: str) -> di
         f"its {k1_launches} K1 launches {k1_ms:.4f} ms and the torch work around them the rest")
     rec.ms[name] = (totals["kernel"], totals["plain"])
     set_bfs_bound(rec, name, dev, k, prefix_sums, tag)
+    # the BFS mode alone: its one launch of the build's depths 1 .. split
+    # against the plain BFS to the same level, and its own bound
+    mode = (lambda: kernels.k1_seed_table(dev, split + 1))
+    plain_mode = (lambda: seed_table.build_seed_table(dev, dev.cardinality, split + 1, prefix_sums,
+                                                      occurrence_fn=rank.occurrence_plain))
+    rec.compare(f"{name}.bfs", f"k={split + 1} table in one launch of the BFS mode == plain",
+                mode(), plain_mode())
+    rec.ms[f"{name}.bfs"] = time_in_turns(f"{name}.bfs, depths 1-{split} in one launch", mode,
+                                          plain_mode, 10, 1)
+    set_bfs_bound(rec, f"{name}.bfs", dev, split + 1, prefix_sums, tag, in_launch=split)
     return {"ms": totals, "depth_ms": best, "per_letter_k1_ms": k1_ms,
-            "per_letter_k1_launches": k1_launches}
+            "per_letter_k1_launches": k1_launches, "depths_in_launch": split,
+            "bfs_mode_ms": rec.ms[f"{name}.bfs"][0]}
 
 
-def set_bfs_bound(rec: Record, name: str, dev, k: int, prefix_sums, tag: str) -> None:
+def set_bfs_bound(rec: Record, name: str, dev, k: int, prefix_sums, tag: str,
+                  in_launch: int = 0) -> None:
     """The bound of the BFS through K1X (K1WX), from this run's levels: per
     depth, its parents read and children written once, and the distinct
     rows of its visits at the bytes a visit reads (the planes' first block
     and every letter's milestone). A warp of K1X takes 31 parents and
     counts at 32 positions, one row visit each, plus one for each parent
     whose start - 1 is not the previous parent's end; every visit is one
-    match and one count per letter."""
+    match and one count per letter. ``in_launch``: the depths 1 ..
+    in_launch that the BFS mode steps in one launch, whose inputs are the
+    rows and C[] and whose output is its last level alone (the levels
+    between lie in its scratch), so only that level's bytes stream from
+    them."""
     import torch
     from avxwindowfmindex_tpu_torch.ops import seed_table
 
@@ -1799,7 +1893,7 @@ def set_bfs_bound(rec: Record, name: str, dev, k: int, prefix_sums, tag: str) ->
     width = dev.seed_table.element_size()
     table = seed_table.build_seed_table(dev, card, 1, prefix_sums)
     tables, stream, parents, apart = [], 0, 0, 0
-    for _ in range(1, k):
+    for depth in range(1, k):
         n = table.shape[0]
         start, end = dev.widen(table[:, 0]), dev.widen(table[:, 1])
         follows = ((start[1:] - 1) & dev.pos_mask) == end[:-1]
@@ -1807,7 +1901,10 @@ def set_bfs_bound(rec: Record, name: str, dev, k: int, prefix_sums, tag: str) ->
         extra = int((~follows & ~first_of_warp).sum())
         del start, end, follows, first_of_warp
         tables.append((nb, np_ * 32 + card * dev.milestone_bytes, -(-n // 31) * 32 + extra))
-        stream += n * 2 * width * (1 + card)
+        if depth == in_launch:
+            stream += n * card * 2 * width  # the BFS mode's output
+        elif depth > in_launch:
+            stream += n * 2 * width * (1 + card)  # one launch: its parents and children
         parents += n
         apart += extra
         table = seed_table.extend_level(dev, table)
@@ -2354,7 +2451,8 @@ def phase_wide_main(rec: Record, index, narrow_dev, dense_narrow, kmers, mh_kmer
                 f"wide densify_device_sa(4) == the narrow one x{dense.sampled_sa.numel()}",
                 dense.sampled_sa, widen_u32(dense_narrow.sampled_sa))
     log(f"[4w] wide densify_device_sa(4): {stats['wide_densify_s']:.4f}s")
-    stats["launches"] = expect_launches("4w", WIDE_PATH_KERNELS, exact={"k1w_extend": k_wide - 1})
+    stats["launches"] = expect_launches("4w", WIDE_PATH_KERNELS, exact={
+        "k1w_extend": seed_table.bfs_launches(dev, k_wide), "k1w_extend.bfs": 1})
     del dense
     stats["bfs"] = bfs_routes(rec, dev, k_wide, index.prefix_sums, "4w", "k1w_extend")
 
@@ -2618,7 +2716,7 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     import avxwindowfmindex_tpu_torch as pt
     from avxwindowfmindex_tpu_torch import build as build_mod
     from avxwindowfmindex_tpu_torch.io import artifact
-    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.ops import kernels, seed_table
     from avxwindowfmindex_tpu_torch.parallel import api, chunked, dist, reliability
 
     index = engine.host_index
@@ -2649,7 +2747,7 @@ def phase_public_api(engine, kmers, seq_arr, answers, small_index, small_text: b
     finally:
         build_mod.attach_seed_table = real_attach
     stats["launches_7a"] = expect_launches("7a", ("k1_extend",), exact={
-        "k1_extend": MAIN_SEED_K - 1, "k1_rank": 0})
+        "k1_extend": seed_table.bfs_launches(engine.dev, MAIN_SEED_K), "k1_rank": 0})
     stats["rebuild_s"] = rebuild[0]
     with np.load(path) as z:
         if "kmer_seed_table" in z:
@@ -3405,6 +3503,96 @@ def phase_single_query(rec: Record, engine, kmers, device: str) -> dict:
     return stats
 
 
+def trace_bfs(view, prefix_sums, k: int, tag: str) -> dict:
+    """A profiler trace of one k-mer table through ``build_seed_table`` on
+    ``view``, which must show the BFS mode's launch, no host-to-device copy
+    and no other kernel; its launches come from the wrappers' counters (one
+    a table, in the BFS mode). Phase 3w takes it first of the script's traces: the
+    profiler has returned traces without a device event in this process
+    after earlier ones."""
+    from avxwindowfmindex_tpu_torch.ops import kernels, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import trace_calls
+
+    card = view.cardinality
+    form = kernels.form_of(view, kernels.K1X).name
+
+    def build():
+        return seed_table.build_seed_table(view, card, k, prefix_sums)
+
+    before = kernels.launch_counts()
+    trace_dir = os.path.join(REPO, "avxwindowfmindex_tpu_torch", "build", "traces")
+    # a trace in which the profiler saw nothing on the device is taken
+    # again, at most twice more; the launches come from the wrappers'
+    # counters
+    for traces in range(1, 4):
+        tr = trace_calls(build, trace_dir, f"{form}-bfs-k{k}")
+        if tr["kernels"] or tr["htod"] or tr["dtoh"] or tr["other_copies"] or tr["memsets"]:
+            break
+        log(f"{tag} trace {traces} of one k={k} BFS saw no device activity")
+    after = kernels.launch_counts()
+    counted = {name: after.get(name, 0) - before.get(name, 0) for name in after
+               if after.get(name, 0) != before.get(name, 0)}
+    mode = {name: v for name, v in tr["kernels"].items() if "k1_seed_table_kernel" in name}
+    others = {name: v for name, v in tr["kernels"].items() if name not in mode}
+    # an empty trace would show neither a copy nor another kernel
+    if not mode:
+        raise AssertionError(f"{tag} the profiler saw no BFS-mode launch in {traces} traces: {tr}")
+    if others or tr["htod"] or tr["other_copies"]:
+        raise AssertionError(f"{tag} a traced k={k} BFS ran {others} beside the BFS mode, "
+                             f"{tr['htod']} host-to-device copies: {tr}")
+    # each trace ran the BFS twice (a warm-up cycle, then the traced one)
+    if counted != {form: 2 * traces, f"{form}.bfs": 2 * traces}:
+        raise AssertionError(f"{tag} {2 * traces} traced k={k} BFS counted {counted}, not one "
+                             f"BFS-mode launch each")
+    log(f"{tag} profiler, one k={k} BFS: {sum(c for c, _ in mode.values())} BFS-mode launch "
+        f"({sum(d for _, d in mode.values()):.1f} us), no other kernel, {tr['htod']} host-to-device "
+        f"and {tr['dtoh']} device-to-host copies, {tr['memsets']} memset (the mode's counters); "
+        f"the wrapper counted {counted}")
+    return tr
+
+
+def compact_bfs(rec: Record, view, prefix_sums, bfs) -> dict:
+    """Phase 4p(b)'s seed tables over the compact rows: the k = 5 table
+    ``bfs`` (built through the BFS mode) and one k = 6 table through it
+    against the plain BFS, and the per-depth route (one K1WX launch a
+    depth from the depth-1 ranges, ``kernel_ab.split_seed_table`` with no
+    depth in the BFS mode) against it too; both k timed in turns, BFS mode
+    against the per-depth route; the
+    k = 5 BFS mode against the plain BFS, the kernels line's times of
+    ``k1w_extend_compact.bfs`` and (the per-depth route) of
+    ``k1w_extend_compact``."""
+    import torch
+    from avxwindowfmindex_tpu_torch.ops import rank, seed_table
+    from avxwindowfmindex_tpu_torch.tools.kernel_ab import split_seed_table
+
+    card, out = view.cardinality, {}
+
+    def build(k, **kw):
+        return lambda: seed_table.build_seed_table(view, card, k, prefix_sums, **kw)
+
+    def by_depth(k):
+        return lambda: split_seed_table(view, k, 0, prefix_sums)
+
+    for k in (AMINO_SEED_K, AMINO_BIG_SEED_K):
+        got = bfs if k == AMINO_SEED_K else build(k)()
+        plain = build(k, occurrence_fn=rank.occurrence_plain)()
+        rec.compare("k1w_extend_compact.bfs", f"main k={k} BFS x{got.numel()}", got, plain)
+        rec.compare("k1w_extend_compact", f"main k={k} BFS, one launch a depth x{got.numel()}",
+                    by_depth(k)(), plain)
+        del got, plain
+        torch.cuda.empty_cache()
+        reps = 5 if k == AMINO_SEED_K else 3
+        out[f"k={k}"] = forms_in_turns(f"the k={k} BFS over compact rows ({card}^{k} ranges)", {
+            "one launch a depth": by_depth(k), "BFS mode": build(k)}, reps)
+        torch.cuda.empty_cache()
+    k = AMINO_SEED_K
+    ms, plain_ms = time_in_turns(f"k1w_extend_compact.bfs, the k={k} BFS", build(k),
+                                 build(k, occurrence_fn=rank.occurrence_plain), 5, 1)
+    rec.ms["k1w_extend_compact.bfs"] = (ms, plain_ms)
+    rec.ms["k1w_extend_compact"] = (min(out[f"k={k}"]["one launch a depth"]), plain_ms)
+    return out
+
+
 def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, seq_arr,
                    device: str) -> dict:
     """Phase 4p: views without pair rows at full size. (a) The phase-4
@@ -3647,6 +3835,8 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
     stats["amino_bfs_s"] = time.time() - t
     if not torch.equal(bfs, view.seed_table):
         raise AssertionError("[4p] K1WX's BFS over compact rows differs from the narrow table widened")
+    if seed_table.bfs_launches(view, AMINO_SEED_K) != 1:
+        raise AssertionError(f"[4p] the k={AMINO_SEED_K} BFS over compact rows is not one launch")
     comp = SearchEngine(aa, device=device, wide=True, pair_rows=False)
     if comp.dev is not view:
         raise AssertionError("[4p] the compact engine did not take the installed view")
@@ -3679,7 +3869,8 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
             raise AssertionError(f"[4p] LF of {p} over compact rows gave {got}")
     steps = SINGLE_QUERY_WALKS * (AMINO_KMER_LEN - 1)
     launches = expect_launches("4p", COMPACT_KERNELS, exact={
-        "k1w_extend_compact": AMINO_SEED_K - 1, "k1w_rank_compact": steps + len(lf_pos),
+        "k1w_extend_compact": 1, "k1w_extend_compact.bfs": 1,
+        "k1w_rank_compact": steps + len(lf_pos),
         "k1w_rank_compact.step": steps, "k1w_rank_compact.lf_at": len(lf_pos),
         "k1w_rank_compact.occ": 0, "k1w_rank": 0,
         "k1w_extend": 0, "k2w_ranges": 0, "k3w_backtrace_resolve": 0})
@@ -3699,10 +3890,8 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
 
     # each compact form against its plain version, and K2w, K3w against
     # their pair-fused forms, at this path's shapes
-    plain_bfs = seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, aa.prefix_sums,
-                                            occurrence_fn=rank.occurrence_plain)
-    rec.compare("k1w_extend_compact", f"main k={AMINO_SEED_K} BFS x{bfs.numel()}", bfs, plain_bfs)
-    del bfs, plain_bfs
+    stats["bfs"] = compact_bfs(rec, view, aa.prefix_sums, bfs)
+    del bfs
     mat, lengths, n = comp.encode_kmers(aa_kmers)
     seeded = comp._seed_eligibility(mat, lengths)
     args = (torch.from_numpy(mat).to(device), torch.from_numpy(lengths).to(device),
@@ -3724,11 +3913,6 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
     rec.compare("k1w_rank_compact", f"main occ x{occ_n}", kernels.k1_occurrence(view, occ_pos, occ_lett),
                 rank.occurrence_plain(view, occ_pos, occ_lett))
     ps_arr = aa.prefix_sums
-    rec.ms["k1w_extend_compact"] = time_in_turns(
-        f"k1w_extend_compact, the k={AMINO_SEED_K} BFS",
-        lambda: seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, ps_arr),
-        lambda: seed_table.build_seed_table(view, view.cardinality, AMINO_SEED_K, ps_arr,
-                                            occurrence_fn=rank.occurrence_plain), 5, 1)
     rec.ms["k1w_rank_compact"] = time_in_turns(
         f"k1w_rank_compact x{occ_n}", lambda: kernels.k1_occurrence(view, occ_pos, occ_lett),
         lambda: rank.occurrence_plain(view, occ_pos, occ_lett), 10, 2)
@@ -3793,6 +3977,9 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
                   positions.numel() * (8 + 8 + 8), walked * rank_ops(np_),
                   other_visits={"sampled_sa": positions.numel()})
     set_bfs_bound(rec, "k1w_extend_compact", view, AMINO_SEED_K, ps_arr, "4p")
+    set_bfs_bound(rec, "k1w_extend_compact.bfs", view, AMINO_SEED_K, ps_arr, "4p",
+                  in_launch=seed_table.bfs_depths(view.cardinality, AMINO_SEED_K,
+                                                  seed_table.bfs_max_parents(view)))
     cmask = roofline.first_block_visits(AlphabetType.AMINO, compact=True)["compact"][0]
     stats["rates"]["compact"] = roofline.calibrate_gather_rates(
         {"compact": view.packed}, QUERIES, device=device, sector_masks={"compact": cmask},
@@ -3842,7 +4029,7 @@ def rank_main(config_path: str, rank: int) -> int:
     index = artifact.load_artifact(cfg["artifact"], device=device)
     torch.cuda.synchronize()
     rec["load_s"] = time.perf_counter() - t
-    rec["launches"] = {"load": {k.name: k.launches for k in kernels.KERNELS}}
+    rec["launches"] = {"load": kernels.launch_counts()}
 
     def part(arr):
         return arr[rank * len(arr) // world : (rank + 1) * len(arr) // world]
@@ -3860,7 +4047,7 @@ def rank_main(config_path: str, rank: int) -> int:
             merged = fn(arg)
             rec[f"{tag}_{op}_s"] = time.perf_counter() - t
             np.save(os.path.join(cfg["out"], f"{tag}_{op}_{rank}.npy"), merged)
-        rec["launches"][tag] = {k.name: k.launches for k in kernels.KERNELS}
+        rec["launches"][tag] = kernels.launch_counts()
         del eng
     payload = torch.zeros(len(local_pos), dtype=torch.int64, device=device)
     dist.process_allgather(payload)
@@ -3892,9 +4079,11 @@ def phase_multiprocess(engine, kmers, answers, main: dict, device: str) -> dict:
     import torch
     import avxwindowfmindex_tpu_torch as pt
     from avxwindowfmindex_tpu_torch.io import artifact
+    from avxwindowfmindex_tpu_torch.ops import seed_table
     from avxwindowfmindex_tpu_torch.parallel import dist
 
     counts = answers[0]
+    main_bfs = seed_table.bfs_launches(engine.dev, MAIN_SEED_K)  # K1X's launches a load
     single = pt.SearchEngine(engine.dev, device=device)
     ranges = single.find_ranges(kmers)
     positions = np.where(ranges[:, 0] <= ranges[:, 1], ranges[:, 0], 0).astype(np.uint64)
@@ -3938,7 +4127,7 @@ def phase_multiprocess(engine, kmers, answers, main: dict, device: str) -> dict:
                      + (" (collectives through host memory)" if backend == "gloo" else ""))
             for r in recs:
                 load, narrow, wide = (r["launches"][k] for k in ("load", "narrow", "wide"))
-                if load["k1_extend"] != MAIN_SEED_K - 1 or load["k1_rank"]:
+                if load["k1_extend"] != main_bfs or load.get("k1_extend.bfs") != 1 or load["k1_rank"]:
                     raise AssertionError(f"[9a] rank {r['rank']}: load launched K1X "
                                          f"{load['k1_extend']} times and K1 {load['k1_rank']}")
                 for launches, names in ((narrow, ("k2_ranges", "k3_backtrace_resolve")),
@@ -3970,7 +4159,7 @@ def phase_multiprocess(engine, kmers, answers, main: dict, device: str) -> dict:
             stats["worlds"].append({"backend": backend, "devices": devices, "wall_s": wall,
                                     **slowest})
             log(f"[9a] {label}: every rank's merged counts and hits (narrow and wide) equal to "
-                f"phase 4's and the parent's at tolerance 0; K1X {MAIN_SEED_K - 1} launches a "
+                f"phase 4's and the parent's at tolerance 0; K1X {main_bfs} launches a "
                 f"rank; the world took {wall:.1f}s. Slowest rank: count "
                 f"{len(kmers) / slowest['narrow_count_s']:.1f} q/s (phase 7e's "
                 f"DistributedSearchEngine.count in one process "
@@ -4020,7 +4209,7 @@ def main(argv=None) -> int:
         raise RuntimeError("torch.cuda.is_available() is False: this script needs a GPU")
     if args.rank_of:
         return rank_main(args.rank_of[0], int(args.rank_of[1]))
-    from avxwindowfmindex_tpu_torch.ops import kernels
+    from avxwindowfmindex_tpu_torch.ops import kernels, seed_table
     from avxwindowfmindex_tpu_torch.tools.kernel_ab import CEILING_LANES
 
     device = "cuda:0"
@@ -4045,9 +4234,11 @@ def main(argv=None) -> int:
 
     kernels.reset_launch_counts()
     main_stats, engine, kmers, seq_arr, mh_kmers, answers = phase_main(args.bases, device)
-    # the build's BFS is K1X's 13 launches, and nothing of the path takes K1
-    launches = expect_launches("4", MAIN_PATH_KERNELS,
-                               exact={"k1_extend": MAIN_SEED_K - 1, "k1_rank": 0})
+    # the build's BFS is K1X's launches (the BFS mode's one for depths 1-9,
+    # then one a depth), and nothing of the path takes K1
+    launches = expect_launches("4", MAIN_PATH_KERNELS, exact={
+        "k1_extend": seed_table.bfs_launches(engine.dev, MAIN_SEED_K), "k1_extend.bfs": 1,
+        "k1_rank": 0})
     main_stats["main_shapes"] = phase_main_shapes(rec, engine, kmers)
     mark("phase 4")
 
@@ -4112,6 +4303,7 @@ def main(argv=None) -> int:
         "k1_rank": ("single",), "k2_ranges": ("pair",), "k3_backtrace_resolve": ("single",),
         "k4_ngram_ranges": ("ngram_pair", "pair"), "k1w_rank": ("wide",),
         "k1_extend": ("single",), "k1w_extend": ("wide",),
+        "k1_extend.bfs": ("single",), "k1w_extend.bfs": ("wide",),
         "k2w_ranges": ("wide",), "k3w_backtrace_resolve": ("wide",),
         # a view without pair rows: its steps visit the block rows, whose
         # calibrated rate is the single table's
@@ -4119,6 +4311,7 @@ def main(argv=None) -> int:
         "k4_ngram_ranges_block n=3": ("ngram_pair3", "single"),
         # the compact amino rows at their calibrated rate (phase 4p)
         "k1w_rank_compact": ("compact",), "k1w_extend_compact": ("compact",),
+        "k1w_extend_compact.bfs": ("compact",),
         "k2w_ranges_compact": ("compact",), "k3w_backtrace_resolve_compact": ("compact",),
     }
     main_stats["models"] = {}
@@ -4149,10 +4342,13 @@ def main(argv=None) -> int:
     log(smi)
     # K1's single-query modes are entries of their own: launches on their
     # path (7f, 4p), per-call host ms against the plain version's, their
-    # bound beside the floor of a call and the kernel's device time
+    # bound beside the floor of a call and the kernel's device time; so is
+    # the BFS mode of K1WX over compact rows (4p: the whole k = 5 table in
+    # one launch), beside the per-depth entry k1w_extend_compact
     entries = [(k, k.name) for k in kernels.KERNELS] + [
         (k, f"{k.name}.{mode}") for k in (kernels.K1, kernels.K1W, kernels.K1W_COMPACT)
-        for mode in SINGLE_MODES]
+        for mode in SINGLE_MODES] + [
+        (k, f"{k.name}.bfs") for k in (kernels.K1X, kernels.K1WX, kernels.K1WX_COMPACT)]
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,

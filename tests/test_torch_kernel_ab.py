@@ -315,3 +315,54 @@ def test_pairless_case_runs_on_the_cpu(monkeypatch, capsys):
     assert sum(k4["ngram_classes"]) >= 96 and 0 < sum(k4["tail_classes"]) <= sum(k4["ngram_classes"]) / 9 + 1
     assert k4["row_visits"]["block"] >= sum(k4["tail_classes"])
     assert lines[-2]["compact_pieces_per_visit"] == 3.8 and lines[-2]["pieces_per_visit"] == 4
+
+
+def test_bfs_case_arguments():
+    """``--cases bfs`` with a parent and thresholds of the depth split: the
+    amino tables are phase 4p's, at k = 5 and k = 6."""
+    got = kernel_ab.parse_args(["--other", "parent=build/parent", "--cases", "bfs",
+                                "--bfs-max-parents", "0", "262144", "4194304"])
+    assert got.cases == "bfs" and got.bfs_max_parents == [0, 262144, 4194304]
+    assert kernel_ab.parse_args([]).bfs_max_parents == []
+    assert kernel_ab.COMPACT_BFS_K == (5, 6) and kernel_ab.K1_AMINO_RESIDUES == 1 << 26
+
+
+def test_compact_bfs_case_runs_on_the_cpu(monkeypatch, capsys):
+    """The compact amino BFS case end to end on a small index, the
+    checkouts' ``build_seed_table`` on the CPU (the plain loop) and CUDA
+    events stood in for by the host clock: a line a k, every checkout and
+    every threshold timed twice on equal tables."""
+    import json
+    import time
+
+    def host_ms(fn, reps):
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    monkeypatch.setattr(kernel_ab, "cuda_ms", host_ms)
+    monkeypatch.setattr(kernel_ab, "K1_AMINO_RESIDUES", 20_000)
+    kernel_ab.compact_bfs_cases({"this": kernels, "parent": kernels}, 1, [0, 400, 2**22],
+                                np.random.default_rng(3), "cpu", ks=(2, 3))
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["case"] for x in lines] == ["bfs amino compact k=2", "bfs amino compact k=3"]
+    assert [x["shape"] for x in lines] == ["20^2 ranges", "20^3 ranges"]
+    for line in lines:
+        assert set(line["ms"]) == {"this", "parent", "this, max_parents=0",
+                                   "this, max_parents=400", "this, max_parents=4194304"}
+        assert all(len(t) == 2 for t in line["ms"].values())
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 3])
+@pytest.mark.parametrize("alphabet", [DNA, AMINO], ids=lambda a: a.name)
+def test_split_seed_table_on_the_cpu(alphabet, steps):
+    """The split that ``--bfs-max-parents`` times, on a CPU view: the plain
+    loop at every split, equal to the JAX package's seed table, and no
+    launch."""
+    rng = np.random.default_rng(0x5B17 + steps)
+    j, p = build_both(random_sequence(rng, 2500, alphabet), 4, 4, alphabet)
+    dev = p.to_device("cpu")
+    before = kernels.launch_counts()
+    got = kernel_ab.split_seed_table(dev, 4, steps, p.prefix_sums)
+    assert kernels.launch_counts() == before
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), j.kmer_seed_table)

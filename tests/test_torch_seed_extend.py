@@ -6,8 +6,12 @@ The port's ``extend_level_plain`` is held to the JAX package's
 0 (``start - 1`` wraps and reads the last row), absent ranges (``start >
 end``), ranges whose ``start - 1`` and ``end`` lie in one block or in two,
 positions past the table and, for the wide view, positions no search
-produces (bit 39 set, 2^64 - 1). On the CPU ``extend_level`` takes the
-plain version and launches nothing; on the card it is K1X / K1WX, which
+produces (bit 39 set, 2^64 - 1). The amino index's wide view without
+pair rows (compact 384 B rows) is held to the JAX package's view under
+``AWFM_PAIR_ROWS=0``. On the CPU ``extend_level`` and ``build_seed_table``
+take the plain version and launch nothing; on the card they are K1X /
+K1WX and the BFS mode (``kernels.k1_seed_table``, the whole table or its
+shallow depths in one launch, by ``seed_table.bfs_depths``), which
 ``chip_smoke.py`` holds to the plain version. Exact: tolerance 0.
 """
 
@@ -23,6 +27,7 @@ from avxwindowfmindex_tpu.ops import rank64 as r64
 from avxwindowfmindex_tpu.ops import seed_table as jseed
 from avxwindowfmindex_tpu_torch.models.index import u32_tensor, u64_tensor, widen_u32
 from avxwindowfmindex_tpu_torch.ops import kernels
+from avxwindowfmindex_tpu_torch.ops import rank
 from avxwindowfmindex_tpu_torch.ops import seed_table
 
 from oracle import random_sequence
@@ -32,24 +37,44 @@ DNA, AMINO = jx.AlphabetType.DNA, jx.AlphabetType.AMINO
 # (alphabet, seed k, bases): four or five BFS depths, a few hundred parents
 # at the deepest
 SIZES = {DNA: (5, 3000), AMINO: (3, 2500)}
-CASES = [(a, w) for a in (DNA, AMINO) for w in (False, True)]
+# the layouts of a view; "wide-compact": an amino wide view without pair
+# rows (the JAX package's AWFM_PAIR_ROWS=0)
+CASES = [(a, w) for a in (DNA, AMINO) for w in ("narrow", "wide")] + [(AMINO, "wide-compact")]
 
 
 def _ids(case):
-    alphabet, wide = case
-    return f"{alphabet.name}-{'wide' if wide else 'narrow'}"
+    alphabet, layout = case
+    return f"{alphabet.name}-{layout}"
 
 
 @pytest.fixture(scope="module", params=CASES, ids=_ids)
-def views(request):
-    """(alphabet, wide, JAX index, JAX view, port index, port view)."""
-    alphabet, wide = request.param
+def built_views(request):
+    """(alphabet, layout, JAX index, JAX view, port index, port view)."""
+    alphabet, layout = request.param
     k, n = SIZES[alphabet]
+    wide, compact = layout != "narrow", layout == "wide-compact"
     rng = np.random.default_rng(0x5E7 + n + int(wide))
     j, p = build_both(random_sequence(rng, n, alphabet), 4, k, alphabet)
-    jdev = j.to_device(refresh=True, wide=wide)
+    with pytest.MonkeyPatch.context() as mp:
+        if compact:
+            mp.setenv("AWFM_PAIR_ROWS", "0")
+        jdev = j.to_device(refresh=True, wide=wide)
     j._device_cache = None  # later users see the narrow default
-    return alphabet, wide, j, jdev, p, p.to_device("cpu", wide=wide)
+    pdev = p.to_device("cpu", wide=wide, pair_rows=False if compact else None)
+    if compact:
+        assert not jdev.pair_fused and jdev.packed.shape[1] == 384
+        assert not pdev.pair_fused and pdev.packed.shape[1] == 384
+    return alphabet, layout, j, jdev, p, pdev
+
+
+@pytest.fixture
+def views(built_views, monkeypatch):
+    """(alphabet, wide, JAX index, JAX view, port index, port view); for the
+    compact layout the JAX side runs under ``AWFM_PAIR_ROWS=0``."""
+    alphabet, layout, j, jdev, p, pdev = built_views
+    if layout == "wide-compact":
+        monkeypatch.setenv("AWFM_PAIR_ROWS", "0")
+    return alphabet, layout != "narrow", j, jdev, p, pdev
 
 
 def _table(values: np.ndarray, wide: bool) -> torch.Tensor:
@@ -166,11 +191,16 @@ def test_build_seed_table_through_extend_level_equals_jax(views):
 
 
 def test_extend_level_on_the_cpu_launches_nothing(views):
+    """A CPU view takes the plain loop: ``build_seed_table`` equals the
+    plain BFS over ``occurrence_plain``, and nothing launches."""
     _, wide, _, _, p, pdev = views
-    before = {kern.name: kern.launches for kern in kernels.KERNELS}
-    seed_table.build_seed_table(pdev, pdev.cardinality, 3, p.prefix_sums)
+    before = kernels.launch_counts()
+    want = seed_table.build_seed_table(pdev, pdev.cardinality, 3, p.prefix_sums,
+                                       occurrence_fn=rank.occurrence_plain)
+    got = seed_table.build_seed_table(pdev, pdev.cardinality, 3, p.prefix_sums)
+    assert torch.equal(got, want)
     seed_table.extend_level(pdev, _table(_first_level(p), wide))
-    assert {kern.name: kern.launches for kern in kernels.KERNELS} == before
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("alphabet", [DNA, AMINO], ids=lambda a: a.name)
@@ -186,10 +216,14 @@ def test_wide_extend_equals_narrow_widened(alphabet):
     parents = np.concatenate([_first_level(p), crafted_parents(rng, p.bwt_length, narrow.num_blocks,
                                                                wide=False)])
     parents = parents[(parents < 2**32).all(axis=1)]
+    # the amino index's compact rows too (a wide view without pair rows)
+    wides = [wide] + ([p.to_device("cpu", wide=True, pair_rows=False)] if alphabet == AMINO
+                      else [])
     for _ in range(2):
         got_n = seed_table.extend_level(narrow, _table(parents, False))
-        got_w = seed_table.extend_level(wide, _table(parents, True))
-        assert torch.equal(got_w, widen_u32(got_n))
+        for view in wides:
+            got_w = seed_table.extend_level(view, _table(parents, True))
+            assert torch.equal(got_w, widen_u32(got_n))
         parents = _values(got_n, False)
 
 
@@ -200,3 +234,62 @@ def test_k1_extend_takes_no_cpu_table(views):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.k1_extend(pdev, _table(_first_level(p), wide))
     assert kernels.K1X.launches == 0 and kernels.K1WX.launches == 0
+
+
+def test_k1_seed_table_takes_no_cpu_view(views):
+    """The BFS mode's wrapper has no plain route either: a view off the card
+    raises before anything is built or launched, at any level count."""
+    _, _, _, _, _, pdev = views
+    before = kernels.launch_counts()
+    for levels in (1, 2, 3):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kernels.k1_seed_table(pdev, levels)
+    assert kernels.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the depth split: which depths go into the BFS mode's one launch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", range(2, 15))
+@pytest.mark.parametrize("card", [4, 20])
+def test_bfs_depths_rule(card, k):
+    """Depths 1 .. s go into the one launch, s the number of leading depths
+    whose card^d parents number at most the threshold; a threshold just
+    below card^d stops before depth d, one at card^d takes it."""
+    rule = seed_table.bfs_depths
+    assert rule(card, k, 0) == 0
+    assert rule(card, k, card - 1) == 0
+    assert rule(card, k, 2**62) == k - 1
+    for d in range(1, k):
+        assert rule(card, k, card**d) == d
+        assert rule(card, k, card**d - 1) == d - 1
+        assert rule(card, k, card**d + 1) == d
+    assert rule(card, k, card ** k) == k - 1  # a BFS has k - 1 depths
+    for limit in (card**2, 2**22, 2**31):
+        want = sum(1 for d in range(1, k) if card**d <= limit)
+        assert rule(card, k, limit) == want
+
+
+@pytest.mark.parametrize("layout", ["narrow", "wide", "wide-compact"])
+def test_bfs_launches_by_form(layout):
+    """Each form's launches a table on the card: one of the BFS mode and
+    one a depth past its threshold; the compact amino form takes every
+    depth of its k = 5 and k = 6 BFS in its one launch."""
+    alphabet = AMINO if layout == "wide-compact" else DNA
+    k, n = SIZES[alphabet]
+    rng = np.random.default_rng(0xB75 + n)
+    _, p = build_both(random_sequence(rng, n, alphabet), 4, k, alphabet)
+    dev = p.to_device("cpu", wide=layout != "narrow",
+                      pair_rows=False if layout == "wide-compact" else None)
+    form = kernels.form_of(dev, kernels.K1X).name
+    assert form == {"narrow": "k1_extend", "wide": "k1w_extend",
+                    "wide-compact": "k1w_extend_compact"}[layout]
+    limit = seed_table.BFS_MAX_PARENTS[form]
+    assert seed_table.bfs_max_parents(dev) == limit
+    card = dev.cardinality
+    assert limit > 0
+    for kk in range(2, 15 if card == 4 else 8):
+        assert seed_table.bfs_launches(dev, kk) == kk - seed_table.bfs_depths(card, kk, limit)
+    if layout == "wide-compact":
+        assert seed_table.bfs_launches(dev, 5) == seed_table.bfs_launches(dev, 6) == 1
