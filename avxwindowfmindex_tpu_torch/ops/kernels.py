@@ -28,6 +28,12 @@ K1's forms also count by mode (``K1.modes``: occ, letter_lf, step,
 lf_at; ``launch_counts``), and K1X's forms their BFS mode (``bfs``:
 ``k1_seed_table``, the seed table's shallow depths or all of them in one
 launch).
+
+Each launch's C call, and nothing else of its wrapper, runs inside the
+span ``awfm.launch.<name>`` of the kernel's form (``_launch``;
+``utils/metrics.span``: a ``torch.profiler`` range while a profiler
+records, else a flag check), so a trace tells the wrapper's host time
+from the launch's.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 from ..models.index import (
     device_pair_row_bytes, device_row_bytes, device_row_bytes64, kernel_letter_tables,
 )
+from ..utils import metrics
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -70,6 +77,7 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.prefix = prefix or name.split("_")[0]
+        self.span = f"launch.{name}"  # the span of its launches (``_launch``)
         self.launches = 0
         # K1's forms: launches by mode ("occ", "letter_lf", "step", "lf_at");
         # K1X's: the BFS mode ("bfs")
@@ -557,6 +565,13 @@ def _entry(dev, kernel: Kernel, suffix: str):
     return getattr(_library(), name), name, kernel
 
 
+def _launch(kernel: Kernel, fn, *args) -> int:
+    """``fn(*args)``, a C entry point of ``kernel`` (a form's), inside the
+    span ``awfm.launch.<kernel.name>``; its return code."""
+    with metrics.span(kernel.span):
+        return fn(*args)
+
+
 def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.Tensor:
     """K1, occ mode: (n,) int64 occ(letter, position mod 2^32), as u32.
     K1w for a wide view: positions and counts are u64 in int64."""
@@ -571,8 +586,8 @@ def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.
     if n == 0:
         return out
     fn, name, kernel = state.entry(dev, "occ")
-    rc = fn(
-        device.index, state.ref, positions.data_ptr(),
+    rc = _launch(
+        kernel, fn, device.index, state.ref, positions.data_ptr(),
         letters.data_ptr(), n, out.data_ptr(), _stream(device),
     )
     _check(rc, name)
@@ -594,8 +609,8 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     if n == 0:
         return letters, lf
     fn, name, kernel = state.entry(dev, "letter_lf")
-    rc = fn(
-        device.index, state.ref, positions.data_ptr(), n,
+    rc = _launch(
+        kernel, fn, device.index, state.ref, positions.data_ptr(), n,
         letters.data_ptr(), lf.data_ptr(), _stream(device),
     )
     _check(rc, name)
@@ -615,7 +630,7 @@ def _single(dev, suffix: str, *args):
     with state.lock:
         out, host, words = state.buffers(device)
         stream = _stream(device)
-        _check(fn(device.index, state.ref, *args, out, stream), name)
+        _check(_launch(kernel, fn, device.index, state.ref, *args, out, stream), name)
         kernel.count(suffix)
         _check(_library().awfm_read_back(device.index, host, out, 16, stream), "awfm_read_back")
         return words[0], words[1]
@@ -706,7 +721,8 @@ def k1r_route(positions: torch.Tensor, out: torch.Tensor, n_shards: int,
     letters_p = _optional(letters, "letters", torch.int32, device, n)
     slot_pos = torch.empty(n, dtype=torch.int64, device=device)
     slot_lane = torch.empty(n, dtype=torch.int32, device=device)
-    rc = _library().awfm_k1r_route(
+    rc = _launch(
+        K1R_ROUTE, _library().awfm_k1r_route,
         device.index, int(bool(wide)), positions.data_ptr(), n, int(n_shards),
         int(blocks_per_shard), int(ratio), int(unowned), out_p, off_p, letters_p,
         slot_pos.data_ptr(), slot_lane.data_ptr(), counts.data_ptr(), _stream(device))
@@ -758,8 +774,9 @@ def k1r_occurrence(dev, first_block: int, slot_pos: torch.Tensor,
     if n == 0:
         return
     fn, name, kernel = _entry(dev, K1R, "occ")
-    rc = fn(device.index, ctypes.byref(tables), first_block, slot_pos.data_ptr(), lane_p,
-            counts_p, shard, count, n, letters.data_ptr(), out.data_ptr(), _stream(device))
+    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), first_block,
+                 slot_pos.data_ptr(), lane_p, counts_p, shard, count, n,
+                 letters.data_ptr(), out.data_ptr(), _stream(device))
     _check(rc, name)
     kernel.launches += 1
 
@@ -782,8 +799,9 @@ def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[to
     if n == 0:
         return
     fn, name, kernel = _entry(dev, K1R, "lf")
-    rc = fn(device.index, ctypes.byref(tables), first_block, slot_pos.data_ptr(), lane_p,
-            counts_p, shard, count, n, p.data_ptr(), letters_p, _stream(device))
+    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), first_block,
+                 slot_pos.data_ptr(), lane_p, counts_p, shard, count, n,
+                 p.data_ptr(), letters_p, _stream(device))
     _check(rc, name)
     kernel.launches += 1
 
@@ -809,8 +827,8 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return nxt
     fn, name, kernel = _entry(dev, K1X, "extend")
-    rc = fn(device.index, ctypes.byref(tables), table.data_ptr(), n, nxt.data_ptr(),
-            _stream(device))
+    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), table.data_ptr(), n,
+                 nxt.data_ptr(), _stream(device))
     _check(rc, name)
     kernel.launches += 1
     return nxt
@@ -840,8 +858,9 @@ def k1_seed_table(dev, levels: int) -> torch.Tensor:
     fn, name, kernel = _entry(dev, K1X, "seed_table")
     nbytes = _library().awfm_seed_table_scratch_bytes(card, levels, out.element_size())
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
-    rc = fn(device.index, state.ref, int(levels), None if scratch is None else scratch.data_ptr(),
-            nbytes, out.data_ptr(), _stream(device))
+    rc = _launch(kernel, fn, device.index, state.ref, int(levels),
+                 None if scratch is None else scratch.data_ptr(), nbytes, out.data_ptr(),
+                 _stream(device))
     _check(rc, name)
     kernel.count("bfs")
     return out
@@ -867,8 +886,8 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
     if b == 0:
         return start, end
     fn, name, kernel = _entry(dev, K2, "ranges")
-    rc = fn(
-        device.index, ctypes.byref(tables), dev.seed_table.data_ptr(),
+    rc = _launch(
+        kernel, fn, device.index, ctypes.byref(tables), dev.seed_table.data_ptr(),
         int(dev.seed_table.shape[0]), int(dev.kmer_length_in_seed_table),
         mat.data_ptr(), b, l_pad, lengths.data_ptr(), seeded.data_ptr(),
         start.data_ptr(), end.data_ptr(), _stream(device),
@@ -910,8 +929,8 @@ def _backtrace(dev, positions: torch.Tensor, tables, entry):
     if dev.ratio < 1 or (not dev.wide and dev.bwt_length >= 2**32):
         raise ValueError("need ratio >= 1, and a wide view for bwtLength >= 2^32")
     fn, name, kernel = entry()
-    rc = fn(
-        device.index, ctypes.byref(tables), positions.data_ptr(), n,
+    rc = _launch(
+        kernel, fn, device.index, ctypes.byref(tables), positions.data_ptr(), n,
         int(dev.ratio), int(dev.bwt_length),
         None if on_disk else dev.sampled_sa.data_ptr(),
         None if on_disk else hits.data_ptr(),
@@ -958,8 +977,8 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
         n=int(ng.n), biased=int(bool(ng.biased)),
     )
     fn, name, kernel = _entry(dev, K4, "ngram_ranges")
-    rc = fn(
-        device.index, ctypes.byref(tables), ctypes.byref(ngt),
+    rc = _launch(
+        kernel, fn, device.index, ctypes.byref(tables), ctypes.byref(ngt),
         dev.seed_table.data_ptr(), int(dev.seed_table.shape[0]), k,
         mat.data_ptr(), b, l_pad, int(kmer_len),
         start.data_ptr(), end.data_ptr(), _stream(device),
@@ -1007,7 +1026,8 @@ def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
     out = torch.empty((n + chunk - 1) // chunk, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _library().awfm_k5_gather_reduce(
+    rc = _launch(
+        K5, _library().awfm_k5_gather_reduce,
         device.index, table.data_ptr(), int(table.shape[0]), row_bytes,
         idx.data_ptr(), n, int(sum_bytes), int(chunk), int(ring),
         out.data_ptr(), _stream(device),
@@ -1031,7 +1051,8 @@ def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _library().awfm_k5_gather_walk(
+    rc = _launch(
+        K5, _library().awfm_k5_gather_walk,
         device.index, table.data_ptr(), int(table.shape[0]), int(table.shape[1]),
         idx.data_ptr(), n, int(seg), int(sector_mask), int(lanes), out.data_ptr(),
         _stream(device),
@@ -1056,7 +1077,8 @@ def k6_slab_gather(slab: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"out must be ({n}, {slab.shape[1]}) and 16-byte aligned")
     if n == 0:
         return out
-    rc = _library().awfm_k6_slab_gather(
+    rc = _launch(
+        K6, _library().awfm_k6_slab_gather,
         device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
         out.data_ptr(), _stream(device),
     )
@@ -1075,7 +1097,8 @@ def k6_slab_chain(slab: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tens
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _library().awfm_k6_slab_chain(
+    rc = _launch(
+        K6, _library().awfm_k6_slab_chain,
         device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
         int(seg), out.data_ptr(), _stream(device),
     )

@@ -30,6 +30,14 @@ Each of ``search_ranges``, ``ngram_ranges`` and ``backtrace_resolve``
 launches its kernel for CUDA tensors and runs the plain version beside it only for CPU
 tensors. Results equal the JAX package's bit for bit.
 
+The batched functions of the device path open spans
+(``utils/metrics.span``; ranges only while a profiler records):
+``awfm.ranges`` (``search_ranges``, ``ngram_ranges``), ``awfm.counts``
+(``range_counts``), ``awfm.locate`` (``locate_flat_device``) around
+``awfm.enumerate`` (``enumerate_flat``) and ``awfm.backtrace``
+(``backtrace_resolve``); each kernel's launch has its own
+(``awfm.launch.<kernel>``, ``ops/kernels.py``).
+
 A wide view (``DeviceIndex.wide``: positions >= 2^32, or forced with
 ``to_device(device, wide=True)``) runs through the same functions: the
 JAX package's second engine (``search64.py`` over (hi, lo) u32 pairs) is
@@ -164,16 +172,17 @@ def step_letters(mat, p):
 
 def search_ranges(dev, mat, lengths, seeded):
     """Final (start, end) ranges: K2 (K2w for a wide view) for CUDA
-    tensors, plain for CPU ones."""
-    if rank_ops.device_kind(mat) == "cuda":
-        from .ops import kernels
+    tensors, plain for CPU ones. Span ``awfm.ranges``."""
+    with metrics.span("ranges"):
+        if rank_ops.device_kind(mat) == "cuda":
+            from .ops import kernels
 
-        return kernels.k2_ranges(
-            dev, mat.to(torch.uint8).contiguous(),
-            lengths.to(torch.int32).contiguous(),
-            seeded.to(torch.uint8).contiguous(),
-        )
-    return ranges_plain(dev, mat, lengths, seeded)
+            return kernels.k2_ranges(
+                dev, mat.to(torch.uint8).contiguous(),
+                lengths.to(torch.int32).contiguous(),
+                seeded.to(torch.uint8).contiguous(),
+            )
+        return ranges_plain(dev, mat, lengths, seeded)
 
 
 # ---------------------------------------------------------------------------
@@ -234,12 +243,14 @@ def ngram_ranges_plain(dev, ng, mat, kmer_len: int, classes=None):
 
 def ngram_ranges(dev, ng, mat, kmer_len: int):
     """Final (start, end) ranges of a uniform clean batch through the
-    n-gram table: K4 for CUDA tensors, the plain version for CPU ones."""
-    if rank_ops.device_kind(mat) == "cuda":
-        from .ops import kernels
+    n-gram table: K4 for CUDA tensors, the plain version for CPU ones.
+    Span ``awfm.ranges``."""
+    with metrics.span("ranges"):
+        if rank_ops.device_kind(mat) == "cuda":
+            from .ops import kernels
 
-        return kernels.k4_ngram_ranges(dev, ng, mat.to(torch.uint8).contiguous(), kmer_len)
-    return ngram_ranges_plain(dev, ng, mat, kmer_len)
+            return kernels.k4_ngram_ranges(dev, ng, mat.to(torch.uint8).contiguous(), kmer_len)
+        return ngram_ranges_plain(dev, ng, mat, kmer_len)
 
 
 # ---------------------------------------------------------------------------
@@ -274,12 +285,13 @@ def backtrace_resolve_plain(dev, positions):
 
 def backtrace_resolve(dev, positions):
     """K3 (K3w for a wide view) for CUDA tensors, the plain version for
-    CPU ones."""
-    if rank_ops.device_kind(positions) == "cuda":
-        from .ops import kernels
+    CPU ones. Span ``awfm.backtrace``."""
+    with metrics.span("backtrace"):
+        if rank_ops.device_kind(positions) == "cuda":
+            from .ops import kernels
 
-        return kernels.k3_backtrace_resolve(dev, positions.to(torch.int64).contiguous())
-    return backtrace_resolve_plain(dev, positions)
+            return kernels.k3_backtrace_resolve(dev, positions.to(torch.int64).contiguous())
+        return backtrace_resolve_plain(dev, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +301,9 @@ def backtrace_resolve(dev, positions):
 def range_counts(start: torch.Tensor, end: torch.Tensor, wide: bool = False) -> torch.Tensor:
     """Hits per range: end - start + 1 where start <= end, else 0 (int64).
     ``wide``: the ranges are u64 values in int64 tensors (a wide view's),
-    compared unsigned."""
-    return torch.where(rank_ops.le_unsigned(start, end, wide), end - start + 1, 0)
+    compared unsigned. Span ``awfm.counts``."""
+    with metrics.span("counts"):
+        return torch.where(rank_ops.le_unsigned(start, end, wide), end - start + 1, 0)
 
 
 def total_hits_host(start: torch.Tensor, end: torch.Tensor, wide: bool = False) -> int:
@@ -323,33 +336,35 @@ def enumerate_flat(start: torch.Tensor, end: torch.Tensor, *, capacity: int,
     past the total hold 0 with the mask False. A range's count is
     clamped at ``capacity``, and hits past ``capacity`` are dropped. No
     value is read back to the host. With ``wide`` the ranges and the
-    positions are u64 values and nothing wraps at 2^32.
+    positions are u64 values and nothing wraps at 2^32. Span
+    ``awfm.enumerate``.
     """
     if not 0 <= capacity < 2**31:
         raise ValueError("capacity must be in [0, 2^31)")
-    device = start.device
-    if start.shape[0] == 0:
-        z = torch.zeros(capacity, dtype=torch.int64, device=device)
-        return z, z.to(torch.int32), torch.zeros(capacity, dtype=torch.bool, device=device)
-    counts = range_counts(start, end, wide).clamp(max=capacity)
-    seg_off = torch.cumsum(counts, 0) - counts
-    # one mark per query at its segment start (zero-count queries stack
-    # on the next start, so the cumsum skips their ids); marks at or past
-    # capacity fall into the dropped last slot
-    marks = torch.zeros(capacity + 1, dtype=torch.int64, device=device)
-    marks.index_add_(0, seg_off.clamp(max=capacity), torch.ones_like(seg_off))
-    qid = (torch.cumsum(marks[:capacity], 0) - 1).clamp(min=0)
-    iota = torch.arange(capacity, dtype=torch.int64, device=device)
-    mask = iota < counts.sum()
-    pos = start[qid] + iota - seg_off[qid]
-    if not wide:
-        pos = pos & MASK32
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    return (
-        torch.where(mask, pos, zero),
-        torch.where(mask, qid, zero).to(torch.int32),
-        mask,
-    )
+    with metrics.span("enumerate"):
+        device = start.device
+        if start.shape[0] == 0:
+            z = torch.zeros(capacity, dtype=torch.int64, device=device)
+            return z, z.to(torch.int32), torch.zeros(capacity, dtype=torch.bool, device=device)
+        counts = range_counts(start, end, wide).clamp(max=capacity)
+        seg_off = torch.cumsum(counts, 0) - counts
+        # one mark per query at its segment start (zero-count queries stack
+        # on the next start, so the cumsum skips their ids); marks at or past
+        # capacity fall into the dropped last slot
+        marks = torch.zeros(capacity + 1, dtype=torch.int64, device=device)
+        marks.index_add_(0, seg_off.clamp(max=capacity), torch.ones_like(seg_off))
+        qid = (torch.cumsum(marks[:capacity], 0) - 1).clamp(min=0)
+        iota = torch.arange(capacity, dtype=torch.int64, device=device)
+        mask = iota < counts.sum()
+        pos = start[qid] + iota - seg_off[qid]
+        if not wide:
+            pos = pos & MASK32
+        zero = torch.zeros((), dtype=torch.int64, device=device)
+        return (
+            torch.where(mask, pos, zero),
+            torch.where(mask, qid, zero).to(torch.int32),
+            mask,
+        )
 
 
 def locate_flat_device(dev, start: torch.Tensor, end: torch.Tensor, *, capacity: int):
@@ -357,11 +372,13 @@ def locate_flat_device(dev, start: torch.Tensor, end: torch.Tensor, *, capacity:
     backtrace and resolve of every slot (K3 or K3w on the card). Returns
     (hits int64, query ids int32, valid mask), each (capacity,), as the
     JAX package's ``locate_flat_device``: masked slots resolve position 0
-    and must be ignored."""
+    and must be ignored. Span ``awfm.locate``, around ``awfm.enumerate``
+    and ``awfm.backtrace``."""
     if dev.sampled_sa is None:
         raise ValueError("locate_flat_device needs the sampled suffix array on the device")
-    pos, qid, mask = enumerate_flat(start, end, capacity=capacity, wide=dev.wide)
-    return backtrace_resolve(dev, pos), qid, mask
+    with metrics.span("locate"):
+        pos, qid, mask = enumerate_flat(start, end, capacity=capacity, wide=dev.wide)
+        return backtrace_resolve(dev, pos), qid, mask
 
 
 def locate_first_hit(dev, start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:

@@ -1,36 +1,57 @@
 """Lightweight operational metrics: a process-local registry of counters
-and timers.
+and timers, and named spans on the device path.
 
-Copied from ``avxwindowfmindex_tpu/utils/metrics.py``. It is updated from
-the host-driven layers only (the engine entry points), never inside a
-kernel, so the device path is untouched. The one difference: the JAX
-package reads ``AWFM_METRICS`` from the environment on every update;
-here the switch is :func:`set_enabled`.
+Copied from ``avxwindowfmindex_tpu/utils/metrics.py``. Counters and
+timers are updated from the host-driven layers only (the engine entry
+points), never inside a kernel. The one difference: the JAX package
+reads ``AWFM_METRICS`` from the environment on every update; here the
+switch is :func:`set_enabled`.
+
+Spans (:func:`span`) are the port's own: ``torch.profiler`` ranges named
+``awfm.<name>`` around the batched search functions of the device path
+and around each kernel's launch (``awfm.launch.<kernel>``). They exist
+only while a profiler records in the process (``torch.profiler.profile``,
+or ``torch.autograd.profiler.emit_nvtx()`` for Nsight Systems) and the
+registry is on; then they sit on the profiler's clock, and the device
+operations launched inside one are found through their correlation ids.
+Otherwise a span costs a flag check and builds nothing.
 
 Usage:
     from avxwindowfmindex_tpu_torch.utils import metrics
     metrics.counter("search.queries").add(1024)
     with metrics.timer("search.count_seconds"):
         ...
+    with metrics.span("ranges"):  # "awfm.ranges" under a profiler
+        ...
     metrics.snapshot()  # -> {"search.queries": 1024, ...}
-    metrics.set_enabled(False)  # every update becomes a no-op
+    metrics.set_enabled(False)  # every update becomes a no-op, every span null
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict
+
+import torch
+
+try:
+    from torch._C._autograd import _profiler_enabled as _profiling
+except ImportError:  # a torch without the flag: every span is entered
+    def _profiling() -> bool:
+        return True
 
 
 _lock = threading.Lock()
 _counters: Dict[str, float] = {}
 _on = True
+_NULL = nullcontext()
 
 
 def set_enabled(enabled: bool) -> None:
-    """Turn every counter and timer update on or off (default on)."""
+    """Turn every counter and timer update, and every span, on or off
+    (default on)."""
     global _on
     _on = bool(enabled)
 
@@ -69,6 +90,16 @@ def timer(name: str):
         with _lock:
             _counters[name] = _counters.get(name, 0) + dt
             _counters[name + ".calls"] = _counters.get(name + ".calls", 0) + 1
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range ``awfm.<name>`` while a
+    profiler records in the process and the registry is on; else one
+    shared null context, with no range made and no name formatted (a
+    ``record_function`` entered with no profiler still costs some 10 µs)."""
+    if _on and _profiling():
+        return torch.profiler.record_function(f"awfm.{name}")
+    return _NULL
 
 
 def snapshot() -> Dict[str, float]:
