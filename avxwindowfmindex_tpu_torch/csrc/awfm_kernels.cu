@@ -182,14 +182,24 @@
 //                       and the one milestone word are loaded, 6 sectors
 //                       for n = 2 and 8 for n = 3 where the whole window
 //                       costs 12 and 24. At seed k = 14 a range is about
-//                       one position wide, so this is 255 of 256 steps.
-//                       The planes lie 64 B apart, so the step still
-//                       touches every 64 B piece of the row: the layout,
-//                       which both packages share, keeps the gain to the
-//                       sector level;
+//                       one position wide, so this is 255 of 256 steps;
 //         delta < 512   the whole 512-position window of one row;
 //         otherwise     the first-block halves of two rows; no query is
 //                       flagged or re-run.
+//       K4 reads its own copy of the n-gram rows (NgramRow; ops/ngram.py:
+//       k4_rows, made on the card when the index is placed there): the
+//       pair layout that both packages share and the cache holds puts the
+//       planes 64 B apart, so a first-block visit touched all six 64 B
+//       pieces of a 384 B row for six sectors. K4's rows put the planes'
+//       first sectors back to back and block b's milestones after them,
+//       so the visit touches pieces 0-2 (word < 8) or 0-3: 3.5 of 6 on
+//       average at n = 2, 4.9 of 12 at n = 3; the two-row class reads the
+//       same first-block part of each row. K5's walk over 972,487 such
+//       rows (the n = 2 table of a 249M-base index) makes 1.36-1.38 times
+//       the visits a second in K4's masks as in the pair layout's; K4 at
+//       64M bases went from 0.61 to 0.42 ms (n = 2) and from 0.67 to 0.49
+//       (n = 3) for 1,048,576 25-mers, and at 249M bases from 3.64 to
+//       2.45 ms a 4,194,304-query request (H100 80GB HBM3, 700 W).
 //       The tail letters go through backward_step, which has the same
 //       three classes over the 256 B pair row (4 sectors, not 7), so K2
 //       and K2w read the first-block class too. Two neighbouring lanes
@@ -419,7 +429,7 @@ struct AwfmTables {
 
 // Mirrored by ops/kernels.py:_NgramTables (ctypes.Structure).
 struct NgramTables {
-  const uint8_t* packed;  // (nb, row_bytes) n-gram pair rows
+  const uint8_t* packed;  // (nb, row_bytes) n-gram rows in K4's layout (NgramRow)
   const uint32_t* cn;     // (4^n) n-mer range starts
   int64_t nb;
   int32_t row_bytes;      // 384 (n = 2) or 768 (n = 3)
@@ -801,12 +811,26 @@ __device__ __forceinline__ void backward_step(
   end = e.c + occ_e - 1u;
 }
 
-// Match words of an n-gram pair row for word value v: bit p of word w is
-// set iff the n-gram code at pair-local position 32 * w + p equals v.
-// Planes 0..2N-1 hold the code's value bits and are XORed with bit i of v;
-// plane 2N marks dirty words and is ORed in as it is (P6's match). W = 16
-// covers the 512-position window, W = 8 the first block only, fewer a
-// group lane's share of it (`row` then points at the lane's words).
+// K4's layout of an n-gram pair row (ops/ngram.py:_geometry_k4), from N
+// alone: the first 32 B of each of the 2N + 1 planes (block b's words 0-7)
+// back to back from byte 0, block b's 4^N milestone words at kMs, the
+// second 32 B of each plane (block b+1's) at kHi, padded to 128 B. A
+// first-block visit thus reads bytes [0, kMs) and one milestone word,
+// adjacent 64 B pieces.
+template <int N>
+struct NgramRow {
+  static constexpr int kPlanes = 2 * N + 1;
+  static constexpr int kMs = 32 * kPlanes;                // 160, 224
+  static constexpr int kHi = kMs + 4 * (1 << (2 * N));    // 224, 480
+  static constexpr int kBytes = (kHi + kMs + 127) / 128 * 128;  // 384, 768
+};
+
+// Match words of an n-gram row for word value v: bit p of word w is set
+// iff the n-gram code at pair-local position 32 * w + p equals v. Planes
+// 0..2N-1 hold the code's value bits and are XORed with bit i of v; plane
+// 2N marks dirty words and is ORed in as it is (P6's match). W = 16 covers
+// the 512-position window (words 8-15 at kHi), W = 8 the first block only,
+// fewer a group lane's share of it (`row` then points at the lane's words).
 template <int N, int W>
 __device__ __forceinline__ void ngram_match_words(const uint8_t* row,
                                                   uint32_t v,
@@ -817,7 +841,18 @@ __device__ __forceinline__ void ngram_match_words(const uint8_t* row,
   for (int i = 0; i <= 2 * N; ++i) {
     const uint32_t cm = (i < 2 * N && ((v >> i) & 1u)) ? 0xFFFFFFFFu : 0u;
     uint32_t x[W];
-    load_words<W>(row + i * 64, x);
+    if constexpr (W == 16) {
+      uint32_t lo[8], hi[8];
+      load_words<8>(row + i * 32, lo);
+      load_words<8>(row + NgramRow<N>::kHi + i * 32, hi);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        x[w] = lo[w];
+        x[8 + w] = hi[w];
+      }
+    } else {
+      load_words<W>(row + i * 32, x);
+    }
 #pragma unroll
     for (int w = 0; w < W; ++w) m[w] |= x[w] ^ cm;
   }
@@ -832,7 +867,7 @@ __device__ __forceinline__ uint32_t ngram_milestone(const uint8_t* row,
                                                     uint32_t v) {
   constexpr uint32_t kWords = 1u << (2 * N);
   if (v >= kWords) return 0u;
-  return *reinterpret_cast<const uint32_t*>(row + (2 * N + 1) * 64 + 4 * v);
+  return *reinterpret_cast<const uint32_t*>(row + NgramRow<N>::kMs + 4 * v);
 }
 
 // occn(v, pos) inclusive, from the first-block half of pos's pair row.
@@ -2350,6 +2385,16 @@ void launch_k4_letters(const AwfmTables* t, const NgramTables* g, const uint32_t
   }
 }
 
+// Whether an n-gram table is in K4's layout (NgramRow): its width for n
+// and 16 B aligned rows. The bytes' order the width cannot show; the
+// table K4 is handed is NgramIndex.k4, which ops/ngram.py:k4_rows makes
+// and nothing else writes, and ops/kernels.py refuses an index without it.
+bool ngram_rows_fit(const NgramTables* g) {
+  const int want = g->n == 2 ? NgramRow<2>::kBytes : (g->n == 3 ? NgramRow<3>::kBytes : 0);
+  return want != 0 && g->row_bytes == want &&
+         reinterpret_cast<uintptr_t>(g->packed) % 16 == 0;
+}
+
 template <bool PAIR>
 int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               const uint32_t* seed_table, int64_t seed_rows, int k,
@@ -2357,7 +2402,8 @@ int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (t->n_planes != 3 || !rows_fit<Narrow>(t) || !pair_rows_fit<Narrow, PAIR>(t)) {
+  if (t->n_planes != 3 || !rows_fit<Narrow>(t) || !pair_rows_fit<Narrow, PAIR>(t) ||
+      !ngram_rows_fit(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (g->n == 2) {

@@ -128,7 +128,8 @@ def ngram_index_from_numpy(pair, cn, *, n: int, biased: bool, device) -> NgramIn
     """A torch ``NgramIndex`` from the JAX ``NgramIndex``'s fields:
     ``np.asarray`` of its ``packed`` pair rows and its ``cn``, plus its
     ``n`` and ``biased`` flags. cn becomes an int32 tensor holding the
-    same u32 bytes."""
+    same u32 bytes. On a CUDA device the index also carries K4's copy of
+    the rows in its byte order (``NgramIndex.k4``)."""
     _, _, _, _, row_bytes = _geometry_pair(n)
     pair = np.array(pair, dtype=np.uint8, order="C")
     if pair.ndim != 2 or pair.shape[1] != row_bytes:

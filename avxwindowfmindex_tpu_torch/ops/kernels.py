@@ -56,6 +56,7 @@ from ..models.index import (
     device_pair_row_bytes, device_row_bytes, device_row_bytes64, kernel_letter_tables,
 )
 from ..utils import metrics
+from .ngram import _geometry_k4
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -946,21 +947,29 @@ def _backtrace(dev, positions: torch.Tensor, tables, entry):
 def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     """K4: final (start, end) BWT ranges of a uniform-length clean batch
     through the n-gram table ``ng``, (b,) int64 each, as u32; its tail
-    steps over the block rows for a view without pair rows."""
+    steps over the block rows for a view without pair rows. K4 reads
+    ``ng.k4``, the rows in its own layout (``ops/ngram.py:k4_rows``); an
+    index without it is refused."""
     if dev.wide:
         raise ValueError("K4 takes narrow views only")
     tables = _tables(dev)
     device = dev.packed.device
     _require(dev.seed_table, "seed_table", torch.int32, device)
-    _require(ng.packed, "ngram packed", torch.uint8, device)
-    _require(ng.cn, "ngram cn", torch.int32, device)
-    _require(mat, "mat", torch.uint8, device)
-    if ng.packed.data_ptr() % 16:
-        raise ValueError("row tables must be 16-byte aligned")
     if ng.n not in (2, 3) or ng.cn.shape != (4**ng.n,):
         raise ValueError(f"unsupported n-gram table (n={ng.n})")
-    if ng.packed.shape[0] != dev.packed.shape[0]:
-        raise ValueError("n-gram table and index have different block counts")
+    rows = ng.k4
+    if rows is None:
+        raise ValueError("K4 reads the n-gram rows in its layout (NgramIndex.k4, made by "
+                         "ops/ngram.k4_rows when the index is placed on the card)")
+    _require(rows, "ngram k4 rows", torch.uint8, device)
+    _require(ng.cn, "ngram cn", torch.int32, device)
+    _require(mat, "mat", torch.uint8, device)
+    if rows.data_ptr() % 16:
+        raise ValueError("row tables must be 16-byte aligned")
+    want = (dev.packed.shape[0], _geometry_k4(ng.n)[3])
+    if tuple(rows.shape) != want or tuple(ng.packed.shape) != want:
+        raise ValueError(f"n={ng.n} n-gram rows must be {want} (the index's blocks), got "
+                         f"{tuple(rows.shape)} and packed {tuple(ng.packed.shape)}")
     if dev.n_planes != 3:
         raise ValueError("K4 takes nucleotide indexes only")
     k = int(dev.kmer_length_in_seed_table)
@@ -972,8 +981,8 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     if b == 0:
         return start, end
     ngt = _NgramTables(
-        packed=ng.packed.data_ptr(), cn=ng.cn.data_ptr(),
-        nb=int(ng.packed.shape[0]), row_bytes=int(ng.packed.shape[1]),
+        packed=rows.data_ptr(), cn=ng.cn.data_ptr(),
+        nb=int(rows.shape[0]), row_bytes=int(rows.shape[1]),
         n=int(ng.n), biased=int(bool(ng.biased)),
     )
     fn, name, kernel = _entry(dev, K4, "ngram_ranges")

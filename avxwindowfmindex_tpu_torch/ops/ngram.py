@@ -23,6 +23,11 @@ Plane i of pair row b holds bit i of the codes of blocks b and b+1
 (512 positions); the top plane (index 2n) is the dirty marker. The
 milestones are block b's, pre-biased by Cn when ``biased``.
 
+K4 reads a second table, ``NgramIndex.k4``: the same rows with each
+row's bytes in K4's order (``_geometry_k4``, ``k4_rows``), made on the
+card from ``packed`` when an index is placed there. The host build, the
+``.npz`` cache and ``packed`` keep the layout above.
+
 The device half is plain torch over int64-held u32 values, with the JAX
 edge cases: ``start - 1`` wraps to 0xFFFFFFFF at start 0, the block index
 clamps to the last row, a row whose range is invalid keeps it. The
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,6 +81,48 @@ def _geometry_pair(n: int):
     return n_words, dirty, n_planes, ms_offset, row_bytes
 
 
+def _geometry_k4(n: int):
+    """K4's layout of a pair row: the width and row index of
+    ``_geometry_pair``'s, the bytes in another order. The first 32 B of
+    each plane (block b's words 0-7) lie back to back from byte 0, block
+    b's milestones follow, then the second 32 B of each plane (block
+    b+1), then the padding:
+
+        n=2: 5 x 32 B | 16 u32 milestones at 160 | 5 x 32 B at 224 -> 384 B
+        n=3: 7 x 32 B | 64 u32 milestones at 224 | 7 x 32 B at 480 -> 768 B
+
+    A visit whose range lies in the row's first block reads bytes
+    [0, 32 planes) and one milestone word: adjacent 64 B pieces (3 or 4
+    of 6 at n = 2, 4 or 5 of 12 at n = 3), where the pair layout spreads
+    the same sectors over one piece a plane. Returns (n_planes,
+    ms_offset, hi_offset, row_bytes)."""
+    n_words, _, n_planes, _, row_bytes = _geometry_pair(n)
+    ms_offset = n_planes * 32
+    hi_offset = ms_offset + n_words * 4
+    return n_planes, ms_offset, hi_offset, row_bytes
+
+
+def k4_row_order(n: int) -> np.ndarray:
+    """(row_bytes,) int64: byte j of a K4 row is byte ``order[j]`` of the
+    pair row (``_geometry_pair``) it is made from."""
+    n_words, _, _, pair_ms_offset, _ = _geometry_pair(n)
+    n_planes, ms_offset, hi_offset, row_bytes = _geometry_k4(n)
+    order = np.arange(row_bytes, dtype=np.int64)  # the padding stays
+    j = np.arange(32)
+    for i in range(n_planes):
+        order[32 * i + j] = 64 * i + j
+        order[hi_offset + 32 * i + j] = 64 * i + 32 + j
+    order[ms_offset:hi_offset] = pair_ms_offset + np.arange(n_words * 4)
+    return order
+
+
+def k4_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """K4's table: the pair rows ``packed`` with each row's bytes in K4's
+    order, by one gather on ``packed``'s device."""
+    order = torch.from_numpy(k4_row_order(n)).to(packed.device)
+    return packed.index_select(1, order)
+
+
 @dataclasses.dataclass
 class NgramIndex:
     """Device tables of the n-step path.
@@ -84,12 +132,22 @@ class NgramIndex:
     single-position ranks read the first-block half of the same rows.
     When ``biased`` the stored milestones hold Cn[w] + occ_before_block
     (exact in u32, bwtLength < 2^32), so a step needs no Cn select.
+
+    ``k4`` is K4's table, ``k4_rows(packed, n)``, made whenever the index
+    is made with ``packed`` on a CUDA device (None elsewhere: the plain
+    versions read ``packed``).
     """
 
     packed: torch.Tensor  # (num_blocks, pair_row_bytes) uint8
     cn: torch.Tensor  # (4**n,) u32 as int32: range start of each n-mer
     n: int  # letters per step
     biased: bool = False
+    k4: Optional[torch.Tensor] = dataclasses.field(default=None, init=False, repr=False,
+                                                   compare=False)
+
+    def __post_init__(self):
+        if self.packed.is_cuda:
+            self.k4 = k4_rows(self.packed, self.n)
 
 
 # ---------------------------------------------------------------------------

@@ -375,7 +375,7 @@ def run_protocol(p: Protocol, index, seq_arr: np.ndarray, rng, *, dev, dev_dense
     if cuda:
         peak = torch.cuda.max_memory_allocated(device)
         tables = (dev.packed, dev.packed_pair, dev.prefix_sums, dev.seed_table, dev.sampled_sa,
-                  dev.code_masks, dev.vec_to_index, ng.packed, ng.cn,
+                  dev.code_masks, dev.vec_to_index, ng.packed, ng.k4, ng.cn,
                   None if dev_dense is None else dev_dense.sampled_sa)
         resident = sum(t.numel() * t.element_size() for t in tables if t is not None)
         _log(f"device memory: peak {peak} B, index tables {resident} B, "

@@ -2,7 +2,7 @@
 
     python -m avxwindowfmindex_tpu_torch.tools.kernel_ab --other parent=DIR
         [--other NAME=DIR ...] [--bases N] [--queries N] [--reps N]
-        [--cases all|bfs|rs|k3w|k5|pairless|k1] [--cache DIR]
+        [--cases all|bfs|rs|k3w|k5|pairless|k1|k4rows] [--cache DIR]
         [--bfs-max-parents N ...]
 
 ``DIR`` is the root of another checkout of this repository (for one
@@ -122,6 +122,18 @@ P2 and P3 configurations: 2^19 random rows of 128 B and 512 B rows summed
 whole, of 1 KB rows their first 128 B), over a 1 GiB table (device
 memory) and a 64 MiB one (mostly the L2).
 
+``--cases k4rows``: K5's masked walk alone (no index, no other
+checkout), the ceiling of K4's n-gram row layouts: a random table of
+``CHR1_NGRAM_ROWS`` rows (the n-gram rows of a 248,956,422-base index,
+beyond the L2) of 384 B (n = 2) and 768 B (n = 3), walked by
+``--queries`` lanes with the pair layout's first-block mask (the first
+32 B of each 64 B plane and the milestones' sector) and with each mask
+of K4's layout (``roofline.k4_word_masks``: the planes' first 32 B back
+to back and the word's milestone sector), twice in turn. One line a
+table and round: visits a second by mask, K4's by the words' shares
+(the harmonic mix), 64 B pieces a visit, pieces' TB/s, and K4's rate
+over the pair layout's.
+
 ``--cases k1``: K1, parent against change in turns in one process. Its
 occ mode at 8,388,608 random pairs over the 64M index (narrow, forced
 wide) and a 2^26-residue amino index on compact wide rows (phase 4p's),
@@ -156,12 +168,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
+CASES = ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1", "k4rows")
 BIG_BASES = 1 << 28  # k3w: the DNA text whose wide view outgrows the L2
 AMINO_RESIDUES = 64_000_000  # k3w: the amino index forced wide (about a minute to build)
 K1_AMINO_RESIDUES = 1 << 26  # k1: chip_smoke.py phase 4p's compact amino index
 COMPACT_BFS_K = (5, 6)  # bfs: the amino seed k of phase 4p and of an index of 2^32 positions
 CEILING_LANES = 4  # pairless: lanes a chain of the block rows' ceiling walk
+CHR1_NGRAM_ROWS = 972_487  # k4rows: the n-gram rows of a 248,956,422-base index
 HBM_BYTES_PER_S = 3.35e12  # published, H100 SXM
 OPS_PER_S = 67e12  # published float32 rate outside the tensor cores
 DEFAULT_CACHE = os.path.join(
@@ -1186,6 +1199,42 @@ def k5_cases(libs: dict, reps: int, device) -> None:
             torch.cuda.empty_cache()
 
 
+def k4_rows_cases(args, device) -> None:
+    """K5's walk over chr1-sized n-gram rows in the pair layout's and K4's
+    layout's first-block masks (module note)."""
+    import torch
+
+    from ..ops import ngram
+    from ..utils import roofline
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    for n in (2, 3):
+        _, _, n_planes, ms_offset, row_bytes = ngram._geometry_pair(n)
+        table = torch.randint(0, 256, (CHR1_NGRAM_ROWS, row_bytes), dtype=torch.uint8,
+                              device=device, generator=gen)
+        words = roofline.k4_word_masks(n)
+        masks = {"pair": roofline.first_block_sector_mask(n_planes, 64, ms_offset),
+                 **{f"k4 {m:#x}": m for m in words}}
+        for rnd in range(2):
+            rates = roofline.calibrate_gather_rates({t: table for t in masks}, args.queries,
+                                                    device=device, runs=5, log=_log,
+                                                    sector_masks=masks)
+            k4 = 1.0 / sum(share / rates[f"k4 {m:#x}"] for m, share in words.items())
+            pieces = {"pair": mask_pieces(masks["pair"]),
+                      "k4": sum(share * mask_pieces(m) for m, share in words.items())}
+            visits = {"pair": rates["pair"], "k4": k4}
+            print(json.dumps({
+                "case": f"k4 rows n={n}", "round": rnd, "rows": CHR1_NGRAM_ROWS,
+                "row_bytes": row_bytes, "lanes": args.queries, "visits_per_s": visits,
+                "by_mask": {t: {"mask": m, "pieces": mask_pieces(m), "visits_per_s": rates[t],
+                                "share": words.get(m, 1.0)} for t, m in masks.items()},
+                "pieces_per_visit": pieces,
+                "pieces_TB_per_s": {t: visits[t] * pieces[t] * 64 / 1e12 for t in visits},
+                "k4_over_pair": k4 / rates["pair"]}), flush=True)
+        del table
+        torch.cuda.empty_cache()
+
+
 def lengthwise_batch(mat_d, full_len: int, length: int):
     """The last ``length`` letters of every ``full_len``-mer of the
     letter matrix ``mat_d`` as a K2 / K4 batch (matrix padded to a
@@ -1250,6 +1299,9 @@ def main(argv=None) -> int:
 
     if args.cases == "k5":
         k5_cases(libs, args.reps, device)
+        return 0
+    if args.cases == "k4rows":
+        k4_rows_cases(args, device)
         return 0
     rng = np.random.default_rng(1234)
     seq_arr = rng.choice(np.frombuffer(b"acgt", np.uint8), size=args.bases)

@@ -15,13 +15,15 @@ Tables and their row bytes (nucleotide):
 
   single      dev.packed        128 B   K3's LF walk, K2's two-row step
   pair        dev.packed_pair   256 B   K2's one-row step, K4's tail step
-  ngram_pair  NgramIndex.packed 384 B   K4's n-gram step (n = 2)
+  ngram_pair  NgramIndex.packed 384 B   K4's n-gram step (n = 2; K4
+                                        reads NgramIndex.k4, the same
+                                        rows in its byte order)
 
 ``range_phase_rows`` and ``table_row_bytes`` keep the JAX formulas: K2
 and K4 visit exactly those rows per step. What a visit reads of its row
 is less: a step whose range lies in the first block of the row (nearly
 every step at the bench's seed k) loads the first 32 B sector of each
-64 B plane and the sector of its milestone, 192 of an n-gram row's 384 B
+plane and the sector of its milestone, 192 of an n-gram row's 384 B
 and 128 of a pair row's 256 B (:func:`first_block_visits`). So
 :func:`report` takes per-table *visit bytes* beside the row bytes (the
 default, whole rows, is the JAX package's model), and the calibration
@@ -164,13 +166,32 @@ def first_block_sector_mask(n_planes: int, plane_stride: int, milestone_offset: 
     return mask
 
 
+def k4_word_masks(ngram_n: int) -> Dict[int, float]:
+    """{sector mask: share of the 4^n words} of K4's first-block visits to
+    its n-gram rows (``ops/ngram.py:_geometry_k4``): the first 32 B of each
+    plane, sectors 0 .. planes - 1, and the sector of the word's
+    milestone, which depends on the word."""
+    from ..ops import ngram as ngram_ops
+
+    n_planes, ms_offset, _, _ = ngram_ops._geometry_k4(ngram_n)
+    n_words = 4**ngram_n
+    out: Dict[int, float] = {}
+    for v in range(n_words):
+        mask = first_block_sector_mask(n_planes, 32, ms_offset + 4 * v)
+        out[mask] = out.get(mask, 0.0) + 1.0 / n_words
+    return out
+
+
 def first_block_visits(alphabet=None, *, ngram_n: int = 2,
                        compact: bool = False) -> Dict[str, tuple]:
     """(sector mask, bytes) of a first-block visit to each table of the
     narrow engine: what K1 and K3 read of a block row (all of it) and
-    what a step of K2 and K4 reads of a pair row and an n-gram pair row
-    (``ngram_n`` letters a step: 5 planes at n = 2, 7 at n = 3, 64 B
-    apart) when both ends of its range lie in the row's first block.
+    what a step of K2 reads of a pair row (planes 64 B apart) and K4 of
+    its n-gram rows (``ngram_n`` letters a step: 5 planes at n = 2, 7 at
+    n = 3, 32 B apart in K4's layout, ``ops/ngram.py:_geometry_k4``) when
+    both ends of its range lie in the row's first block. The n-gram
+    milestone that stands for all is word 4^n / 2's, whose sector half
+    the words' visits reach (:func:`k4_word_masks` has each word's).
 
     ``compact``: also ``"compact"``, a visit to the compact wide rows of
     a view without pair rows (``pack_device_blocks64(pair=False)``: planes
@@ -190,8 +211,9 @@ def first_block_visits(alphabet=None, *, ngram_n: int = 2,
     if alphabet != AlphabetType.AMINO and ngram_n >= 2:
         from ..ops import ngram as ngram_ops
 
-        _, _, ng_planes, ms_offset, _ = ngram_ops._geometry_pair(ngram_n)
-        masks["ngram_pair"] = first_block_sector_mask(ng_planes, 64, ms_offset)
+        ng_planes, ms_offset, _, _ = ngram_ops._geometry_k4(ngram_n)
+        masks["ngram_pair"] = first_block_sector_mask(
+            ng_planes, 32, ms_offset + 4 * (4**ngram_n // 2))
     if compact:
         middle = alpha.cardinality(alphabet) // 2
         masks["compact"] = first_block_sector_mask(n_planes, 32, n_planes * 32 + 8 * middle)

@@ -277,9 +277,11 @@ def test_first_block_visits_name_the_sectors_a_step_reads():
     assert proof.first_block_visits(ngram_n=2) == {
         "single": (0b1111, 128),  # 3 planes x 32 B, milestones at 96: the whole row
         "pair": (0b1010101, 128),  # planes at 0, 64, 128, milestones at 192
-        "ngram_pair": (0b10101010101, 192),  # 5 planes 64 B apart, milestones at 320
+        # K4's rows: the 5 planes' first 32 B at 0-159, word 8's milestone at 192
+        "ngram_pair": (0b1011111, 192),
     }
-    assert proof.first_block_visits(ngram_n=3)["ngram_pair"] == (0b101010101010101, 256)
+    # 7 planes' first 32 B at 0-223, word 32's milestone at 224 + 128
+    assert proof.first_block_visits(ngram_n=3)["ngram_pair"] == (0b100001111111, 256)
     amino = proof.first_block_visits(pt.AlphabetType.AMINO)
     assert amino == {"single": (0b111111, 192), "pair": (0b10101010101, 192)}
     for alphabet, n in ((pt.AlphabetType.DNA, 2), (pt.AlphabetType.DNA, 3), (pt.AlphabetType.AMINO, 1)):
@@ -364,7 +366,7 @@ def test_calibration_walks_the_masked_sectors(monkeypatch):
         batch=128, device="cpu", runs=1, seg_lo=1, seg_hi=2,
         sector_masks={"pair": visits["pair"][0], "ngram_pair": visits["ngram_pair"][0]},
     )
-    assert seen == {128: probes.ALL_SECTORS, 256: 0b1010101, 384: 0b10101010101}
+    assert seen == {128: probes.ALL_SECTORS, 256: 0b1010101, 384: 0b1011111}
     assert all(r > 0 for r in rates.values())
 
 

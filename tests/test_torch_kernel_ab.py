@@ -27,14 +27,14 @@ from torch_helpers import build_both
 DNA, AMINO = jx.AlphabetType.DNA, jx.AlphabetType.AMINO
 
 
-@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5", "pairless", "k1"])
+@pytest.mark.parametrize("case", ["all", "bfs", "rs", "k3w", "k5", "pairless", "k1", "k4rows"])
 def test_every_case_parses(case):
     assert case in kernel_ab.CASES
     assert kernel_ab.parse_args(["--cases", case]).cases == case
 
 
 def test_case_list_and_defaults():
-    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1")
+    assert kernel_ab.CASES == ("all", "bfs", "rs", "k3w", "k5", "pairless", "k1", "k4rows")
     args = kernel_ab.parse_args([])
     assert args.cases == "all" and args.other == [] and args.reps == 10
     assert args.bases == 64_000_000 and args.queries == 1 << 20 and args.seed_k == 14
@@ -153,9 +153,9 @@ def test_first_block_masks_match_the_row_layouts():
     """``roofline.first_block_visits``' masks of the compact wide row and of
     the n = 3 n-gram row name the sectors those rows hold a first-block
     visit's bytes in: the first 32 B of each plane, as
-    ``pack_device_blocks64(pair=False)`` and ``_geometry_pair(3)`` lay them
-    out, and the sector of one milestone (the compact row: the middle
-    letter's), and no other."""
+    ``pack_device_blocks64(pair=False)`` and K4's ``_geometry_k4(3)`` lay
+    them out, and the sector of one milestone (the middle letter's, the
+    middle word's), and no other."""
     from avxwindowfmindex_tpu_torch.models import alphabet as palpha
     from avxwindowfmindex_tpu_torch.models import index as pindex
     from avxwindowfmindex_tpu_torch.ops import ngram as pngram
@@ -182,23 +182,24 @@ def test_first_block_masks_match_the_row_layouts():
         assert sectors(mask) == set(range(n_planes)) | {off // 32} and off % 32 + 8 <= 32
         assert nbytes == 32 * (n_planes + 1) and rows.shape[1] == pindex.device_row_bytes64(
             p.alphabet, False)
-    # the n = 3 n-gram pair row: 7 planes, each block's first 32 B at 64 i,
-    # then word 0's milestone at the offset of _geometry_pair(3)
+    # K4's n = 3 n-gram row: 7 planes, each block's first 32 B at 32 i,
+    # then the milestones at 224 (ops/ngram.py:_geometry_k4); word 32's
+    # stands for them
     seq = random_sequence(rng, 3000, DNA)
     _, p = build_both(seq, 8, 3, DNA)
     codes, _ = pngram.build_ngram_host(p, 3)
     blocks = pngram.pack_ngram_blocks(codes, 3)
-    pair = pngram.pair_rows_from_ngram_blocks(blocks, 3)
-    _, _, ng_planes, ms_offset, row_bytes = pngram._geometry_pair(3)
+    rows = pngram.k4_rows(torch.from_numpy(pngram.pair_rows_from_ngram_blocks(blocks, 3)), 3).numpy()
+    ng_planes, ms_offset, _, row_bytes = pngram._geometry_k4(3)
     _, _, _, block_ms_offset, _ = pngram._geometry(3)
     mask, nbytes = roofline.first_block_visits(ngram_n=3)["ngram_pair"]
-    assert ng_planes == 7 and row_bytes == pair.shape[1] == 768
+    assert ng_planes == 7 and row_bytes == rows.shape[1] == 768
     for i in range(ng_planes):
-        np.testing.assert_array_equal(pair[:, 64 * i : 64 * i + 32], blocks[:, 32 * i : 32 * i + 32])
-    np.testing.assert_array_equal(pair[:, ms_offset : ms_offset + 32],
-                                  blocks[:, block_ms_offset : block_ms_offset + 32])
-    assert sectors(mask) == {2 * i for i in range(ng_planes)} | {ms_offset // 32}
-    assert nbytes == 256 and kernel_ab.mask_pieces(mask) == 8
+        np.testing.assert_array_equal(rows[:, 32 * i : 32 * i + 32], blocks[:, 32 * i : 32 * i + 32])
+    off = ms_offset + 4 * 32
+    np.testing.assert_array_equal(rows[:, off : off + 4], blocks[:, block_ms_offset + 128 : block_ms_offset + 132])
+    assert sectors(mask) == set(range(ng_planes)) | {off // 32}
+    assert nbytes == 256 and kernel_ab.mask_pieces(mask) == 5
     assert kernel_ab.mask_pieces(roofline.first_block_visits(AMINO, compact=True)["compact"][0]) == 4
 
 
