@@ -321,6 +321,13 @@
 //       without pair rows passes a null pair table, and each launcher
 //       refuses a table whose layout is not its form's. A narrow view's K1,
 //       K1X and K3 read the block rows in either view.
+//       The block-row steps by class: awfm_k2_block_ranges and
+//       awfm_k4_block_ngram_ranges take a pointer to two u64 counters
+//       (RowSteps: both ends in one block row; read over two). ops/kernels.py
+//       hands them one while a profiler records and null otherwise; the
+//       entry point tests it once and launches the counting instantiation
+//       (COUNT) only for a counter, so a launch with none runs the code it
+//       ran before. The pair-row forms take no counter.
 //       What bounds K4 over block rows on this card: its n-gram steps. The
 //       n = 2 rows (96 MB) lie beyond the L2, and K5's walk over their
 //       first-block sectors alone (192 B a visit) runs at 17.5G visits a
@@ -768,9 +775,10 @@ struct BlockRow {
 // row (t.packed, planes G::kStride apart, the milestones after them) and
 // every wider range over two block rows, the step the JAX package takes
 // there (ops/rank.py:backward_step over P1's rank). t.packed_pair is null
-// in such a view, so no form of it reads a pair row.
+// in such a view, so no form of it reads a pair row. Returns whether the
+// step took the first-block class (one row; over block rows, else two).
 template <class G, int NP, int GL = 1, bool PAIR = true>
-__device__ __forceinline__ void backward_step(
+__device__ __forceinline__ bool backward_step(
     const AwfmTables& t, const LetterEntry<typename G::pos_t>& e,
     typename G::pos_t& start, typename G::pos_t& end,
     const Group<GL>& grp = Group<GL>()) {
@@ -780,8 +788,9 @@ __device__ __forceinline__ void backward_step(
   // unsigned compare at the full position width (ops/rank.py:382-388,
   // ops/rank64.py:470-472)
   const pos_t delta = end - (pos_s & ~static_cast<pos_t>(255));
+  const bool first = delta < 256u;
   pos_t occ_s, occ_e;
-  if (delta < 256u) {
+  if (first) {
     // both ends in the first block: words 0-7 of each plane, one milestone
     constexpr int W = 8 / GL;
     constexpr int S = PAIR ? 64 : G::kStride;
@@ -809,7 +818,33 @@ __device__ __forceinline__ void backward_step(
   }
   start = e.c + occ_s;
   end = e.c + occ_e - 1u;
+  return first;
 }
+
+// The block-row steps of a launch by class, for the forms without pair rows
+// (COUNT): counts[0] the steps with both ends in one block row, counts[1]
+// those read over two. A lane counts its query's steps in registers (the
+// first lane of a group alone: its lanes take the same steps) and the lanes
+// of a warp still running add their sums once, by its lowest lane.
+struct RowSteps {
+  uint32_t one = 0u, two = 0u;
+
+  __device__ __forceinline__ void add(bool first, int sub) {
+    if (sub != 0) return;
+    one += first ? 1u : 0u;
+    two += first ? 0u : 1u;
+  }
+
+  __device__ __forceinline__ void flush(unsigned long long* counts) const {
+    const unsigned int lanes = __activemask();
+    const uint32_t a = __reduce_add_sync(lanes, one);
+    const uint32_t b = __reduce_add_sync(lanes, two);
+    if ((threadIdx.x & 31u) == static_cast<unsigned int>(__ffs(lanes) - 1)) {
+      atomicAdd(counts, static_cast<unsigned long long>(a));
+      atomicAdd(counts + 1, static_cast<unsigned long long>(b));
+    }
+  }
+};
 
 // K4's layout of an n-gram pair row (ops/ngram.py:_geometry_k4), from N
 // alone: the first 32 B of each of the 2N + 1 planes (block b's words 0-7)
@@ -1669,8 +1704,9 @@ k1_seed_table_kernel(AwfmTables t, int steps, typename G::pos_t* levels, uint32_
 constexpr int kK2Group = 2;  // lanes per query in K2 and K2w
 
 // GL neighbouring lanes walk one query right to left; LW as in QueryRow;
-// PAIR as in backward_step.
-template <class G, int NP, int GL, int LW, bool PAIR>
+// PAIR as in backward_step; COUNT: the steps by class into row_steps
+// (RowSteps), in a form without pair rows.
+template <class G, int NP, int GL, int LW, bool PAIR, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 k2_ranges_kernel(AwfmTables t,
                  const typename G::pos_t* __restrict__ seed_table,
@@ -1679,7 +1715,9 @@ k2_ranges_kernel(AwfmTables t,
                  const int32_t* __restrict__ lengths,
                  const uint8_t* __restrict__ seeded,
                  int64_t* __restrict__ start_out,
-                 int64_t* __restrict__ end_out) {
+                 int64_t* __restrict__ end_out,
+                 unsigned long long* __restrict__ row_steps) {
+  static_assert(!(COUNT && PAIR), "the pair-row forms count no steps");
   using pos_t = typename G::pos_t;
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
@@ -1706,10 +1744,14 @@ k2_ranges_kernel(AwfmTables t,
     next = len - 2;
   }
   const Group<GL> grp;
+  RowSteps steps;
   for (int64_t p = next; p >= 0 && start <= end; --p) {
-    backward_step<G, NP, GL, PAIR>(t, letter_entry<G>(t, row[p]), start, end, grp);
+    const bool first =
+        backward_step<G, NP, GL, PAIR>(t, letter_entry<G>(t, row[p]), start, end, grp);
+    if constexpr (COUNT) steps.add(first, grp.sub);
   }
   if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
+  if constexpr (COUNT) steps.flush(row_steps);
 }
 
 constexpr int kK3Threads = 256;
@@ -1873,8 +1915,9 @@ constexpr int kK4Group = 2;  // lanes per query
 // entry is loaded and the ranges are stored with the streaming hints
 // (.cs). PAIR: the tail steps over the pair rows, else over the block rows
 // (backward_step); the n-gram steps read the n-gram pair rows either way,
-// as the JAX package's do.
-template <int N, int NP, int LW, bool PAIR>
+// as the JAX package's do. COUNT: the tail steps by class into row_steps
+// (RowSteps), in the form over block rows.
+template <int N, int NP, int LW, bool PAIR, bool COUNT>
 __global__ void __launch_bounds__(kThreads, 2)
 k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
                        const uint32_t* __restrict__ seed_table,
@@ -1882,7 +1925,9 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
                        const uint8_t* __restrict__ mat, int64_t b,
                        int64_t l_pad, int kmer_len,
                        int64_t* __restrict__ start_out,
-                       int64_t* __restrict__ end_out) {
+                       int64_t* __restrict__ end_out,
+                       unsigned long long* __restrict__ row_steps) {
+  static_assert(!(COUNT && PAIR), "the pair-row forms count no steps");
   constexpr int GL = kK4Group;
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
@@ -1900,10 +1945,14 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
     for (int j = 0; j < N; ++j) v = v * 4u + row[m - N * (st + 1) + j];
     ngram_step<N, GL>(g, start, end, v, grp);
   }
+  RowSteps steps;
   for (int p = m % N - 1; p >= 0 && start <= end; --p) {
-    backward_step<Narrow, NP, GL, PAIR>(t, letter_entry<Narrow>(t, row[p]), start, end, grp);
+    const bool first = backward_step<Narrow, NP, GL, PAIR>(
+        t, letter_entry<Narrow>(t, row[p]), start, end, grp);
+    if constexpr (COUNT) steps.add(first, grp.sub);
   }
   if (grp.sub == 0) store_range(start_out, end_out, q, start, end);
+  if constexpr (COUNT) steps.flush(row_steps);
 }
 
 unsigned int grid_for(int64_t n) {
@@ -2258,53 +2307,59 @@ int launch_k1_seed_table(int device, const AwfmTables* t, int levels, uint8_t* s
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <class G, int NP, int LW, bool PAIR>
+template <class G, int NP, int LW, bool PAIR, bool COUNT>
 void launch_k2_form(const AwfmTables* t, const typename G::pos_t* seed_table,
                     int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                     int64_t l_pad, const int32_t* lengths,
                     const uint8_t* seeded, int64_t* start_out,
-                    int64_t* end_out, cudaStream_t stream) {
-  k2_ranges_kernel<G, NP, kK2Group, LW, PAIR>
+                    int64_t* end_out, unsigned long long* row_steps,
+                    cudaStream_t stream) {
+  k2_ranges_kernel<G, NP, kK2Group, LW, PAIR, COUNT>
       <<<grid_for(b * kK2Group), kThreads, 0, stream>>>(
           *t, seed_table, seed_rows, k, mat, b, l_pad, lengths, seeded,
-          start_out, end_out);
+          start_out, end_out, row_steps);
 }
 
-template <class G, int NP, bool PAIR>
+template <class G, int NP, bool PAIR, bool COUNT>
 void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
                       int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                       int64_t l_pad, const int32_t* lengths,
                       const uint8_t* seeded, int64_t* start_out,
-                      int64_t* end_out, cudaStream_t stream) {
+                      int64_t* end_out, unsigned long long* row_steps,
+                      cudaStream_t stream) {
   // letters in registers where the rows are whole aligned words of at most
   // 32 letters (the bench protocol's 25-mers); longer ones are not measured
   if (l_pad % 4 == 0 && l_pad <= 32 && reinterpret_cast<uintptr_t>(mat) % 4 == 0) {
-    launch_k2_form<G, NP, 8, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad,
-                                   lengths, seeded, start_out, end_out, stream);
+    launch_k2_form<G, NP, 8, PAIR, COUNT>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                                          lengths, seeded, start_out, end_out, row_steps,
+                                          stream);
   } else {
-    launch_k2_form<G, NP, 0, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad,
-                                   lengths, seeded, start_out, end_out, stream);
+    launch_k2_form<G, NP, 0, PAIR, COUNT>(t, seed_table, seed_rows, k, mat, b, l_pad,
+                                          lengths, seeded, start_out, end_out, row_steps,
+                                          stream);
   }
 }
 
 // PAIR: the form over pair rows, which needs the pair table; else the form
-// over the block rows, which needs none.
-template <class G, bool PAIR>
+// over the block rows, which needs none. COUNT: the counting instantiation
+// (RowSteps into row_steps), which a form without pair rows launches when
+// handed a counter.
+template <class G, bool PAIR, bool COUNT = false>
 int launch_k2_ranges(int device, const AwfmTables* t,
                      const typename G::pos_t* seed_table, int64_t seed_rows,
                      int k, const uint8_t* mat, int64_t b, int64_t l_pad,
                      const int32_t* lengths, const uint8_t* seeded,
                      int64_t* start_out, int64_t* end_out,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, unsigned long long* row_steps = nullptr) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!rows_fit<G>(t) || !pair_rows_fit<G, PAIR>(t)) return static_cast<int>(cudaErrorInvalidValue);
   if (t->n_planes == 3) {
-    launch_k2_planes<G, 3, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
-                                 seeded, start_out, end_out, stream);
+    launch_k2_planes<G, 3, PAIR, COUNT>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                                        seeded, start_out, end_out, row_steps, stream);
   } else if (t->n_planes == 5) {
-    launch_k2_planes<G, 5, PAIR>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
-                                 seeded, start_out, end_out, stream);
+    launch_k2_planes<G, 5, PAIR, COUNT>(t, seed_table, seed_rows, k, mat, b, l_pad, lengths,
+                                        seeded, start_out, end_out, row_steps, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2368,20 +2423,22 @@ int launch_k3_backtrace_resolve(int device, const AwfmTables* t,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int N, bool PAIR>
+template <int N, bool PAIR, bool COUNT>
 void launch_k4_letters(const AwfmTables* t, const NgramTables* g, const uint32_t* seed_table,
                        int64_t seed_rows, int k, const uint8_t* mat, int64_t b, int64_t l_pad,
                        int kmer_len, int64_t* start_out, int64_t* end_out,
-                       cudaStream_t stream) {
+                       unsigned long long* row_steps, cudaStream_t stream) {
   const unsigned int grid = grid_for(b * kK4Group);
   // letters in registers where the rows are whole aligned words of at most
   // 32 letters, as K2 takes them (launch_k2_planes)
   if (l_pad % 4 == 0 && l_pad <= 32 && reinterpret_cast<uintptr_t>(mat) % 4 == 0) {
-    k4_ngram_ranges_kernel<N, 3, 8, PAIR><<<grid, kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out);
+    k4_ngram_ranges_kernel<N, 3, 8, PAIR, COUNT><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out,
+        row_steps);
   } else {
-    k4_ngram_ranges_kernel<N, 3, 0, PAIR><<<grid, kThreads, 0, stream>>>(
-        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out);
+    k4_ngram_ranges_kernel<N, 3, 0, PAIR, COUNT><<<grid, kThreads, 0, stream>>>(
+        *t, *g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len, start_out, end_out,
+        row_steps);
   }
 }
 
@@ -2395,11 +2452,13 @@ bool ngram_rows_fit(const NgramTables* g) {
          reinterpret_cast<uintptr_t>(g->packed) % 16 == 0;
 }
 
-template <bool PAIR>
+// COUNT as in launch_k2_ranges.
+template <bool PAIR, bool COUNT = false>
 int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
               const uint32_t* seed_table, int64_t seed_rows, int k,
               const uint8_t* mat, int64_t b, int64_t l_pad, int kmer_len,
-              int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+              int64_t* start_out, int64_t* end_out, cudaStream_t stream,
+              unsigned long long* row_steps = nullptr) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (t->n_planes != 3 || !rows_fit<Narrow>(t) || !pair_rows_fit<Narrow, PAIR>(t) ||
@@ -2407,11 +2466,11 @@ int launch_k4(int device, const AwfmTables* t, const NgramTables* g,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (g->n == 2) {
-    launch_k4_letters<2, PAIR>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
-                               start_out, end_out, stream);
+    launch_k4_letters<2, PAIR, COUNT>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
+                                      start_out, end_out, row_steps, stream);
   } else if (g->n == 3) {
-    launch_k4_letters<3, PAIR>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
-                               start_out, end_out, stream);
+    launch_k4_letters<3, PAIR, COUNT>(t, g, seed_table, seed_rows, k, mat, b, l_pad, kmer_len,
+                                      start_out, end_out, row_steps, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2608,10 +2667,18 @@ int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                                         stream);
 }
 
+// row_steps: null, or the two counters of RowSteps (the block-row steps by
+// class), which the launch adds to.
 int awfm_k2_block_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                          int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                          int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
-                         int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+                         int64_t* start_out, int64_t* end_out,
+                         unsigned long long* row_steps, cudaStream_t stream) {
+  if (row_steps != nullptr) {
+    return launch_k2_ranges<Narrow, false, true>(device, t, seed_table, seed_rows, k, mat,
+                                                 b, l_pad, lengths, seeded, start_out,
+                                                 end_out, stream, row_steps);
+  }
   return launch_k2_ranges<Narrow, false>(device, t, seed_table, seed_rows, k, mat, b,
                                          l_pad, lengths, seeded, start_out, end_out,
                                          stream);
@@ -2679,11 +2746,16 @@ int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                          kmer_len, start_out, end_out, stream);
 }
 
+// row_steps as in awfm_k2_block_ranges: the tail steps by class.
 int awfm_k4_block_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                                const uint32_t* seed_table, int64_t seed_rows, int k,
                                const uint8_t* mat, int64_t b, int64_t l_pad,
                                int kmer_len, int64_t* start_out, int64_t* end_out,
-                               cudaStream_t stream) {
+                               unsigned long long* row_steps, cudaStream_t stream) {
+  if (row_steps != nullptr) {
+    return launch_k4<false, true>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
+                                  kmer_len, start_out, end_out, stream, row_steps);
+  }
   return launch_k4<false>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
                           kmer_len, start_out, end_out, stream);
 }

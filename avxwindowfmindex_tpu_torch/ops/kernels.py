@@ -34,6 +34,13 @@ span ``awfm.launch.<name>`` of the kernel's form (``_launch``;
 ``utils/metrics.span``: a ``torch.profiler`` range while a profiler
 records, else a flag check), so a trace tells the wrapper's host time
 from the launch's.
+
+The forms over block rows, ``K2_BLOCK`` and ``K4_BLOCK``'s tail, count
+their steps by class on the card while a profiler records
+(``ROW_STEPS``, ``utils/metrics.device_counts``): the steps with both
+ends in one block row and those read over two. Otherwise they are handed
+a null counter and launch the code they launched before; the pair-row
+forms take none.
 """
 
 from __future__ import annotations
@@ -173,6 +180,10 @@ K4_BLOCK = Kernel(
     "under avxwindowfmindex_tpu/search.py:1671",
     prefix="k4_block",
 )
+# the block-row steps of K2_BLOCK and K4_BLOCK's tail by class, counted on
+# the card while a profiler records (_row_steps): both ends in one block
+# row (the first-block class), read over two block rows
+ROW_STEPS = ("awfm.blockrows.one_row", "awfm.blockrows.two_rows")
 K1W_COMPACT = Kernel("k1w_rank_compact", _SRC, "avxwindowfmindex_tpu/ops/rank64.py:410",
                      prefix="k1w_compact")
 K1WX_COMPACT = Kernel(
@@ -349,13 +360,14 @@ def build() -> float:
         lib.awfm_k1w_compact_seed_table.argtypes = lib.awfm_k1_seed_table.argtypes
         lib.awfm_seed_table_scratch_bytes.argtypes = [i64, i32, i64]
         lib.awfm_seed_table_scratch_bytes.restype = i64
-        lib.awfm_k2_block_ranges.argtypes = lib.awfm_k2_ranges.argtypes
+        # the block-row forms take their step counter (null: none) before the stream
+        lib.awfm_k2_block_ranges.argtypes = [*lib.awfm_k2_ranges.argtypes[:-1], vp, vp]
         lib.awfm_k2w_compact_ranges.argtypes = lib.awfm_k2_ranges.argtypes
         lib.awfm_k4_ngram_ranges.argtypes = [
             i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
             i64, i64, i32, vp, vp, vp,
         ]
-        lib.awfm_k4_block_ngram_ranges.argtypes = lib.awfm_k4_ngram_ranges.argtypes
+        lib.awfm_k4_block_ngram_ranges.argtypes = [*lib.awfm_k4_ngram_ranges.argtypes[:-1], vp, vp]
         lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
         lib.awfm_k5_gather_walk.argtypes = [
             i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, i32, vp, vp,
@@ -564,6 +576,17 @@ def _entry(dev, kernel: Kernel, suffix: str):
     kernel = form_of(dev, kernel)
     name = f"awfm_{kernel.prefix}_{suffix}"
     return getattr(_library(), name), name, kernel
+
+
+def _row_steps(kernel: Kernel, device) -> tuple:
+    """The step counter a form over block rows takes before its stream: a
+    pointer to ``ROW_STEPS``' counts on ``device`` while a profiler
+    records (``metrics.device_counts``), else null; no argument for any
+    other form."""
+    if kernel is not K2_BLOCK and kernel is not K4_BLOCK:
+        return ()
+    counts = metrics.device_counts(ROW_STEPS, device)
+    return (None if counts is None else counts.data_ptr(),)
 
 
 def _launch(kernel: Kernel, fn, *args) -> int:
@@ -891,7 +914,7 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
         kernel, fn, device.index, ctypes.byref(tables), dev.seed_table.data_ptr(),
         int(dev.seed_table.shape[0]), int(dev.kmer_length_in_seed_table),
         mat.data_ptr(), b, l_pad, lengths.data_ptr(), seeded.data_ptr(),
-        start.data_ptr(), end.data_ptr(), _stream(device),
+        start.data_ptr(), end.data_ptr(), *_row_steps(kernel, device), _stream(device),
     )
     _check(rc, name)
     kernel.launches += 1
@@ -990,7 +1013,7 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
         kernel, fn, device.index, ctypes.byref(tables), ctypes.byref(ngt),
         dev.seed_table.data_ptr(), int(dev.seed_table.shape[0]), k,
         mat.data_ptr(), b, l_pad, int(kmer_len),
-        start.data_ptr(), end.data_ptr(), _stream(device),
+        start.data_ptr(), end.data_ptr(), *_row_steps(kernel, device), _stream(device),
     )
     _check(rc, name)
     kernel.launches += 1

@@ -817,7 +817,9 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
         regs = (kernel_registers(lib.BUILD_LOG, "k4_ngram_ranges_kernel")
                 + kernel_registers(lib.BUILD_LOG, "k4_block_ngram_ranges_kernel")
                 + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "WideCompact")
-                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "Narrow", "Lb0E")
+                # K2 over block rows: the template's fifth argument, PAIR, is 0
+                + [r for r in kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "Narrow")
+                   if r["kernel"].split(", ")[4].startswith("0")]
                 + kernel_registers(lib.BUILD_LOG, "k3_per_hit_kernel", "WideCompact"))
         # a library built by an earlier process of the same checkout leaves no report
         print(json.dumps({"case": "registers", "checkout": name, "built_here": bool(lib.BUILD_LOG),

@@ -3,9 +3,10 @@ and timers, and named spans on the device path.
 
 Copied from ``avxwindowfmindex_tpu/utils/metrics.py``. Counters and
 timers are updated from the host-driven layers only (the engine entry
-points), never inside a kernel. The one difference: the JAX package
-reads ``AWFM_METRICS`` from the environment on every update; here the
-switch is :func:`set_enabled`.
+points). The differences: the JAX package reads ``AWFM_METRICS`` from the
+environment on every update, here the switch is :func:`set_enabled`; and
+the port's device counters (:func:`device_counts`), which a kernel adds
+to on the card while a profiler records and :func:`snapshot` reads.
 
 Spans (:func:`span`) are the port's own: ``torch.profiler`` ranges named
 ``awfm.<name>`` around the batched search functions of the device path
@@ -23,7 +24,7 @@ Usage:
         ...
     with metrics.span("ranges"):  # "awfm.ranges" under a profiler
         ...
-    metrics.snapshot()  # -> {"search.queries": 1024, ...}
+    metrics.snapshot()  # -> {"search.queries": 1024, ...} (and the device counters)
     metrics.set_enabled(False)  # every update becomes a no-op, every span null
 """
 
@@ -32,7 +33,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager, nullcontext
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +46,7 @@ except ImportError:  # a torch without the flag: every span is entered
 
 _lock = threading.Lock()
 _counters: Dict[str, float] = {}
+_device: Dict[tuple, torch.Tensor] = {}  # (names, device) -> its int64 counts there
 _on = True
 _NULL = nullcontext()
 
@@ -102,12 +104,36 @@ def span(name: str):
     return _NULL
 
 
-def snapshot() -> Dict[str, float]:
-    """Point-in-time copy of every metric."""
+def device_counts(names: Tuple[str, ...], device) -> Optional[torch.Tensor]:
+    """The (len(names),) int64 tensor on ``device`` that a kernel adds the
+    counts ``names`` to, made zero at first use, while a profiler records
+    in the process and the registry is on, as :func:`span` is gated; else
+    None, and the kernel is handed a null pointer. :func:`snapshot` reads
+    it, with one sync."""
+    if not (_on and _profiling()):
+        return None
     with _lock:
-        return dict(_counters)
+        counts = _device.get((names, device))
+        if counts is None:
+            counts = _device[(names, device)] = torch.zeros(len(names), dtype=torch.int64,
+                                                            device=device)
+    return counts
+
+
+def snapshot() -> Dict[str, float]:
+    """Point-in-time copy of every metric; the device counters summed over
+    their devices, each tensor read back once (a sync: never call it
+    inside a request)."""
+    with _lock:
+        out = dict(_counters)
+        device = list(_device.items())
+    for (names, _), counts in device:
+        for name, value in zip(names, counts.tolist()):
+            out[name] = out.get(name, 0) + value
+    return out
 
 
 def reset() -> None:
     with _lock:
         _counters.clear()
+        _device.clear()
