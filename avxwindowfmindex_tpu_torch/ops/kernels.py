@@ -11,31 +11,36 @@ each is compiled to an object, all at once, with
 
 and the objects are linked (``nvcc -shared``) into
 ``avxwindowfmindex_tpu_torch/build/kernels/<hash of the sources>/``
-(ignored by git); the shared library is loaded with ctypes. Each C
-entry point launches on PyTorch's current stream and returns
-``cudaGetLastError()``; the launchers below raise when it is nonzero.
-The one exception is ``awfm_read_back``: K1's single-query modes
+(ignored by git); the shared library is loaded with ctypes, and each C
+entry point takes its signature from ``_SIGNATURES``, the one list of
+them. Each entry point launches on PyTorch's current stream and returns
+``cudaGetLastError()``, but ``awfm_read_back``: K1's single-query modes
 (``k1_step``, ``k1_lf_at``) return their 16 B result through it, a copy
 to pinned host memory on the current stream and that stream's
 synchronisation, so such a call is one launch and one readback with the
-checked tables and the buffers kept per view (``_view_state``).
-Nothing here falls back to the plain torch versions: those are chosen
-by the dispatch wrappers (``ops/rank.py``, ``search.py``,
-``ops/probes.py``) only for tensors that lie on the CPU.
+buffers kept per view. Nothing here falls back to the plain torch
+versions: those are chosen by the dispatch wrappers (``ops/rank.py``,
+``search.py``, ``ops/probes.py``) only for tensors that lie on the CPU.
+
+Every launcher reads its view's tables through ``_view_state``: they are
+checked once per view (``_tables``) and built again only when a tensor
+they point into or the layout changes; what a call brings with it
+(queries, positions, the seed table, the sampled SA, the n-gram rows) is
+checked at each call. Every launch goes through ``_launch``, which runs
+the C call, and nothing else of its wrapper, inside the span
+``awfm.launch.<name>`` of the kernel's form (``utils/metrics.span``: a
+``torch.profiler`` range while a profiler records, else a flag check), so
+a trace tells the wrapper's host time from the launch's; then raises,
+naming the entry point, when the return code is nonzero; then counts the
+launch.
 
 Each kernel keeps a plain integer count of its launches
-(``K1.launches`` ...), incremented right after a launch and nowhere
-else, so a run can show that its main path went through the kernels;
-K1's forms also count by mode (``K1.modes``: occ, letter_lf, step,
-lf_at; ``launch_counts``), K1X's forms their BFS mode (``bfs``:
+(``K1.launches`` ...), incremented by ``_launch`` and nowhere else, so a
+run can show that its main path went through the kernels; K1's forms
+also count by mode (``K1.modes``: occ, letter_lf, step, lf_at;
+``launch_counts``), K1X's forms their BFS mode (``bfs``:
 ``k1_seed_table``, the seed table's shallow depths or all of them in one
 launch), and K7 its two launches (``scan``, ``write``).
-
-Each launch's C call, and nothing else of its wrapper, runs inside the
-span ``awfm.launch.<name>`` of the kernel's form (``_launch``;
-``utils/metrics.span``: a ``torch.profiler`` range while a profiler
-records, else a flag check), so a trace tells the wrapper's host time
-from the launch's.
 
 The forms over block rows, ``K2_BLOCK`` and ``K4_BLOCK``'s tail, count
 their steps by class on the card while a profiler records
@@ -76,6 +81,9 @@ NVCC_FLAGS = [
 ]
 
 
+KERNELS = []  # every Kernel, in the order declared (``launch_counts``)
+
+
 class Kernel:
     """One hand-written kernel: its name, where it lives, what TPU code
     it replaces, and how many times it was launched. ``prefix`` names its
@@ -92,11 +100,13 @@ class Kernel:
         # K1's forms: launches by mode ("occ", "letter_lf", "step", "lf_at");
         # K1X's: the BFS mode ("bfs"); K7's: "scan", "write"
         self.modes = {}
+        KERNELS.append(self)
 
-    def count(self, mode: str) -> None:
-        """One launch in ``mode``: the total and the mode's count."""
+    def count(self, mode: Optional[str] = None) -> None:
+        """One launch: the total and, when given, ``mode``'s count."""
         self.launches += 1
-        self.modes[mode] = self.modes.get(mode, 0) + 1
+        if mode is not None:
+            self.modes[mode] = self.modes.get(mode, 0) + 1
 
 
 K1 = Kernel(
@@ -204,8 +214,6 @@ K7 = Kernel(
     "k7_enumerate", "avxwindowfmindex_tpu_torch/csrc/awfm_enumerate.cu",
     "avxwindowfmindex_tpu/search.py:1080",
 )
-KERNELS = (K1, K2, K3, K4, K5, K6, K1W, K2W, K3W, K1X, K1WX, K1R, K1RW, K1R_ROUTE,
-           K2_BLOCK, K4_BLOCK, K1W_COMPACT, K1WX_COMPACT, K2W_COMPACT, K3W_COMPACT, K7)
 # the form of a kernel a view takes: by its width, then, without pair
 # rows, by its layout (a narrow view's K1, K1X and K3 read its block rows
 # either way)
@@ -259,6 +267,54 @@ class _NgramTables(ctypes.Structure):
         ("n", ctypes.c_int32),
         ("biased", ctypes.c_int32),
     ]
+
+
+# The C signature of every entry point of csrc/*.cu, set by ``build``: its
+# argtypes, or (argtypes, restype) where it returns something other than a
+# CUDA error code (c_int).
+_vp, _i64, _i32, _u32, _u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_uint32, ctypes.c_uint64)
+_tp = ctypes.POINTER(_Tables)
+_OCC = [_i32, _tp, _vp, _vp, _i64, _vp, _vp]
+_LETTER_LF = [_i32, _tp, _vp, _i64, _vp, _vp, _vp]
+_STEP = [_i32, _tp, _u64, _u64, _u32, _vp, _vp]
+_LF_AT = [_i32, _tp, _u64, _vp, _vp]
+_EXTEND = [_i32, _tp, _vp, _i64, _vp, _vp]
+_SEED_TABLE = [_i32, _tp, _i32, _vp, _i64, _vp, _vp]
+_K1R = [_i32, _tp, _i32, _vp, _vp, _vp, _i32, _i64, _i64, _vp, _vp, _vp]
+_K2 = [_i32, _tp, _vp, _i64, _i32, _vp, _i64, _i64, _vp, _vp, _vp, _vp, _vp]
+_K3W = [_i32, _tp, _vp, _i64, _u64, _u64, _vp, _vp, _vp, _vp, _vp]
+_K4 = [_i32, _tp, ctypes.POINTER(_NgramTables), _vp, _i64, _i32, _vp, _i64, _i64, _i32,
+       _vp, _vp, _vp]
+_SIGNATURES = {
+    "awfm_k1_occ": _OCC, "awfm_k1w_occ": _OCC, "awfm_k1w_compact_occ": _OCC,
+    "awfm_k1_letter_lf": _LETTER_LF, "awfm_k1w_letter_lf": _LETTER_LF,
+    "awfm_k1w_compact_letter_lf": _LETTER_LF,
+    "awfm_k1_step": _STEP, "awfm_k1w_step": _STEP, "awfm_k1w_compact_step": _STEP,
+    "awfm_k1_lf_at": _LF_AT, "awfm_k1w_lf_at": _LF_AT, "awfm_k1w_compact_lf_at": _LF_AT,
+    "awfm_read_back": [_i32, _vp, _vp, _i64, _vp],
+    "awfm_empty": [_i32, _vp],
+    "awfm_k1_extend": _EXTEND, "awfm_k1w_extend": _EXTEND, "awfm_k1w_compact_extend": _EXTEND,
+    "awfm_k1_seed_table": _SEED_TABLE, "awfm_k1w_seed_table": _SEED_TABLE,
+    "awfm_k1w_compact_seed_table": _SEED_TABLE,
+    "awfm_seed_table_scratch_bytes": ([_i64, _i32, _i64], _i64),
+    "awfm_k1r_route": [_i32, _i32, _vp, _i64, _i32, _i32, _u64, _i64, _vp, _vp, _vp, _vp, _vp,
+                       _vp, _vp],
+    "awfm_k1r_occ": _K1R, "awfm_k1r_lf": _K1R, "awfm_k1rw_occ": _K1R, "awfm_k1rw_lf": _K1R,
+    # the block-row forms take their step counter (null: none) before the stream
+    "awfm_k2_ranges": _K2, "awfm_k2w_ranges": _K2, "awfm_k2w_compact_ranges": _K2,
+    "awfm_k2_block_ranges": [*_K2[:-1], _vp, _vp],
+    "awfm_k3_backtrace_resolve": [_i32, _tp, _vp, _i64, _u32, _u32, _vp, _vp, _vp, _vp, _vp],
+    "awfm_k3w_backtrace_resolve": _K3W, "awfm_k3w_compact_backtrace_resolve": _K3W,
+    "awfm_k4_ngram_ranges": _K4, "awfm_k4_block_ngram_ranges": [*_K4[:-1], _vp, _vp],
+    "awfm_k5_gather_reduce": [_i32, _vp, _i64, _i32, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
+    "awfm_k5_gather_walk": [_i32, _vp, _i64, _i32, _vp, _i64, _i32, _u32, _i32, _vp, _vp],
+    "awfm_k6_slab_gather": [_i32, _vp, _i64, _vp, _i64, _vp, _vp],
+    "awfm_k6_slab_chain": [_i32, _vp, _i64, _vp, _i64, _i32, _vp, _vp],
+    "awfm_k7_scratch_words": ([_i64], _i64),
+    "awfm_k7_enumerate": [_i32, _i32, _vp, _vp, _i64, _i64, _vp, _vp, _vp, _vp, _vp],
+    "awfm_error_string": ([_i32], ctypes.c_char_p),
+}
 
 
 _lock = threading.Lock()
@@ -324,86 +380,9 @@ def build() -> float:
                     raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{BUILD_LOG}")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
-        tables_p = ctypes.POINTER(_Tables)
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.awfm_k1_occ.argtypes = [i32, tables_p, vp, vp, i64, vp, vp]
-        lib.awfm_k1_letter_lf.argtypes = [i32, tables_p, vp, i64, vp, vp, vp]
-        lib.awfm_k1_step.argtypes = [
-            i32, tables_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, vp, vp,
-        ]
-        lib.awfm_k1_lf_at.argtypes = [i32, tables_p, ctypes.c_uint64, vp, vp]
-        lib.awfm_read_back.argtypes = [i32, vp, vp, i64, vp]
-        lib.awfm_empty.argtypes = [i32, vp]
-        lib.awfm_k1_extend.argtypes = [i32, tables_p, vp, i64, vp, vp]
-        lib.awfm_k1r_route.argtypes = [
-            i32, i32, vp, i64, i32, i32, ctypes.c_uint64, i64, vp, vp, vp, vp, vp, vp, vp,
-        ]
-        lib.awfm_k1r_occ.argtypes = [i32, tables_p, i32, vp, vp, vp, i32, i64, i64, vp, vp, vp]
-        lib.awfm_k1r_lf.argtypes = lib.awfm_k1r_occ.argtypes
-        lib.awfm_k1rw_occ.argtypes = lib.awfm_k1r_occ.argtypes
-        lib.awfm_k1rw_lf.argtypes = lib.awfm_k1r_occ.argtypes
-        lib.awfm_k2_ranges.argtypes = [
-            i32, tables_p, vp, i64, i32, vp, i64, i64, vp, vp, vp, vp, vp,
-        ]
-        lib.awfm_k3_backtrace_resolve.argtypes = [
-            i32, tables_p, vp, i64, ctypes.c_uint32, ctypes.c_uint32, vp,
-            vp, vp, vp, vp,
-        ]
-        u64 = ctypes.c_uint64
-        lib.awfm_k1w_occ.argtypes = lib.awfm_k1_occ.argtypes
-        lib.awfm_k1w_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
-        lib.awfm_k1w_extend.argtypes = lib.awfm_k1_extend.argtypes
-        lib.awfm_k2w_ranges.argtypes = lib.awfm_k2_ranges.argtypes
-        lib.awfm_k3w_backtrace_resolve.argtypes = [
-            i32, tables_p, vp, i64, u64, u64, vp, vp, vp, vp, vp,
-        ]
-        lib.awfm_k3w_compact_backtrace_resolve.argtypes = lib.awfm_k3w_backtrace_resolve.argtypes
-        lib.awfm_k1w_compact_occ.argtypes = lib.awfm_k1_occ.argtypes
-        lib.awfm_k1w_compact_letter_lf.argtypes = lib.awfm_k1_letter_lf.argtypes
-        for form in ("k1w", "k1w_compact"):
-            getattr(lib, f"awfm_{form}_step").argtypes = lib.awfm_k1_step.argtypes
-            getattr(lib, f"awfm_{form}_lf_at").argtypes = lib.awfm_k1_lf_at.argtypes
-        lib.awfm_k1w_compact_extend.argtypes = lib.awfm_k1_extend.argtypes
-        lib.awfm_k1_seed_table.argtypes = [i32, tables_p, i32, vp, i64, vp, vp]
-        lib.awfm_k1w_seed_table.argtypes = lib.awfm_k1_seed_table.argtypes
-        lib.awfm_k1w_compact_seed_table.argtypes = lib.awfm_k1_seed_table.argtypes
-        lib.awfm_seed_table_scratch_bytes.argtypes = [i64, i32, i64]
-        lib.awfm_seed_table_scratch_bytes.restype = i64
-        # the block-row forms take their step counter (null: none) before the stream
-        lib.awfm_k2_block_ranges.argtypes = [*lib.awfm_k2_ranges.argtypes[:-1], vp, vp]
-        lib.awfm_k2w_compact_ranges.argtypes = lib.awfm_k2_ranges.argtypes
-        lib.awfm_k4_ngram_ranges.argtypes = [
-            i32, tables_p, ctypes.POINTER(_NgramTables), vp, i64, i32, vp,
-            i64, i64, i32, vp, vp, vp,
-        ]
-        lib.awfm_k4_block_ngram_ranges.argtypes = [*lib.awfm_k4_ngram_ranges.argtypes[:-1], vp, vp]
-        lib.awfm_k5_gather_reduce.argtypes = [i32, vp, i64, i32, vp, i64, i32, i32, i32, vp, vp]
-        lib.awfm_k5_gather_walk.argtypes = [
-            i32, vp, i64, i32, vp, i64, i32, ctypes.c_uint32, i32, vp, vp,
-        ]
-        lib.awfm_k6_slab_gather.argtypes = [i32, vp, i64, vp, i64, vp, vp]
-        lib.awfm_k6_slab_chain.argtypes = [i32, vp, i64, vp, i64, i32, vp, vp]
-        lib.awfm_k7_scratch_words.argtypes = [i64]
-        lib.awfm_k7_scratch_words.restype = i64
-        lib.awfm_k7_enumerate.argtypes = [i32, i32, vp, vp, i64, i64, vp, vp, vp, vp, vp]
-        for fn in (
-            lib.awfm_k1_occ, lib.awfm_k1_letter_lf, lib.awfm_k1_extend, lib.awfm_k2_ranges,
-            lib.awfm_k3_backtrace_resolve, lib.awfm_k4_ngram_ranges,
-            lib.awfm_k1w_occ, lib.awfm_k1w_letter_lf, lib.awfm_k1w_extend, lib.awfm_k2w_ranges,
-            lib.awfm_k3w_backtrace_resolve, lib.awfm_k3w_compact_backtrace_resolve,
-            lib.awfm_k1w_compact_occ, lib.awfm_k1w_compact_letter_lf, lib.awfm_k1w_compact_extend,
-            lib.awfm_k1_seed_table, lib.awfm_k1w_seed_table, lib.awfm_k1w_compact_seed_table,
-            lib.awfm_k2_block_ranges, lib.awfm_k2w_compact_ranges, lib.awfm_k4_block_ngram_ranges,
-            lib.awfm_k1r_route, lib.awfm_k1r_occ, lib.awfm_k1r_lf, lib.awfm_k1rw_occ,
-            lib.awfm_k1rw_lf, lib.awfm_k1_step, lib.awfm_k1w_step, lib.awfm_k1w_compact_step,
-            lib.awfm_k1_lf_at, lib.awfm_k1w_lf_at, lib.awfm_k1w_compact_lf_at,
-            lib.awfm_read_back, lib.awfm_empty,
-            lib.awfm_k5_gather_reduce, lib.awfm_k5_gather_walk,
-            lib.awfm_k6_slab_gather, lib.awfm_k6_slab_chain, lib.awfm_k7_enumerate,
-        ):
-            fn.restype = ctypes.c_int
-        lib.awfm_error_string.argtypes = [ctypes.c_int]
-        lib.awfm_error_string.restype = ctypes.c_char_p
+        for name, sig in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
         _lib = lib
     return time.time() - t0
 
@@ -582,12 +561,11 @@ def form_of(dev, kernel: Kernel) -> Kernel:
 
 
 def _entry(dev, kernel: Kernel, suffix: str):
-    """(C entry point, its name, its Kernel) of the view's form of
-    ``kernel`` (:func:`form_of`): ``awfm_k1_occ`` and K1, ``awfm_k1w_occ``
-    and K1W, ``awfm_k2_block_ranges`` and K2_BLOCK ..."""
+    """(C entry point, its Kernel) of the view's form of ``kernel``
+    (:func:`form_of`): ``awfm_k1_occ`` and K1, ``awfm_k1w_occ`` and K1W,
+    ``awfm_k2_block_ranges`` and K2_BLOCK ..."""
     kernel = form_of(dev, kernel)
-    name = f"awfm_{kernel.prefix}_{suffix}"
-    return getattr(_library(), name), name, kernel
+    return getattr(_library(), f"awfm_{kernel.prefix}_{suffix}"), kernel
 
 
 def _row_steps(kernel: Kernel, device) -> tuple:
@@ -601,11 +579,16 @@ def _row_steps(kernel: Kernel, device) -> tuple:
     return (None if counts is None else counts.data_ptr(),)
 
 
-def _launch(kernel: Kernel, fn, *args) -> int:
+def _launch(kernel: Kernel, fn, *args, modes=(None,)) -> None:
     """``fn(*args)``, a C entry point of ``kernel`` (a form's), inside the
-    span ``awfm.launch.<kernel.name>``; its return code."""
+    span ``awfm.launch.<kernel.name>``; raises, naming the entry, when its
+    return code is nonzero, then counts one launch of ``kernel`` for each
+    of ``modes`` (None: the total alone; empty: no launch)."""
     with metrics.span(kernel.span):
-        return fn(*args)
+        rc = fn(*args)
+    _check(rc, fn.__name__)
+    for mode in modes:
+        kernel.count(mode)
 
 
 def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.Tensor:
@@ -621,13 +604,9 @@ def k1_occurrence(dev, positions: torch.Tensor, letters: torch.Tensor) -> torch.
     out = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return out
-    fn, name, kernel = state.entry(dev, "occ")
-    rc = _launch(
-        kernel, fn, device.index, state.ref, positions.data_ptr(),
-        letters.data_ptr(), n, out.data_ptr(), _stream(device),
-    )
-    _check(rc, name)
-    kernel.count("occ")
+    fn, kernel = state.entry(dev, "occ")
+    _launch(kernel, fn, device.index, state.ref, positions.data_ptr(), letters.data_ptr(), n,
+            out.data_ptr(), _stream(device), modes=("occ",))
     return out
 
 
@@ -644,13 +623,9 @@ def k1_letter_and_lf(dev, positions: torch.Tensor):
     lf = torch.empty(n, dtype=torch.int64, device=device)
     if n == 0:
         return letters, lf
-    fn, name, kernel = state.entry(dev, "letter_lf")
-    rc = _launch(
-        kernel, fn, device.index, state.ref, positions.data_ptr(), n,
-        letters.data_ptr(), lf.data_ptr(), _stream(device),
-    )
-    _check(rc, name)
-    kernel.count("letter_lf")
+    fn, kernel = state.entry(dev, "letter_lf")
+    _launch(kernel, fn, device.index, state.ref, positions.data_ptr(), n, letters.data_ptr(),
+            lf.data_ptr(), _stream(device), modes=("letter_lf",))
     return letters, lf
 
 
@@ -662,12 +637,11 @@ def _single(dev, suffix: str, *args):
     (``_tables``) before anything is built."""
     state = _view_state(dev)
     device = dev.packed.device
-    fn, name, kernel = state.entry(dev, suffix)
+    fn, kernel = state.entry(dev, suffix)
     with state.lock:
         out, host, words = state.buffers(device)
         stream = _stream(device)
-        _check(_launch(kernel, fn, device.index, state.ref, *args, out, stream), name)
-        kernel.count(suffix)
+        _launch(kernel, fn, device.index, state.ref, *args, out, stream, modes=(suffix,))
         _check(_library().awfm_read_back(device.index, host, out, 16, stream), "awfm_read_back")
         return words[0], words[1]
 
@@ -757,14 +731,11 @@ def k1r_route(positions: torch.Tensor, out: torch.Tensor, n_shards: int,
     letters_p = _optional(letters, "letters", torch.int32, device, n)
     slot_pos = torch.empty(n, dtype=torch.int64, device=device)
     slot_lane = torch.empty(n, dtype=torch.int32, device=device)
-    rc = _launch(
-        K1R_ROUTE, _library().awfm_k1r_route,
-        device.index, int(bool(wide)), positions.data_ptr(), n, int(n_shards),
-        int(blocks_per_shard), int(ratio), int(unowned), out_p, off_p, letters_p,
-        slot_pos.data_ptr(), slot_lane.data_ptr(), counts.data_ptr(), _stream(device))
-    _check(rc, "awfm_k1r_route")
-    if n:
-        K1R_ROUTE.launches += 1
+    _launch(K1R_ROUTE, _library().awfm_k1r_route,
+            device.index, int(bool(wide)), positions.data_ptr(), n, int(n_shards),
+            int(blocks_per_shard), int(ratio), int(unowned), out_p, off_p, letters_p,
+            slot_pos.data_ptr(), slot_lane.data_ptr(), counts.data_ptr(), _stream(device),
+            modes=(None,) if n else ())
     return slot_pos, slot_lane
 
 
@@ -800,7 +771,7 @@ def k1r_occurrence(dev, first_block: int, slot_pos: torch.Tensor,
     ..``. For a slice copied to the shard's device (``slot_lane`` and
     ``counts`` None), entry j takes ``letters[j]`` and goes to ``out[j]``.
     ``letters`` and ``out`` have ``slot_pos``'s shape."""
-    tables = _view_state(dev, shard=True).tables
+    state = _view_state(dev, shard=True)
     device = dev.packed.device
     first_block = _first_block(dev, first_block)
     lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)
@@ -809,12 +780,9 @@ def k1r_occurrence(dev, first_block: int, slot_pos: torch.Tensor,
     _optional(out, "out", torch.int64, device, n)
     if n == 0:
         return
-    fn, name, kernel = _entry(dev, K1R, "occ")
-    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), first_block,
-                 slot_pos.data_ptr(), lane_p, counts_p, shard, count, n,
-                 letters.data_ptr(), out.data_ptr(), _stream(device))
-    _check(rc, name)
-    kernel.launches += 1
+    fn, kernel = _entry(dev, K1R, "occ")
+    _launch(kernel, fn, device.index, state.ref, first_block, slot_pos.data_ptr(), lane_p,
+            counts_p, shard, count, n, letters.data_ptr(), out.data_ptr(), _stream(device))
 
 
 def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[torch.Tensor],
@@ -825,7 +793,7 @@ def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[to
     letter), pos) - 1 wrapped to the width, the sentinel -> 0) and
     ``letters[lane]`` = l when given. Lanes and copied slices as
     ``k1r_occurrence``."""
-    tables = _view_state(dev, shard=True).tables
+    state = _view_state(dev, shard=True)
     device = dev.packed.device
     first_block = _first_block(dev, first_block)
     lane_p, counts_p, shard, count = _slice(dev, slot_pos, slot_lane, counts, shard, count)
@@ -834,12 +802,9 @@ def k1r_lf(dev, first_block: int, slot_pos: torch.Tensor, slot_lane: Optional[to
     letters_p = _optional(letters, "letters", torch.int32, device, n)
     if n == 0:
         return
-    fn, name, kernel = _entry(dev, K1R, "lf")
-    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), first_block,
-                 slot_pos.data_ptr(), lane_p, counts_p, shard, count, n,
-                 p.data_ptr(), letters_p, _stream(device))
-    _check(rc, name)
-    kernel.launches += 1
+    fn, kernel = _entry(dev, K1R, "lf")
+    _launch(kernel, fn, device.index, state.ref, first_block, slot_pos.data_ptr(), lane_p,
+            counts_p, shard, count, n, p.data_ptr(), letters_p, _stream(device))
 
 
 def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
@@ -847,7 +812,7 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
     (card * n, 2) children of the (n, 2) parent ranges ``table``, in the
     view's storage type (u32 in int32, u64 in int64): child ``l * n + i``
     is parent i stepped by letter l, unconditionally."""
-    tables = _view_state(dev).tables
+    state = _view_state(dev)
     device = dev.packed.device
     _require(table, "table", _pos_dtype(dev), device)
     if table.dim() != 2 or table.shape[1] != 2:
@@ -862,11 +827,9 @@ def k1_extend(dev, table: torch.Tensor) -> torch.Tensor:
     nxt = torch.empty((card * n, 2), dtype=table.dtype, device=device)
     if n == 0:
         return nxt
-    fn, name, kernel = _entry(dev, K1X, "extend")
-    rc = _launch(kernel, fn, device.index, ctypes.byref(tables), table.data_ptr(), n,
-                 nxt.data_ptr(), _stream(device))
-    _check(rc, name)
-    kernel.launches += 1
+    fn, kernel = _entry(dev, K1X, "extend")
+    _launch(kernel, fn, device.index, state.ref, table.data_ptr(), n, nxt.data_ptr(),
+            _stream(device))
     return nxt
 
 
@@ -891,14 +854,12 @@ def k1_seed_table(dev, levels: int) -> torch.Tensor:
     if levels < 1 or card**levels >= 2**31:
         raise ValueError(f"need 1 <= levels and card**levels < 2^31, got levels={levels}")
     out = torch.empty((card**levels, 2), dtype=_pos_dtype(dev), device=device)
-    fn, name, kernel = _entry(dev, K1X, "seed_table")
+    fn, kernel = _entry(dev, K1X, "seed_table")
     nbytes = _library().awfm_seed_table_scratch_bytes(card, levels, out.element_size())
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
-    rc = _launch(kernel, fn, device.index, state.ref, int(levels),
-                 None if scratch is None else scratch.data_ptr(), nbytes, out.data_ptr(),
-                 _stream(device))
-    _check(rc, name)
-    kernel.count("bfs")
+    _launch(kernel, fn, device.index, state.ref, int(levels),
+            None if scratch is None else scratch.data_ptr(), nbytes, out.data_ptr(),
+            _stream(device), modes=("bfs",))
     return out
 
 
@@ -906,7 +867,7 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
     """K2: final (start, end) BWT ranges, (b,) int64 each, as u32; K2w
     for a wide view, as u64; over block rows (compact wide rows) for a
     view without pair rows."""
-    tables = _tables(dev)
+    state = _view_state(dev)
     device = dev.packed.device
     _require(dev.seed_table, "seed_table", _pos_dtype(dev), device)
     if dev.seed_table.dim() != 2 or dev.seed_table.shape[1] != 2:
@@ -921,15 +882,13 @@ def k2_ranges(dev, mat: torch.Tensor, lengths: torch.Tensor, seeded: torch.Tenso
     end = torch.empty(b, dtype=torch.int64, device=device)
     if b == 0:
         return start, end
-    fn, name, kernel = _entry(dev, K2, "ranges")
-    rc = _launch(
-        kernel, fn, device.index, ctypes.byref(tables), dev.seed_table.data_ptr(),
+    fn, kernel = _entry(dev, K2, "ranges")
+    _launch(
+        kernel, fn, device.index, state.ref, dev.seed_table.data_ptr(),
         int(dev.seed_table.shape[0]), int(dev.kmer_length_in_seed_table),
         mat.data_ptr(), b, l_pad, lengths.data_ptr(), seeded.data_ptr(),
         start.data_ptr(), end.data_ptr(), *_row_steps(kernel, device), _stream(device),
     )
-    _check(rc, name)
-    kernel.launches += 1
     return start, end
 
 
@@ -937,14 +896,10 @@ def k3_backtrace_resolve(dev, positions: torch.Tensor):
     """K3 (K3w for a wide view, over compact rows for a view without pair
     rows): hits (n,) int64 when the sampled SA is resident, else the
     sampled positions and walk offsets ((n,) int64 each), each at its
-    hit's own index whatever lane walked it."""
-    return _backtrace(dev, positions, _tables(dev), lambda: _entry(dev, K3, "backtrace_resolve"))
-
-
-def _backtrace(dev, positions: torch.Tensor, tables, entry):
-    """K3's launch; ``entry()`` gives (C entry point, its name, its
-    Kernel), asked for only after the tensors are checked, so a CPU
-    tensor is refused before any build."""
+    hit's own index whatever lane walked it. The C entry is looked up
+    only after the tensors are checked, so a CPU tensor is refused before
+    any build."""
+    state = _view_state(dev)
     device = dev.packed.device
     _require(positions, "positions", torch.int64, device)
     if positions.dim() != 1:
@@ -964,9 +919,9 @@ def _backtrace(dev, positions: torch.Tensor, tables, entry):
         return (p, off) if on_disk else hits
     if dev.ratio < 1 or (not dev.wide and dev.bwt_length >= 2**32):
         raise ValueError("need ratio >= 1, and a wide view for bwtLength >= 2^32")
-    fn, name, kernel = entry()
-    rc = _launch(
-        kernel, fn, device.index, ctypes.byref(tables), positions.data_ptr(), n,
+    fn, kernel = _entry(dev, K3, "backtrace_resolve")
+    _launch(
+        kernel, fn, device.index, state.ref, positions.data_ptr(), n,
         int(dev.ratio), int(dev.bwt_length),
         None if on_disk else dev.sampled_sa.data_ptr(),
         None if on_disk else hits.data_ptr(),
@@ -974,8 +929,6 @@ def _backtrace(dev, positions: torch.Tensor, tables, entry):
         off.data_ptr() if on_disk else None,
         _stream(device),
     )
-    _check(rc, name)
-    kernel.launches += 1
     return (p, off) if on_disk else hits
 
 
@@ -1005,13 +958,10 @@ def k7_enumerate(start: torch.Tensor, end: torch.Tensor, capacity: int, wide: bo
     lib = _library()
     scratch = (torch.empty(lib.awfm_k7_scratch_words(n), dtype=torch.int32, device=device)
                if n else None)
-    rc = _launch(K7, lib.awfm_k7_enumerate, device.index, int(bool(wide)), start.data_ptr(),
-                 end.data_ptr(), n, int(capacity), None if scratch is None else scratch.data_ptr(),
-                 pos.data_ptr(), qid.data_ptr(), mask.data_ptr(), _stream(device))
-    _check(rc, "awfm_k7_enumerate")
-    if n:
-        K7.count("scan")
-    K7.count("write")
+    _launch(K7, lib.awfm_k7_enumerate, device.index, int(bool(wide)), start.data_ptr(),
+            end.data_ptr(), n, int(capacity), None if scratch is None else scratch.data_ptr(),
+            pos.data_ptr(), qid.data_ptr(), mask.data_ptr(), _stream(device),
+            modes=("scan", "write") if n else ("write",))
     return pos, qid, mask
 
 
@@ -1023,7 +973,7 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
     index without it is refused."""
     if dev.wide:
         raise ValueError("K4 takes narrow views only")
-    tables = _tables(dev)
+    state = _view_state(dev)
     device = dev.packed.device
     _require(dev.seed_table, "seed_table", torch.int32, device)
     if ng.n not in (2, 3) or ng.cn.shape != (4**ng.n,):
@@ -1056,15 +1006,13 @@ def k4_ngram_ranges(dev, ng, mat: torch.Tensor, kmer_len: int):
         nb=int(rows.shape[0]), row_bytes=int(rows.shape[1]),
         n=int(ng.n), biased=int(bool(ng.biased)),
     )
-    fn, name, kernel = _entry(dev, K4, "ngram_ranges")
-    rc = _launch(
-        kernel, fn, device.index, ctypes.byref(tables), ctypes.byref(ngt),
+    fn, kernel = _entry(dev, K4, "ngram_ranges")
+    _launch(
+        kernel, fn, device.index, state.ref, ctypes.byref(ngt),
         dev.seed_table.data_ptr(), int(dev.seed_table.shape[0]), k,
         mat.data_ptr(), b, l_pad, int(kmer_len),
         start.data_ptr(), end.data_ptr(), *_row_steps(kernel, device), _stream(device),
     )
-    _check(rc, name)
-    kernel.launches += 1
     return start, end
 
 
@@ -1106,14 +1054,12 @@ def k5_gather_reduce(table: torch.Tensor, idx: torch.Tensor, sum_bytes: int,
     out = torch.empty((n + chunk - 1) // chunk, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _launch(
+    _launch(
         K5, _library().awfm_k5_gather_reduce,
         device.index, table.data_ptr(), int(table.shape[0]), row_bytes,
         idx.data_ptr(), n, int(sum_bytes), int(chunk), int(ring),
         out.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k5_gather_reduce")
-    K5.launches += 1
     return out
 
 
@@ -1131,14 +1077,12 @@ def k5_gather_walk(table: torch.Tensor, idx: torch.Tensor, seg: int,
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _launch(
+    _launch(
         K5, _library().awfm_k5_gather_walk,
         device.index, table.data_ptr(), int(table.shape[0]), int(table.shape[1]),
         idx.data_ptr(), n, int(seg), int(sector_mask), int(lanes), out.data_ptr(),
         _stream(device),
     )
-    _check(rc, "awfm_k5_gather_walk")
-    K5.launches += 1
     return out
 
 
@@ -1157,13 +1101,11 @@ def k6_slab_gather(slab: torch.Tensor, idx: torch.Tensor,
             raise ValueError(f"out must be ({n}, {slab.shape[1]}) and 16-byte aligned")
     if n == 0:
         return out
-    rc = _launch(
+    _launch(
         K6, _library().awfm_k6_slab_gather,
         device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
         out.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k6_slab_gather")
-    K6.launches += 1
     return out
 
 
@@ -1177,11 +1119,9 @@ def k6_slab_chain(slab: torch.Tensor, idx: torch.Tensor, seg: int) -> torch.Tens
     out = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return out
-    rc = _launch(
+    _launch(
         K6, _library().awfm_k6_slab_chain,
         device.index, slab.data_ptr(), int(slab.shape[0]), idx.data_ptr(), n,
         int(seg), out.data_ptr(), _stream(device),
     )
-    _check(rc, "awfm_k6_slab_chain")
-    K6.launches += 1
     return out

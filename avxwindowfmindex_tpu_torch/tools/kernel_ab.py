@@ -29,10 +29,8 @@ both SA ratios), K4 (the 25-mers, n = 2), K1w / K2w / K3w (the
 same index as a wide view), and K2 and K3 on a 2M-residue amino index.
 The seed-table BFS comes first (``--cases bfs``: it alone): the whole
 k = 14 table through each checkout's ``build_seed_table``, then each
-depth through the checkout's ``extend_level`` (a checkout that has none
-steps a depth as its ``build_seed_table`` did, through this checkout's
-``extend_level_plain`` over the checkout's K1 occ mode), and the same
-over the wide view at k = 13; at each depth, the K1 launches of the
+depth through the checkout's ``extend_level``, and the same over the
+wide view at k = 13; at each depth, the K1 launches of the
 per-letter route are also timed alone, apart from the torch work around
 them (``"k1_launches_ms"``); then the amino k = 5 and k = 6 tables over
 the compact rows of a ``K1_AMINO_RESIDUES``-residue index (chip_smoke.py
@@ -51,13 +49,10 @@ narrow block rows and 2 of compact wide rows, and a compact wide table
 tiled to 2^32 + 2^28 positions (4.56 GB, ``straddle_table``) split
 into two 2.28 GB shards, beyond the L2. An occ step over 2,097,152 random
 positions (a backward step of 1M queries) and an LF step, with the done
-rule, over 1,048,576 lanes. A checkout with the route (``k1r_route``)
-runs route + one launch a shard over its slice, each value stored at its
-lane; one without it runs its every-lane ``k1r_occurrence`` /
-``k1r_letter_occ`` on every shard, then this checkout's torch ops: the
-sum over the shards and, in LF mode, ``lf_from_letter_occ`` and the done
-rule's two ``where``s. All on the current stream. The LF step is in
-place in the routed form, so both forms start from copies of the lanes.
+rule, over 1,048,576 lanes. Each checkout runs its route
+(``k1r_route``) and one launch a shard over its slice, each value stored
+at its lane, all on the current stream. The LF step is in place, so it
+starts from copies of the lanes.
 Each is timed by the wall clock (``ms``: the host's work included, what
 a caller waits) and as device time with the queue kept full
 (``device_ms``).
@@ -292,18 +287,6 @@ def _sibling(kernels_module, name: str):
     return importlib.import_module(kernels_module.__name__.rsplit(".", 1)[0] + "." + name)
 
 
-def _depth_step(kernels_module):
-    """The checkout's one BFS depth: its ``extend_level``, or the chunked
-    per-letter loop over its K1 occ mode."""
-    seed = _sibling(kernels_module, "seed_table")
-    if hasattr(seed, "extend_level"):
-        return seed.extend_level
-    from ..ops.seed_table import extend_level_plain
-
-    occ = _sibling(kernels_module, "rank").occurrence
-    return lambda dev, table: extend_level_plain(dev, table, occurrence_fn=occ)
-
-
 def k1_launch_ms(dev, table) -> tuple:
     """(ms, launches) of the K1 occ launches alone inside one per-letter
     step of ``table`` (``extend_level_plain`` over K1): CUDA events
@@ -372,7 +355,7 @@ def bfs_cases(index, views, libs: dict, reps: int, max_parents=(), depths: bool 
         for depth in range(1, k):
             parents = table
             run_case(f"bfs{tag} depth {depth}", f"{parents.shape[0]} parents",
-                     lambda km: _depth_step(km)(dev, parents), libs, reps)
+                     lambda km: _sibling(km, "seed_table").extend_level(dev, parents), libs, reps)
             ms, launches = k1_launch_ms(dev, parents)
             print(json.dumps({"case": f"bfs{tag} depth {depth}", "k1_launches_ms": ms,
                               "k1_launches": launches}), flush=True)
@@ -531,42 +514,26 @@ def rs_occ_step(km, shards, first_blocks, bps: int, wide: bool, pos, lett):
     import torch
 
     n = len(shards)
-    if hasattr(km, "k1r_route"):
-        out = torch.empty_like(pos)
-        counts = torch.empty(n + 1, dtype=torch.int32, device=pos.device)
-        slot_pos, slot_lane = km.k1r_route(pos, out, n, bps, wide, 0, counts)
-        for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
-            km.k1r_occurrence(shard, fb, slot_pos, slot_lane, counts, i, lett, out)
-        return out
-    total = None
-    for shard, fb in zip(shards, first_blocks):
-        got = km.k1r_occurrence(shard, pos, lett, fb)
-        total = got if total is None else total + got
-    return total
+    out = torch.empty_like(pos)
+    counts = torch.empty(n + 1, dtype=torch.int32, device=pos.device)
+    slot_pos, slot_lane = km.k1r_route(pos, out, n, bps, wide, 0, counts)
+    for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+        km.k1r_occurrence(shard, fb, slot_pos, slot_lane, counts, i, lett, out)
+    return out
 
 
 def rs_lf_step(km, shards, first_blocks, bps: int, wide: bool, p, off, unowned: int):
     """One LF step of the backtrace, with the done rule, through ``km``'s
     kernels (module note): the new (p, off)."""
     import torch
-    from ..ops import rank
 
     n, ratio = len(shards), shards[0].ratio
-    if hasattr(km, "k1r_route"):
-        p, off = p.clone(), off.clone()
-        counts = torch.empty(n + 1, dtype=torch.int32, device=p.device)
-        slot_pos, slot_lane = km.k1r_route(p, p, n, bps, wide, unowned, counts, ratio, off)
-        for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
-            km.k1r_lf(shard, fb, slot_pos, slot_lane, counts, i, p)
-        return p, off
-    lett = occ = None
-    for shard, fb in zip(shards, first_blocks):
-        got_l, got_o = km.k1r_letter_occ(shard, p, fb)
-        lett = got_l.to(torch.int64) if lett is None else lett + got_l.to(torch.int64)
-        occ = got_o if occ is None else occ + got_o
-    lf = rank.lf_from_letter_occ(shards[0], lett, occ)
-    done = p % ratio == 0
-    return torch.where(done, p, lf), torch.where(done, off, off + 1)
+    p, off = p.clone(), off.clone()
+    counts = torch.empty(n + 1, dtype=torch.int32, device=p.device)
+    slot_pos, slot_lane = km.k1r_route(p, p, n, bps, wide, unowned, counts, ratio, off)
+    for i, (shard, fb) in enumerate(zip(shards, first_blocks)):
+        km.k1r_lf(shard, fb, slot_pos, slot_lane, counts, i, p)
+    return p, off
 
 
 def rs_cases(index, libs: dict, reps: int, device) -> None:

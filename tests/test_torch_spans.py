@@ -7,7 +7,8 @@ calls them (``search_ranges`` or ``ngram_ranges``, ``range_counts``,
 as designed; ``metrics.set_enabled(False)`` silences them; the answers
 do not change. The test marked ``card`` traces a locate on the card and
 finds K3's kernel launched inside ``awfm.launch.k3_backtrace_resolve``
-and ``awfm.backtrace``; it skips without a card. It imports nothing of
+and ``awfm.backtrace``; another finds one request's launches counted
+once each over one checked view state. They skip without a card. It imports nothing of
 JAX, so on a card it runs alone:
 
     python -m pytest tests/test_torch_spans.py -m card --noconftest -q
@@ -135,9 +136,10 @@ def test_answers_are_the_same_with_the_spans_on(cpu, ngram):
 
 def test_a_launch_runs_inside_its_forms_span():
     seen = []
-    fake = lambda *args: seen.append(args) or 7  # stands for a C entry point
-    rc, spans = _profiled(lambda: kernels._launch(kernels.K3W_COMPACT, fake, 1, 2))
-    assert rc == 7 and seen == [(1, 2)]
+    fake = lambda *args: seen.append(args) or 0  # stands for a C entry point
+    kernels.reset_launch_counts()
+    _, spans = _profiled(lambda: kernels._launch(kernels.K3W_COMPACT, fake, 1, 2))
+    assert seen == [(1, 2)] and kernels.K3W_COMPACT.launches == 1
     assert [e.name for e in spans] == ["awfm.launch.k3w_backtrace_resolve_compact"]
     assert [k.span for k in (kernels.K3, kernels.K4)] == [
         "launch.k3_backtrace_resolve", "launch.k4_ngram_ranges"]
@@ -180,3 +182,24 @@ def test_on_a_card_k3_is_launched_inside_its_spans(tmp_path):
 
     assert holds("awfm.launch.k3_backtrace_resolve") and holds("awfm.backtrace")
     assert holds("awfm.locate") and not holds("awfm.enumerate")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("ngram", [False, True], ids=["k2", "k4"])
+def test_on_a_card_a_request_checks_its_view_once_and_launches_each_kernel_once(ngram):
+    """A locate on one view (K2 or K4, K7's scan and write, K3) builds one
+    ``_view_state`` for the view, which the next request reuses, and
+    counts exactly the launches it makes."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card in this process")
+    built = _build(torch.device("cuda:0"))
+    dev = built[0]
+    kernels.reset_launch_counts()
+    counts, hits = _request(built, ngram, locate=True)
+    assert int(counts.sum()) == hits.shape[0] > 0
+    (state,) = [st for ref, st in kernels._VIEW_STATE.values() if ref() is dev]
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "k4_ngram_ranges" if ngram else "k2_ranges": 1, "k7_enumerate": 2,
+        "k7_enumerate.scan": 1, "k7_enumerate.write": 1, "k3_backtrace_resolve": 1}
+    _request(built, ngram, locate=True)
+    assert kernels._VIEW_STATE[id(dev)][1] is state
