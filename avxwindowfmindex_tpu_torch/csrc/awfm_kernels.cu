@@ -114,9 +114,14 @@
 //       Replaces search.py:_seed_lookup / _initial_range, ops/rank.py:
 //       backward_step and backward_step_pair, and the flag-and-rerun protocol
 //       search.py:_fixup_flagged. A query is walked right to left; a step
-//       reads the pair row by window class (see K4): its first block's
-//       sectors, the whole 512-position window, or, for a wider range, two
-//       block rows, so no query is re-run.
+//       reads by window class (see K4): for both ends in one block, that
+//       block's sectors from its block row (planes 32 B apart, the
+//       milestones after them), not from the pair row; for delta < 512,
+//       the whole 512-position window of the pair row; for a wider range,
+//       two block rows, so no query is re-run. An amino block row holds
+//       the first-block sectors in pieces 0-2 of 64 B (0-3 from column 8),
+//       where the pair row spreads them over six; a nucleotide one in two,
+//       against four. Seeded queries step almost only in that class.
 //       What bounds it on this card: the steps, not the seed table. Over
 //       1,048,576 sampled queries of k + s letters at 64M bases, seed k = 14,
 //       one thread per query took 0.055 ms + 0.064 ms x s (H100 80GB HBM3,
@@ -201,8 +206,11 @@
 //       (n = 3) for 1,048,576 25-mers, and at 249M bases from 3.64 to
 //       2.45 ms a 4,194,304-query request (H100 80GB HBM3, 700 W).
 //       The tail letters go through backward_step, which has the same
-//       three classes over the 256 B pair row (4 sectors, not 7), so K2
-//       and K2w read the first-block class too. Two neighbouring lanes
+//       three classes: the first-block one over the 128 B block row (two
+//       64 B pieces, where the 256 B pair row's first-block half spans
+//       four), the pair window over the pair row, wider ranges over two
+//       block rows; K2 reads them so too, and K2w the first-block half of
+//       its pair-fused row. Two neighbouring lanes
 //       share a query (Group<2>): lane j loads words [4j, 4j + 4) of each
 //       plane's sector, so one load instruction of a warp touches 16
 //       sectors, and the two counts are summed over the pair with a
@@ -321,13 +329,16 @@
 //       without pair rows passes a null pair table, and each launcher
 //       refuses a table whose layout is not its form's. A narrow view's K1,
 //       K1X and K3 read the block rows in either view.
-//       The block-row steps by class: awfm_k2_block_ranges and
+//       The steps by class: awfm_k2_block_ranges and
 //       awfm_k4_block_ngram_ranges take a pointer to two u64 counters
 //       (RowSteps: both ends in one block row; read over two). ops/kernels.py
 //       hands them one while a profiler records and null otherwise; the
 //       entry point tests it once and launches the counting instantiation
 //       (COUNT) only for a counter, so a launch with none runs the code it
-//       ran before. The pair-row forms take no counter.
+//       ran before. The narrow pair-row forms, awfm_k2_ranges and
+//       awfm_k4_ngram_ranges (its tail), take one in the same way: their
+//       first-block steps (one block row) and the others (the pair window
+//       or two block rows).
 //       What bounds K4 over block rows on this card: its n-gram steps. The
 //       n = 2 rows (96 MB) lie beyond the L2, and K5's walk over their
 //       first-block sectors alone (192 B a visit) runs at 17.5G visits a
@@ -770,13 +781,17 @@ struct BlockRow {
 // One backward step of a valid range (start <= end) by letter l, by window
 // class. The lanes of a group hold the same range and share the loads of
 // the first-block class; the rarer classes each lane computes in full.
-// PAIR: the classes over the pair rows (t.packed_pair, planes 64 B apart);
-// else, for a view without pair rows, the first-block class over the block
-// row (t.packed, planes G::kStride apart, the milestones after them) and
+// The first-block class reads the block row in every form (t.packed,
+// planes G::kStride apart, the milestones after them; a wide view's block
+// rows are its pair-fused rows): a narrow amino row holds its sectors in
+// 3-4 of its 64 B pieces, where the pair row's first-block half spreads
+// over 6. PAIR selects only the rest: the 512-position window of the pair
+// row (t.packed_pair) for delta < 512; else, for a view without pair rows,
 // every wider range over two block rows, the step the JAX package takes
 // there (ops/rank.py:backward_step over P1's rank). t.packed_pair is null
 // in such a view, so no form of it reads a pair row. Returns whether the
-// step took the first-block class (one row; over block rows, else two).
+// step took the first-block class (one row; else the pair window or two
+// rows).
 template <class G, int NP, int GL = 1, bool PAIR = true>
 __device__ __forceinline__ bool backward_step(
     const AwfmTables& t, const LetterEntry<typename G::pos_t>& e,
@@ -793,10 +808,8 @@ __device__ __forceinline__ bool backward_step(
   if (first) {
     // both ends in the first block: words 0-7 of each plane, one milestone
     constexpr int W = 8 / GL;
-    constexpr int S = PAIR ? 64 : G::kStride;
-    const uint8_t* row =
-        PAIR ? t.packed_pair + G::block(t.nb, pos_s) * t.pair_row_bytes
-             : t.packed + G::block(t.nb, pos_s) * t.row_bytes;
+    constexpr int S = G::kStride;
+    const uint8_t* row = t.packed + G::block(t.nb, pos_s) * t.row_bytes;
     uint32_t m[W];
     match_words<NP, W, S>(row + grp.sub * (4 * W), code, m);
     const pos_t ms = milestone<G>(row, NP * S, e);
@@ -821,11 +834,13 @@ __device__ __forceinline__ bool backward_step(
   return first;
 }
 
-// The block-row steps of a launch by class, for the forms without pair rows
-// (COUNT): counts[0] the steps with both ends in one block row, counts[1]
-// those read over two. A lane counts its query's steps in registers (the
-// first lane of a group alone: its lanes take the same steps) and the lanes
-// of a warp still running add their sums once, by its lowest lane.
+// The steps of a launch by class (COUNT): counts[0] the first-block steps,
+// which read one block row, counts[1] the others: over two block rows in a
+// form without pair rows, the pair window or two block rows in a pair form
+// (awfm.blockrows.* and awfm.pairrows.* in ops/kernels.py). A lane counts
+// its query's steps in registers (the first lane of a group alone: its
+// lanes take the same steps) and the lanes of a warp still running add
+// their sums once, by its lowest lane.
 struct RowSteps {
   uint32_t one = 0u, two = 0u;
 
@@ -1705,7 +1720,7 @@ constexpr int kK2Group = 2;  // lanes per query in K2 and K2w
 
 // GL neighbouring lanes walk one query right to left; LW as in QueryRow;
 // PAIR as in backward_step; COUNT: the steps by class into row_steps
-// (RowSteps), in a form without pair rows.
+// (RowSteps).
 template <class G, int NP, int GL, int LW, bool PAIR, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 k2_ranges_kernel(AwfmTables t,
@@ -1717,7 +1732,6 @@ k2_ranges_kernel(AwfmTables t,
                  int64_t* __restrict__ start_out,
                  int64_t* __restrict__ end_out,
                  unsigned long long* __restrict__ row_steps) {
-  static_assert(!(COUNT && PAIR), "the pair-row forms count no steps");
   using pos_t = typename G::pos_t;
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
@@ -1916,7 +1930,7 @@ constexpr int kK4Group = 2;  // lanes per query
 // (.cs). PAIR: the tail steps over the pair rows, else over the block rows
 // (backward_step); the n-gram steps read the n-gram pair rows either way,
 // as the JAX package's do. COUNT: the tail steps by class into row_steps
-// (RowSteps), in the form over block rows.
+// (RowSteps).
 template <int N, int NP, int LW, bool PAIR, bool COUNT>
 __global__ void __launch_bounds__(kThreads, 2)
 k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
@@ -1927,7 +1941,6 @@ k4_ngram_ranges_kernel(AwfmTables t, NgramTables g,
                        int64_t* __restrict__ start_out,
                        int64_t* __restrict__ end_out,
                        unsigned long long* __restrict__ row_steps) {
-  static_assert(!(COUNT && PAIR), "the pair-row forms count no steps");
   constexpr int GL = kK4Group;
   const int64_t q =
       (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x) / GL;
@@ -2342,8 +2355,8 @@ void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
 
 // PAIR: the form over pair rows, which needs the pair table; else the form
 // over the block rows, which needs none. COUNT: the counting instantiation
-// (RowSteps into row_steps), which a form without pair rows launches when
-// handed a counter.
+// (RowSteps into row_steps), which a narrow form launches when handed a
+// counter.
 template <class G, bool PAIR, bool COUNT = false>
 int launch_k2_ranges(int device, const AwfmTables* t,
                      const typename G::pos_t* seed_table, int64_t seed_rows,
@@ -2658,17 +2671,24 @@ int64_t awfm_seed_table_scratch_bytes(int64_t card, int levels, int64_t pos_byte
   return seed_table_scratch_bytes(card, levels, pos_bytes);
 }
 
+// row_steps: null, or the two counters of RowSteps (the steps by class),
+// which the launch adds to.
 int awfm_k2_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                    int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                    int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
-                   int64_t* start_out, int64_t* end_out, cudaStream_t stream) {
+                   int64_t* start_out, int64_t* end_out,
+                   unsigned long long* row_steps, cudaStream_t stream) {
+  if (row_steps != nullptr) {
+    return launch_k2_ranges<Narrow, true, true>(device, t, seed_table, seed_rows, k, mat,
+                                                b, l_pad, lengths, seeded, start_out,
+                                                end_out, stream, row_steps);
+  }
   return launch_k2_ranges<Narrow, true>(device, t, seed_table, seed_rows, k, mat, b,
                                         l_pad, lengths, seeded, start_out, end_out,
                                         stream);
 }
 
-// row_steps: null, or the two counters of RowSteps (the block-row steps by
-// class), which the launch adds to.
+// row_steps as in awfm_k2_ranges.
 int awfm_k2_block_ranges(int device, const AwfmTables* t, const uint32_t* seed_table,
                          int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                          int64_t l_pad, const int32_t* lengths, const uint8_t* seeded,
@@ -2737,16 +2757,21 @@ int awfm_k3w_compact_backtrace_resolve(int device, const AwfmTables* t,
                                                   p_out, off_out, stream);
 }
 
+// row_steps as in awfm_k2_ranges: the tail steps by class.
 int awfm_k4_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                          const uint32_t* seed_table, int64_t seed_rows, int k,
                          const uint8_t* mat, int64_t b, int64_t l_pad,
                          int kmer_len, int64_t* start_out, int64_t* end_out,
-                         cudaStream_t stream) {
+                         unsigned long long* row_steps, cudaStream_t stream) {
+  if (row_steps != nullptr) {
+    return launch_k4<true, true>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
+                                 kmer_len, start_out, end_out, stream, row_steps);
+  }
   return launch_k4<true>(device, t, g, seed_table, seed_rows, k, mat, b, l_pad,
                          kmer_len, start_out, end_out, stream);
 }
 
-// row_steps as in awfm_k2_block_ranges: the tail steps by class.
+// row_steps as in awfm_k2_ranges: the tail steps by class.
 int awfm_k4_block_ngram_ranges(int device, const AwfmTables* t, const NgramTables* g,
                                const uint32_t* seed_table, int64_t seed_rows, int k,
                                const uint8_t* mat, int64_t b, int64_t l_pad,

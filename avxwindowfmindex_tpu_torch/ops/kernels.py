@@ -42,12 +42,13 @@ also count by mode (``K1.modes``: occ, letter_lf, step, lf_at;
 ``k1_seed_table``, the seed table's shallow depths or all of them in one
 launch), and K7 its two launches (``scan``, ``write``).
 
-The forms over block rows, ``K2_BLOCK`` and ``K4_BLOCK``'s tail, count
-their steps by class on the card while a profiler records
-(``ROW_STEPS``, ``utils/metrics.device_counts``): the steps with both
-ends in one block row and those read over two. Otherwise they are handed
-a null counter and launch the code they launched before; the pair-row
-forms take none.
+K2 and K4's tail count their steps by class on the card while a
+profiler records (``utils/metrics.device_counts``): over block rows
+(``K2_BLOCK``, ``K4_BLOCK``; ``ROW_STEPS``) the steps with both ends in
+one block row and those read over two, over a narrow view's pair rows
+(``K2``, ``K4``; ``PAIR_STEPS``) the first-block steps, which read one
+block row, and the others. Otherwise they are handed a null counter and
+launch the code they launched before; K2w's forms take none.
 """
 
 from __future__ import annotations
@@ -196,6 +197,9 @@ K4_BLOCK = Kernel(
 # the card while a profiler records (_row_steps): both ends in one block
 # row (the first-block class), read over two block rows
 ROW_STEPS = ("awfm.blockrows.one_row", "awfm.blockrows.two_rows")
+# the steps of K2 and K4's tail over a narrow view's pair rows, counted so:
+# the first-block class (one block row), the pair window or two block rows
+PAIR_STEPS = ("awfm.pairrows.block_row", "awfm.pairrows.wider")
 K1W_COMPACT = Kernel("k1w_rank_compact", _SRC, "avxwindowfmindex_tpu/ops/rank64.py:410",
                      prefix="k1w_compact")
 K1WX_COMPACT = Kernel(
@@ -301,12 +305,13 @@ _SIGNATURES = {
     "awfm_k1r_route": [_i32, _i32, _vp, _i64, _i32, _i32, _u64, _i64, _vp, _vp, _vp, _vp, _vp,
                        _vp, _vp],
     "awfm_k1r_occ": _K1R, "awfm_k1r_lf": _K1R, "awfm_k1rw_occ": _K1R, "awfm_k1rw_lf": _K1R,
-    # the block-row forms take their step counter (null: none) before the stream
-    "awfm_k2_ranges": _K2, "awfm_k2w_ranges": _K2, "awfm_k2w_compact_ranges": _K2,
-    "awfm_k2_block_ranges": [*_K2[:-1], _vp, _vp],
+    # the narrow forms take their step counter (null: none) before the stream
+    "awfm_k2_ranges": [*_K2[:-1], _vp, _vp], "awfm_k2w_ranges": _K2,
+    "awfm_k2w_compact_ranges": _K2, "awfm_k2_block_ranges": [*_K2[:-1], _vp, _vp],
     "awfm_k3_backtrace_resolve": [_i32, _tp, _vp, _i64, _u32, _u32, _vp, _vp, _vp, _vp, _vp],
     "awfm_k3w_backtrace_resolve": _K3W, "awfm_k3w_compact_backtrace_resolve": _K3W,
-    "awfm_k4_ngram_ranges": _K4, "awfm_k4_block_ngram_ranges": [*_K4[:-1], _vp, _vp],
+    "awfm_k4_ngram_ranges": [*_K4[:-1], _vp, _vp],
+    "awfm_k4_block_ngram_ranges": [*_K4[:-1], _vp, _vp],
     "awfm_k5_gather_reduce": [_i32, _vp, _i64, _i32, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "awfm_k5_gather_walk": [_i32, _vp, _i64, _i32, _vp, _i64, _i32, _u32, _i32, _vp, _vp],
     "awfm_k6_slab_gather": [_i32, _vp, _i64, _vp, _i64, _vp, _vp],
@@ -568,14 +573,19 @@ def _entry(dev, kernel: Kernel, suffix: str):
     return getattr(_library(), f"awfm_{kernel.prefix}_{suffix}"), kernel
 
 
+_STEP_COUNTERS = {K2_BLOCK: ROW_STEPS, K4_BLOCK: ROW_STEPS, K2: PAIR_STEPS, K4: PAIR_STEPS}
+
+
 def _row_steps(kernel: Kernel, device) -> tuple:
-    """The step counter a form over block rows takes before its stream: a
-    pointer to ``ROW_STEPS``' counts on ``device`` while a profiler
-    records (``metrics.device_counts``), else null; no argument for any
-    other form."""
-    if kernel is not K2_BLOCK and kernel is not K4_BLOCK:
+    """The step counter a narrow form of K2 or K4 takes before its stream:
+    a pointer to its counts on ``device`` (``ROW_STEPS`` over block rows,
+    ``PAIR_STEPS`` over pair rows) while a profiler records
+    (``metrics.device_counts``), else null; no argument for any other
+    form."""
+    names = _STEP_COUNTERS.get(kernel)
+    if names is None:
         return ()
-    counts = metrics.device_counts(ROW_STEPS, device)
+    counts = metrics.device_counts(names, device)
     return (None if counts is None else counts.data_ptr(),)
 
 

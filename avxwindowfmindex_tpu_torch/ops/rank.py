@@ -33,10 +33,11 @@ take the ``*_plain`` versions below only for CPU tensors. ``single_step``
 and ``single_lf`` do the same for one range or one position passed by
 value (K1's step and LF-at modes), by the view's device.
 
-A step's first-block class reads the pair rows where the view has them
-and the block rows of a view without pair rows (``first_block_rows``);
-such a view has no pair step (``backward_step_pair`` refuses it), so its
-wider ranges take the classic two-row ``backward_step``.
+A step's first-block class reads the block rows, as K2 and K4 do on the
+card: a narrow view keeps them beside its pair rows, and a wide view's
+block rows are its pair-fused rows. A view without pair rows has no pair
+step (``backward_step_pair`` refuses it), so its wider ranges take the
+classic two-row ``backward_step``.
 """
 
 from __future__ import annotations
@@ -344,22 +345,13 @@ def window_classes(start, end, keep, pos_mask: int = MASK32) -> torch.Tensor:
                         (keep & ~first & ~window).sum()])
 
 
-def first_block_rows(dev):
-    """(table, plane stride, milestone offset) that a first-block step of
-    the view reads: its pair rows (planes 64 B apart) where it has them,
-    else its block rows at the view's plane stride."""
-    if dev.pair_rows:
-        return dev.packed_pair, 64, dev.pair_milestone_offset
-    return dev.packed, dev.plane_stride, dev.milestone_offset
-
-
 def backward_step_first_block(dev, start, end, letters, active=None):
     """The first-block class of a step: for a range with both ends in
     the first block of its row (delta < 256) it reads only the first
-    32 B of each plane and the letter's milestone, of the pair row
-    (bytes [64 p, 64 p + 32) of plane p) or, in a view without pair
-    rows, of the block row, and gives what :func:`backward_step_pair`
-    (:func:`backward_step`) gives.
+    32 B of each plane and the letter's milestone of the block row (a
+    wide view's pair-fused row, planes 64 B apart), with or without pair
+    rows, and gives what :func:`backward_step_pair` (:func:`backward_step`)
+    gives.
 
     Returns (new_start, new_end, first): ``first`` marks the valid,
     active rows of that class; every other row keeps its range.
@@ -370,16 +362,15 @@ def backward_step_first_block(dev, start, end, letters, active=None):
     letters = letters.to(torch.int64)
     c = _prefix_sum_select(dev, letters)
     pos_s = (start - 1) & mask
-    table, stride, ms_off = first_block_rows(dev)
-    rows, local_s = _gather_rows(table, pos_s, dev.wide)
+    rows, local_s = _gather_rows(dev.packed, pos_s, dev.wide)
     delta = window_delta(start, end, mask)
     first = (delta >= 0) & (delta < 256) & le_unsigned(start, end, dev.wide)
     if active is not None:
         first = first & active
-    match = _match_bytes(dev, rows, letters, 32, stride)
+    match = _match_bytes(dev, rows, letters, 32, dev.plane_stride)
     occ_s = _popcount_sum(match & _inclusive_mask(local_s, 32))
     occ_e = _popcount_sum(match & _inclusive_mask(delta.clamp(0, 255), 32))
-    ms = _milestone(dev, rows, letters, ms_off)
+    ms = _milestone(dev, rows, letters, dev.milestone_offset)
     new_start = (c + ms + occ_s) & mask
     new_end = (c + ms + occ_e - 1) & mask
     return torch.where(first, new_start, start), torch.where(first, new_end, end), first

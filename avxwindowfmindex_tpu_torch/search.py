@@ -91,7 +91,7 @@ def _round_up(n: int, m: int) -> int:
 
 def _step_exact(dev, start, end, letters, active, classes=None):
     """One exact backward step the way K2 takes it, by window class: the
-    first block's sectors of the pair row, the whole pair window, or the
+    first block's sectors of the block row, the whole pair window, or the
     two-row classic step outside it. In a view without pair rows, the
     first block's sectors of the block row, else the two-row step.
     ``classes``: a (3,) int64 tensor that gains the number of rows

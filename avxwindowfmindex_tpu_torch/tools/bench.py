@@ -393,14 +393,18 @@ def run_protocol(p: Protocol, index, seq_arr: np.ndarray, rng, *, dev, dev_dense
 
     # roofline against the rates measured here, on these tables
     # and at the bytes a visit reads: the calibration walks the sectors of
-    # a first-block step, the byte model charges them
-    calib_tables = {"single": dev.packed, "pair": dev.packed_pair, "ngram_pair": ng.packed}
+    # a first-block step, the byte model charges them. The range phase's
+    # one-row step ("pair") takes its first-block sectors from the block
+    # row, as K2 and K4's tail do in a narrow view (nearly every step at
+    # this seed k), so that entry is a block-row visit
+    calib_tables = {"single": dev.packed, "pair": dev.packed, "ngram_pair": ng.packed}
     visits = roofline.first_block_visits(ngram_n=p.ngram_n)
+    visits["pair"] = visits["single"]
     rates = roofline.calibrate_gather_rates(
         calib_tables, batch=p.calib_batch, device=device, log=_log,
         sector_masks={t: mask for t, (mask, _) in visits.items()},
     )
-    rb = roofline.table_row_bytes(ngram_n=p.ngram_n)
+    rb = {**roofline.table_row_bytes(ngram_n=p.ngram_n), "pair": int(dev.packed.shape[1])}
     # a table the L2 holds is charged the rows a launch's batch touches
     table_rows = {t: int(tab.shape[0]) for t, tab in calib_tables.items() if tab is not None}
     roof_kw = dict(kmer_len=kmer_len, seed_k=p.seed_k, ratio=dev.ratio, rates=rates,

@@ -81,8 +81,9 @@ timed against its kernel over the same text in compact rows
 
 ``--cases pairless``: the forms for a view without pair rows, every
 checkout on the same views and inputs, in turns in one process. First
-each checkout's registers and spills of K4, K2w over compact rows, K2
-over block rows and K3w over compact rows, from its build's ``-Xptxas -v``
+each checkout's registers and spills of K4, K2w over compact rows, narrow
+K2 (over block rows and over pair rows, each also in its counting
+instantiation) and K3w over compact rows, from its build's ``-Xptxas -v``
 report (``"registers"`` lines). Then, on the ``--queries`` sampled
 25-mers: K2 over the view without pair rows (``to_device(pair_rows=False)``:
 block rows only) and over the pair rows, and K3 on their hits, every
@@ -803,9 +804,9 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
         regs = (kernel_registers(lib.BUILD_LOG, "k4_ngram_ranges_kernel")
                 + kernel_registers(lib.BUILD_LOG, "k4_block_ngram_ranges_kernel")
                 + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "WideCompact")
-                # K2 over block rows: the template's fifth argument, PAIR, is 0
-                + [r for r in kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "Narrow")
-                   if r["kernel"].split(", ")[4].startswith("0")]
+                # narrow K2 over block rows and over pair rows (PAIR, the
+                # fifth argument), each with and without its counter (COUNT)
+                + kernel_registers(lib.BUILD_LOG, "k2_ranges_kernel", "Narrow")
                 + kernel_registers(lib.BUILD_LOG, "k3_per_hit_kernel", "WideCompact"))
         # a library built by an earlier process of the same checkout leaves no report
         print(json.dumps({"case": "registers", "checkout": name, "built_here": bool(lib.BUILD_LOG),
@@ -870,7 +871,8 @@ def pairless_cases(index, seq_arr, args, libs: dict, device) -> None:
             if tag == "block":
                 visits = {f"ngram{n}": ng_visits, "block": tail[0] + 2 * (tail[1] + tail[2])}
             else:
-                visits = {f"ngram{n}": ng_visits, "pair": tail[0] + tail[1], "block": 2 * tail[2]}
+                # the first-block class reads the block row in either view
+                visits = {f"ngram{n}": ng_visits, "pair": tail[1], "block": tail[0] + 2 * tail[2]}
             line = visit_model(visits, rates, fixed, ms)
             line["bound_ms"] = bytes_bound_ms(
                 [(ng.packed.shape[0], ng_need, ng_visits), (nb, 3 * 32 + 4, sum(visits.values()) - ng_visits)],

@@ -13,8 +13,10 @@ against two ceilings:
 
 Tables and their row bytes (nucleotide):
 
-  single      dev.packed        128 B   K3's LF walk, K2's two-row step
-  pair        dev.packed_pair   256 B   K2's one-row step, K4's tail step
+  single      dev.packed        128 B   K3's LF walk, K2's two-row step,
+                                        and the first-block class of K2's
+                                        and K4's tail's one-row step
+  pair        dev.packed_pair   256 B   that step's pair window
   ngram_pair  NgramIndex.packed 384 B   K4's n-gram step (n = 2; K4
                                         reads NgramIndex.k4, the same
                                         rows in its byte order)

@@ -3804,14 +3804,15 @@ def phase_pairless(rec: Record, engine, kmers, mh_kmers, answers, main: dict, se
     k4_classes = {t: c.tolist() for t, c in k4_classes.items()}
     log(f"[4p] window classes over block rows: K2's steps {class_shares(k2_classes)}; K4's "
         f"n-gram steps {class_shares(k4_classes['ngram_pair'])}, its tail steps "
-        f"{class_shares(k4_classes['pair'])}; 64 B pieces a first-block visit touches: a block "
-        f"row 2, a pair row {pair.n_planes + 1}")
+        f"{class_shares(k4_classes['pair'])}; a first-block visit reads the block row (2 of its "
+        f"64 B pieces) in both views, which differ only in the pair-window class")
     stats["forms"] = {
-        "k2_ranges": forms_in_turns(f"K2, {n} 25-mers, pair rows against block rows", {
+        "k2_ranges": forms_in_turns(f"K2, {n} 25-mers, the pair window over pair rows "
+                                   f"against two block rows", {
             "pair": lambda: kernels.k2_ranges(pair, *args),
             "block": lambda: kernels.k2_ranges(view, *args)}),
-        "k4_ngram_ranges": forms_in_turns(f"K4 n={ng.n}, {n} 25-mers, tail over pair rows "
-                                          f"against block rows", {
+        "k4_ngram_ranges": forms_in_turns(f"K4 n={ng.n}, {n} 25-mers, the tail's pair window "
+                                          f"over pair rows against two block rows", {
             "pair": lambda: kernels.k4_ngram_ranges(pair, ng, mat_d, KMER_LEN),
             "block": lambda: kernels.k4_ngram_ranges(view, ng, mat_d, KMER_LEN)}),
     }

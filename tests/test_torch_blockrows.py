@@ -203,12 +203,19 @@ def test_device_counts_exist_only_while_a_profiler_records():
     assert metrics.device_counts(kernels.ROW_STEPS, cpu) is None
     assert kernels._row_steps(kernels.K2_BLOCK, cpu) == (None,)
     assert kernels._row_steps(kernels.K4_BLOCK, cpu) == (None,)
+    assert kernels._row_steps(kernels.K2, cpu) == (None,)
+    assert kernels._row_steps(kernels.K4, cpu) == (None,)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         counts = metrics.device_counts(kernels.ROW_STEPS, cpu)
         assert counts.dtype == torch.int64 and counts.tolist() == [0, 0]
         assert metrics.device_counts(kernels.ROW_STEPS, cpu) is counts
         assert kernels._row_steps(kernels.K2_BLOCK, cpu) == (counts.data_ptr(),)
-        for k in (kernels.K2, kernels.K4, kernels.K2W_COMPACT, kernels.K3):
+        # the pair forms count into a tensor of their own (PAIR_STEPS)
+        pair = metrics.device_counts(kernels.PAIR_STEPS, cpu)
+        assert pair is not counts and pair.tolist() == [0, 0]
+        assert kernels._row_steps(kernels.K2, cpu) == (pair.data_ptr(),)
+        assert kernels._row_steps(kernels.K4, cpu) == (pair.data_ptr(),)
+        for k in (kernels.K2W, kernels.K2W_COMPACT, kernels.K3):
             assert kernels._row_steps(k, cpu) == ()
         metrics.set_enabled(False)
         try:
@@ -216,8 +223,10 @@ def test_device_counts_exist_only_while_a_profiler_records():
         finally:
             metrics.set_enabled(True)
     counts += torch.tensor([5, 2])
+    pair += torch.tensor([4, 1])
     metrics.counter("search.count.queries").add(3)
-    assert metrics.snapshot() == {ONE: 5, TWO: 2, "search.count.queries": 3}
+    assert metrics.snapshot() == {ONE: 5, TWO: 2, "awfm.pairrows.block_row": 4,
+                                  "awfm.pairrows.wider": 1, "search.count.queries": 3}
     metrics.reset()
     assert metrics.snapshot() == {}
 

@@ -388,19 +388,24 @@ def test_distributed_engine_over_a_view_without_pair_rows(jax_pairless):
     assert_locates_equal(eng.locate(kmers[:50]), jeng.locate(kmers[:50]))
 
 
-def test_window_classes_over_block_rows(jax_pairless):
-    """Runs of one letter in random text: the plain block-row step takes
-    each of the three window classes (first block; the 256-512 class and
-    wider, both over two block rows), and the ranges equal the JAX
-    engine's under AWFM_PAIR_ROWS=0."""
-    rng = np.random.default_rng(0x9AC)
+@pytest.mark.parametrize("alphabet", [DNA, AMINO], ids=lambda a: a.name)
+@pytest.mark.parametrize("pair_rows", [False, True], ids=["block-rows", "pair-rows"])
+def test_window_classes_over_block_rows(pair_rows, alphabet, jax_pairless, monkeypatch):
+    """Runs of one letter in random text: the plain step takes each of the
+    three window classes (first block, over the block row in either
+    layout; the 256-512 class, over the pair row where the view has one,
+    else over two block rows; wider, over two block rows), and the ranges
+    equal the JAX engine's in the same layout (``AWFM_PAIR_ROWS=0`` for a
+    view without pair rows)."""
+    rng = np.random.default_rng(0x9AC if alphabet == DNA else 0x9AD)
 
     def rand(n):
-        return random_sequence(rng, n, DNA, clean=True).upper()
+        return random_sequence(rng, n, alphabet, clean=True).upper()
 
     text = rand(1500) + b"A" * 700 + rand(1500) + b"C" * 300 + rand(900) + b"G" * 420 + rand(900)
-    j, p = build_both(text, 8, 6, DNA)
-    view = p.to_device("cpu", pair_rows=False)
+    j, p = build_both(text, 8, 6 if alphabet == DNA else 3, alphabet)
+    view = p.to_device("cpu", pair_rows=pair_rows)
+    assert (view.packed_pair is not None) == pair_rows
     runs = ((1500, 700), (3700, 300), (4900, 420))
     qs = [text[lo : lo + L] for lo, _ in runs for L in range(7, 40, 2)]
     qs += [text[s : s + 25] for lo, ln in runs for s in rng.integers(lo + ln - 25, lo + ln, 10)]
@@ -412,6 +417,8 @@ def test_window_classes_over_block_rows(jax_pairless):
     s, e = psearch.ranges_plain(view, torch.from_numpy(mat), torch.from_numpy(lengths),
                                 torch.from_numpy(seeded), classes)
     assert min(classes.tolist()) >= 1, classes.tolist()
+    if pair_rows:
+        monkeypatch.delenv("AWFM_PAIR_ROWS")
     _jax_view(j, jax_pairless)
     want = jx.SearchEngine(j).find_ranges(qs)
     got = torch.stack([s, e], dim=1)[: len(qs)].numpy().astype(np.uint64)

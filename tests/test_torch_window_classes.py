@@ -27,6 +27,7 @@ from avxwindowfmindex_tpu_torch import search as psearch
 from avxwindowfmindex_tpu_torch.ops import ngram as pngram
 from avxwindowfmindex_tpu_torch.ops import rank as prank
 
+import pairrow_corpora
 from oracle import random_sequence
 from torch_helpers import build_both
 
@@ -185,15 +186,19 @@ def test_ngram_first_block_step_reads_only_its_sectors(dna, tables, n):
 
 
 def test_rank_first_block_step_reads_only_its_sectors(dna):
+    """The block row's planes (32 B each, back to back) and milestones: any
+    other byte of the block rows, and every byte of the pair rows, may
+    change and the step gives the same."""
     import dataclasses
 
     j, p = dna
     pd = p.to_device("cpu")
-    keep = [64 * pl + i for pl in range(pd.n_planes) for i in range(32)]
-    ms = pd.pair_milestone_offset
-    keep += list(range(ms, ms + 4 * (pd.cardinality + 1)))
+    assert pd.pair_rows and pd.plane_stride == 32
+    keep = list(range(pd.milestone_offset + 4 * (pd.cardinality + 1)))
     rng = np.random.default_rng(21)
-    other = dataclasses.replace(pd, packed_pair=_scramble_outside(pd.packed_pair, keep, rng))
+    noise = torch.from_numpy(rng.integers(0, 256, size=tuple(pd.packed_pair.shape), dtype=np.uint8))
+    other = dataclasses.replace(pd, packed=_scramble_outside(pd.packed, keep, rng),
+                                packed_pair=noise)
     start, end = _random_ranges(rng, j.bwt_length)
     letters = torch.from_numpy(rng.integers(0, pd.cardinality + 1, size=len(start)))
     want = prank.backward_step_first_block(pd, _t(start), _t(end), letters)
@@ -373,6 +378,25 @@ def test_step_classes_equal_a_brute_force_count(runs_corpus, n):
             start, end = int(s[0]), int(e[0])
     assert {t: c.tolist() for t, c in classes.items()} == want
     assert sum(want["ngram_pair"]) > 0 and sum(want["pair"]) > 0
+
+
+@pytest.mark.parametrize("form", pairrow_corpora.FORMS)
+def test_smoke_corpora_take_every_class_of_the_pair_forms_and_equal_jax(form):
+    """The inputs on which ``tests/test_torch_pairrow_steps.py`` holds K2
+    and K4's pair forms to their plain versions on the card: there the
+    plain version over a narrow view with pair rows takes every window
+    class of K2's steps and of K4's tail, and equals the JAX engine."""
+    text, k, alphabet = pairrow_corpora.corpus_text(form)
+    j, p = build_both(text, 8, k, jx.AlphabetType(int(alphabet)))
+    view, ng, qs, args = pairrow_corpora.corpus_inputs(form, p, "cpu")
+    s, e, classes = pairrow_corpora.plain(view, ng, args)
+    assert min(classes.tolist()) >= 1, classes.tolist()
+    if ng is None:
+        want = jx.SearchEngine(j).find_ranges(qs)
+    else:
+        want = jx.NgramSearchEngine(j, n=ng.n).find_ranges(qs)
+    got = torch.stack([s, e], dim=1)[: len(qs)].numpy().astype(np.uint64)
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.uint64))
 
 
 def test_window_classes_wide_reads_u64_unsigned():
