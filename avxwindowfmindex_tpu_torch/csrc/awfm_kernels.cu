@@ -338,7 +338,8 @@
 //       ran before. The narrow pair-row forms, awfm_k2_ranges and
 //       awfm_k4_ngram_ranges (its tail), take one in the same way: their
 //       first-block steps (one block row) and the others (the pair window
-//       or two block rows).
+//       or two block rows); so does K2w over pair-fused rows,
+//       awfm_k2w_ranges, whose block rows those rows are.
 //       What bounds K4 over block rows on this card: its n-gram steps. The
 //       n = 2 rows (96 MB) lie beyond the L2, and K5's walk over their
 //       first-block sectors alone (192 B a visit) runs at 17.5G visits a
@@ -837,10 +838,10 @@ __device__ __forceinline__ bool backward_step(
 // The steps of a launch by class (COUNT): counts[0] the first-block steps,
 // which read one block row, counts[1] the others: over two block rows in a
 // form without pair rows, the pair window or two block rows in a pair form
-// (awfm.blockrows.* and awfm.pairrows.* in ops/kernels.py). A lane counts
-// its query's steps in registers (the first lane of a group alone: its
-// lanes take the same steps) and the lanes of a warp still running add
-// their sums once, by its lowest lane.
+// and in K2w over pair-fused rows (awfm.blockrows.* and awfm.pairrows.* in
+// ops/kernels.py). A lane counts its query's steps in registers (the first
+// lane of a group alone: its lanes take the same steps) and the lanes of a
+// warp still running add their sums once, by its lowest lane.
 struct RowSteps {
   uint32_t one = 0u, two = 0u;
 
@@ -2355,8 +2356,8 @@ void launch_k2_planes(const AwfmTables* t, const typename G::pos_t* seed_table,
 
 // PAIR: the form over pair rows, which needs the pair table; else the form
 // over the block rows, which needs none. COUNT: the counting instantiation
-// (RowSteps into row_steps), which a narrow form launches when handed a
-// counter.
+// (RowSteps into row_steps), which a narrow form and K2w over pair-fused
+// rows launch when handed a counter.
 template <class G, bool PAIR, bool COUNT = false>
 int launch_k2_ranges(int device, const AwfmTables* t,
                      const typename G::pos_t* seed_table, int64_t seed_rows,
@@ -2704,11 +2705,18 @@ int awfm_k2_block_ranges(int device, const AwfmTables* t, const uint32_t* seed_t
                                          stream);
 }
 
+// row_steps as in awfm_k2_ranges.
 int awfm_k2w_ranges(int device, const AwfmTables* t, const uint64_t* seed_table,
                     int64_t seed_rows, int k, const uint8_t* mat, int64_t b,
                     int64_t l_pad, const int32_t* lengths,
                     const uint8_t* seeded, int64_t* start_out,
-                    int64_t* end_out, cudaStream_t stream) {
+                    int64_t* end_out, unsigned long long* row_steps,
+                    cudaStream_t stream) {
+  if (row_steps != nullptr) {
+    return launch_k2_ranges<Wide, true, true>(device, t, seed_table, seed_rows, k, mat, b,
+                                              l_pad, lengths, seeded, start_out, end_out,
+                                              stream, row_steps);
+  }
   return launch_k2_ranges<Wide, true>(device, t, seed_table, seed_rows, k, mat, b,
                                       l_pad, lengths, seeded, start_out, end_out,
                                       stream);

@@ -51,6 +51,8 @@ the block row and every wider range from two block rows.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -67,6 +69,9 @@ from .config import (
 POSITIONS_PER_BLOCK = alpha.POSITIONS_PER_BLOCK
 MASK32 = 0xFFFFFFFF
 MASK64 = -1  # int64 tensors already wrap mod 2^64
+
+# to_device logs the pieces of a view's build (INFO)
+logger = logging.getLogger("avxwindowfmindex_tpu_torch.index")
 
 
 # ---------------------------------------------------------------------------
@@ -647,24 +652,28 @@ class FmIndex:
                 "(to_device(device, wide=True), chosen automatically)"
             )
         as_table = u64_tensor if wide else u32_tensor
+        t0 = time.perf_counter()
         if wide:
             rows = pack_device_blocks64(self.bwt_letters, self.milestones(), self.alphabet,
                                         pair=pair)
+            t_pack = time.perf_counter()
             packed = torch.from_numpy(rows).to(device)
             pair_table = packed if pair else None
         else:
             rows = pack_device_blocks(self.bwt_letters, self.milestones(), self.alphabet)
+            pair_rows_host = pack_pair_rows_from_blocks(rows, self.alphabet) if pair else None
+            t_pack = time.perf_counter()
             packed = torch.from_numpy(rows).to(device)
-            pair_table = None
-            if pair:
-                pair_table = torch.from_numpy(
-                    pack_pair_rows_from_blocks(rows, self.alphabet)).to(device)
+            pair_table = None if pair_rows_host is None else torch.from_numpy(
+                pair_rows_host).to(device)
+        t_rows = time.perf_counter()
         k = int(self.config.kmer_length_in_seed_table)
         seed = self.seed_table_tensor(device, wide)
         if seed is None:
             seed = torch.zeros(
                 (1, 2), dtype=torch.int64 if wide else torch.int32, device=device
             )
+        t_seed = time.perf_counter()
         dev_sa = self.sampled_sa
         dev_ratio = int(self.config.suffix_array_compression_ratio)
         if self.device_sa is not None:
@@ -687,6 +696,13 @@ class FmIndex:
             wide=wide,
             pair_fused=not wide or pair,
         )
+        t_end = time.perf_counter()
+        # host seconds: a device operation is queued, not waited for
+        logger.info(
+            "view on %s (wide=%s, pair rows=%s, %d blocks): rows packed on the host in %.3f s "
+            "and copied in %.3f s, seed table in %.3f s, C[], SA and masks in %.3f s",
+            device, wide, pair, self.num_blocks, t_pack - t0, t_rows - t_pack, t_seed - t_rows,
+            t_end - t_seed)
         self._device_cache = dev
         return dev
 

@@ -47,8 +47,10 @@ profiler records (``utils/metrics.device_counts``): over block rows
 (``K2_BLOCK``, ``K4_BLOCK``; ``ROW_STEPS``) the steps with both ends in
 one block row and those read over two, over a narrow view's pair rows
 (``K2``, ``K4``; ``PAIR_STEPS``) the first-block steps, which read one
-block row, and the others. Otherwise they are handed a null counter and
-launch the code they launched before; K2w's forms take none.
+block row, and the others; K2w over a wide view's pair-fused rows
+(``K2W``) into ``PAIR_STEPS`` too, since those rows are its block rows.
+Otherwise they are handed a null counter and launch the code they
+launched before; K2w over compact wide rows (``K2W_COMPACT``) takes none.
 """
 
 from __future__ import annotations
@@ -197,8 +199,9 @@ K4_BLOCK = Kernel(
 # the card while a profiler records (_row_steps): both ends in one block
 # row (the first-block class), read over two block rows
 ROW_STEPS = ("awfm.blockrows.one_row", "awfm.blockrows.two_rows")
-# the steps of K2 and K4's tail over a narrow view's pair rows, counted so:
-# the first-block class (one block row), the pair window or two block rows
+# the steps of K2 and K4's tail over a narrow view's pair rows, and of K2w
+# over a wide view's pair-fused rows, counted so: the first-block class
+# (one block row), the pair window or two block rows
 PAIR_STEPS = ("awfm.pairrows.block_row", "awfm.pairrows.wider")
 K1W_COMPACT = Kernel("k1w_rank_compact", _SRC, "avxwindowfmindex_tpu/ops/rank64.py:410",
                      prefix="k1w_compact")
@@ -305,8 +308,8 @@ _SIGNATURES = {
     "awfm_k1r_route": [_i32, _i32, _vp, _i64, _i32, _i32, _u64, _i64, _vp, _vp, _vp, _vp, _vp,
                        _vp, _vp],
     "awfm_k1r_occ": _K1R, "awfm_k1r_lf": _K1R, "awfm_k1rw_occ": _K1R, "awfm_k1rw_lf": _K1R,
-    # the narrow forms take their step counter (null: none) before the stream
-    "awfm_k2_ranges": [*_K2[:-1], _vp, _vp], "awfm_k2w_ranges": _K2,
+    # these forms take their step counter (null: none) before the stream
+    "awfm_k2_ranges": [*_K2[:-1], _vp, _vp], "awfm_k2w_ranges": [*_K2[:-1], _vp, _vp],
     "awfm_k2w_compact_ranges": _K2, "awfm_k2_block_ranges": [*_K2[:-1], _vp, _vp],
     "awfm_k3_backtrace_resolve": [_i32, _tp, _vp, _i64, _u32, _u32, _vp, _vp, _vp, _vp, _vp],
     "awfm_k3w_backtrace_resolve": _K3W, "awfm_k3w_compact_backtrace_resolve": _K3W,
@@ -573,15 +576,16 @@ def _entry(dev, kernel: Kernel, suffix: str):
     return getattr(_library(), f"awfm_{kernel.prefix}_{suffix}"), kernel
 
 
-_STEP_COUNTERS = {K2_BLOCK: ROW_STEPS, K4_BLOCK: ROW_STEPS, K2: PAIR_STEPS, K4: PAIR_STEPS}
+_STEP_COUNTERS = {K2_BLOCK: ROW_STEPS, K4_BLOCK: ROW_STEPS, K2: PAIR_STEPS, K4: PAIR_STEPS,
+                  K2W: PAIR_STEPS}
 
 
 def _row_steps(kernel: Kernel, device) -> tuple:
-    """The step counter a narrow form of K2 or K4 takes before its stream:
-    a pointer to its counts on ``device`` (``ROW_STEPS`` over block rows,
-    ``PAIR_STEPS`` over pair rows) while a profiler records
-    (``metrics.device_counts``), else null; no argument for any other
-    form."""
+    """The step counter a narrow form of K2 or K4, or K2w over pair-fused
+    rows, takes before its stream: a pointer to its counts on ``device``
+    (``ROW_STEPS`` over block rows, ``PAIR_STEPS`` over pair rows and
+    pair-fused rows) while a profiler records (``metrics.device_counts``),
+    else null; no argument for any other form."""
     names = _STEP_COUNTERS.get(kernel)
     if names is None:
         return ()

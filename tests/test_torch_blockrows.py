@@ -215,7 +215,9 @@ def test_device_counts_exist_only_while_a_profiler_records():
         assert pair is not counts and pair.tolist() == [0, 0]
         assert kernels._row_steps(kernels.K2, cpu) == (pair.data_ptr(),)
         assert kernels._row_steps(kernels.K4, cpu) == (pair.data_ptr(),)
-        for k in (kernels.K2W, kernels.K2W_COMPACT, kernels.K3):
+        # so does K2w over a wide view's pair-fused rows, its block rows
+        assert kernels._row_steps(kernels.K2W, cpu) == (pair.data_ptr(),)
+        for k in (kernels.K2W_COMPACT, kernels.K3):
             assert kernels._row_steps(k, cpu) == ()
         metrics.set_enabled(False)
         try:
